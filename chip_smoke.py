@@ -1,27 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's profile -> predict -> decide path on one CUDA card.
+"""Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
+path and the serving path.
 
     python3 chip_smoke.py
 
 Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
-   three CUDA kernels built from ``src/repro_torch/csrc`` in parallel.
-2. The slice at full width, through the entry points a user calls: a
-   ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
+   five CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
+   ``nvcc`` each), with each build's register and shared-memory lines.
+2. The decision slice at full width, through the entry points a user calls:
+   a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel) on ~15.8k per-layer rows of all
    ten configs on the five edge devices, then ``decide_all`` over 2^20
    environments for qwen3-1.7b at its published shape (28 layers) with a
    ``PredictorCost`` (``tree_predict`` + ``decide_split`` kernels), with a
    ``CompositeCost`` over it, and the analytic default over a mixed fleet.
    Each plan is held against the exact f64 ``backend="torch"`` sweep.
-3. Each kernel against its plain PyTorch version on the card, at the
-   slice's shapes, with the tolerance stated beside each check.
-4. Launch counts of the main-path run (every kernel must have launched).
-5. Timing with CUDA events after a warm-up: each kernel, its plain
+   Launch counts of the three kernels are read right after this path.
+3. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
+   max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
+   published shapes in bf16, each serving 8 greedy requests of 2048 random
+   tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
+   kernels; their launch counts are read right after both models).  Every
+   request must get 32 in-range tokens and every logit must be finite.
+4. The whole model on the card: at each model's full width in f32, the
+   kernel path (``build_model(cfg)``) and the plain path
+   (``impl="naive"``) on one 512-token prompt with shared weights; their
+   last-token logits must agree within 1e-3 of max |logit|.
+5. Each kernel against its plain PyTorch version on the card, at the
+   slices' shapes, with the tolerance stated beside each check.
+6. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
-   the bound (the larger of bytes over 3.35 TB/s and operations over
-   67 TFLOP/s non-tensor f32, the H100 SXM's published rates).
+   the bound (the larger of bytes over 3.35 TB/s and operations over the
+   peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
+   989 TFLOP/s dense bf16 on the tensor cores; the H100 SXM's published
+   rates).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -40,8 +54,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
 F32_OPS_PER_S = 67e12                # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 N_ENVS = 1 << 20
 SEED = 0
+SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b")
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
+CHECK_PROMPT = 512                   # the whole-model f32 check
 
 
 def fail(msg: str) -> None:
@@ -56,6 +74,296 @@ def check(ok, msg: str) -> None:
 
 def line(tag: str, **kv) -> None:
     print(json.dumps({tag: kv}), flush=True)
+
+
+def cuda_ms(fn, reps: int, groups: int = 5) -> float:
+    """Median over ``groups`` of the mean CUDA-event time of ``reps``
+    back-to-back calls, after 3 warm-up calls."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
+          ) -> tuple[float, str]:
+    """The least time (ms) for the work and what sets it."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
+
+
+def serve_slice(dev, smi: str) -> dict:
+    """The serving path at full width: ``ServeEngine`` on each model in
+    bf16.  Returns the serving kernels' launch counts of this run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_kernel
+    from repro_torch.kernels.ssm_scan.kernel import ssd_scan_kernel
+    from repro_torch.serve import Request, ServeEngine
+
+    wrappers = {"flash_attention": flash_attention_kernel,
+                "ssm_scan": ssd_scan_kernel}
+    expected = dict.fromkeys(wrappers, 0)
+    n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+    for w in wrappers.values():
+        w.launches = 0
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch)
+        check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
+        if cfg.family == "hybrid":
+            expected["flash_attention"] += n_batches * -(
+                -cfg.num_layers // cfg.shared_attn_every)
+            expected["ssm_scan"] += n_batches * cfg.num_layers
+        else:
+            expected["flash_attention"] += n_batches * cfg.num_layers
+        before = {k: w.launches for k, w in wrappers.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, batch_size=SERVE_BATCH,
+                          max_len=SERVE_PROMPT + SERVE_NEW + 8, seed=SEED,
+                          device=dev)
+        torch.cuda.synchronize(dev)
+        init_s = time.perf_counter() - t0
+        finite, sample = [], eng._sample
+
+        def checked(logits, temperature, gen, sample=sample, finite=finite):
+            finite.append(torch.isfinite(logits).all())
+            return sample(logits, temperature, gen)
+
+        eng._sample = checked
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, size=SERVE_PROMPT, dtype=np.int32),
+                        max_new_tokens=SERVE_NEW, temperature=0.0,
+                        arrived_at=i * 1e-3)
+                for i in range(SERVE_REQUESTS)]
+        t0 = time.perf_counter()
+        done = eng.serve(reqs)
+        serve_s = time.perf_counter() - t0
+        check(sorted(r.rid for r in done) == list(range(SERVE_REQUESTS)),
+              f"{arch}: not every request was answered")
+        for r in done:
+            check(r.output is not None and r.output.shape == (SERVE_NEW,)
+                  and bool(((r.output >= 0)
+                            & (r.output < cfg.vocab_size)).all()),
+                  f"{arch}: request {r.rid} did not get {SERVE_NEW} "
+                  "in-range tokens")
+        check(bool(torch.stack(finite).all()), f"{arch}: a non-finite logit")
+        st = eng.stats
+        line("serve", model=arch, dtype=cfg.dtype, layers=cfg.num_layers,
+             d_model=cfg.d_model, batch=SERVE_BATCH,
+             requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
+             new_tokens=SERVE_NEW, init_s=init_s, serve_s=serve_s,
+             prefill_s=st.prefill_s, decode_s=st.decode_s,
+             decode_tokens_per_s=st.tokens_per_s,
+             first_token_s_per_batch=[r.first_token_s for r in
+                                      done[::SERVE_BATCH]],
+             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+             launches={k: w.launches - before[k]
+                       for k, w in wrappers.items()}, device=smi)
+        del eng, finite
+        torch.cuda.empty_cache()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(json.dumps({"serve_launch_counts": launches,
+                      "expected": expected}), flush=True)
+    for k, n in launches.items():
+        check(n == expected[k], f"kernel {k} launched {n} times on the "
+              f"serving path, expected {expected[k]}")
+    return launches
+
+
+def model_check(dev) -> None:
+    """Each model at full width in f32: the kernel path against the plain
+    path (``impl="naive"``) with shared weights on one prompt."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    # plain f32 products on both paths (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in SERVE_ARCHS:
+        cfg = get_config(arch).replace(dtype="float32")
+        fast, plain = build_model(cfg), build_model(cfg, impl="naive")
+        params = fast.init_params(SEED, dev)
+        tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, size=(1, CHECK_PROMPT)), device=dev)
+        with torch.inference_mode():
+            got, _ = fast.prefill(params, {"tokens": tokens}, CHECK_PROMPT)
+            want, _ = plain.prefill(params, {"tokens": tokens},
+                                    CHECK_PROMPT)
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        line("model_check", model=arch, dtype="float32",
+             prompt_tokens=CHECK_PROMPT, max_abs_err=err,
+             max_abs_logit=scale, rel_err=err / scale,
+             same_argmax=bool(got.argmax() == want.argmax()))
+        check(bool(torch.isfinite(got).all()), f"{arch}: non-finite logits")
+        # f32 sums in other orders through every layer: 1e-3 of max|logit|
+        check(err <= 1e-3 * scale, f"{arch}: kernel path differs from the "
+              f"plain path by {err / scale} of max|logit| (tolerance 1e-3)")
+        del params, got, want
+        torch.cuda.empty_cache()
+
+
+def serving_kernels(dev, launches: dict) -> list:
+    """Each serving kernel against its plain version at the serving shapes,
+    then timed; returns their records for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32, scale=0.5):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def plain_attn(q, k, v, **kw):
+        return fa_ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), **kw).transpose(1, 2)
+
+    # (case, B, S, Hq, Hkv, D, window, valid_len); the first two are the
+    # prefill attention of qwen3-1.7b and of zamba2's shared block; the
+    # last is gemma-2b's head dim (not on this path)
+    cases = [("qwen3", 4, 2048, 16, 8, 128, 0, 0),
+             ("zamba2", 4, 2048, 32, 32, 64, 0, 0),
+             ("window512", 4, 2048, 16, 8, 128, 512, 0),
+             ("valid_len1500", 4, 2048, 16, 8, 128, 0, 1500),
+             ("gemma_d256", 1, 2048, 8, 1, 256, 0, 0)]
+    timed = {}
+    for case, b, s, hq, hkv, d, window, valid in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            # unit scale: scores of std 1, so the softmax is not flat
+            q = randn(b, s, hq, d, dtype=dtype, scale=1.0)
+            k, v = (randn(b, s, hkv, d, dtype=dtype, scale=1.0)
+                    for _ in range(2))
+            kw = dict(causal=True, window=window, valid_len=valid)
+            got = fa_kernel.flash_attention_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if dtype == torch.float32:
+                # the JAX package's 2e-5, absolute plus relative
+                want = plain_attn(q, k, v, **kw)
+                tol = 2e-5 + 2e-5 * want.abs()
+                rule = "2e-5 abs + rel"
+            else:
+                # the f32 attention of the same bf16 values, and per
+                # element the rounding of P and of the output to bf16
+                want, tol = (t.transpose(1, 2) for t in fa_ref.bf16_tolerance(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    **kw))
+                rule = ("2e-5 + 2^-8 (|want| + min(sum p|v|, "
+                        "8 sqrt(sum p^2 v^2)))")
+            err = (got.float() - want).abs()
+            over = (err / tol).max().item()
+            line("kernel_check", kernel="flash_attention", case=case,
+                 dtype=str(dtype).split(".")[-1], shape=[b, s, hq, hkv, d],
+                 window=window, valid_len=valid,
+                 max_abs_err=err.max().item(), err_over_tol=over,
+                 median_tol=tol.median().item(), tolerance=rule)
+            check(over <= 1.0, f"flash_attention {case} {dtype}: off by "
+                  f"{over} of its tolerance ({rule})")
+            del tol
+            if case in ("qwen3", "zamba2") and (
+                    dtype == torch.bfloat16 or case == "qwen3"):
+                timed[case, dtype] = (q, k, v, err.max().item())
+            del got, want, err
+
+    def flash_times(q, k, v, ops_per_s):
+        b, s, hq, d = q.shape
+        pairs = s * (s + 1) // 2              # causal (row, col) pairs
+        ops = 2 * 2 * d * pairs * b * hq      # q·kᵀ and p·v
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return dict(
+            ms=cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v),
+                       10),
+            plain_ms=cuda_ms(lambda: plain_attn(q, k, v), 3, groups=3),
+            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            bound=bound(nbytes, ops, ops_per_s))
+
+    bf16 = torch.bfloat16
+    fa = flash_times(*timed["qwen3", bf16][:3], BF16_OPS_PER_S)
+    fa_err = timed["qwen3", bf16][3]
+    # the zamba2 shape (tensor cores), and the f32 CUDA-core kernel that
+    # f32 models run, at the qwen3 shape against the f32 peak
+    for (case, dtype), rate in ((("zamba2", bf16), BF16_OPS_PER_S),
+                                (("qwen3", torch.float32), F32_OPS_PER_S)):
+        t = flash_times(*timed[case, dtype][:3], rate)
+        line("timing_extra", kernel="flash_attention", case=case,
+             dtype=str(dtype).split(".")[-1],
+             shape=list(timed[case, dtype][0].shape), ms=t["ms"],
+             plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+             bound_ms=t["bound"][0], bound_by=t["bound"][1])
+    del timed
+
+    b, s, h, p, n, chunk = 4, 2048, 64, 64, 64, 128   # zamba2's Mamba2
+    x = randn(b, s, h, p)
+    dt = F.softplus(randn(b, s, h) - 4.0)             # the dt_bias of init
+    a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+    bm, cm = randn(b, s, n), randn(b, s, n)
+    xdt, loga = ss_ref.ssd_inputs(x, dt, a_log)
+    args = (xdt, loga, bm, cm, chunk)
+    y, st = ss_kernel.ssd_scan_kernel(*args)
+    torch.cuda.synchronize()
+    y_p, st_p = ss_ref.ssd_scan_chunked_ref(*args)
+    errs = {}
+    for name, got, want in (("y", y, y_p), ("state", st, st_p)):
+        err = (got - want).abs()
+        scale = want.abs().max().item()
+        errs[name] = err.max().item()
+        # f32 in another order: the JAX package's 2e-4, rel + abs of scale
+        check(bool((err <= 2e-4 * want.abs() + 2e-4 * scale).all()),
+              f"ssm_scan {name}: off by {errs[name]} (scale {scale}, "
+              "tolerance 2e-4)")
+    line("kernel_check", kernel="ssm_scan", shape=[b, s, h, p, n],
+         chunk=chunk, max_abs_err_y=errs["y"],
+         max_abs_err_state=errs["state"], tolerance=2e-4)
+    nc = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    # per chunk and row: C·Bᵀ and its product with dt·x on the causal
+    # triangle, C·H and the state update's (dt·x)ᵀ(B∘decay)
+    ops = b * h * nc * (2 * tri * (n + p) + 2 * 2 * chunk * p * n)
+    nbytes = 4 * (2 * xdt.numel() + loga.numel() + bm.numel() + cm.numel()
+                  + st.numel())
+    ss = dict(ms=cuda_ms(lambda: ss_kernel.ssd_scan_kernel(*args), 10),
+              plain_ms=cuda_ms(lambda: ss_ref.ssd_scan_chunked_ref(*args),
+                               2, groups=3),
+              library_ms=None, bound=bound(nbytes, ops, F32_OPS_PER_S))
+
+    out = []
+    for name, t, err, shape, source, replaces in (
+            ("flash_attention", fa, fa_err, [4, 2048, 16, 8, 128],
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:78"),
+            ("ssm_scan", ss, max(errs.values()), [b, s, h, p, n],
+             "src/repro_torch/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:73")):
+        out.append({"name": name, "route": "cuda", "source": source,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": err, "ms": t["ms"],
+                    "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                    "bound_by": t["bound"][1],
+                    "library_ms": t["library_ms"], "shape": shape})
+    return out
 
 
 def main() -> None:
@@ -99,16 +407,19 @@ def main() -> None:
     logs = _build.build()
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
+        entry = name          # a source may hold several kernels
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"ptxas {name}: {ln.strip()}")
+            if "Compiling entry function" in ln:
+                entry = ln.split("'")[1]
+            elif "registers" in ln or "spill" in ln or "smem" in ln:
+                print(f"ptxas {name} {entry}: {ln.strip()}")
     line("build", seconds=build_s, compiled=sorted(logs))
 
     wrappers = {"gbt_hist": gh_kernel.grad_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,
                 "decide_split": ds_kernel.decide_split_kernel}
 
-    # -- 2. the slice at full width ----------------------------------------
+    # -- 2. the decision slice at full width -------------------------------
     feats, times = [], []
     for name in configs.ARCH_NAMES:
         cfg = configs.get_config(name)
@@ -188,7 +499,13 @@ def main() -> None:
              distinct_splits=int(torch.unique(plan.splits).numel()))
         del exact
 
-    # -- 3. kernels against their plain versions ---------------------------
+    # -- 3. the serving slice at full width -------------------------------
+    serve_launches = serve_slice(dev, smi)
+
+    # -- 4. the whole model on the card -----------------------------------
+    model_check(dev)
+
+    # -- 5. kernels against their plain versions ---------------------------
     records = {}
 
     # gbt_hist at the first tree's root node: the fit's largest histogram
@@ -307,27 +624,7 @@ def main() -> None:
          .mean().item())
     del exact300
 
-    # -- 5. timing ---------------------------------------------------------
-    def cuda_ms(fn, reps: int, groups: int = 5) -> float:
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(groups):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                fn()
-            end.record()
-            end.synchronize()
-            out.append(start.elapsed_time(end) / reps)
-        return statistics.median(out)
-
-    def bound(nbytes: float, ops: float) -> tuple[float, str]:
-        tb, to = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
-        return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
-
+    # -- 6. timing ---------------------------------------------------------
     n, f = codes.shape
     flat = (codes.long() + torch.arange(f, device=dev) * 64).reshape(-1)
     wts = grad.double().repeat_interleave(f)
@@ -401,6 +698,7 @@ def main() -> None:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": t["library_ms"],
                         "shape": records[name]["shape"]})
+    kernels += serving_kernels(dev, serve_launches)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch + CUDA port of the ``repro`` package.
 
-The slice ported so far is the paper's profile → predict → decide loop:
+Two slices are ported.  The paper's profile → predict → decide loop:
 
   * ``core.predictors.gbt``   — histogram GBT trained on per-layer times;
     its gradient histogram runs on the card through ``kernels.gbt_hist``;
@@ -8,6 +8,15 @@ The slice ported so far is the paper's profile → predict → decide loop:
     walked by ``kernels.tree_predict``;
   * ``core.decisions`` / ``core.costs`` — the ``[n_envs, L+1]`` split sweep
     behind ``decide_all``, fused into ``kernels.decide_split``.
+
+And serving the dense and hybrid models of the zoo:
+
+  * ``serve.engine.ServeEngine`` / ``launch.serve`` — static-batch
+    prefill + decode over ``models.build_model``;
+  * ``models.attention`` — prefill attention through
+    ``kernels.flash_attention``;
+  * ``models.mamba2`` / ``models.hybrid`` — Mamba2 prefill through
+    ``kernels.ssm_scan``, the Zamba2 shared-attention hybrid.
 
 Every module mirrors the path and public names of its counterpart in
 ``repro`` and imports only ``torch``, ``numpy`` and the standard library.

@@ -91,3 +91,151 @@ def test_decide_split_kernel_matches_plain(cuda, n_layers, n_envs):
     exact = dec.decide_all(layers, envs, backend="torch", device=cuda)
     assert torch.all(kernel_plan.total_time_s
                      <= exact.total_time_s * (1 + 1e-4) + 1e-12)
+
+
+# (B, S, Hq, Hkv, D, window, causal, valid_len, dtype); bf16 with D 64 or
+# 128 runs the tensor-core kernel, the rest the f32 CUDA-core kernel
+FLASH_GPU_CASES = [
+    (1, 128, 4, 4, 32, 0, True, 0, torch.float32),
+    (2, 200, 8, 2, 64, 0, True, 0, torch.float32),
+    (2, 65, 4, 1, 16, 0, True, 0, torch.float32),
+    (1, 256, 2, 2, 128, 31, True, 0, torch.float32),
+    (2, 100, 4, 2, 64, 0, False, 77, torch.float32),
+    (2, 128, 4, 2, 64, 0, True, 0, torch.bfloat16),
+    (2, 130, 4, 2, 32, 0, True, 0, torch.bfloat16),
+    (2, 150, 4, 4, 128, 40, False, 120, torch.bfloat16),
+    (1, 384, 6, 6, 64, 100, True, 0, torch.bfloat16),
+    (4, 2048, 16, 8, 128, 0, True, 0, torch.bfloat16),   # qwen3-1.7b
+    (4, 2048, 32, 32, 64, 0, True, 0, torch.bfloat16),   # zamba2-1.2b
+    (4, 2048, 16, 8, 128, 512, True, 0, torch.bfloat16),
+    (4, 2048, 16, 8, 128, 0, True, 1500, torch.bfloat16),
+    (2, 150, 4, 1, 256, 0, True, 0, torch.float32),      # gemma-2b's D
+    (1, 700, 8, 1, 256, 64, True, 600, torch.bfloat16),
+]
+
+
+def _check_flash(got, q, k, v, **kw):
+    """f32: the JAX package's own 2e-5; bf16: the f32 attention of the same
+    values within ``bf16_tolerance`` (P's and the output's rounding)."""
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         bf16_tolerance)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q.dtype == torch.float32:
+        want = attention_ref(qt, kt, vt, **kw).transpose(1, 2)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        return
+    want, tol = (t.transpose(1, 2) for t in bf16_tolerance(qt, kt, vt, **kw))
+    over = ((got.float() - want).abs() / tol).max().item()
+    assert over <= 1.0, f"bf16 kernel off by {over} of its tolerance"
+
+
+def test_flash_attention_unaligned_rows_take_the_cuda_core_kernel(cuda):
+    """A head stride that is not a multiple of 8 elements cannot feed the
+    tensor-core kernel's 16-byte loads: the f32 CUDA-core kernel runs."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    base = torch.randn(2, 96, 4, 68, device=cuda, dtype=torch.bfloat16)
+    q = k = v = base[..., :64]
+    got = fa_kernel.flash_attention_kernel(q, k, v)
+    _check_flash(got, q, k, v)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,causal,valid_len,dtype",
+                         FLASH_GPU_CASES)
+def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
+                                              causal, valid_len, dtype):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    rng = np.random.default_rng(s + d)
+    # unit scale: scores of std 1, so the softmax is not flat
+    q, k, v = (torch.as_tensor(rng.normal(size=(b, s, h, d)),
+                               dtype=dtype, device=cuda)
+               for h in (hq, hkv, hkv))
+    kw = dict(causal=causal, window=window, valid_len=valid_len)
+    got = fa_kernel.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _check_flash(got, q, k, v, **kw)
+
+
+# (B, S, H, P, N, chunk)
+SSD_GPU_CASES = [(1, 64, 2, 8, 8, 16), (2, 100, 3, 16, 4, 32),
+                 (1, 33, 1, 4, 32, 8), (4, 2048, 64, 64, 64, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GPU_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_inputs, \
+        ssd_scan_chunked_ref
+    rng = np.random.default_rng(s)
+    x = torch.as_tensor(rng.normal(size=(b, s, h, p)) * 0.5,
+                        dtype=torch.float32, device=cuda)
+    dt = torch.nn.functional.softplus(torch.as_tensor(
+        rng.normal(size=(b, s, h)) * 0.5, dtype=torch.float32, device=cuda))
+    bb, cc = (torch.as_tensor(rng.normal(size=(b, s, n)) * 0.5,
+                              dtype=torch.float32, device=cuda)
+              for _ in range(2))
+    a_log = torch.log(torch.linspace(1.0, 8.0, h, device=cuda))
+    xdt, loga = ssd_inputs(x, dt, a_log)
+    y, st = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, chunk)
+    torch.cuda.synchronize()
+    y_p, st_p = ssd_scan_chunked_ref(xdt, loga, bb, cc, chunk)
+    # f32 in another summation order: the JAX package's 2e-4, relative to
+    # the output's scale
+    for got, want in ((y, y_p), (st, st_p)):
+        torch.testing.assert_close(got, want, rtol=2e-4,
+                                   atol=2e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-1.2b"])
+def test_serving_path_runs_the_kernels(cuda, arch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = reduced_config(arch).replace(dtype="float32")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 150)), device=cuda)
+    params = build_model(cfg).init_params(0, cuda)
+    got, _ = build_model(cfg).prefill(params, {"tokens": tokens}, 160)
+    want, _ = build_model(cfg, impl="naive").prefill(params,
+                                                     {"tokens": tokens}, 160)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    fa_kernel.flash_attention_kernel.launches = 0
+    ss_kernel.ssd_scan_kernel.launches = 0
+    engine = ServeEngine(cfg, batch_size=2, max_len=64, device=cuda)
+    done = engine.serve([Request(rid=i, prompt=np.arange(20 + i) % 97,
+                                 max_new_tokens=4) for i in range(3)])
+    assert [len(r.output) for r in done] == [4, 4, 4]
+    n_attn = (cfg.num_layers if cfg.family == "dense"
+              else -(-cfg.num_layers // cfg.shared_attn_every))
+    assert fa_kernel.flash_attention_kernel.launches == 2 * n_attn
+    assert ss_kernel.ssd_scan_kernel.launches == (
+        2 * cfg.num_layers if cfg.family == "hybrid" else 0)
+
+
+def test_head_dim_256_serves_on_the_card(cuda):
+    """gemma-2b at full width (head dim 256, MQA), cut to 2 layers: the
+    kernel path against the naive path in f32, then served in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("gemma-2b").replace(num_layers=2, dtype="float32")
+    assert cfg.head_dim == 256
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 300)), device=cuda)
+    params = build_model(cfg).init_params(0, cuda)
+    got, _ = build_model(cfg).prefill(params, {"tokens": tokens}, 300)
+    want, _ = build_model(cfg, impl="naive").prefill(params,
+                                                     {"tokens": tokens}, 300)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    del params
+    fa_kernel.flash_attention_kernel.launches = 0
+    engine = ServeEngine(cfg.replace(dtype="bfloat16"), batch_size=1,
+                         max_len=64, device=cuda)
+    done = engine.serve([Request(rid=0, prompt=np.arange(40) % 97,
+                                 max_new_tokens=4)])
+    assert len(done[0].output) == 4
+    assert fa_kernel.flash_attention_kernel.launches == cfg.num_layers

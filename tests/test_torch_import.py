@@ -40,6 +40,20 @@ def test_import_loads_no_jax_and_no_reference():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models",
+                                    "repro_torch.serve",
+                                    "repro_torch.launch.serve"])
+def test_serving_subpackages_load_no_jax_and_no_reference(module):
+    code = (f"import {module}, sys\n"
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_no_file_imports_jax_or_reference(path):
