@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
-path and the serving path.
+path, the serving path and the kernel bench.
 
     python3 chip_smoke.py
 
 Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
-   five CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
+   six CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register and shared-memory lines.
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
@@ -35,7 +35,15 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the bound (the larger of bytes over 3.35 TB/s and operations over the
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
    989 TFLOP/s dense bf16 on the tensor cores; the H100 SXM's published
-   rates).
+   rates, defined once in ``repro_torch.bench.common``).
+7. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
+   of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
+   bench at its main path's shape and ``int8_matmul`` at qwen3-1.7b's five
+   products (decode B 1 and B 4, the down projection, the LM head,
+   prefill) in bf16, each held to its tolerance (``err_over_tol`` < 1;
+   ``int8_matmul`` to ``int8_matmul.ref.int8_tolerance``) and timed beside
+   its plain version, the library call and its bound.  The decode B 4 up
+   projection is ``int8_matmul``'s record on the kernels line.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -45,16 +53,11 @@ fails before printing any result.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory
-F32_OPS_PER_S = 67e12                # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12              # H100 SXM dense bf16 tensor cores
 N_ENVS = 1 << 20
 SEED = 0
 SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b")
@@ -74,33 +77,6 @@ def check(ok, msg: str) -> None:
 
 def line(tag: str, **kv) -> None:
     print(json.dumps({tag: kv}), flush=True)
-
-
-def cuda_ms(fn, reps: int, groups: int = 5) -> float:
-    """Median over ``groups`` of the mean CUDA-event time of ``reps``
-    back-to-back calls, after 3 warm-up calls."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(groups):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end) / reps)
-    return statistics.median(out)
-
-
-def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S
-          ) -> tuple[float, str]:
-    """The least time (ms) for the work and what sets it."""
-    tb, to = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def serve_slice(dev, smi: str) -> dict:
@@ -225,6 +201,9 @@ def serving_kernels(dev, launches: dict) -> list:
     then timed; returns their records for the kernels line."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                          bound, timed_ms)
+    from repro_torch.bench.kernels import flash_work, ssm_work
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
@@ -288,17 +267,15 @@ def serving_kernels(dev, launches: dict) -> list:
 
     def flash_times(q, k, v, ops_per_s):
         b, s, hq, d = q.shape
-        pairs = s * (s + 1) // 2              # causal (row, col) pairs
-        ops = 2 * 2 * d * pairs * b * hq      # q·kᵀ and p·v
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return dict(
-            ms=cuda_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v),
-                       10),
-            plain_ms=cuda_ms(lambda: plain_attn(q, k, v), 3, groups=3),
-            library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+            ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v),
+                        10),
+            plain_ms=timed_ms(lambda: plain_attn(q, k, v), 3, groups=3),
+            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), 10),
-            bound=bound(nbytes, ops, ops_per_s))
+            bound=bound(*flash_work(b, s, hq, k.shape[2], d,
+                                    q.element_size()), ops_per_s))
 
     bf16 = torch.bfloat16
     fa = flash_times(*timed["qwen3", bf16][:3], BF16_OPS_PER_S)
@@ -337,17 +314,11 @@ def serving_kernels(dev, launches: dict) -> list:
     line("kernel_check", kernel="ssm_scan", shape=[b, s, h, p, n],
          chunk=chunk, max_abs_err_y=errs["y"],
          max_abs_err_state=errs["state"], tolerance=2e-4)
-    nc = -(-s // chunk)
-    tri = chunk * (chunk + 1) // 2
-    # per chunk and row: C·Bᵀ and its product with dt·x on the causal
-    # triangle, C·H and the state update's (dt·x)ᵀ(B∘decay)
-    ops = b * h * nc * (2 * tri * (n + p) + 2 * 2 * chunk * p * n)
-    nbytes = 4 * (2 * xdt.numel() + loga.numel() + bm.numel() + cm.numel()
-                  + st.numel())
-    ss = dict(ms=cuda_ms(lambda: ss_kernel.ssd_scan_kernel(*args), 10),
-              plain_ms=cuda_ms(lambda: ss_ref.ssd_scan_chunked_ref(*args),
-                               2, groups=3),
-              library_ms=None, bound=bound(nbytes, ops, F32_OPS_PER_S))
+    ss = dict(ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(*args), 10),
+              plain_ms=timed_ms(lambda: ss_ref.ssd_scan_chunked_ref(*args),
+                                2, groups=3),
+              library_ms=None,
+              bound=bound(*ssm_work(b, s, h, p, n, chunk), F32_OPS_PER_S))
 
     out = []
     for name, t, err, shape, source, replaces in (
@@ -366,6 +337,45 @@ def serving_kernels(dev, launches: dict) -> list:
     return out
 
 
+def kernel_bench() -> list:
+    """``repro_torch.bench.kernels.main()`` on the card: every row within
+    its tolerance, ``int8_matmul`` launched on it; returns the
+    ``int8_matmul`` record (decode B 4) for the kernels line."""
+    import torch
+    from repro_torch.bench import kernels as bench
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False     # the plain f32 product
+    q_kernel.int8_matmul_kernel.launches = 0
+    t0 = time.perf_counter()
+    rows = bench.main()
+    bench_s = time.perf_counter() - t0
+    counted = q_kernel.int8_matmul_kernel.launches
+    int8 = [r for r in rows if r["name"] == "int8_matmul"]
+    for r in rows:
+        line("bench_row", **r)
+        check(r["err_over_tol"] < 1.0, f"bench {r['name']} {r['case']}: off "
+              f"by {r['err_over_tol']} of its tolerance ({r['tolerance']})")
+    # one comparison call per row, the rest timed on the bench's path
+    launches = counted - len(int8)
+    check(launches == sum(r["launches"] for r in int8) and launches > 0,
+          f"int8_matmul launched {counted} times in the bench, rows say "
+          f"{[r['launches'] for r in int8]} + {len(int8)} comparisons")
+    line("kernel_bench", seconds=bench_s, rows=len(rows),
+         int8_matmul_launches=launches)
+    head = next(r for r in int8 if r["case"] == "decode_b4")
+    return [{"name": "int8_matmul", "route": "cuda",
+             "source": "src/repro_torch/csrc/int8_matmul.cu",
+             "replaces": "src/repro/kernels/int8_matmul/kernel.py:41",
+             "launches": launches, "max_abs_err": head["max_abs_err"],
+             "ms": head["us_per_call"] / 1e3,
+             "plain_ms": head["plain_us"] / 1e3,
+             "bound_ms": head["bound_us"] / 1e3,
+             "bound_by": head["bound_by"],
+             "library_ms": head["library_us"] / 1e3, "shape": head["shape"],
+             "err_over_tol": head["err_over_tol"]}]
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -377,6 +387,8 @@ def main() -> None:
     import numpy as np
 
     from repro_torch import configs
+    from repro_torch.bench.common import bound, card, timed_ms
+    from repro_torch.bench.kernels import gbt_hist_work
     from repro_torch.core import costs as co
     from repro_torch.core import decisions as dec
     from repro_torch.core import offload as off
@@ -395,10 +407,7 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
 
     # -- 1. environment -----------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     line("environment", python=sys.version.split()[0],
          torch=torch.__version__, cuda=torch.version.cuda, device=kind,
@@ -628,16 +637,16 @@ def main() -> None:
     n, f = codes.shape
     flat = (codes.long() + torch.arange(f, device=dev) * 64).reshape(-1)
     wts = grad.double().repeat_interleave(f)
-    gh_bound = bound(n * f * 4 + n * 4 + 2 * f * 64 * 4, 2 * n * f)
+    gh_bound = bound(*gbt_hist_work(n, f, 64))
     gh_times = dict(
-        ms=cuda_ms(lambda: gh_kernel.grad_histogram_kernel(codes, grad, 64),
-                   50),
-        plain_ms=cuda_ms(lambda: gh_ref.grad_histogram_ref(codes, grad, 64),
-                         20),
-        library_ms=cuda_ms(lambda: (torch.bincount(flat, weights=wts,
-                                                   minlength=f * 64),
-                                    torch.bincount(flat, minlength=f * 64)),
-                           20))
+        ms=timed_ms(lambda: gh_kernel.grad_histogram_kernel(codes, grad, 64),
+                    50),
+        plain_ms=timed_ms(lambda: gh_ref.grad_histogram_ref(codes, grad, 64),
+                          20),
+        library_ms=timed_ms(lambda: (torch.bincount(flat, weights=wts,
+                                                    minlength=f * 64),
+                                     torch.bincount(flat, minlength=f * 64)),
+                            20))
 
     # tree_predict operations: one compare per split node visited, one f64
     # add per (row, tree) — counted on this run's data (bytes bound it)
@@ -658,9 +667,9 @@ def main() -> None:
                      + trees.scaled_value.numel() * 8 + n_rows * 8,
                      visits + n_rows * arrays.n_trees)
     tp_times = dict(
-        ms=cuda_ms(lambda: tp_kernel.tree_predict_kernel(*targs, **tkw), 50),
-        plain_ms=cuda_ms(lambda: tp_ref.tree_predict_ref(*targs, **tkw), 3,
-                         groups=3),
+        ms=timed_ms(lambda: tp_kernel.tree_predict_kernel(*targs, **tkw), 50),
+        plain_ms=timed_ms(lambda: tp_ref.tree_predict_ref(*targs, **tkw), 3,
+                          groups=3),
         library_ms=None)
 
     args, n_l = packed["main"]
@@ -668,15 +677,15 @@ def main() -> None:
     ds_bound = bound(3 * (n_l + 1) * 4 + 12 * 4 + n_env * (7 * 4 + 8),
                      30 * n_env * (n_l + 1))
     ds_times = dict(
-        ms=cuda_ms(lambda: ds_kernel.decide_split_kernel(*args), 20),
-        plain_ms=cuda_ms(lambda: ds_ref.decide_split_ref(*args), 5),
+        ms=timed_ms(lambda: ds_kernel.decide_split_kernel(*args), 20),
+        plain_ms=timed_ms(lambda: ds_ref.decide_split_ref(*args), 5),
         library_ms=None)
     args300, _ = packed["L300"]
     line("timing_extra", kernel="decide_split", case="L300",
          n_envs=int(args300[3].numel()),
-         ms=cuda_ms(lambda: ds_kernel.decide_split_kernel(*args300), 5),
-         plain_ms=cuda_ms(lambda: ds_ref.decide_split_ref(*args300), 2,
-                          groups=3),
+         ms=timed_ms(lambda: ds_kernel.decide_split_kernel(*args300), 5),
+         plain_ms=timed_ms(lambda: ds_ref.decide_split_ref(*args300), 2,
+                           groups=3),
          bound_ms=bound(3 * 301 * 4 + 12 * 4 + n300 * 36,
                         30 * n300 * 301)[0])
 
@@ -699,6 +708,9 @@ def main() -> None:
                         "library_ms": t["library_ms"],
                         "shape": records[name]["shape"]})
     kernels += serving_kernels(dev, serve_launches)
+
+    # -- 7. the kernel bench: int8_matmul's entry point ---------------------
+    kernels += kernel_bench()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch + CUDA port of the ``repro`` package.
 
-Two slices are ported.  The paper's profile → predict → decide loop:
+Three slices are ported.  The paper's profile → predict → decide loop:
 
   * ``core.predictors.gbt``   — histogram GBT trained on per-layer times;
     its gradient histogram runs on the card through ``kernels.gbt_hist``;
@@ -17,6 +17,11 @@ And serving the dense and hybrid models of the zoo:
     ``kernels.flash_attention``;
   * ``models.mamba2`` / ``models.hybrid`` — Mamba2 prefill through
     ``kernels.ssm_scan``, the Zamba2 shared-attention hybrid.
+
+And the kernel micro-bench, ``bench.kernels`` (``python -m
+repro_torch.bench.kernels``): each kernel beside its plain version, the
+library call and its bound, including ``kernels.int8_matmul`` (W8A16),
+which no other path runs.
 
 Every module mirrors the path and public names of its counterpart in
 ``repro`` and imports only ``torch``, ``numpy`` and the standard library.

@@ -1,0 +1,2 @@
+"""Benchmarks of the port, run as modules (``python -m
+repro_torch.bench.<name>``); ``common`` holds their timing and output."""

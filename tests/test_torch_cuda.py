@@ -239,3 +239,94 @@ def test_head_dim_256_serves_on_the_card(cuda):
                                  max_new_tokens=4)])
     assert len(done[0].output) == 4
     assert fa_kernel.flash_attention_kernel.launches == cfg.num_layers
+
+
+# (M, K, N): qwen3-1.7b's five timed products (decode B 1 and B 4, the
+# down projection, the LM head, prefill), the JAX package's ragged
+# INT8_CASES, and empty M, N, K
+INT8_GPU_CASES = [(1, 2048, 6144), (4, 2048, 6144), (4, 6144, 2048),
+                  (4, 2048, 151936), (8192, 2048, 6144),
+                  (8, 32, 16), (64, 128, 256), (33, 70, 90), (16, 64, 64),
+                  (0, 64, 32), (8, 64, 0), (8, 0, 32)]
+
+
+def _int8_reading(cuda, m, k, n, dtype, seed=0):
+    """The kernel's largest error over ``int8_tolerance`` on seeded
+    unit-scale inputs."""
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_tolerance, quantize
+    gen = torch.Generator(device=cuda).manual_seed(seed + m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    w_q, scale = (quantize(torch.randn((k, n), generator=gen, device=cuda))
+                  if k else (torch.zeros((0, n), dtype=torch.int8,
+                                         device=cuda),
+                             torch.ones(n, device=cuda)))
+    got = q_kernel.int8_matmul_kernel(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert got.shape == (m, n) and got.dtype == dtype
+    want, tol = int8_tolerance(x, w_q, scale)
+    if got.numel() == 0:
+        return 0.0
+    return ((got.float() - want).abs() / tol.clamp_min(1e-30)).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", INT8_GPU_CASES)
+def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    torch.backends.cuda.matmul.allow_tf32 = False    # the plain f32 product
+    over = _int8_reading(cuda, m, k, n, dtype)
+    print(f"int8_matmul {m}x{k}x{n} {dtype}: err_over_tol {over}")
+    assert over < 1.0
+
+
+def test_int8_matmul_ops_flattens_and_runs_the_kernel(cuda):
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    from repro_torch.kernels.int8_matmul.ref import int8_tolerance, quantize
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((3, 40, 2), generator=gen, device=cuda,
+                    dtype=torch.bfloat16).transpose(1, 2)   # not contiguous
+    w_q, scale = quantize(torch.randn((40, 24), generator=gen, device=cuda))
+    q_kernel.int8_matmul_kernel.launches = 0
+    got = int8_matmul(x, w_q, scale)
+    assert got.shape == (3, 2, 24)
+    assert q_kernel.int8_matmul_kernel.launches == 1
+    want, tol = int8_tolerance(x.reshape(-1, 40), w_q, scale)
+    assert ((got.reshape(-1, 24).float() - want).abs() <= tol).all()
+
+
+# faults planted in a copy of the source: one column's scale taken from its
+# neighbour at every 8-column tile edge; the ragged last K tile dropped
+INT8_FAULTS = {
+    "scale_off_by_one": ("  return acc * scale[n];",
+                         "  return acc * scale[n ^ ((n & 7) == 7)];"),
+    "ragged_k_tile_dropped": (
+        "inline int k_tiles(int k, int bk) { return cdiv(k, bk); }",
+        "inline int k_tiles(int k, int bk) { return k / bk; }"),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(INT8_FAULTS))
+def test_int8_tolerance_sees_planted_faults(cuda, fault, tmp_path,
+                                            monkeypatch):
+    """Each fault, built from a copy of ``csrc/int8_matmul.cu`` in a
+    temporary directory, reads above 1 at the ragged (33, 70, 90) in both
+    types; the sound kernel reads below 1 there."""
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src = (_build.CSRC / "int8_matmul.cu").read_text()
+    old, new = INT8_FAULTS[fault]
+    assert src.count(old) == 1
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "int8_matmul.cu").write_text(src.replace(old, new))
+    sound = {dt: _int8_reading(cuda, 33, 70, 90, dt)
+             for dt in (torch.bfloat16, torch.float32)}
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    planted = {dt: _int8_reading(cuda, 33, 70, 90, dt)
+               for dt in (torch.bfloat16, torch.float32)}
+    print(f"int8_matmul fault {fault}: err_over_tol sound {sound}, "
+          f"planted {planted}")
+    assert all(v < 1.0 for v in sound.values())
+    assert all(v > 1.0 for v in planted.values())

@@ -40,10 +40,9 @@ def test_import_loads_no_jax_and_no_reference():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
-@pytest.mark.parametrize("module", ["repro_torch.models",
-                                    "repro_torch.serve",
-                                    "repro_torch.launch.serve"])
-def test_serving_subpackages_load_no_jax_and_no_reference(module):
+def assert_loads_no_jax_and_no_reference(module):
+    """Importing ``module`` alone, in a fresh interpreter, loads neither
+    JAX nor the reference package."""
     code = (f"import {module}, sys\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')))\n")
@@ -52,6 +51,21 @@ def test_serving_subpackages_load_no_jax_and_no_reference(module):
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]", proc.stdout
+
+
+@pytest.mark.parametrize("module", ["repro_torch.models",
+                                    "repro_torch.serve",
+                                    "repro_torch.launch.serve"])
+def test_serving_subpackages_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.bench.kernels",
+                                    "repro_torch.kernels.int8_matmul.ref",
+                                    "repro_torch.kernels.int8_matmul.ops",
+                                    "repro_torch.kernels.int8_matmul.kernel"])
+def test_bench_and_int8_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
