@@ -8,7 +8,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
    six CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
-   ``nvcc`` each), with each build's register and shared-memory lines.
+   ``nvcc`` each), with each build's register and shared-memory lines;
+   the SASS of ``flash_fwd_wgmma`` must hold HGMMA and UTMALDG.
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel) on ~15.8k per-layer rows of all
@@ -22,20 +23,24 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
    published shapes in bf16, each serving 8 greedy requests of 2048 random
    tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
-   kernels; their launch counts are read right after both models).  Every
+   kernels; their launch counts are read right after both models, and
+   every flash launch must have taken ``flash_fwd_wgmma``).  Every
    request must get 32 in-range tokens and every logit must be finite.
 4. The whole model on the card: at each model's full width in f32, the
    kernel path (``build_model(cfg)``) and the plain path
    (``impl="naive"``) on one 512-token prompt with shared weights; their
    last-token logits must agree within 1e-3 of max |logit|.
 5. Each kernel against its plain PyTorch version on the card, at the
-   slices' shapes, with the tolerance stated beside each check.
+   slices' shapes, with the tolerance stated beside each check; flash
+   also against itself (two calls, the same bits).
 6. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
    989 TFLOP/s dense bf16 on the tensor cores; the H100 SXM's published
-   rates, defined once in ``repro_torch.bench.common``).
+   rates, defined once in ``repro_torch.bench.common``).  The bf16 flash
+   kernel and SDPA are replayed from a CUDA graph, with the eager time
+   beside it.
 7. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape and ``int8_matmul`` at qwen3-1.7b's five
@@ -79,23 +84,46 @@ def line(tag: str, **kv) -> None:
     print(json.dumps({tag: kv}), flush=True)
 
 
+def flash_sass(build) -> dict:
+    """Counts of the Hopper instructions in each ``flash_fwd_wgmma``
+    instance's SASS (``cuobjdump --dump-sass``): the tensor-core kernel
+    must run warpgroup MMAs (HGMMA) fed by TMA loads (UTMALDG)."""
+    counts, cur = {}, None
+    for ln in build.sass("flash_attention").splitlines():
+        if "Function : " in ln:
+            cur = ln.split("Function : ")[1].strip()
+            if "flash_fwd_wgmma" in cur:
+                counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
+            else:
+                cur = None
+        elif cur:
+            for op in counts[cur]:
+                counts[cur][op] += op in ln
+    check(len(counts) == 2, f"flash_fwd_wgmma: {len(counts)} instances in "
+          "the SASS, expected 2 (D 64 and 128)")
+    for fn, c in counts.items():
+        check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
+              f"{fn}: no HGMMA or no UTMALDG in its SASS ({c})")
+    return counts
+
+
 def serve_slice(dev, smi: str) -> dict:
     """The serving path at full width: ``ServeEngine`` on each model in
     bf16.  Returns the serving kernels' launch counts of this run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssm_scan.kernel import ssd_scan_kernel
     from repro_torch.serve import Request, ServeEngine
 
-    wrappers = {"flash_attention": flash_attention_kernel,
+    wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
                 "ssm_scan": ssd_scan_kernel}
     expected = dict.fromkeys(wrappers, 0)
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     for w in wrappers.values():
         w.launches = 0
+    fa_kernel.reset_counts()
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
@@ -153,11 +181,17 @@ def serve_slice(dev, smi: str) -> dict:
         del eng, finite
         torch.cuda.empty_cache()
     launches = {k: w.launches for k, w in wrappers.items()}
+    by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
     print(json.dumps({"serve_launch_counts": launches,
+                      "flash_by_kernel": by_kernel,
                       "expected": expected}), flush=True)
     for k, n in launches.items():
         check(n == expected[k], f"kernel {k} launched {n} times on the "
               f"serving path, expected {expected[k]}")
+    # every bf16 prefill of the served models takes the tensor-core kernel
+    check(by_kernel["flash_fwd_wgmma"] == expected["flash_attention"],
+          f"flash_attention: {by_kernel} on the serving path, expected all "
+          f"{expected['flash_attention']} launches on flash_fwd_wgmma")
     return launches
 
 
@@ -237,6 +271,10 @@ def serving_kernels(dev, launches: dict) -> list:
             kw = dict(causal=True, window=window, valid_len=valid)
             got = fa_kernel.flash_attention_kernel(q, k, v, **kw)
             torch.cuda.synchronize()
+            # the same bits on a second call: no race on the K/V ring
+            check(torch.equal(got, fa_kernel.flash_attention_kernel(
+                q, k, v, **kw)), f"flash_attention {case} {dtype}: two "
+                "calls on the same inputs differ")
             if dtype == torch.float32:
                 # the JAX package's 2e-5, absolute plus relative
                 want = plain_attn(q, k, v, **kw)
@@ -265,30 +303,57 @@ def serving_kernels(dev, launches: dict) -> list:
                 timed[case, dtype] = (q, k, v, err.max().item())
             del got, want, err
 
-    def flash_times(q, k, v, ops_per_s):
+    def flash_times(q, k, v, ops_per_s, graph):
+        """The kernel and SDPA replayed from a CUDA graph (``graph``), so
+        the ctypes launch path stays out of a ~0.2 ms figure, and eager."""
         b, s, hq, d = q.shape
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def kernel():
+            return fa_kernel.flash_attention_kernel(q, k, v)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
         return dict(
-            ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(q, k, v),
-                        10),
+            ms=timed_ms(kernel, 10, graph=graph),
+            eager_ms=timed_ms(kernel, 10),
             plain_ms=timed_ms(lambda: plain_attn(q, k, v), 3, groups=3),
-            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            library_ms=timed_ms(sdpa, 10, graph=graph),
+            library_eager_ms=timed_ms(sdpa, 10),
+            timing="graph" if graph else "eager",
             bound=bound(*flash_work(b, s, hq, k.shape[2], d,
                                     q.element_size()), ops_per_s))
 
     bf16 = torch.bfloat16
-    fa = flash_times(*timed["qwen3", bf16][:3], BF16_OPS_PER_S)
+    # the tensor-core kernel's walk over key tiles at the qwen3 shape
+    tiles = fa_kernel.classify_key_tiles(2048, 2048, d=128, causal=True)
+    per_head = {c: sum(len(getattr(t, c)) for t in tiles)
+                for c in ("skipped", "masked", "full")}
+    line("flash_tiles", shape=[4, 2048, 16, 8, 128],
+         block_q=fa_kernel.BLOCK_Q[128], block_k=fa_kernel.BLOCK_K,
+         query_tiles_per_head=len(tiles),
+         key_tiles_per_head=per_head,
+         visited_per_call=4 * 16 * (per_head["masked"] + per_head["full"]),
+         masked_per_call=4 * 16 * per_head["masked"])
+    fa = flash_times(*timed["qwen3", bf16][:3], BF16_OPS_PER_S, True)
     fa_err = timed["qwen3", bf16][3]
+    line("timing_extra", kernel="flash_attention", case="qwen3",
+         dtype="bfloat16", shape=[4, 2048, 16, 128],
+         **{k: v for k, v in fa.items() if k != "bound"},
+         bound_ms=fa["bound"][0], bound_by=fa["bound"][1])
     # the zamba2 shape (tensor cores), and the f32 CUDA-core kernel that
-    # f32 models run, at the qwen3 shape against the f32 peak
-    for (case, dtype), rate in ((("zamba2", bf16), BF16_OPS_PER_S),
-                                (("qwen3", torch.float32), F32_OPS_PER_S)):
-        t = flash_times(*timed[case, dtype][:3], rate)
+    # f32 models run, at the qwen3 shape against the f32 peak (eager: it
+    # sets its shared-memory limit at every launch)
+    for (case, dtype), rate, graph in (
+            (("zamba2", bf16), BF16_OPS_PER_S, True),
+            (("qwen3", torch.float32), F32_OPS_PER_S, False)):
+        t = flash_times(*timed[case, dtype][:3], rate, graph)
         line("timing_extra", kernel="flash_attention", case=case,
              dtype=str(dtype).split(".")[-1],
-             shape=list(timed[case, dtype][0].shape), ms=t["ms"],
-             plain_ms=t["plain_ms"], library_ms=t["library_ms"],
+             shape=list(timed[case, dtype][0].shape),
+             **{k: v for k, v in t.items() if k != "bound"},
              bound_ms=t["bound"][0], bound_by=t["bound"][1])
     del timed
 
@@ -334,6 +399,9 @@ def serving_kernels(dev, launches: dict) -> list:
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                     "bound_by": t["bound"][1],
                     "library_ms": t["library_ms"], "shape": shape})
+    # flash: replayed from a CUDA graph; the eager call beside it
+    out[0].update(timing="graph", eager_ms=fa["eager_ms"],
+                  library_eager_ms=fa["library_eager_ms"])
     return out
 
 
@@ -415,14 +483,20 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
+    wgmma_ptxas = []
     for name, log in logs.items():
         entry = name          # a source may hold several kernels
         for ln in log.splitlines():
             if "Compiling entry function" in ln:
                 entry = ln.split("'")[1]
-            elif "registers" in ln or "spill" in ln or "smem" in ln:
+            elif ("registers" in ln or "spill" in ln or "smem" in ln
+                  or "warning" in ln):
                 print(f"ptxas {name} {entry}: {ln.strip()}")
+                if "flash_fwd_wgmma" in entry:
+                    wgmma_ptxas.append(ln.strip())
     line("build", seconds=build_s, compiled=sorted(logs))
+    wgmma_sass = flash_sass(_build)
+    line("flash_fwd_wgmma_build", sass=wgmma_sass, ptxas=wgmma_ptxas)
 
     wrappers = {"gbt_hist": gh_kernel.grad_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,

@@ -13,14 +13,17 @@ the kernel's columns are null.
 
 On the card each row holds the kernel against its plain version on the
 same inputs (``err_over_tol``: the largest error over its per-element
-limit; below 1 passes).  ``int8_matmul`` rows time every call through a
-CUDA graph (``timing: "graph"``), so the host's launch path does not hide
-a few-microsecond decode product, and cycle through copies of the weight
-that together exceed the 50 MB L2 cache, so each call reads its weight
-from device memory as a decode step would.  The other rows time eager
-calls (``timing: "eager"``).  ``launches`` counts the kernel's launches
-while its row was timed (warm-up and timed calls; a graph's captured calls
-once, not its replays), not the one call compared with the plain version.
+limit; below 1 passes).  ``int8_matmul`` rows and the bf16 flash rows
+time the kernel and the library call through a CUDA graph (``timing:
+"graph"``), so the host's launch path does not enter a few-microsecond
+decode product or a ~0.2 ms attention; the flash rows keep the eager
+times beside them (``us_per_call_eager``, ``library_us_eager``).
+``int8_matmul`` rows cycle through copies of the weight that together
+exceed the 50 MB L2 cache, so each call reads its weight from device
+memory as a decode step would.  The other rows time eager calls
+(``timing: "eager"``).  ``launches`` counts the kernel's launches while its
+row was timed (warm-up and timed calls; a graph's captured calls once, not
+its replays), not the one call compared with the plain version.
 """
 from __future__ import annotations
 
@@ -81,14 +84,15 @@ def _row(name: str, dev: torch.device, **kw) -> dict:
 
 
 def _times(row: dict, dev, kernel, plain, library, reps: int,
-           plain_reps: int, graph: bool = False) -> dict:
+           plain_reps: int, graph: bool = False,
+           plain_graph: bool = True) -> dict:
     """Fill the row's times (µs): the kernel, plain and library calls on
-    the card, or the plain and library calls by the host clock on the
-    CPU."""
+    the card (the plain one from the graph only with ``plain_graph``), or
+    the plain and library calls by the host clock on the CPU."""
     if dev.type == "cuda":
         row["us_per_call"] = 1e3 * timed_ms(kernel, reps, graph=graph)
         row["plain_us"] = 1e3 * timed_ms(plain, plain_reps, groups=3,
-                                         graph=graph)
+                                         graph=graph and plain_graph)
         if library is not None:
             row["library_us"] = 1e3 * timed_ms(library, reps, graph=graph)
         row["timing"] = "graph" if graph else "eager"
@@ -104,8 +108,9 @@ def _randn(gen, dev, *shape, dtype=torch.float32, scale=1.0):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-def flash_attention_row(dev: torch.device, b: int = 4, s: int = 2048,
-                        hq: int = 16, hkv: int = 8, d: int = 128,
+def flash_attention_row(dev: torch.device, case: str = "qwen3_prefill",
+                        b: int = 4, s: int = 2048, hq: int = 16,
+                        hkv: int = 8, d: int = 128,
                         dtype: torch.dtype = torch.bfloat16,
                         seed: int = 0) -> dict:
     """Causal prefill attention; default: qwen3-1.7b's (B 4, S 2048)."""
@@ -119,7 +124,7 @@ def flash_attention_row(dev: torch.device, b: int = 4, s: int = 2048,
     bms, by = bound(*flash_work(b, s, hq, hkv, d, q.element_size()),
                     BF16_OPS_PER_S if dtype == torch.bfloat16
                     else F32_OPS_PER_S)
-    row = _row("flash_attention", dev, case="causal_prefill",
+    row = _row("flash_attention", dev, case=case,
                shape=[b, s, hq, hkv, d], dtype=str(dtype)[6:],
                bound_us=1e3 * bms, bound_by=by,
                library="F.scaled_dot_product_attention(is_causal, "
@@ -151,7 +156,14 @@ def flash_attention_row(dev: torch.device, b: int = 4, s: int = 2048,
         row["err_over_tol"] = (err / tol).max().item()
         del got, want, tol, err
     before = fa_kernel.flash_attention_kernel.launches
-    _times(row, dev, kernel, plain, library, reps=10, plain_reps=3)
+    # bf16 from a CUDA graph, the eager times beside; the plain version
+    # (GBs of temporaries) and f32 eager only
+    graph = dev.type == "cuda" and dtype == torch.bfloat16
+    _times(row, dev, kernel, plain, library, reps=10, plain_reps=3,
+           graph=graph, plain_graph=False)
+    if graph:
+        row["us_per_call_eager"] = 1e3 * timed_ms(kernel, 10)
+        row["library_us_eager"] = 1e3 * timed_ms(library, 10)
     row["launches"] = fa_kernel.flash_attention_kernel.launches - before
     return row
 
@@ -305,7 +317,10 @@ def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
 
 
 #: the bench's rows: (function, keyword arguments), at full width
-ROWS = ([(flash_attention_row, {}), (gbt_hist_row, {}), (ssm_scan_row, {})]
+ROWS = ([(flash_attention_row, {}),
+         (flash_attention_row, dict(case="zamba2_prefill", hq=32, hkv=32,
+                                    d=64)),
+         (gbt_hist_row, {}), (ssm_scan_row, {})]
         + [(int8_matmul_row, dict(case=c, m=m, k=k, n=n))
            for c, m, k, n in INT8_SHAPES])
 

@@ -90,6 +90,14 @@ def build(names: Iterable[str] = KERNELS) -> dict[str, str]:
     return logs
 
 
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s built library (``cuobjdump
+    --dump-sass``, the toolkit's, beside ``nvcc``)."""
+    tool = Path(nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "--dump-sass", str(library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _loaded.get(name)

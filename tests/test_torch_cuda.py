@@ -111,22 +111,54 @@ FLASH_GPU_CASES = [
     (4, 2048, 16, 8, 128, 0, True, 1500, torch.bfloat16),
     (2, 150, 4, 1, 256, 0, True, 0, torch.float32),      # gemma-2b's D
     (1, 700, 8, 1, 256, 64, True, 600, torch.bfloat16),
+    # bf16 around flash_fwd_wgmma's tiles (128 keys; 128 query rows at D
+    # 128, 192 at D 64): ragged S, windows at and beside the tile edge,
+    # valid_len 1 and 129, non-causal with valid_len or a window, GQA
+    # groups of 1, 2 and 4
+    (1, 127, 4, 4, 64, 0, True, 0, torch.bfloat16),
+    (2, 129, 4, 2, 128, 0, True, 0, torch.bfloat16),
+    (1, 255, 8, 2, 64, 0, True, 0, torch.bfloat16),
+    (2, 257, 8, 2, 128, 0, True, 0, torch.bfloat16),
+    (1, 257, 4, 1, 128, 1, True, 0, torch.bfloat16),
+    (1, 255, 4, 4, 64, 127, True, 0, torch.bfloat16),
+    (2, 257, 4, 2, 128, 128, True, 0, torch.bfloat16),
+    (1, 255, 8, 2, 64, 129, True, 0, torch.bfloat16),
+    (1, 129, 4, 1, 128, 0, True, 1, torch.bfloat16),
+    (2, 257, 4, 2, 64, 0, True, 129, torch.bfloat16),
+    (2, 255, 4, 4, 128, 0, False, 129, torch.bfloat16),
+    (1, 127, 8, 2, 64, 0, False, 1, torch.bfloat16),
+    (1, 257, 4, 1, 64, 129, False, 0, torch.bfloat16),
+    (2, 193, 4, 2, 64, 0, True, 0, torch.bfloat16),
+    (1, 385, 4, 1, 64, 191, True, 300, torch.bfloat16),
 ]
 
 
-def _check_flash(got, q, k, v, **kw):
-    """f32: the JAX package's own 2e-5; bf16: the f32 attention of the same
-    values within ``bf16_tolerance`` (P's and the output's rounding)."""
-    from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                         bf16_tolerance)
+def _bf16_reading(got, q, k, v, **kw):
+    """The bf16 output's largest error over ``bf16_tolerance``: the f32
+    attention of the same values, P's and the output's rounding."""
+    from repro_torch.kernels.flash_attention.ref import bf16_tolerance
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    want, tol = (t.transpose(1, 2) for t in bf16_tolerance(qt, kt, vt, **kw))
+    return ((got.float() - want).abs() / tol).max().item()
+
+
+def _check_flash(got, q, k, v, **kw):
+    """f32: the JAX package's own 2e-5; bf16: within ``bf16_tolerance``."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
     if q.dtype == torch.float32:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         want = attention_ref(qt, kt, vt, **kw).transpose(1, 2)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
         return
-    want, tol = (t.transpose(1, 2) for t in bf16_tolerance(qt, kt, vt, **kw))
-    over = ((got.float() - want).abs() / tol).max().item()
+    over = _bf16_reading(got, q, k, v, **kw)
     assert over <= 1.0, f"bf16 kernel off by {over} of its tolerance"
+
+
+def _flash_inputs(cuda, b, s, hq, hkv, d, dtype=torch.bfloat16, seed=0):
+    """Unit-scale q, k, v (scores of std 1, so the softmax is not flat)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed + s + d)
+    return tuple(torch.randn((b, s, h, d), generator=gen, device=cuda)
+                 .to(dtype) for h in (hq, hkv, hkv))
 
 
 def test_flash_attention_unaligned_rows_take_the_cuda_core_kernel(cuda):
@@ -135,7 +167,10 @@ def test_flash_attention_unaligned_rows_take_the_cuda_core_kernel(cuda):
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     base = torch.randn(2, 96, 4, 68, device=cuda, dtype=torch.bfloat16)
     q = k = v = base[..., :64]
+    fa_kernel.reset_counts()
     got = fa_kernel.flash_attention_kernel(q, k, v)
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 1, "flash_fwd_wgmma": 0}
     _check_flash(got, q, k, v)
 
 
@@ -150,9 +185,99 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
                                dtype=dtype, device=cuda)
                for h in (hq, hkv, hkv))
     kw = dict(causal=causal, window=window, valid_len=valid_len)
+    fa_kernel.reset_counts()
     got = fa_kernel.flash_attention_kernel(q, k, v, **kw)
     torch.cuda.synchronize()
+    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": int(not wgmma), "flash_fwd_wgmma": int(wgmma)}
     _check_flash(got, q, k, v, **kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_reads_fused_qkv_views(cuda, d):
+    """q, k and v as strided views of one fused [B, S, (Hq+2Hkv)·D] tensor:
+    the tensor maps take the caller's strides, not contiguous ones."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    b, s, hq, hkv = 2, 300, 8, 2
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    fused = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen,
+                        device=cuda).bfloat16()
+    q = fused[..., :hq * d].view(b, s, hq, d)
+    k = fused[..., hq * d:(hq + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (hq + hkv) * d:].view(b, s, hkv, d)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    fa_kernel.reset_counts()
+    got = fa_kernel.flash_attention_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention_kernel.by_kernel["flash_fwd_wgmma"] == 1
+    _check_flash(got, q, k, v)
+    _check_flash(fa_kernel.flash_attention_kernel(q.contiguous(),
+                                                  k.contiguous(),
+                                                  v.contiguous()), q, k, v)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 2048, 16, 8, 128),
+                                          (4, 2048, 32, 32, 64)])
+def test_flash_attention_is_bitwise_deterministic(cuda, b, s, hq, hkv, d):
+    """Calls on the same inputs give the same bits at the qwen3-1.7b and
+    zamba2-1.2b prefill shapes: a race on the K/V ring (a wrong barrier
+    parity) would show as a difference between calls."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d)
+    first = fa_kernel.flash_attention_kernel(q, k, v)
+    for _ in range(3):
+        assert torch.equal(fa_kernel.flash_attention_kernel(q, k, v), first)
+
+
+# faults planted in a copy of the source: the diagonal tile's causal test
+# `<=` written as `<`; the last live key tile dropped from the walk
+FLASH_FAULTS = {
+    "diagonal_excluded": ("(!causal || col <= row)",
+                          "(!causal || col < row)"),
+    "last_tile_dropped": (
+        "return {lo, hi > lo ? (hi - lo + TK - 1) / TK : 0};",
+        "return {lo, hi > lo ? (hi - lo - 1) / TK : 0};"),
+}
+# the qwen3-1.7b prefill shape and a ragged one
+FLASH_FAULT_SHAPES = [(4, 2048, 16, 8, 128), (1, 700, 8, 1, 128)]
+
+
+def _flash_fault_readings(cuda):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = []
+    for shape in FLASH_FAULT_SHAPES:
+        q, k, v = _flash_inputs(cuda, *shape)
+        fa_kernel.reset_counts()
+        got = fa_kernel.flash_attention_kernel(q, k, v)
+        assert fa_kernel.flash_attention_kernel.by_kernel[
+            "flash_fwd_wgmma"] == 1
+        out.append(_bf16_reading(got, q, k, v))
+    return out
+
+
+@pytest.mark.parametrize("fault", sorted(FLASH_FAULTS))
+def test_flash_tolerance_sees_planted_faults(cuda, fault, tmp_path,
+                                             monkeypatch):
+    """Each fault, built from a copy of ``csrc/flash_attention.cu`` in a
+    temporary directory, reads above 1 at both shapes; the sound kernel
+    reads below 1 there."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    old, new = FLASH_FAULTS[fault]
+    assert src.count(old) == 1
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "flash_attention.cu").write_text(
+        src.replace(old, new))
+    sound = _flash_fault_readings(cuda)
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    planted = _flash_fault_readings(cuda)
+    print(f"flash_attention fault {fault}: err_over_tol sound {sound}, "
+          f"planted {planted}")
+    assert all(r < 1.0 for r in sound)
+    assert all(r > 1.0 for r in planted)
 
 
 # (B, S, H, P, N, chunk)

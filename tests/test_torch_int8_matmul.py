@@ -216,3 +216,23 @@ def test_bench_shapes_are_qwen3_at_full_width():
                                 + 4 * 6144 * 2, 2 * 4 * 2048 * 6144,
                                 bench_common.BF16_OPS_PER_S)
     assert by == "bytes" and abs(ms - 3.78e-3) < 0.01e-3
+
+
+def test_bench_flash_rows_are_the_served_prefills():
+    """The bench times flash_attention at both served models' prefill
+    attention at full width: qwen3-1.7b and zamba2-1.2b's shared block,
+    B 4 x S 2048 (chip_smoke's serving batch and prompt)."""
+    import inspect
+    from repro_torch.configs import get_config
+    flash = [kw for fn, kw in bench.ROWS if fn is bench.flash_attention_row]
+    defaults = {k: p.default for k, p in inspect.signature(
+        bench.flash_attention_row).parameters.items() if k != "dev"}
+    got = {kw.get("case", defaults["case"]):
+           tuple({**defaults, **kw}[k] for k in ("b", "s", "hq", "hkv", "d"))
+           for kw in flash}
+    want = {}
+    for arch, case in (("qwen3-1.7b", "qwen3_prefill"),
+                       ("zamba2-1.2b", "zamba2_prefill")):
+        cfg = get_config(arch)
+        want[case] = (4, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    assert got == want
