@@ -9,7 +9,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 1. Environment: the card's name and power limit (nvidia-smi), then the
    six CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register and shared-memory lines;
-   the SASS of ``flash_fwd_wgmma`` must hold HGMMA and UTMALDG.
+   the SASS of ``flash_fwd_wgmma`` and of ``w8a16_wgmma`` must hold HGMMA
+   and UTMALDG, and ``w8a16_wgmma``'s must write no A register of a
+   ``wgmma`` still in flight (both kernels' counts are printed).
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel) on ~15.8k per-layer rows of all
@@ -32,7 +34,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    last-token logits must agree within 1e-3 of max |logit|.
 5. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
-   also against itself (two calls, the same bits).
+   also against itself (two calls, the same bits).  ``gbt_hist`` must
+   equal the plain version on a CPU copy bit for bit, and the card's GBT
+   fit of phase 2 must grow the node arrays of the same fit on the CPU
+   (``flatten_gbt``, bit for bit: all 200 trees with identical splits).
 6. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
@@ -47,8 +52,13 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    products (decode B 1 and B 4, the down projection, the LM head,
    prefill) in bf16, each held to its tolerance (``err_over_tol`` < 1;
    ``int8_matmul`` to ``int8_matmul.ref.int8_tolerance``) and timed beside
-   its plain version, the library call and its bound.  The decode B 4 up
-   projection is ``int8_matmul``'s record on the kernels line.
+   its plain version, the library call and its bound.  The prefill row
+   must have run on ``w8a16_wgmma`` and the decode, down-projection and
+   LM-head rows on ``w8a16_mma`` (per-kernel launch counts), and the
+   wgmma kernel's first pass (the weight in fragment order) must equal
+   ``int8_matmul.ref.pack_fragments`` byte for byte.  The decode
+   B 4 up projection is ``int8_matmul``'s record on the kernels line, with
+   the prefill row's times and bound beside it.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -84,26 +94,59 @@ def line(tag: str, **kv) -> None:
     print(json.dumps({tag: kv}), flush=True)
 
 
-def flash_sass(build) -> dict:
-    """Counts of the Hopper instructions in each ``flash_fwd_wgmma``
-    instance's SASS (``cuobjdump --dump-sass``): the tensor-core kernel
-    must run warpgroup MMAs (HGMMA) fed by TMA loads (UTMALDG)."""
-    counts, cur = {}, None
-    for ln in build.sass("flash_attention").splitlines():
+def inflight_a_writes(body: str) -> int:
+    """Instructions of one kernel's SASS, read in program order, that write
+    a register which a ``wgmma`` taking A from registers (HGMMA ... R<a>)
+    still reads: the group is retired only by a ``WARPGROUP.DEPBAR.LE``
+    that leaves fewer groups pending.  ptxas frees those registers at
+    issue, so a kernel must keep them in use until the wait (0 expected;
+    the order is the listing's, so a write reached round a loop's back
+    edge is not seen)."""
+    import re
+    pending, group, hits = [], [], 0
+    for ins in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", body):
+        if ins.startswith("HGMMA"):
+            a = re.search(r"HGMMA\S*\s+R\d+,\s+R(\d+)", ins)
+            if a:                              # A from registers
+                group += range(int(a.group(1)), int(a.group(1)) + 4)
+            if "gsb0" in ins:
+                pending.append(set(group))
+                group = []
+        elif ins.startswith("WARPGROUP.DEPBAR.LE"):
+            del pending[:max(0, len(pending) - int(ins.split(",")[-1], 16))]
+        else:
+            w = re.match(r"(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s+R(\d+)", ins)
+            if w and not w.group(2).startswith(
+                    ("ST", "RED", "ATOM", "BRA", "SYNCS", "ISETP", "FSETP")):
+                hits += any(int(w.group(3)) in g for g in pending)
+    return hits
+
+
+def hopper_sass(build, source: str, entry: str, instances: int) -> dict:
+    """Counts of the Hopper instructions in each instance of kernel
+    ``entry``'s SASS in the library of ``source`` (``cuobjdump
+    --dump-sass``): a tensor-core kernel must run warpgroup MMAs (HGMMA)
+    fed by TMA loads (UTMALDG).  Each instance also reports its writes to
+    the A registers of an in-flight wgmma (``inflight_a_writes``)."""
+    counts, bodies, cur = {}, {}, None
+    for ln in build.sass(source).splitlines():
         if "Function : " in ln:
             cur = ln.split("Function : ")[1].strip()
-            if "flash_fwd_wgmma" in cur:
+            if entry in cur:
                 counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
+                bodies[cur] = []
             else:
                 cur = None
         elif cur:
-            for op in counts[cur]:
+            bodies[cur].append(ln)
+            for op in ("HGMMA", "UTMALDG", "UTMASTG"):
                 counts[cur][op] += op in ln
-    check(len(counts) == 2, f"flash_fwd_wgmma: {len(counts)} instances in "
-          "the SASS, expected 2 (D 64 and 128)")
+    check(len(counts) == instances, f"{entry}: {len(counts)} instances in "
+          f"the SASS, expected {instances}")
     for fn, c in counts.items():
         check(c["HGMMA"] > 0 and c["UTMALDG"] > 0,
               f"{fn}: no HGMMA or no UTMALDG in its SASS ({c})")
+        c["inflight_a_writes"] = inflight_a_writes("\n".join(bodies[fn]))
     return counts
 
 
@@ -407,18 +450,21 @@ def serving_kernels(dev, launches: dict) -> list:
 
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
-    its tolerance, ``int8_matmul`` launched on it; returns the
-    ``int8_matmul`` record (decode B 4) for the kernels line."""
+    its tolerance, ``int8_matmul`` launched on it, the prefill row on
+    ``w8a16_wgmma`` and the rest on ``w8a16_mma``; returns the
+    ``int8_matmul`` record (decode B 4, the prefill row beside it) for the
+    kernels line."""
     import torch
     from repro_torch.bench import kernels as bench
     from repro_torch.kernels.int8_matmul import kernel as q_kernel
 
     torch.backends.cuda.matmul.allow_tf32 = False     # the plain f32 product
-    q_kernel.int8_matmul_kernel.launches = 0
+    q_kernel.reset_counts()
     t0 = time.perf_counter()
     rows = bench.main()
     bench_s = time.perf_counter() - t0
     counted = q_kernel.int8_matmul_kernel.launches
+    by_route = dict(q_kernel.int8_matmul_kernel.by_route)
     int8 = [r for r in rows if r["name"] == "int8_matmul"]
     for r in rows:
         line("bench_row", **r)
@@ -429,9 +475,29 @@ def kernel_bench() -> list:
     check(launches == sum(r["launches"] for r in int8) and launches > 0,
           f"int8_matmul launched {counted} times in the bench, rows say "
           f"{[r['launches'] for r in int8]} + {len(int8)} comparisons")
+    # the prefill on the wgmma kernel, decode and the LM head on mma.sync
+    for r in int8:
+        want = "w8a16_wgmma" if r["case"] == "prefill" else "w8a16_mma"
+        check(r["routes"] == {want: r["launches"]},
+              f"int8_matmul {r['case']}: launches per kernel {r['routes']}, "
+              f"expected all {r['launches']} on {want}")
     line("kernel_bench", seconds=bench_s, rows=len(rows),
-         int8_matmul_launches=launches)
+         int8_matmul_launches=launches, int8_matmul_by_route=by_route)
+    # w8a16_wgmma's first pass, the weight in fragment order, against its
+    # plain version at the prefill's weight: equal byte for byte
+    from repro_torch.kernels.int8_matmul import ref as q_ref
+    m, k, n = bench.INT8_SHAPES[-1][1:]
+    w_q, _ = q_ref.quantize(torch.randn(
+        (k, n), generator=torch.Generator(device="cuda").manual_seed(SEED),
+        device="cuda"))
+    same = torch.equal(q_kernel.pack_fragments_kernel(w_q).cpu(),
+                       q_ref.pack_fragments(w_q.cpu()))
+    line("kernel_check", kernel="int8_matmul.pack_fragments", shape=[k, n],
+         exact=same)
+    check(same, "int8_matmul: the weight in fragment order differs from "
+          "ref.pack_fragments")
     head = next(r for r in int8 if r["case"] == "decode_b4")
+    pre = next(r for r in int8 if r["case"] == "prefill")
     return [{"name": "int8_matmul", "route": "cuda",
              "source": "src/repro_torch/csrc/int8_matmul.cu",
              "replaces": "src/repro/kernels/int8_matmul/kernel.py:41",
@@ -441,7 +507,17 @@ def kernel_bench() -> list:
              "bound_ms": head["bound_us"] / 1e3,
              "bound_by": head["bound_by"],
              "library_ms": head["library_us"] / 1e3, "shape": head["shape"],
-             "err_over_tol": head["err_over_tol"]}]
+             "err_over_tol": head["err_over_tol"],
+             "kernel": "w8a16_mma",
+             "prefill": {"kernel": "w8a16_wgmma", "shape": pre["shape"],
+                         "ms": pre["us_per_call"] / 1e3,
+                         "plain_ms": pre["plain_us"] / 1e3,
+                         "library_ms": pre["library_us"] / 1e3,
+                         "bound_ms": pre["bound_us"] / 1e3,
+                         "bound_by": pre["bound_by"],
+                         "launches": pre["launches"],
+                         "max_abs_err": pre["max_abs_err"],
+                         "err_over_tol": pre["err_over_tol"]}}]
 
 
 def main() -> None:
@@ -483,7 +559,9 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
-    wgmma_ptxas = []
+    wgmma = {"flash_fwd_wgmma": ("flash_attention", 2),   # D 64 and 128
+             "w8a16_wgmma": ("int8_matmul", 1)}
+    wgmma_ptxas = {k: [] for k in wgmma}
     for name, log in logs.items():
         entry = name          # a source may hold several kernels
         for ln in log.splitlines():
@@ -492,11 +570,18 @@ def main() -> None:
             elif ("registers" in ln or "spill" in ln or "smem" in ln
                   or "warning" in ln):
                 print(f"ptxas {name} {entry}: {ln.strip()}")
-                if "flash_fwd_wgmma" in entry:
-                    wgmma_ptxas.append(ln.strip())
+                for k in wgmma:
+                    if k in entry:
+                        wgmma_ptxas[k].append(ln.strip())
     line("build", seconds=build_s, compiled=sorted(logs))
-    wgmma_sass = flash_sass(_build)
-    line("flash_fwd_wgmma_build", sass=wgmma_sass, ptxas=wgmma_ptxas)
+    for k, (source, instances) in wgmma.items():
+        sass = hopper_sass(_build, source, k, instances)
+        line(f"{k}_build", sass=sass, ptxas=wgmma_ptxas[k])
+        if k == "w8a16_wgmma":
+            # its A registers are the widened weight: kept to the wait
+            check(all(c["inflight_a_writes"] == 0 for c in sass.values()),
+                  f"{k}: SASS writes the A registers of an in-flight wgmma "
+                  f"({sass})")
 
     wrappers = {"gbt_hist": gh_kernel.grad_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,
@@ -595,27 +680,26 @@ def main() -> None:
     rows = np.random.default_rng(SEED).random(len(y)) < 0.8
     codes = torch.as_tensor(bin_data(x[rows], gbt.edges_).astype(np.int32),
                             device=dev)
-    grad = torch.as_tensor((y - y.mean())[rows], dtype=torch.float32,
+    grad = torch.as_tensor((y - y.mean())[rows], dtype=torch.float64,
                            device=dev)
     gsum, cnt = gh_kernel.grad_histogram_kernel(codes, grad, 64)
     torch.cuda.synchronize()
-    pg, pc = gh_ref.grad_histogram_ref(codes, grad, 64)
-    abs_sum, _ = gh_ref.grad_histogram_ref(codes, grad.abs(), 64)
+    # the plain version on a CPU copy adds in np.bincount's order, as the
+    # kernel does: exactly equal (the card's torch.bincount uses atomics)
+    pg, pc = gh_ref.grad_histogram_ref(codes.cpu(), grad.cpu(), 64)
+    gsum, cnt = gsum.cpu(), cnt.cpu()
     check(torch.equal(cnt.double(), pc), "gbt_hist: counts differ")
-    err = (gsum.double() - pg).abs()
-    # f32 atomics in a varying order over up to N rows: |err| <= 1e-4 of
-    # the bin's sum of |g| (f32 rounding is 6e-8 a step)
-    check(bool((err <= 1e-4 * abs_sum).all()),
-          f"gbt_hist: gsum off by {(err / abs_sum.clamp_min(1e-30)).max()}"
-          " of the bin's |g| sum (tolerance 1e-4)")
-    records["gbt_hist"] = dict(max_abs_err=err.max().item(),
+    check(torch.equal(gsum, pg), "gbt_hist: sums differ from the plain "
+          f"version's (max {(gsum - pg).abs().max().item()}; tolerance: "
+          "exact)")
+    records["gbt_hist"] = dict(max_abs_err=(gsum - pg).abs().max().item(),
                                shape=list(codes.shape))
     line("kernel_check", kernel="gbt_hist", rows=int(codes.shape[0]),
-         counts_exact=True, max_abs_err=err.max().item(),
-         max_rel_err_of_abs_sum=(err / abs_sum.clamp_min(1e-30)).max()
-         .item())
+         counts_exact=True, sums_exact=True,
+         max_abs_err=records["gbt_hist"]["max_abs_err"])
 
-    # kernel-fitted GBT against a plain (CPU) fit of the same settings
+    # the card's fit against the same fit on the CPU: the same histograms
+    # and the same host growth code, so the same node arrays, bit for bit
     t0 = time.perf_counter()
     gbt_plain = GBTRegressor(**gbt_kw).fit(x, y, device="cpu")
     plain_fit_s = time.perf_counter() - t0
@@ -628,11 +712,21 @@ def main() -> None:
     same = sum(len(a) == len(b) and all(
         (n.feature, n.threshold_bin) == (m.feature, m.threshold_bin)
         for n, m in zip(a, b)) for a, b in zip(gbt.trees_, gbt_plain.trees_))
+    fa, fp = tp_ref.flatten_gbt(gbt), tp_ref.flatten_gbt(gbt_plain)
+    equal_arrays = {f: bool(np.array_equal(getattr(fa, f), getattr(fp, f)))
+                    for f in ("feature", "threshold_bin", "left", "right",
+                              "value", "n_nodes", "edges")}
     line("fit_check", plain_fit_s=plain_fit_s, nrmse_kernel_vs_plain=rel,
          rmse_kernel_fit=rmse_k, rmse_plain_fit=rmse_p,
-         trees_with_identical_splits=same, n_trees=len(gbt.trees_))
-    # the f32 histogram may flip near-tied splits, so the two ensembles may
-    # differ; they must predict alike (1% of the target span) and fit alike
+         trees_with_identical_splits=same, n_trees=len(gbt.trees_),
+         node_arrays_equal=equal_arrays)
+    check(same == gbt_kw["n_trees"] == len(gbt.trees_),
+          f"the card's fit has {same} of {gbt_kw['n_trees']} trees with the "
+          "CPU fit's splits (expected all)")
+    check(all(equal_arrays.values()) and fa.base == fp.base,
+          f"the card's fit's node arrays differ from the CPU fit's "
+          f"({equal_arrays})")
+    # (implied by the two checks above; kept from the f32 histogram's days)
     check(rel <= 1e-2, f"kernel-fitted GBT differs from the plain fit by "
           f"{rel} of the target span (tolerance 1e-2)")
     check(abs(rmse_k - rmse_p) <= 1e-2 * span,
@@ -710,7 +804,7 @@ def main() -> None:
     # -- 6. timing ---------------------------------------------------------
     n, f = codes.shape
     flat = (codes.long() + torch.arange(f, device=dev) * 64).reshape(-1)
-    wts = grad.double().repeat_interleave(f)
+    wts = grad.repeat_interleave(f)
     gh_bound = bound(*gbt_hist_work(n, f, 64))
     gh_times = dict(
         ms=timed_ms(lambda: gh_kernel.grad_histogram_kernel(codes, grad, 64),

@@ -3,10 +3,13 @@ PyTorch version, the library call that computes the same function (where
 PyTorch has one) and its bound on the H100, at the main paths' full-width
 shapes.  The counterpart of ``benchmarks/bench_kernels.py``.
 
-    python -m repro_torch.bench.kernels [--device cpu]
+    python -m repro_torch.bench.kernels [--device cpu] [--int8-routes]
 
 Rows go to ``results/bench_torch_kernels.json`` and stdout as
-``name,us_per_call,derived`` CSV.  Without ``--device`` it needs a card;
+``name,us_per_call,derived`` CSV.  ``--int8-routes`` times only the two
+bf16 ``int8_matmul`` kernels over M (``int8_route_rows``), into
+``results/bench_torch_int8_routes.json``: where ``w8a16_wgmma`` starts to
+win sets the route rule's ``WGMMA_MIN_M``.  Without ``--device`` it needs a card;
 with ``--device cpu`` only the plain versions and the library calls run
 (host-timed, at the same full-width shapes: several GB and minutes), and
 the kernel's columns are null.
@@ -23,7 +26,8 @@ exceed the 50 MB L2 cache, so each call reads its weight from device
 memory as a decode step would.  The other rows time eager calls
 (``timing: "eager"``).  ``launches`` counts the kernel's launches while its
 row was timed (warm-up and timed calls; a graph's captured calls once, not
-its replays), not the one call compared with the plain version.
+its replays), not the one call compared with the plain version;
+``int8_matmul`` rows also count them per kernel (``routes``).
 """
 from __future__ import annotations
 
@@ -68,9 +72,10 @@ def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int
 
 
 def gbt_hist_work(n: int, f: int, n_bins: int) -> tuple[int, int]:
-    """(bytes, operations) of the histogram: codes and gradients read, the
-    two [F, bins] tables written; one add to each per (row, feature)."""
-    return n * f * 4 + n * 4 + 2 * f * n_bins * 4, 2 * n * f
+    """(bytes, operations) of the histogram: int32 codes and f64 gradients
+    read, the f64 sums and int32 counts [F, bins] written; one add to each
+    per (row, feature)."""
+    return n * f * 4 + n * 8 + f * n_bins * (8 + 4), 2 * n * f
 
 
 def _row(name: str, dev: torch.device, **kw) -> dict:
@@ -176,12 +181,12 @@ def gbt_hist_row(dev: torch.device, n: int = 12589, f: int = 7,
     gen = torch.Generator(device=dev).manual_seed(seed)
     codes = torch.randint(0, n_bins, (n, f), generator=gen, device=dev,
                           dtype=torch.int32)
-    grad = _randn(gen, dev, n)
+    grad = _randn(gen, dev, n, dtype=torch.float64)
     flat = (codes.long() + torch.arange(f, device=dev) * n_bins).reshape(-1)
-    wts = grad.double().repeat_interleave(f)
+    wts = grad.repeat_interleave(f)
     bms, by = bound(*gbt_hist_work(n, f, n_bins))
     row = _row("gbt_hist", dev, case="root_node", shape=[n, f, n_bins],
-               dtype="float32", bound_us=1e3 * bms, bound_by=by,
+               dtype="float64", bound_us=1e3 * bms, bound_by=by,
                library="two torch.bincount")
 
     def kernel():
@@ -195,17 +200,14 @@ def gbt_hist_row(dev: torch.device, n: int = 12589, f: int = 7,
                 torch.bincount(flat, minlength=f * n_bins))
 
     if dev.type == "cuda":
-        gsum, cnt = kernel()
-        pg, pc = plain()
-        abs_sum, _ = gh_ref.grad_histogram_ref(codes, grad.abs(), n_bins)
-        if not torch.equal(cnt.double(), pc):
-            raise AssertionError("gbt_hist: kernel counts differ from plain")
-        err = (gsum.double() - pg).abs()
-        # f32 atomics in a varying order: 1e-4 of the bin's sum of |g|
-        row["max_abs_err"] = err.max().item()
-        row["err_over_tol"] = (err / (1e-4 * abs_sum).clamp_min(1e-30)
-                               ).max().item()
-        row["tolerance"] = "1e-4 of the bin's sum of |g|; counts exact"
+        gsum, cnt = (t.cpu() for t in kernel())
+        # the plain version on a CPU copy adds in np.bincount's order (the
+        # card's torch.bincount adds with atomics): exactly equal
+        pg, pc = gh_ref.grad_histogram_ref(codes.cpu(), grad.cpu(), n_bins)
+        same = torch.equal(gsum, pg) and torch.equal(cnt.double(), pc)
+        row["max_abs_err"] = (gsum - pg).abs().max().item()
+        row["err_over_tol"] = 0.0 if same else math.inf
+        row["tolerance"] = "exact: bit for bit with the plain version"
     before = gh_kernel.grad_histogram_kernel.launches
     _times(row, dev, kernel, plain, library, reps=50, plain_reps=20)
     row["launches"] = gh_kernel.grad_histogram_kernel.launches - before
@@ -255,9 +257,11 @@ def ssm_scan_row(dev: torch.device, b: int = 4, s: int = 2048, h: int = 64,
 def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
                     m: int = 4, k: int = 2048, n: int = 6144,
                     dtype: torch.dtype = torch.bfloat16,
-                    seed: int = 0) -> dict:
+                    seed: int = 0, route: str | None = None) -> dict:
     """W8A16 product x [M,K] · w_q [K,N] int8 (+ scale [N]); default: the
-    decode up projection of qwen3-1.7b at serving batch 4."""
+    decode up projection of qwen3-1.7b at serving batch 4.  ``route``
+    forces one of the kernels (default: the one ``choose_route`` picks);
+    the row's ``routes`` counts its launches per kernel."""
     from repro_torch.kernels.int8_matmul import kernel as q_kernel
     from repro_torch.kernels.int8_matmul import ref as q_ref
     if dev.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
@@ -275,7 +279,7 @@ def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
                library="torch.matmul(x, w_deq), w dequantised to x's dtype "
                        "once")
     if dev.type == "cuda":
-        got = q_kernel.int8_matmul_kernel(x, w_q, scale)
+        got = q_kernel.int8_matmul_kernel(x, w_q, scale, route=route)
         want, tol = q_ref.int8_tolerance(x, w_q, scale)
         err = (got.float() - want).abs()
         row["max_abs_err"] = err.max().item()
@@ -299,7 +303,8 @@ def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
         return pool[turn[key] % len(pool)]
 
     def kernel():
-        return q_kernel.int8_matmul_kernel(x, take("kernel", wqs), scale)
+        return q_kernel.int8_matmul_kernel(x, take("kernel", wqs), scale,
+                                           route=route)
 
     def plain():
         return q_ref.int8_matmul_ref(x, take("plain", wqs), scale)
@@ -309,11 +314,31 @@ def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
 
     reps = len(wqs) * max(1, math.ceil(20 / len(wqs)))
     before = q_kernel.int8_matmul_kernel.launches
+    routes = dict(q_kernel.int8_matmul_kernel.by_route)
     _times(row, dev, kernel, plain, library, reps=reps,
            plain_reps=len(wqs), graph=dev.type == "cuda")
     row["weight_copies"] = [len(wqs), len(deqs)]
     row["launches"] = q_kernel.int8_matmul_kernel.launches - before
+    row["routes"] = {r: q_kernel.int8_matmul_kernel.by_route[r] - routes[r]
+                     for r in routes
+                     if q_kernel.int8_matmul_kernel.by_route[r] > routes[r]}
     return row
+
+
+#: the rows of x at which the route sweep times both bf16 kernels, at
+#: qwen3-1.7b's up projection (K 2048, N 6144)
+ROUTE_SWEEP_M = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256, 512, 1024,
+                 2048, 8192)
+
+
+def int8_route_rows(dev: torch.device, ms=ROUTE_SWEEP_M, k: int = 2048,
+                    n: int = 6144) -> list[dict]:
+    """``int8_matmul_row`` at each M of ``ms`` on each bf16 kernel
+    (``w8a16_mma``, ``w8a16_wgmma``), forced: where the second starts to
+    win sets ``kernel.WGMMA_MIN_M``."""
+    return [int8_matmul_row(dev, case=f"route_{r}_m{m}", m=m, k=k, n=n,
+                            route=r)
+            for m in ms for r in ("w8a16_mma", "w8a16_wgmma")]
 
 
 #: the bench's rows: (function, keyword arguments), at full width
@@ -325,15 +350,19 @@ ROWS = ([(flash_attention_row, {}),
            for c, m, k, n in INT8_SHAPES])
 
 
-def main(device: DeviceLike = None) -> list[dict]:
-    """Every row on ``device`` (None: the card; raises without one)."""
+def main(device: DeviceLike = None, routes: bool = False) -> list[dict]:
+    """Every row on ``device`` (None: the card; raises without one); with
+    ``routes``, only the sweep of ``int8_route_rows`` (written as
+    ``results/bench_torch_int8_routes.json``)."""
     dev = resolve_device(device)
     rows = []
-    for fn, kw in ROWS:
-        rows.append(fn(dev, **kw))
+    todo = ([(int8_route_rows, {})] if routes else ROWS)
+    for fn, kw in todo:
+        got = fn(dev, **kw)
+        rows += got if isinstance(got, list) else [got]
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    emit(rows, "kernels")
+    emit(rows, "int8_routes" if routes else "kernels")
     return rows
 
 
@@ -341,4 +370,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
                     help="torch device; default: the CUDA card")
-    main(ap.parse_args().device)
+    ap.add_argument("--int8-routes", action="store_true",
+                    help="only time both bf16 int8_matmul kernels over M "
+                         "(ROUTE_SWEEP_M)")
+    args = ap.parse_args()
+    main(args.device, routes=args.int8_routes)

@@ -8,16 +8,18 @@ GBT:
   * squared loss → gradient = residual, hessian = count;
   * per-node *gradient histograms* per feature — the hot loop, run by
     :mod:`repro_torch.kernels.gbt_hist`: the CUDA kernel for tensors on the
-    card, its plain f64 version (bit for bit with the reference) on the CPU;
+    card, its plain version on the CPU, both in f64 and bit for bit with
+    the reference's ``np.bincount``;
   * best split by the standard gain  GL²/nL + GR²/nR − G²/n;
   * row subsampling per boosting round, drawn from
     ``np.random.default_rng(seed)`` exactly as the reference draws it;
   * one ensemble per target.
 
 Tree growing stays host control flow in numpy, as in the reference: only
-the histogram moves to ``fit(..., device=)``.  On the CPU the port grows
-node arrays identical to the reference's; on the card the f32 kernel
-histogram can flip near-tied splits.
+the histogram moves to ``fit(..., device=)``.  On the CPU and on the card
+alike the port grows node arrays identical to the reference's: the
+histograms are the same bits, and the growth code around them is the
+reference's.
 """
 from __future__ import annotations
 

@@ -7,7 +7,8 @@ plain C interface::
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>-<hash>.so <name>.cu
 
 and is loaded with ``ctypes``.  The library name carries a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
+source, the headers under ``csrc`` it includes (``hopper.cuh``) and the
+flags, so an edited source or header rebuilds and an unchanged one is
 reused; builds land in ``build/`` at the repository root on first use.
 Nothing is built at import time.  A missing ``nvcc`` or a failed compile or
 load raises — there is no fallback.
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -49,9 +51,27 @@ def nvcc_path() -> str:
         "first use and need the CUDA toolkit")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """The files a build of kernel ``name`` reads from ``csrc``:
+    ``<name>.cu`` first, then each header it includes with quotes,
+    directly or through another header, once each."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path not in out:
+            out.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where the build of kernel ``name`` lives for its current source."""
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()
+    """Where the build of kernel ``name`` lives for its current sources
+    (the ``.cu`` and the headers it includes) and flags."""
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in sources(name))
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -7,8 +7,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: shared memory a block may use without opting in to more
-_SMEM_LIMIT = 48 * 1024
+#: bins per block (one warp each) and rows a block stages at a time, as in
+#: the source (``BINS``, ``CHUNK``): an int32 code and an f64 gradient a
+#: row, 24 KB of static shared memory, under the 48 KB a block may use
+#: without opting in to more; it does not grow with F or n_bins
+BINS_PER_BLOCK = 8
+ROWS_PER_CHUNK = 2048
+SMEM_BYTES = ROWS_PER_CHUNK * (4 + 8)
+#: most bins a call takes: the grid's second dimension is 65,535 blocks
+MAX_BINS = 65535 * BINS_PER_BLOCK
 
 
 def _lib() -> ctypes.CDLL:
@@ -23,15 +30,18 @@ def _lib() -> ctypes.CDLL:
 
 def grad_histogram_kernel(codes: torch.Tensor, grad: torch.Tensor,
                           n_bins: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """codes [N, F] int32, grad [N] f32, both contiguous on one CUDA device
-    → (gsum [F, n_bins] f32, cnt [F, n_bins] int32).  Codes outside
-    ``[0, n_bins)`` are not counted."""
+    """codes [N, F] int32, grad [N] float64, both contiguous on one CUDA
+    device → (gsum [F, n_bins] float64, cnt [F, n_bins] int32).
+
+    Each sum adds its bin's gradients in row order from +0.0, as
+    ``np.bincount`` does, so it equals the plain version on the CPU bit for
+    bit.  Codes outside ``[0, n_bins)`` are not counted."""
     if codes.device.type != "cuda" or grad.device != codes.device:
         raise ValueError("grad_histogram_kernel needs codes and grad on one "
                          f"CUDA device, got {codes.device} and "
                          f"{grad.device}")
-    if codes.dtype != torch.int32 or grad.dtype != torch.float32:
-        raise TypeError(f"codes must be int32 and grad float32, got "
+    if codes.dtype != torch.int32 or grad.dtype != torch.float64:
+        raise TypeError(f"codes must be int32 and grad float64, got "
                         f"{codes.dtype} and {grad.dtype}")
     if codes.ndim != 2 or grad.shape != (codes.shape[0],):
         raise ValueError(f"codes must be [N, F] and grad [N], got "
@@ -39,11 +49,9 @@ def grad_histogram_kernel(codes: torch.Tensor, grad: torch.Tensor,
     if not (codes.is_contiguous() and grad.is_contiguous()):
         raise ValueError("codes and grad must be contiguous")
     n, f = codes.shape
-    if n_bins < 1 or f * n_bins * 8 > _SMEM_LIMIT:
-        raise ValueError(f"F * n_bins = {f} * {n_bins} outside the "
-                         f"kernel's shared-memory histogram (1..."
-                         f"{_SMEM_LIMIT // 8} bins in all)")
-    gsum = torch.empty((f, n_bins), dtype=torch.float32, device=codes.device)
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"n_bins = {n_bins} outside 1..{MAX_BINS}")
+    gsum = torch.empty((f, n_bins), dtype=torch.float64, device=codes.device)
     cnt = torch.empty((f, n_bins), dtype=torch.int32, device=codes.device)
     if n == 0 or f == 0:
         return gsum.zero_(), cnt.zero_()

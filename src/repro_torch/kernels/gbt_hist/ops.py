@@ -11,11 +11,12 @@ from repro_torch.kernels.gbt_hist.ref import grad_histogram_ref
 def grad_histogram(codes: torch.Tensor, grad: torch.Tensor, n_bins: int
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """codes [N, F] int, grad [N] → f64 (gsum [F, n_bins], cnt [F, n_bins])
-    on the tensors' device.  CPU tensors take the exact f64 plain version;
-    CUDA tensors the kernel (f32 sums, exact counts)."""
+    on the tensors' device.  CPU tensors take the plain version, CUDA
+    tensors the kernel; both add each bin's f64 gradients in row order, so
+    they agree bit for bit with each other and with ``np.bincount``."""
     if codes.device.type == "cpu":
         return grad_histogram_ref(codes, grad, n_bins)
     gsum, cnt = grad_histogram_kernel(
         codes.to(torch.int32).contiguous(),
-        grad.to(torch.float32).contiguous(), n_bins)
-    return gsum.to(torch.float64), cnt.to(torch.float64)
+        grad.to(torch.float64).contiguous(), n_bins)
+    return gsum, cnt.to(torch.float64)

@@ -12,10 +12,13 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
                 ) -> torch.Tensor:
     """x [..., K] × w_q [K, N] int8 (+ scale [N]) → [..., N] in x's dtype.
 
-    CPU tensors take :func:`int8_matmul_ref`; CUDA tensors the kernel,
-    which masks ragged edges itself, so neither operand is padded (a
-    padded copy of an LM-head weight would cost more than the product).
-    The leading dimensions are flattened; a non-contiguous x is copied."""
+    CPU tensors take :func:`int8_matmul_ref`; CUDA tensors the kernel
+    that :func:`~repro_torch.kernels.int8_matmul.kernel.choose_route`
+    picks, which masks ragged edges itself, so x is never padded; at
+    prefill sizes the weight is first rewritten in the tensor-core
+    kernel's fragment order (a bytes-bound pass, zero-padded to whole
+    tiles), at decode it is read as it is.  The leading dimensions are
+    flattened; a non-contiguous x is copied."""
     lead, n = x.shape[:-1], w_q.shape[1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":

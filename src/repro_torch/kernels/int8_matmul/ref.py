@@ -66,3 +66,57 @@ def int8_tolerance(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
     if x.dtype == torch.bfloat16:
         tol = tol + 2.0 ** -8 * (want.abs() + tol)
     return want, tol
+
+
+#: a chunk of the weight in ``w8a16_wgmma``'s fragment order: PACK_K rows of
+#: K by PACK_N weight columns (``TK`` and ``TN`` in ``csrc/int8_matmul.cu``)
+PACK_K, PACK_N = 64, 128
+
+
+def fragment_order() -> torch.Tensor:
+    """[PACK_K · PACK_N] int64: for each byte of a packed chunk, the index
+    ``k · PACK_N + n`` of the weight element of the chunk's tile it holds.
+
+    Byte ``16 · tid + j`` belongs to consumer thread ``tid`` (warpgroup
+    ``tid // 256``, warp ``tid // 64 % 4``, lane ``tid % 32``), which reads
+    two 16-byte pieces 512 bytes apart (``h = tid // 32 % 2``); piece ``h``
+    holds k16 steps ``2h`` and ``2h + 1``, 8 bytes each, in the order of
+    wgmma's A registers 0..3 (two bytes a register, the lower k first):
+    (column g, k 2t), (column g + 8, k 2t), (column g, k 2t + 8),
+    (column g + 8, k 2t + 8), with g, t = lane // 4, lane % 4 and the
+    warp's columns ``64 · warpgroup + 16 · warp``."""
+    off = torch.arange(PACK_K * PACK_N)
+    tid, j = off // 16, off % 16
+    lane, h, warp, c = tid % 32, tid // 32 % 2, tid // 64 % 4, tid // 256
+    g, t = lane // 4, lane % 4
+    step, b = 2 * h + j // 8, j % 8
+    reg, hi = b // 2, b % 2
+    n = 64 * c + 16 * warp + g + 8 * (reg % 2)
+    k = 16 * step + 2 * t + hi + 8 * (reg // 2)
+    return k * PACK_N + n
+
+
+def pack_fragments(w_q: torch.Tensor) -> torch.Tensor:
+    """w_q [K,N] int8 → the flat int8 weight that ``w8a16_wgmma`` reads:
+    zero-padded to whole PACK_K × PACK_N tiles, one chunk per (column block
+    nb, K tile kt) at ``(nb · K_tiles + kt) · PACK_K · PACK_N``, each chunk
+    in :func:`fragment_order`."""
+    k, n = w_q.shape
+    kt, nb = -(-k // PACK_K), -(-n // PACK_N)
+    pad = torch.zeros((kt * PACK_K, nb * PACK_N), dtype=w_q.dtype,
+                      device=w_q.device)
+    pad[:k, :n] = w_q
+    tiles = pad.reshape(kt, PACK_K, nb, PACK_N).permute(2, 0, 1, 3)
+    tiles = tiles.reshape(nb, kt, PACK_K * PACK_N)
+    return tiles[:, :, fragment_order().to(w_q.device)].reshape(-1)
+
+
+def unpack_fragments(packed: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_fragments` for a [k, n] weight."""
+    kt, nb = -(-k // PACK_K), -(-n // PACK_N)
+    tiles = torch.empty((nb, kt, PACK_K * PACK_N), dtype=packed.dtype,
+                        device=packed.device)
+    tiles[:, :, fragment_order().to(packed.device)] = packed.reshape(
+        nb, kt, -1)
+    full = tiles.reshape(nb, kt, PACK_K, PACK_N).permute(1, 2, 0, 3)
+    return full.reshape(kt * PACK_K, nb * PACK_N)[:k, :n]

@@ -5,6 +5,11 @@ On a machine with one they run with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import importlib.util
+import shutil
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -34,17 +39,53 @@ def cuda():
 
 @pytest.mark.parametrize("n,f,n_bins", [(12000, 7, 64), (3, 2, 8), (0, 7, 64)])
 def test_gbt_hist_kernel_matches_plain(cuda, n, f, n_bins):
+    """The f64 sums in np.bincount's order: equal to the plain version on
+    a CPU copy bit for bit (the card's torch.bincount adds with atomics)."""
     rng = np.random.default_rng(n)
     codes = torch.as_tensor(rng.integers(0, n_bins, (n, f)), dtype=torch.int32,
                             device=cuda)
-    grad = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+    grad = torch.as_tensor(rng.normal(size=n), dtype=torch.float64,
                            device=cuda)
     gsum, cnt = gh_kernel.grad_histogram_kernel(codes, grad, n_bins)
     torch.cuda.synchronize()
-    pg, pc = gh_ref.grad_histogram_ref(codes, grad, n_bins)
-    assert torch.equal(cnt.double(), pc)
-    abs_sum, _ = gh_ref.grad_histogram_ref(codes, grad.abs(), n_bins)
-    assert torch.all((gsum.double() - pg).abs() <= 1e-4 * abs_sum)
+    pg, pc = gh_ref.grad_histogram_ref(codes.cpu(), grad.cpu(), n_bins)
+    assert gsum.dtype == torch.float64 and cnt.dtype == torch.int32
+    assert torch.equal(cnt.cpu().double(), pc)
+    assert torch.equal(gsum.cpu(), pg)
+
+
+def _reference_module(rel: str):
+    """A numpy-only module of the JAX package, loaded from its file so that
+    the package's ``__init__`` (which imports jax) does not run."""
+    path = Path(__file__).resolve().parents[1] / "src" / "repro" / rel
+    name = "_reference_" + rel.replace("/", "_")[:-3]
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(name, path)
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
+    return sys.modules[name]
+
+
+def test_gbt_fit_on_the_card_grows_the_reference_trees(cuda):
+    """Two fits on the card with one seed give the reference's node arrays
+    (``repro.core.predictors.gbt``, whose histogram is np.bincount), as
+    ``tests/test_torch_gbt.py`` asks of a fit on the CPU."""
+    r_gbt = _reference_module("core/predictors/gbt.py")
+    r_flatten = _reference_module("kernels/tree_predict/ref.py").flatten_gbt
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(300, 5)).astype(np.float32)
+    y = np.sin(x[:, 0]) + x[:, 1] ** 2 + 0.1 * rng.normal(size=300)
+    kw = dict(n_trees=10, max_depth=6, subsample=0.8, seed=0)
+    ref = r_flatten(r_gbt.GBTRegressor(**kw).fit(x, y))
+    gh_kernel.grad_histogram_kernel.launches = 0
+    for _ in range(2):
+        got = tp_ref.flatten_gbt(GBTRegressor(**kw).fit(x, y, device=cuda))
+        for f in ("feature", "threshold_bin", "left", "right", "value",
+                  "n_nodes", "edges"):
+            assert np.array_equal(getattr(ref, f), getattr(got, f)), f
+        assert (ref.base, ref.learning_rate, ref.max_depth) == \
+            (got.base, got.learning_rate, got.max_depth)
+    assert gh_kernel.grad_histogram_kernel.launches > 0
 
 
 def test_tree_predict_kernel_matches_plain(cuda):
@@ -259,18 +300,13 @@ def _flash_fault_readings(cuda):
 @pytest.mark.parametrize("fault", sorted(FLASH_FAULTS))
 def test_flash_tolerance_sees_planted_faults(cuda, fault, tmp_path,
                                              monkeypatch):
-    """Each fault, built from a copy of ``csrc/flash_attention.cu`` in a
-    temporary directory, reads above 1 at both shapes; the sound kernel
-    reads below 1 there."""
+    """Each fault, built from a copy of ``csrc`` (``flash_attention.cu``
+    and the header it includes) in a temporary directory, reads above 1 at
+    both shapes; the sound kernel reads below 1 there."""
     from repro_torch.kernels import _build
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    old, new = FLASH_FAULTS[fault]
-    assert src.count(old) == 1
-    (tmp_path / "csrc").mkdir()
-    (tmp_path / "csrc" / "flash_attention.cu").write_text(
-        src.replace(old, new))
+    csrc = _csrc_copy(tmp_path, "flash_attention", *FLASH_FAULTS[fault])
     sound = _flash_fault_readings(cuda)
-    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
     planted = _flash_fault_readings(cuda)
@@ -368,40 +404,106 @@ def test_head_dim_256_serves_on_the_card(cuda):
 
 # (M, K, N): qwen3-1.7b's five timed products (decode B 1 and B 4, the
 # down projection, the LM head, prefill), the JAX package's ragged
-# INT8_CASES, and empty M, N, K
+# INT8_CASES, empty M, N, K, and bf16 shapes on w8a16_wgmma: ragged M, K
+# and N tiles, a prefill's down projection (K 6144), a shorter prefill
 INT8_GPU_CASES = [(1, 2048, 6144), (4, 2048, 6144), (4, 6144, 2048),
                   (4, 2048, 151936), (8192, 2048, 6144),
                   (8, 32, 16), (64, 128, 256), (33, 70, 90), (16, 64, 64),
-                  (0, 64, 32), (8, 64, 0), (8, 0, 32)]
+                  (0, 64, 32), (8, 64, 0), (8, 0, 32),
+                  (1000, 2056, 6160), (2048, 2048, 6144), (8192, 6144, 2048)]
+# the bf16 shapes above that take w8a16_wgmma
+INT8_WGMMA_CASES = [(1000, 2056, 6160), (2048, 2048, 6144),
+                    (8192, 6144, 2048), (8192, 2048, 6144)]
 
 
-def _int8_reading(cuda, m, k, n, dtype, seed=0):
-    """The kernel's largest error over ``int8_tolerance`` on seeded
-    unit-scale inputs."""
-    from repro_torch.kernels.int8_matmul import kernel as q_kernel
-    from repro_torch.kernels.int8_matmul.ref import int8_tolerance, quantize
+def _int8_inputs(cuda, m, k, n, dtype, seed=0):
+    """Seeded unit-scale x and a quantised weight."""
+    from repro_torch.kernels.int8_matmul.ref import quantize
     gen = torch.Generator(device=cuda).manual_seed(seed + m + n)
     x = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
     w_q, scale = (quantize(torch.randn((k, n), generator=gen, device=cuda))
                   if k else (torch.zeros((0, n), dtype=torch.int8,
                                          device=cuda),
                              torch.ones(n, device=cuda)))
-    got = q_kernel.int8_matmul_kernel(x, w_q, scale)
+    return x, w_q, scale
+
+
+def _int8_reading(cuda, m, k, n, dtype, seed=0, route=None):
+    """The kernel's largest error over ``int8_tolerance`` on seeded
+    unit-scale inputs, and the kernel that ran (None: none did)."""
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_tolerance
+    x, w_q, scale = _int8_inputs(cuda, m, k, n, dtype, seed)
+    q_kernel.reset_counts()
+    got = q_kernel.int8_matmul_kernel(x, w_q, scale, route=route)
     torch.cuda.synchronize()
     assert got.shape == (m, n) and got.dtype == dtype
+    ran = [r for r, c in q_kernel.int8_matmul_kernel.by_route.items() if c]
     want, tol = int8_tolerance(x, w_q, scale)
     if got.numel() == 0:
-        return 0.0
-    return ((got.float() - want).abs() / tol.clamp_min(1e-30)).max().item()
+        return 0.0, None
+    # (K = 0 launches nothing: the output is zeros)
+    return (((got.float() - want).abs() / tol.clamp_min(1e-30)).max().item(),
+            ran[0] if ran else None)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("m,k,n", INT8_GPU_CASES)
 def test_int8_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    from repro_torch.kernels.int8_matmul.kernel import choose_route
     torch.backends.cuda.matmul.allow_tf32 = False    # the plain f32 product
-    over = _int8_reading(cuda, m, k, n, dtype)
-    print(f"int8_matmul {m}x{k}x{n} {dtype}: err_over_tol {over}")
+    over, ran = _int8_reading(cuda, m, k, n, dtype)
+    print(f"int8_matmul {m}x{k}x{n} {dtype}: err_over_tol {over} ({ran})")
     assert over < 1.0
+    if m * n * k:
+        # contiguous tensors from the caching allocator: aligned bases
+        assert ran == choose_route(dtype, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", INT8_WGMMA_CASES)
+def test_int8_wgmma_route_is_exact_to_tolerance_and_deterministic(cuda, m, k,
+                                                                  n):
+    """The bf16 prefill kernel at ragged and full-width shapes: within
+    ``int8_tolerance``, and two calls give the same bits (a wrong parity on
+    the TMA ring would show as a difference)."""
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    from repro_torch.kernels.int8_matmul.ref import int8_tolerance
+    x, w_q, scale = _int8_inputs(cuda, m, k, n, torch.bfloat16)
+    q_kernel.reset_counts()
+    first = q_kernel.int8_matmul_kernel(x, w_q, scale)
+    for _ in range(2):
+        assert torch.equal(q_kernel.int8_matmul_kernel(x, w_q, scale), first)
+    assert q_kernel.int8_matmul_kernel.by_route["w8a16_wgmma"] == 3
+    want, tol = int8_tolerance(x, w_q, scale)
+    over = ((first.float() - want).abs() / tol).max().item()
+    print(f"int8_matmul wgmma {m}x{k}x{n}: err_over_tol {over}")
+    assert over < 1.0
+
+
+@pytest.mark.parametrize("k,n", [(2048, 6144), (2056, 6160), (64, 16),
+                                 (70, 32), (1, 128)])
+def test_int8_pack_kernel_matches_plain(cuda, k, n):
+    """The weight in fragment order: the kernel's first pass against
+    ``ref.pack_fragments``, byte for byte."""
+    from repro_torch.kernels.int8_matmul.kernel import pack_fragments_kernel
+    from repro_torch.kernels.int8_matmul.ref import pack_fragments
+    w = torch.as_tensor(np.random.default_rng(k + n).integers(
+        -127, 128, (k, n)), dtype=torch.int8)
+    assert torch.equal(pack_fragments_kernel(w.to(cuda)).cpu(),
+                       pack_fragments(w))
+
+
+def test_int8_wgmma_route_refuses_what_tma_cannot_take(cuda):
+    """Forced onto w8a16_wgmma, a call whose rows TMA cannot read raises:
+    no kernel quietly takes over."""
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    for m, k, n in ((64, 70, 256), (64, 128, 90)):
+        x, w_q, scale = _int8_inputs(cuda, m, k, n, torch.bfloat16)
+        with pytest.raises(RuntimeError, match="w8a16_wgmma"):
+            q_kernel.int8_matmul_kernel(x, w_q, scale, route="w8a16_wgmma")
+    x, w_q, scale = _int8_inputs(cuda, 64, 128, 256, torch.float32)
+    with pytest.raises(RuntimeError, match="w8a16_wgmma"):
+        q_kernel.int8_matmul_kernel(x, w_q, scale, route="w8a16_wgmma")
 
 
 def test_int8_matmul_ops_flattens_and_runs_the_kernel(cuda):
@@ -420,37 +522,68 @@ def test_int8_matmul_ops_flattens_and_runs_the_kernel(cuda):
     assert ((got.reshape(-1, 24).float() - want).abs() <= tol).all()
 
 
-# faults planted in a copy of the source: one column's scale taken from its
-# neighbour at every 8-column tile edge; the ragged last K tile dropped
+# faults planted in a copy of the source, each read where its code runs:
+# in w8a16_mma and w8a16_f32 (at the ragged (33, 70, 90), both types), one
+# column's scale taken from its neighbour at every 8-column tile edge and
+# the ragged last K tile dropped; in w8a16_wgmma (bf16 at the ragged
+# (1000, 2056, 6160)), the same two in its own epilogue and launcher
+INT8_SPLIT_K_READS = [(33, 70, 90, torch.bfloat16, "w8a16_mma"),
+                      (33, 70, 90, torch.float32, "w8a16_f32")]
+INT8_WGMMA_READS = [(1000, 2056, 6160, torch.bfloat16, "w8a16_wgmma")]
 INT8_FAULTS = {
     "scale_off_by_one": ("  return acc * scale[n];",
-                         "  return acc * scale[n ^ ((n & 7) == 7)];"),
+                         "  return acc * scale[n ^ ((n & 7) == 7)];",
+                         INT8_SPLIT_K_READS),
     "ragged_k_tile_dropped": (
         "inline int k_tiles(int k, int bk) { return cdiv(k, bk); }",
-        "inline int k_tiles(int k, int bk) { return k / bk; }"),
+        "inline int k_tiles(int k, int bk) { return k / bk; }",
+        INT8_SPLIT_K_READS),
+    "wgmma_scale_off_by_one": (
+        "  const float sc[2] = {nc < N ? scale[nc] : 0.f,",
+        "  const float sc[2] = {nc < N ? scale[nc ^ ((nc & 7) == 7)] : 0.f,",
+        INT8_WGMMA_READS),
+    "wgmma_ragged_k_tile_dropped": (
+        "  const int nk = cdiv(k, TK);  // a ragged last K tile loads as zeros",
+        "  const int nk = k / TK;  // a ragged last K tile loads as zeros",
+        INT8_WGMMA_READS),
 }
+
+
+def _csrc_copy(tmp_path, name: str, old: str, new: str) -> Path:
+    """``csrc`` (sources and headers) copied into ``tmp_path`` with ``old``
+    replaced by ``new`` in ``<name>.cu``, where it occurs once."""
+    from repro_torch.kernels import _build
+    dst = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, dst)
+    src = (dst / f"{name}.cu").read_text()
+    assert src.count(old) == 1
+    (dst / f"{name}.cu").write_text(src.replace(old, new))
+    return dst
 
 
 @pytest.mark.parametrize("fault", sorted(INT8_FAULTS))
 def test_int8_tolerance_sees_planted_faults(cuda, fault, tmp_path,
                                             monkeypatch):
-    """Each fault, built from a copy of ``csrc/int8_matmul.cu`` in a
-    temporary directory, reads above 1 at the ragged (33, 70, 90) in both
-    types; the sound kernel reads below 1 there."""
+    """Each fault, built from a copy of ``csrc`` in a temporary directory,
+    reads above 1 on the kernels whose code it is in; the sound kernels
+    read below 1 there."""
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
-    src = (_build.CSRC / "int8_matmul.cu").read_text()
-    old, new = INT8_FAULTS[fault]
-    assert src.count(old) == 1
-    (tmp_path / "csrc").mkdir()
-    (tmp_path / "csrc" / "int8_matmul.cu").write_text(src.replace(old, new))
-    sound = {dt: _int8_reading(cuda, 33, 70, 90, dt)
-             for dt in (torch.bfloat16, torch.float32)}
-    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    old, new, reads = INT8_FAULTS[fault]
+    csrc = _csrc_copy(tmp_path, "int8_matmul", old, new)
+
+    def readings():
+        out = {}
+        for m, k, n, dt, route in reads:
+            out[route], ran = _int8_reading(cuda, m, k, n, dt)
+            assert ran == route
+        return out
+
+    sound = readings()
+    monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
-    planted = {dt: _int8_reading(cuda, 33, 70, 90, dt)
-               for dt in (torch.bfloat16, torch.float32)}
+    planted = readings()
     print(f"int8_matmul fault {fault}: err_over_tol sound {sound}, "
           f"planted {planted}")
     assert all(v < 1.0 for v in sound.values())

@@ -145,3 +145,49 @@ def test_persist_rejects_unported_families(tmp_path):
         p_load(str(tmp_path / "ridge"))
     with pytest.raises(TypeError, match="later slice"):
         p_save(object(), str(tmp_path / "x"))
+
+
+def test_histogram_ops_hands_the_kernel_f64(monkeypatch):
+    """Off the CPU the dispatch hands the kernel int32 codes and the f64
+    gradient as it is (no cast to f32), and returns f64 sums and counts.
+    The kernel is replaced by a recorder; meta tensors stand in for the
+    card's."""
+    seen = {}
+
+    def record(codes, grad, n_bins):
+        seen.update(codes=codes.dtype, grad=grad.dtype, n_bins=n_bins)
+        f = codes.shape[1]
+        return (torch.zeros((f, n_bins), dtype=torch.float64,
+                            device=codes.device),
+                torch.zeros((f, n_bins), dtype=torch.int32,
+                            device=codes.device))
+
+    monkeypatch.setattr(pops, "grad_histogram_kernel", record)
+    codes = torch.zeros((5, 3), dtype=torch.int64, device="meta")
+    grad = torch.zeros(5, dtype=torch.float64, device="meta")
+    gsum, cnt = pops.grad_histogram(codes, grad, 8)
+    assert seen == {"codes": torch.int32, "grad": torch.float64,
+                    "n_bins": 8}
+    assert gsum.dtype == cnt.dtype == torch.float64
+
+
+def test_histogram_kernel_constants_match_the_source():
+    """The wrapper's block constants are the source's: 8 bins a block,
+    2,048 rows staged in 24 KB of static shared memory."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "gbt_hist.cu").read_text()
+    const = dict(re.findall(r"constexpr int (BINS|PER_THREAD) = (\d+);",
+                            src))
+    assert int(const["BINS"]) == pkernel.BINS_PER_BLOCK
+    assert int(const["BINS"]) * 32 * int(const["PER_THREAD"]) \
+        == pkernel.ROWS_PER_CHUNK
+    assert pkernel.SMEM_BYTES <= 48 * 1024
+
+
+def test_bench_histogram_work_counts_f64_gradients_and_sums():
+    from repro_torch.bench.kernels import gbt_hist_work
+    n, f, b = 12589, 7, 64
+    # int32 codes and f64 gradients read; f64 sums and int32 counts written
+    assert gbt_hist_work(n, f, b) == (n * f * 4 + n * 8 + f * b * (8 + 4),
+                                      2 * n * f)

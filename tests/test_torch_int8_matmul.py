@@ -236,3 +236,96 @@ def test_bench_flash_rows_are_the_served_prefills():
         cfg = get_config(arch)
         want[case] = (4, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
     assert got == want
+
+
+# (dtype, M, K, N, bases, route): the bench's prefill takes the wgmma
+# kernel; misaligned K, N or bases, f32 x and M of 16 or fewer do not
+ROUTE_CASES = [
+    (torch.bfloat16, 8192, 2048, 6144, (0, 0, 0), "w8a16_wgmma"),
+    (torch.bfloat16, 8192, 6144, 2048, (0, 0, 0), "w8a16_wgmma"),
+    (torch.bfloat16, 8192, 2050, 6144, (0, 0, 0), "w8a16_mma"),
+    (torch.bfloat16, 8192, 2048, 6152, (0, 0, 0), "w8a16_mma"),
+    (torch.bfloat16, 8192, 2048, 6144, (2, 0, 0), "w8a16_mma"),
+    (torch.bfloat16, 8192, 2048, 6144, (0, 8, 0), "w8a16_mma"),
+    (torch.bfloat16, 8192, 2048, 6144, (0, 0, 4), "w8a16_mma"),
+    (torch.float32, 8192, 2048, 6144, (0, 0, 0), "w8a16_f32"),
+    (torch.bfloat16, 16, 2048, 6144, (0, 0, 0), "w8a16_mma"),
+    (torch.bfloat16, 4, 2048, 151936, (0, 0, 0), "w8a16_mma"),
+    (torch.bfloat16, 1, 2048, 6144, (0, 0, 0), "w8a16_mma"),
+]
+
+
+@pytest.mark.parametrize("dtype,m,k,n,bases,route", ROUTE_CASES)
+def test_route_rule(dtype, m, k, n, bases, route):
+    from repro_torch.kernels.int8_matmul.kernel import choose_route
+    assert choose_route(dtype, m, k, n, bases) == route
+
+
+def test_route_threshold_and_bench_rows():
+    """``WGMMA_MIN_M`` is where the rule switches, above decode's 16 rows;
+    the bench's prefill row takes the wgmma kernel, its decode, down
+    projection and LM-head rows the mma.sync one."""
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    t = q_kernel.WGMMA_MIN_M
+    assert t > 16
+    assert q_kernel.choose_route(torch.bfloat16, t, 2048, 6144) \
+        == "w8a16_wgmma"
+    assert q_kernel.choose_route(torch.bfloat16, t - 1, 2048, 6144) \
+        == "w8a16_mma"
+    with pytest.raises(TypeError):
+        q_kernel.choose_route(torch.float16, 8192, 2048, 6144)
+    got = {c: q_kernel.choose_route(torch.bfloat16, m, k, n)
+           for c, m, k, n in bench.INT8_SHAPES}
+    assert got == {"decode_b1": "w8a16_mma", "decode_b4": "w8a16_mma",
+                   "decode_b4_down": "w8a16_mma", "lm_head_b4": "w8a16_mma",
+                   "prefill": "w8a16_wgmma"}
+
+
+def test_routes_and_tiles_match_the_source():
+    """The route numbers and the packed tile are the source's."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.int8_matmul import kernel as q_kernel
+    from repro_torch.kernels.int8_matmul import ref as q_ref
+    src = (_build.CSRC / "int8_matmul.cu").read_text()
+    enum = re.search(r"enum Route \{ kF32 = 0, kMma = 1, kWgmma = 2 \};", src)
+    assert enum and q_kernel.ROUTES == ("w8a16_f32", "w8a16_mma",
+                                        "w8a16_wgmma")
+    const = dict(re.findall(r"constexpr int (TN|TK) = (\d+);", src))
+    assert (int(const["TK"]), int(const["TN"])) == (q_ref.PACK_K,
+                                                    q_ref.PACK_N)
+
+
+def test_fragment_order_is_a_permutation():
+    from repro_torch.kernels.int8_matmul.ref import (PACK_K, PACK_N,
+                                                     fragment_order)
+    order = fragment_order()
+    assert torch.equal(order.sort().values, torch.arange(PACK_K * PACK_N))
+    # thread 0's first 8 bytes: k16 step 0 of column 0 and column 8, k 0..1
+    # and 8..9 (A registers 0..3)
+    assert (order[:8] // PACK_N).tolist() == [0, 1, 0, 1, 8, 9, 8, 9]
+    assert (order[:8] % PACK_N).tolist() == [0, 0, 8, 8, 0, 0, 8, 8]
+
+
+@pytest.mark.parametrize("k,n", [(64, 128), (70, 130), (1, 16),
+                                 (2056, 6160), (128, 256)])
+def test_pack_fragments_round_trips(k, n):
+    from repro_torch.kernels.int8_matmul.ref import (PACK_K, PACK_N,
+                                                     pack_fragments,
+                                                     unpack_fragments)
+    w = torch.as_tensor(np.random.default_rng(k * n).integers(
+        -127, 128, (k, n)), dtype=torch.int8)
+    packed = pack_fragments(w)
+    assert packed.dtype == torch.int8
+    assert packed.numel() == -(-k // PACK_K) * PACK_K * -(-n // PACK_N) \
+        * PACK_N
+    assert torch.equal(unpack_fragments(packed, k, n), w)
+    # the padding is zeros: the padded tiles add nothing to a product
+    assert int(packed.abs().sum()) == int(w.abs().sum())
+
+
+def test_bench_route_sweep_on_the_cpu():
+    rows = bench.int8_route_rows(torch.device("cpu"), ms=(3,), k=40, n=32)
+    assert [r["case"] for r in rows] == ["route_w8a16_mma_m3",
+                                         "route_w8a16_wgmma_m3"]
+    assert all(r["routes"] == {} and r["launches"] == 0 for r in rows)
