@@ -14,19 +14,23 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``wgmma`` still in flight (both kernels' counts are printed).
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
-   fitted on the card (``gbt_hist`` kernel) on ~15.8k per-layer rows of all
-   ten configs on the five edge devices, then ``decide_all`` over 2^20
+   fitted on the card (``gbt_hist`` kernel, one launch per tree level: at
+   most 200 x 12 = 2,400) on ~15.8k per-layer rows of all ten configs on
+   the five edge devices, then ``decide_all`` over 2^20
    environments for qwen3-1.7b at its published shape (28 layers) with a
    ``PredictorCost`` (``tree_predict`` + ``decide_split`` kernels), with a
    ``CompositeCost`` over it, and the analytic default over a mixed fleet.
    Each plan is held against the exact f64 ``backend="torch"`` sweep.
    Launch counts of the three kernels are read right after this path.
+   Then the fit runs again with timers (``fit_split``): its histogram
+   calls, its per-tree updates, and the host's growth code in between.
 3. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
    published shapes in bf16, each serving 8 greedy requests of 2048 random
    tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
-   kernels; their launch counts are read right after both models, and
-   every flash launch must have taken ``flash_fwd_wgmma``).  Every
+   kernels; their launch counts are read right after both models, every
+   flash launch must have taken ``flash_fwd_wgmma``, and every ``ssm_scan``
+   call must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
    request must get 32 in-range tokens and every logit must be finite.
 4. The whole model on the card: at each model's full width in f32, the
    kernel path (``build_model(cfg)``) and the plain path
@@ -34,10 +38,12 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    last-token logits must agree within 1e-3 of max |logit|.
 5. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
-   also against itself (two calls, the same bits).  ``gbt_hist`` must
-   equal the plain version on a CPU copy bit for bit, and the card's GBT
-   fit of phase 2 must grow the node arrays of the same fit on the CPU
-   (``flatten_gbt``, bit for bit: all 200 trees with identical splits).
+   and ``ssm_scan`` also against themselves (two calls, the same bits).
+   ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
+   two levels of phase 2's fit, as the fit called it (its root, and its
+   level with the most nodes), and the card's GBT fit must grow the node
+   arrays of the same fit on the CPU (``flatten_gbt``, bit for bit: all 200
+   trees with identical splits).
 6. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
@@ -45,7 +51,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    989 TFLOP/s dense bf16 on the tensor cores; the H100 SXM's published
    rates, defined once in ``repro_torch.bench.common``).  The bf16 flash
    kernel and SDPA are replayed from a CUDA graph, with the eager time
-   beside it.
+   beside it; ``gbt_hist`` is timed at both levels of phase 5, and
+   ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``, ``ssd_chunk``).
 7. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape and ``int8_matmul`` at qwen3-1.7b's five
@@ -157,16 +164,15 @@ def serve_slice(dev, smi: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.ssm_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.serve import Request, ServeEngine
 
     wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
-                "ssm_scan": ssd_scan_kernel}
+                "ssm_scan": ss_kernel.ssd_scan_kernel}
     expected = dict.fromkeys(wrappers, 0)
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
-    for w in wrappers.values():
-        w.launches = 0
     fa_kernel.reset_counts()
+    ss_kernel.reset_counts()
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
@@ -225,9 +231,16 @@ def serve_slice(dev, smi: str) -> dict:
         torch.cuda.empty_cache()
     launches = {k: w.launches for k, w in wrappers.items()}
     by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    ssm_by_kernel = dict(ss_kernel.ssd_scan_kernel.by_kernel)
     print(json.dumps({"serve_launch_counts": launches,
                       "flash_by_kernel": by_kernel,
+                      "ssm_by_kernel": ssm_by_kernel,
                       "expected": expected}), flush=True)
+    # every scan call: C·Bᵀ once, then the chunks
+    check(ssm_by_kernel == dict.fromkeys(ss_kernel.KERNELS,
+                                         expected["ssm_scan"]),
+          f"ssm_scan launches per kernel {ssm_by_kernel}, expected "
+          f"{expected['ssm_scan']} each")
     for k, n in launches.items():
         check(n == expected[k], f"kernel {k} launched {n} times on the "
               f"serving path, expected {expected[k]}")
@@ -235,7 +248,50 @@ def serve_slice(dev, smi: str) -> dict:
     check(by_kernel["flash_fwd_wgmma"] == expected["flash_attention"],
           f"flash_attention: {by_kernel} on the serving path, expected all "
           f"{expected['flash_attention']} launches on flash_fwd_wgmma")
-    return launches
+    return dict(launches, ssm_scan_by_kernel=ssm_by_kernel)
+
+
+def fit_split(gbt, gbt_kw: dict, x, y, dev) -> None:
+    """Where ``fit_s`` goes: the same fit again on the card, timing by the
+    host clock its level histograms (launch, kernel and the copy of the
+    [K, F, B] sums and counts to the host, synchronised) and its per-tree
+    updates (``_tree_predict``); the rest is the host's growth code.  The
+    timers synchronise, so this fit is not ``fit_s``; it must grow the same
+    trees."""
+    import numpy as np
+    import torch
+    from repro_torch.core.predictors import gbt as gbt_mod
+    from repro_torch.kernels.tree_predict.ref import flatten_gbt
+
+    spent = {"histograms_s": 0.0, "tree_update_s": 0.0}
+    hist, update = gbt_mod.hist_ops.level_histogram, \
+        gbt_mod.GBTRegressor._tree_predict
+
+    def timed(key, fn):
+        def run(*args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if key == "histograms_s":
+                out = tuple(t.cpu() for t in out)
+            spent[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    gbt_mod.hist_ops.level_histogram = timed("histograms_s", hist)
+    gbt_mod.GBTRegressor._tree_predict = timed("tree_update_s", update)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = gbt_mod.GBTRegressor(**gbt_kw).fit(x, y, device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    gbt_mod.hist_ops.level_histogram = hist
+    gbt_mod.GBTRegressor._tree_predict = update
+    a, b = flatten_gbt(again), flatten_gbt(gbt)
+    check(all(np.array_equal(getattr(a, f), getattr(b, f)) for f in
+              ("feature", "threshold_bin", "left", "right", "value")),
+          "the timed fit grew other trees")
+    line("fit_split", fit_s=total, **spent,
+         host_growth_s=total - sum(spent.values()))
 
 
 def model_check(dev) -> None:
@@ -280,7 +336,7 @@ def serving_kernels(dev, launches: dict) -> list:
     import torch.nn.functional as F
     from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S,
                                           bound, timed_ms)
-    from repro_torch.bench.kernels import flash_work, ssm_work
+    from repro_torch.bench.kernels import flash_work, ssm_cb_work, ssm_work
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
@@ -409,6 +465,11 @@ def serving_kernels(dev, launches: dict) -> list:
     args = (xdt, loga, bm, cm, chunk)
     y, st = ss_kernel.ssd_scan_kernel(*args)
     torch.cuda.synchronize()
+    # the same bits on a second call: no race in the chunks' hand-off
+    y2, st2 = ss_kernel.ssd_scan_kernel(*args)
+    check(torch.equal(y, y2) and torch.equal(st, st2),
+          "ssm_scan: two calls on the same inputs differ")
+    del y2, st2
     y_p, st_p = ss_ref.ssd_scan_chunked_ref(*args)
     errs = {}
     for name, got, want in (("y", y, y_p), ("state", st, st_p)):
@@ -421,12 +482,34 @@ def serving_kernels(dev, launches: dict) -> list:
               "tolerance 2e-4)")
     line("kernel_check", kernel="ssm_scan", shape=[b, s, h, p, n],
          chunk=chunk, max_abs_err_y=errs["y"],
-         max_abs_err_state=errs["state"], tolerance=2e-4)
+         max_abs_err_state=errs["state"], tolerance=2e-4,
+         same_bits_in_two_calls=True)
     ss = dict(ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(*args), 10),
               plain_ms=timed_ms(lambda: ss_ref.ssd_scan_chunked_ref(*args),
                                 2, groups=3),
               library_ms=None,
               bound=bound(*ssm_work(b, s, h, p, n, chunk), F32_OPS_PER_S))
+    # each CUDA kernel of the call on its own, with its own bound: ssd_cb's
+    # work, and ssd_chunk's (the rest, reading C·Bᵀ from ssd_cb)
+    cb = ss_kernel.cb_kernel(bm, cm, chunk)
+    cb_bytes, cb_ops = ssm_cb_work(b, s, n, chunk)
+    all_bytes, all_ops = ssm_work(b, s, h, p, n, chunk)
+    per_kernel = {}
+    for name, fn, (nbytes, ops) in (
+            ("ssd_cb", lambda: ss_kernel.cb_kernel(bm, cm, chunk),
+             (cb_bytes, cb_ops)),
+            ("ssd_chunk",
+             lambda: ss_kernel.chunk_kernel(xdt, loga, bm, cm, cb, chunk),
+             (all_bytes + 4 * cb.numel(), all_ops - cb_ops))):
+        kb = bound(nbytes, ops, F32_OPS_PER_S)
+        per_kernel[name] = dict(ms=timed_ms(fn, 10), bound_ms=kb[0],
+                                bound_by=kb[1],
+                                launches=launches["ssm_scan_by_kernel"][name])
+    ss["kernels"] = per_kernel
+    line("timing_extra", kernel="ssm_scan", shape=[b, s, h, p, n, chunk],
+         **{k: v for k, v in ss.items() if k != "bound"},
+         bound_ms=ss["bound"][0], bound_by=ss["bound"][1])
+    del cb
 
     out = []
     for name, t, err, shape, source, replaces in (
@@ -445,6 +528,8 @@ def serving_kernels(dev, launches: dict) -> list:
     # flash: replayed from a CUDA graph; the eager call beside it
     out[0].update(timing="graph", eager_ms=fa["eager_ms"],
                   library_eager_ms=fa["library_eager_ms"])
+    # ssm_scan: launches count calls; each CUDA kernel's own record
+    out[1]["kernels"] = ss["kernels"]
     return out
 
 
@@ -532,17 +617,18 @@ def main() -> None:
 
     from repro_torch import configs
     from repro_torch.bench.common import bound, card, timed_ms
-    from repro_torch.bench.kernels import gbt_hist_work
+    from repro_torch.bench.kernels import WIDEST_LEVEL, gbt_hist_work
     from repro_torch.core import costs as co
     from repro_torch.core import decisions as dec
     from repro_torch.core import offload as off
-    from repro_torch.core.predictors.gbt import GBTRegressor, bin_data
+    from repro_torch.core.predictors.gbt import GBTRegressor
     from repro_torch.hw import EDGE_DEVICES, get_device
     from repro_torch.kernels import _build
     from repro_torch.kernels.decide_split import kernel as ds_kernel
     from repro_torch.kernels.decide_split import ops as ds_ops
     from repro_torch.kernels.decide_split import ref as ds_ref
     from repro_torch.kernels.gbt_hist import kernel as gh_kernel
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
     from repro_torch.kernels.gbt_hist import ref as gh_ref
     from repro_torch.kernels.tree_predict import kernel as tp_kernel
     from repro_torch.kernels.tree_predict import ref as tp_ref
@@ -583,7 +669,7 @@ def main() -> None:
                   f"{k}: SASS writes the A registers of an in-flight wgmma "
                   f"({sass})")
 
-    wrappers = {"gbt_hist": gh_kernel.grad_histogram_kernel,
+    wrappers = {"gbt_hist": gh_kernel.level_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,
                 "decide_split": ds_kernel.decide_split_kernel}
 
@@ -612,13 +698,27 @@ def main() -> None:
     gbt_kw = dict(n_trees=200, max_depth=12, subsample=0.8, n_bins=64,
                   seed=SEED)
 
+    # the fit's levels as it hands them to the kernel, kept for phases 5
+    # and 6 (references only): its first root, and its level with the most
+    # nodes
+    levels, launch_level = {}, gh_ops.level_histogram_kernel
+
+    def recorded(*args):
+        args, k = args[:4], args[3].numel() - 1     # n_bins is 64
+        levels.setdefault("root", args)
+        if "widest" not in levels or k > levels["widest"][3].numel() - 1:
+            levels["widest"] = args
+        return launch_level(*args, gbt_kw["n_bins"])
+
     for w in wrappers.values():
         w.launches = 0
+    gh_ops.level_histogram_kernel = recorded
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gbt = GBTRegressor(**gbt_kw).fit(x, y, device=dev)
     torch.cuda.synchronize()
     t_fit = time.perf_counter()
+    gh_ops.level_histogram_kernel = launch_level
     envs = dec.make_envs(pi5, a100, link_bw=bw, link_latency_s=0.005,
                          input_bytes=4 * 4096, device=dev)
     pcost = co.PredictorCost(gbt, pi5, a100)
@@ -638,10 +738,15 @@ def main() -> None:
     print(json.dumps({"launch_counts": launches}), flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
+    # one histogram launch per level of each tree, none per node
+    most = gbt_kw["n_trees"] * gbt_kw["max_depth"]
+    check(launches["gbt_hist"] <= most, f"gbt_hist launched "
+          f"{launches['gbt_hist']} times in the fit, at most {most} expected")
     line("e2e", fit_s=t_fit - t0, predict_and_decide_s=t_decide - t_fit,
          fit_predict_decide_s=t_decide - t0,
          composite_and_fleet_decide_s=t_end - t_decide,
          n_envs=N_ENVS, n_layers=len(layers))
+    fit_split(gbt, gbt_kw, x, y, dev)
 
     # every plan: finite, right shape, near-optimal against exact f64
     for name, plan, cost, e in (("predictor", plan_p, pcost, envs),
@@ -676,27 +781,36 @@ def main() -> None:
     # -- 5. kernels against their plain versions ---------------------------
     records = {}
 
-    # gbt_hist at the first tree's root node: the fit's largest histogram
-    rows = np.random.default_rng(SEED).random(len(y)) < 0.8
-    codes = torch.as_tensor(bin_data(x[rows], gbt.edges_).astype(np.int32),
-                            device=dev)
-    grad = torch.as_tensor((y - y.mean())[rows], dtype=torch.float64,
-                           device=dev)
-    gsum, cnt = gh_kernel.grad_histogram_kernel(codes, grad, 64)
-    torch.cuda.synchronize()
-    # the plain version on a CPU copy adds in np.bincount's order, as the
-    # kernel does: exactly equal (the card's torch.bincount uses atomics)
-    pg, pc = gh_ref.grad_histogram_ref(codes.cpu(), grad.cpu(), 64)
-    gsum, cnt = gsum.cpu(), cnt.cpu()
-    check(torch.equal(cnt.double(), pc), "gbt_hist: counts differ")
-    check(torch.equal(gsum, pg), "gbt_hist: sums differ from the plain "
-          f"version's (max {(gsum - pg).abs().max().item()}; tolerance: "
-          "exact)")
-    records["gbt_hist"] = dict(max_abs_err=(gsum - pg).abs().max().item(),
-                               shape=list(codes.shape))
-    line("kernel_check", kernel="gbt_hist", rows=int(codes.shape[0]),
-         counts_exact=True, sums_exact=True,
-         max_abs_err=records["gbt_hist"]["max_abs_err"])
+    # gbt_hist at two of the fit's levels as the fit called it: the first
+    # root (its most rows) and the level with the most nodes; the plain
+    # version on a CPU copy adds in np.bincount's order, as the kernel does:
+    # exactly equal (the card's torch.bincount uses atomics)
+    level_shape, level_err = {}, []
+    for case in ("root", "widest"):
+        args = levels[case]
+        gsum, cnt = gh_kernel.level_histogram_kernel(*args, 64)
+        torch.cuda.synchronize()
+        pg, pc = gh_ref.level_histogram_ref(*(t.cpu() for t in args), 64)
+        gsum, cnt = gsum.cpu(), cnt.cpu()
+        check(torch.equal(cnt.double(), pc), f"gbt_hist {case}: counts "
+              "differ")
+        check(torch.equal(gsum, pg), f"gbt_hist {case}: sums differ from "
+              f"the plain version's (max {(gsum - pg).abs().max().item()}; "
+              "tolerance: exact)")
+        level_shape[case] = [args[2].numel(), args[0].shape[1], 64,
+                             args[3].numel() - 1]
+        level_err.append((gsum - pg).abs().max().item())
+        line("kernel_check", kernel="gbt_hist", level=case,
+             rows=level_shape[case][0], nodes=level_shape[case][3],
+             counts_exact=True, sums_exact=True, max_abs_err=level_err[-1])
+    records["gbt_hist"] = dict(max_abs_err=max(level_err),
+                               shape=level_shape["root"])
+    # the kernel bench's widest_level row times this level's node sizes;
+    # their order within the level differs between numpy builds (2.0, 2.3)
+    offs = levels["widest"][3].cpu()
+    check(sorted((offs[1:] - offs[:-1]).tolist()) == sorted(WIDEST_LEVEL),
+          "the fit's widest level has other node sizes than "
+          "bench.kernels.WIDEST_LEVEL")
 
     # the card's fit against the same fit on the CPU: the same histograms
     # and the same host growth code, so the same node arrays, bit for bit
@@ -802,19 +916,29 @@ def main() -> None:
     del exact300
 
     # -- 6. timing ---------------------------------------------------------
-    n, f = codes.shape
-    flat = (codes.long() + torch.arange(f, device=dev) * 64).reshape(-1)
-    wts = grad.repeat_interleave(f)
-    gh_bound = bound(*gbt_hist_work(n, f, 64))
-    gh_times = dict(
-        ms=timed_ms(lambda: gh_kernel.grad_histogram_kernel(codes, grad, 64),
-                    50),
-        plain_ms=timed_ms(lambda: gh_ref.grad_histogram_ref(codes, grad, 64),
-                          20),
-        library_ms=timed_ms(lambda: (torch.bincount(flat, weights=wts,
-                                                    minlength=f * 64),
-                                     torch.bincount(flat, minlength=f * 64)),
-                            20))
+    def level_times(codes_l, grad_l, order, offsets):
+        m, f = order.numel(), codes_l.shape[1]
+        k = offsets.numel() - 1
+        node = torch.repeat_interleave(torch.arange(k, device=dev),
+                                       (offsets[1:] - offsets[:-1]).long())
+        flat = ((node[:, None] * f + torch.arange(f, device=dev)) * 64
+                + codes_l[order.long()]).reshape(-1)
+        wts = grad_l[order.long()].repeat_interleave(f)
+        args = (codes_l, grad_l, order, offsets, 64)
+        b_ms, b_by = bound(*gbt_hist_work(m, f, 64, k))
+        return dict(
+            ms=timed_ms(lambda: gh_kernel.level_histogram_kernel(*args), 50),
+            plain_ms=timed_ms(lambda: gh_ref.level_histogram_ref(*args), 20),
+            library_ms=timed_ms(lambda: (
+                torch.bincount(flat, weights=wts, minlength=k * f * 64),
+                torch.bincount(flat, minlength=k * f * 64)), 20),
+            bound_ms=b_ms, bound_by=b_by, rows=m, nodes=k)
+
+    gh_levels = {case: level_times(*levels[case]) for case in levels}
+    line("timing_extra", kernel="gbt_hist", levels=gh_levels)
+    gh_times = gh_levels["root"]
+    gh_bound = (gh_times["bound_ms"], gh_times["bound_by"])
+    del levels
 
     # tree_predict operations: one compare per split node visited, one f64
     # add per (row, tree) — counted on this run's data (bytes bound it)
@@ -875,6 +999,7 @@ def main() -> None:
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": t["library_ms"],
                         "shape": records[name]["shape"]})
+    kernels[0]["levels"] = gh_levels
     kernels += serving_kernels(dev, serve_launches)
 
     # -- 7. the kernel bench: int8_matmul's entry point ---------------------

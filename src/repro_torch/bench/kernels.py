@@ -61,21 +61,46 @@ def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int
 
 def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int
              ) -> tuple[int, int]:
-    """(bytes, operations) of the f32 chunked scan: per chunk and row, C·Bᵀ
-    and its product with dt·x on the causal triangle, C·H and the state
-    update's (dt·x)ᵀ(B∘decay); xdt, loga, B, C read, y and the state
-    written."""
+    """(bytes, operations) of the f32 chunked scan: C·Bᵀ on the causal
+    triangle once per batch row and chunk (the heads share it), and per
+    head and chunk its product with dt·x, C·H and the state update's
+    (dt·x)ᵀ(B∘decay); xdt, loga, B, C read, y and the state written."""
     nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
-    ops = b * h * nc * (2 * tri * (n + p) + 2 * 2 * chunk * p * n)
+    ops = (b * h * nc * (2 * tri * p + 2 * 2 * chunk * p * n)
+           + b * nc * 2 * tri * n)
     return 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
                 + b * h * p * n), ops
 
 
-def gbt_hist_work(n: int, f: int, n_bins: int) -> tuple[int, int]:
-    """(bytes, operations) of the histogram: int32 codes and f64 gradients
-    read, the f64 sums and int32 counts [F, bins] written; one add to each
-    per (row, feature)."""
-    return n * f * 4 + n * 8 + f * n_bins * (8 + 4), 2 * n * f
+def ssm_cb_work(b: int, s: int, n: int, chunk: int) -> tuple[int, int]:
+    """(bytes, operations) of ``ssd_cb`` alone: B and C read, the [Q, Q]
+    tile of each batch row and chunk written, C·Bᵀ on the causal
+    triangle."""
+    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
+    return 4 * (2 * b * s * n + b * nc * chunk * chunk), b * nc * 2 * tri * n
+
+
+def gbt_hist_work(n: int, f: int, n_bins: int, nodes: int = 1
+                  ) -> tuple[int, int]:
+    """(bytes, operations) of one level's histograms over its ``n`` rows:
+    int32 codes, f64 gradients, int32 row ids and the ``nodes + 1`` offsets
+    read, the f64 sums and int32 counts [nodes, F, bins] written; one add
+    to each per (row, feature)."""
+    return (n * (f * 4 + 8 + 4) + (nodes + 1) * 4
+            + nodes * f * n_bins * (8 + 4), 2 * n * f)
+
+
+def level_rows(n_rows: int, sizes, seed: int = 0
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A level's ``order`` and ``offsets`` (int32, CPU): nodes of ``sizes``
+    rows, each a random ascending subset of ``range(n_rows)``."""
+    gen = torch.Generator().manual_seed(seed)
+    perm = torch.randperm(n_rows, generator=gen)
+    offsets = torch.zeros(len(sizes) + 1, dtype=torch.int64)
+    offsets[1:] = torch.cumsum(torch.as_tensor(sizes), 0)
+    order = torch.cat([perm[lo:hi].sort().values for lo, hi in
+                       zip(offsets[:-1].tolist(), offsets[1:].tolist())])
+    return order.to(torch.int32), offsets.to(torch.int32)
 
 
 def _row(name: str, dev: torch.device, **kw) -> dict:
@@ -173,44 +198,58 @@ def flash_attention_row(dev: torch.device, case: str = "qwen3_prefill",
     return row
 
 
-def gbt_hist_row(dev: torch.device, n: int = 12589, f: int = 7,
-                 n_bins: int = 64, seed: int = 0) -> dict:
-    """Gradient histogram; default: the GBT fit's root node (chip_smoke)."""
+def gbt_hist_row(dev: torch.device, case: str = "root_level",
+                 n: int = 12589, f: int = 7, n_bins: int = 64,
+                 sizes=None, distinct=None, seed: int = 0) -> dict:
+    """One level's histograms in one launch, over ``n`` rows in nodes of
+    ``sizes`` rows (default: one node of all of them, the GBT fit's root
+    in chip_smoke).  Feature j's codes take ``distinct[j]`` values spread
+    over the bins, uniformly at random (default: all ``n_bins``)."""
+    sizes = (n,) if sizes is None else sizes
+    distinct = (n_bins,) * f if distinct is None else distinct
     from repro_torch.kernels.gbt_hist import kernel as gh_kernel
     from repro_torch.kernels.gbt_hist import ref as gh_ref
     gen = torch.Generator(device=dev).manual_seed(seed)
-    codes = torch.randint(0, n_bins, (n, f), generator=gen, device=dev,
-                          dtype=torch.int32)
+    codes = torch.stack(
+        [torch.randint(0, d, (n,), generator=gen, device=dev) * n_bins // d
+         for d in distinct], 1).to(torch.int32).contiguous()
     grad = _randn(gen, dev, n, dtype=torch.float64)
-    flat = (codes.long() + torch.arange(f, device=dev) * n_bins).reshape(-1)
-    wts = grad.repeat_interleave(f)
-    bms, by = bound(*gbt_hist_work(n, f, n_bins))
-    row = _row("gbt_hist", dev, case="root_node", shape=[n, f, n_bins],
+    order, offsets = (t.to(dev) for t in level_rows(n, sizes, seed))
+    m, k = order.numel(), len(sizes)
+    node = torch.repeat_interleave(torch.arange(k, device=dev),
+                                   (offsets[1:] - offsets[:-1]).long())
+    flat = ((node[:, None] * f + torch.arange(f, device=dev)) * n_bins
+            + codes[order.long()]).reshape(-1)
+    wts = grad[order.long()].repeat_interleave(f)
+    bms, by = bound(*gbt_hist_work(m, f, n_bins, k))
+    row = _row("gbt_hist", dev, case=case, shape=[m, f, n_bins, k],
                dtype="float64", bound_us=1e3 * bms, bound_by=by,
                library="two torch.bincount")
+    args = (codes, grad, order, offsets, n_bins)
 
     def kernel():
-        return gh_kernel.grad_histogram_kernel(codes, grad, n_bins)
+        return gh_kernel.level_histogram_kernel(*args)
 
     def plain():
-        return gh_ref.grad_histogram_ref(codes, grad, n_bins)
+        return gh_ref.level_histogram_ref(*args)
 
     def library():
-        return (torch.bincount(flat, weights=wts, minlength=f * n_bins),
-                torch.bincount(flat, minlength=f * n_bins))
+        return (torch.bincount(flat, weights=wts, minlength=k * f * n_bins),
+                torch.bincount(flat, minlength=k * f * n_bins))
 
     if dev.type == "cuda":
         gsum, cnt = (t.cpu() for t in kernel())
         # the plain version on a CPU copy adds in np.bincount's order (the
         # card's torch.bincount adds with atomics): exactly equal
-        pg, pc = gh_ref.grad_histogram_ref(codes.cpu(), grad.cpu(), n_bins)
+        pg, pc = gh_ref.level_histogram_ref(*(t.cpu() for t in args[:4]),
+                                            n_bins)
         same = torch.equal(gsum, pg) and torch.equal(cnt.double(), pc)
         row["max_abs_err"] = (gsum - pg).abs().max().item()
         row["err_over_tol"] = 0.0 if same else math.inf
         row["tolerance"] = "exact: bit for bit with the plain version"
-    before = gh_kernel.grad_histogram_kernel.launches
+    before = gh_kernel.level_histogram_kernel.launches
     _times(row, dev, kernel, plain, library, reps=50, plain_reps=20)
-    row["launches"] = gh_kernel.grad_histogram_kernel.launches - before
+    row["launches"] = gh_kernel.level_histogram_kernel.launches - before
     return row
 
 
@@ -341,11 +380,31 @@ def int8_route_rows(dev: torch.device, ms=ROUTE_SWEEP_M, k: int = 2048,
             for m in ms for r in ("w8a16_mma", "w8a16_wgmma")]
 
 
+#: the GBT fit of chip_smoke (200 trees, depth 12, subsample 0.8, 64 bins,
+#: seed 0, on its 15,780 profile rows): the distinct codes of each feature
+#: at its first root, and the node sizes of its level with the most nodes
+#: (130 nodes, 8,376 of a tree's 12,589 rows), read off the same fit on the
+#: CPU, which grows the card's trees; the order of the nodes is numpy 2.0's
+#: (numpy 2.3 gives the same sizes in another order)
+FIT_DISTINCT = (60, 22, 5, 5, 5, 2, 5)
+WIDEST_LEVEL = (
+    45, 143, 24, 24, 31, 32, 42, 43, 21, 27, 63, 87, 71, 13, 14, 26, 28, 46,
+    25, 23, 17, 29, 19, 16, 28, 266, 210, 41, 39, 198, 39, 44, 19, 23, 20, 22,
+    29, 24, 26, 17, 33, 111, 4, 23, 24, 28, 26, 28, 18, 24, 58, 248, 65, 95,
+    267, 4, 81, 432, 27, 117, 106, 24, 68, 296, 27, 15, 16, 48, 53, 26, 26,
+    42, 48, 47, 41, 84, 87, 80, 78, 21, 38, 146, 313, 45, 51, 145, 90, 25, 51,
+    231, 226, 44, 41, 91, 93, 86, 52, 25, 26, 15, 20, 16, 81, 29, 23, 25, 121,
+    24, 23, 27, 26, 16, 52, 13, 53, 4, 260, 269, 49, 98, 49, 50, 46, 27, 25,
+    28, 95, 43, 26, 24)
+
 #: the bench's rows: (function, keyword arguments), at full width
 ROWS = ([(flash_attention_row, {}),
          (flash_attention_row, dict(case="zamba2_prefill", hq=32, hkv=32,
                                     d=64)),
-         (gbt_hist_row, {}), (ssm_scan_row, {})]
+         (gbt_hist_row, dict(distinct=FIT_DISTINCT)),
+         (gbt_hist_row, dict(case="widest_level", sizes=WIDEST_LEVEL,
+                             distinct=FIT_DISTINCT)),
+         (ssm_scan_row, {})]
         + [(int8_matmul_row, dict(case=c, m=m, k=k, n=n))
            for c, m, k, n in INT8_SHAPES])
 

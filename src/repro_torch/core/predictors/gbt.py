@@ -6,20 +6,22 @@ GBT:
 
   * features quantile-binned to bin codes (default 64 bins);
   * squared loss → gradient = residual, hessian = count;
-  * per-node *gradient histograms* per feature — the hot loop, run by
-    :mod:`repro_torch.kernels.gbt_hist`: the CUDA kernel for tensors on the
-    card, its plain version on the CPU, both in f64 and bit for bit with
-    the reference's ``np.bincount``;
+  * per-node *gradient histograms* per feature — the hot loop, run a level
+    at a time by :mod:`repro_torch.kernels.gbt_hist`: the CUDA kernel for
+    tensors on the card, its plain version on the CPU, both in f64 and bit
+    for bit with the reference's ``np.bincount``;
   * best split by the standard gain  GL²/nL + GR²/nR − G²/n;
   * row subsampling per boosting round, drawn from
     ``np.random.default_rng(seed)`` exactly as the reference draws it;
   * one ensemble per target.
 
-Tree growing stays host control flow in numpy, as in the reference: only
-the histogram moves to ``fit(..., device=)``.  On the CPU and on the card
-alike the port grows node arrays identical to the reference's: the
-histograms are the same bits, and the growth code around them is the
-reference's.
+Tree growing stays host control flow in numpy, but level by level where
+the reference recurses node by node: one histogram call builds every node
+of a level (``kernels.gbt_hist.ops.level_histogram``), the gains are
+vectorised over the level's nodes, and the nodes are renumbered in the
+reference's pre-order at the end.  Every number is the reference's, added
+in its order, so on the CPU and on the card alike the port grows node
+arrays identical to the reference's.
 """
 from __future__ import annotations
 
@@ -75,6 +77,22 @@ def grad_histogram(codes, grad, n_bins: int, *, device: DeviceLike = None
                                    n_bins)
 
 
+def _preorder(nodes: list[_Node]) -> list[_Node]:
+    """``nodes`` (root first, children by index) renumbered in pre-order,
+    left subtree first: the order of the reference's recursive growth."""
+    order, todo = [], [0]
+    while todo:
+        i = todo.pop()
+        order.append(i)
+        if not nodes[i].is_leaf:
+            todo += [nodes[i].right, nodes[i].left]
+    new = {old: i for i, old in enumerate(order)}
+    new[-1] = -1
+    return [_Node(nodes[old].feature, nodes[old].threshold_bin,
+                  new[nodes[old].left], new[nodes[old].right],
+                  nodes[old].value) for old in order]
+
+
 @dataclasses.dataclass
 class GBTRegressor:
     """Single-target gradient-boosted trees."""
@@ -110,80 +128,116 @@ class GBTRegressor:
                     rows = np.ones(n, bool)
             else:
                 rows = np.ones(n, bool)
-            rows_t = torch.as_tensor(np.flatnonzero(rows), device=dev)
-            tree = self._build_tree(codes[rows], resid[rows],
-                                    codes_t[rows_t],
-                                    torch.as_tensor(resid[rows],
-                                                    device=dev))
+            tree = self._build_tree(codes, resid, np.flatnonzero(rows),
+                                    codes_t, torch.as_tensor(resid,
+                                                             device=dev))
             self.trees_.append(tree)
             pred += self.learning_rate * self._tree_predict(tree, codes)
         return self
 
     # -- tree growing -----------------------------------------------------
     def _build_tree(self, codes: np.ndarray, grad: np.ndarray,
-                    codes_t: torch.Tensor, grad_t: torch.Tensor
-                    ) -> list[_Node]:
-        """``codes``/``grad`` on the host drive the growth; ``codes_t``/
-        ``grad_t`` are the same rows on the fit's device, gathered per node
-        for the histogram."""
-        nodes: list[_Node] = []
+                    rows: np.ndarray, codes_t: torch.Tensor,
+                    grad_t: torch.Tensor) -> list[_Node]:
+        """Grow one tree over ``rows`` (ascending ids into ``codes`` /
+        ``grad``) level by level, with one histogram call per level;
+        ``codes_t`` / ``grad_t`` are all rows on the fit's device.
 
-        def grow(idx: np.ndarray, depth: int) -> int:
-            node_id = len(nodes)
-            nodes.append(_Node())
-            g = grad[idx]
-            n = len(idx)
-            value = g.sum() / (n + self.lambda_reg)
-            if depth >= self.max_depth or n < 2 * self.min_samples_leaf:
-                nodes[node_id].value = value
-                return node_id
-            idx_t = torch.as_tensor(idx, device=codes_t.device)
-            gsum, cnt = (h.cpu().numpy() for h in grad_histogram(
-                codes_t[idx_t], grad_t[idx_t], self.n_bins,
-                device=codes_t.device))
-            gl = np.cumsum(gsum, axis=1)                   # [F, B]
-            nl = np.cumsum(cnt, axis=1)
-            gt, nt = g.sum(), float(n)
+        Every number is the reference's recursive growth's, in its order:
+        a node's histogram adds its rows in ascending order (the level's
+        rows stay grouped by node, ascending within each), its gradient
+        total is ``g.sum()`` over those rows, and the gains are the
+        reference's formula element by element.  The nodes are numbered in
+        the reference's pre-order (left subtree first) at the end."""
+        lam, leaf_min = self.lambda_reg, self.min_samples_leaf
+        nodes = [_Node()]              # in level order until the end
+        ids = [0]                      # the level's nodes
+        order = rows                   # the level's rows, grouped by node
+        offsets = np.array([0, len(rows)])
+        depth = 0
+        while ids:
+            g_level = grad[order]
+            bounds = offsets.tolist()
+            counts = np.diff(offsets)
+            totals = [g_level[lo:hi].sum()
+                      for lo, hi in zip(bounds[:-1], bounds[1:])]
+            can = counts >= 2 * leaf_min
+            if depth >= self.max_depth:
+                can[:] = False
+            for k in np.flatnonzero(~can):
+                nodes[ids[k]].value = totals[k] / (int(counts[k]) + lam)
+            split = np.flatnonzero(can)
+            if not len(split):
+                break
+            scores = [totals[k] ** 2 / (float(counts[k]) + lam)
+                      for k in split]
+            totals = [totals[k] for k in split]
+            sizes = counts[split]
+            seg = order[np.repeat(can, counts)]
+            seg_off = np.concatenate([[0], np.cumsum(sizes)])
+            gsum, cnt = (h.cpu().numpy() for h in hist_ops.level_histogram(
+                codes_t, grad_t,
+                torch.as_tensor(seg.astype(np.int32), device=codes_t.device),
+                torch.as_tensor(seg_off.astype(np.int32),
+                                device=codes_t.device), self.n_bins))
+            gl = np.cumsum(gsum, axis=2)                   # [K, F, B]
+            nl = np.cumsum(cnt, axis=2)
+            gt = np.array(totals)[:, None, None]
+            nt = sizes.astype(np.float64)[:, None, None]
             gr, nr = gt - gl, nt - nl
-            lam = self.lambda_reg
             gain = (gl ** 2 / (nl + lam) + gr ** 2 / (nr + lam)
-                    - gt ** 2 / (nt + lam))
-            ok = (nl >= self.min_samples_leaf) & (nr >= self.min_samples_leaf)
-            gain = np.where(ok, gain, -np.inf)
-            f, b = np.unravel_index(np.argmax(gain), gain.shape)
-            if not np.isfinite(gain[f, b]) or gain[f, b] <= 1e-12:
-                nodes[node_id].value = value
-                return node_id
-            mask = codes[idx, f] <= b
-            left = grow(idx[mask], depth + 1)
-            right = grow(idx[~mask], depth + 1)
-            nodes[node_id].feature = int(f)
-            nodes[node_id].threshold_bin = int(b)
-            nodes[node_id].left = left
-            nodes[node_id].right = right
-            return node_id
-
-        grow(np.arange(len(grad)), 0)
-        return nodes
+                    - np.array(scores)[:, None, None])
+            ok = (nl >= leaf_min) & (nr >= leaf_min)
+            gain = np.where(ok, gain, -np.inf).reshape(len(split), -1)
+            best = np.argmax(gain, axis=1)
+            top = gain[np.arange(len(split)), best]
+            bf, bb = np.unravel_index(best, gsum.shape[1:])
+            grows = np.isfinite(top) & (top > 1e-12)
+            nxt = []
+            for j, k in enumerate(split):
+                if not grows[j]:
+                    nodes[ids[k]].value = totals[j] / (int(sizes[j]) + lam)
+                    continue
+                node = nodes[ids[k]]
+                node.feature, node.threshold_bin = int(bf[j]), int(bb[j])
+                node.left, node.right = len(nodes), len(nodes) + 1
+                nodes += [_Node(), _Node()]
+                nxt += [node.left, node.right]
+            if not nxt:
+                break
+            # each growing node's rows to its children, ascending in each
+            part = np.flatnonzero(grows)
+            n_rows = sizes[part]
+            at = seg[np.repeat(grows, sizes)]
+            right = codes[at, np.repeat(bf[part], n_rows)] > \
+                np.repeat(bb[part], n_rows)
+            child = 2 * np.repeat(np.arange(len(part)), n_rows) + right
+            order = at[np.argsort(child, kind="stable")]
+            offsets = np.concatenate(
+                [[0], np.cumsum(np.bincount(child, minlength=len(nxt)))])
+            ids = nxt
+            depth += 1
+        return _preorder(nodes)
 
     def _tree_predict(self, tree: list[_Node], codes: np.ndarray
                       ) -> np.ndarray:
-        out = np.empty(len(codes))
-        # vectorised level-order traversal
-        node_idx = np.zeros(len(codes), np.int32)
-        active = np.ones(len(codes), bool)
-        while active.any():
-            for nid in np.unique(node_idx[active]):
-                node = tree[nid]
-                sel = active & (node_idx == nid)
-                if node.is_leaf:
-                    out[sel] = node.value
-                    active &= ~sel
-                else:
-                    goes_left = codes[sel, node.feature] <= node.threshold_bin
-                    tgt = np.where(goes_left, node.left, node.right)
-                    node_idx[sel] = tgt
-        return out
+        """The tree's leaf value for every row of ``codes``: all rows
+        descend together, one gather a level."""
+        feature, threshold, left, right = (np.array(a) for a in zip(*(
+            (nd.feature, nd.threshold_bin, nd.left, nd.right)
+            for nd in tree)))
+        value = np.array([nd.value for nd in tree], np.float64)
+        flat = codes.ravel()
+        base = np.arange(len(codes)) * codes.shape[1]
+        node = np.zeros(len(codes), np.int64)
+        while True:
+            f = feature[node]
+            inner = f >= 0
+            if not inner.any():
+                return value[node]
+            goes_left = flat[base + np.maximum(f, 0)] <= threshold[node]
+            node = np.where(inner, np.where(goes_left, left[node],
+                                            right[node]), node)
 
     def predict(self, x, *, device: DeviceLike = None) -> torch.Tensor:
         """``[N]`` f64 predictions on ``device`` (None = cuda; the

@@ -1,5 +1,5 @@
-// Chunked Mamba2 SSD scan: per (batch, head) row, sequential over chunks of
-// Q steps, carrying the [P, N] state.
+// Chunked Mamba2 SSD scan, chunk-parallel: every (batch, head, chunk) is a
+// block of its own, and only the [P, N] state is handed from chunk to chunk.
 //
 // Replaces: src/repro/kernels/ssm_scan/kernel.py, ssd_scan_kernel (the
 // Pallas TPU kernel, body _kernel), whose grid (B*H, nc) runs the chunk
@@ -8,220 +8,517 @@
 // Per chunk, with csum the inclusive cumsum of log a over the chunk and
 // total = csum[Q-1]:
 //   y[t]  = sum_{s<=t} (C_t . B_s) exp(csum[t] - csum[s]) xdt[s]
-//         + exp(csum[t]) (C_t . H)                        (H is [P, N])
-//   H'    = exp(total) H + sum_s xdt[s] (B_s exp(total - csum[s]))^T
+//         + exp(csum[t]) (C_t . H)              (H: the state before it)
+//   H'    = exp(total) H + S,   S = sum_s xdt[s] (B_s exp(total - csum[s]))^T
 // B and C are shared by the heads of a batch row (the Pallas index i // h).
 //
 // What bounds it on the H100: operations.  At B 4, H 64, S 2048, P = N = 64,
-// Q = 128 it does ~26 GFLOP in f32 against ~0.3 GB (xdt and y in f32):
-// ~90 operations per byte, above the f32 line of the CUDA cores
-// (67 TFLOP/s over 3.35 TB/s = 20).  It works in full f32 on the CUDA
-// cores, as the reference does; TF32 tensor cores would cut the mantissa
-// to 10 bits.
+// Q = 128 the function needs ~13.0 GFLOP in f32 (C.B^T once per batch row
+// and chunk; per head and chunk the causal product with xdt, S and C.H)
+// against ~0.28 GB (xdt and y in f32): ~46 operations per byte, above the
+// f32 line of the CUDA cores (67 TFLOP/s over 3.35 TB/s = 20).  It works in
+// full f32 on the CUDA cores, as the reference does; TF32 tensor cores would
+// cut the mantissa to 10 bits.
 //
-// Design: one block of 256 threads per (batch, head) row, walking the
-// chunks in order.  Shared memory holds the chunk's xdt [Q][P], B^T [N][Q],
-// C [Q][N], the gated score tile G [Q][Q], the state (transposed, [N][P])
-// and the chunk's csum and exp(total - csum): 178 KB at the capacities
-// Q = 128, P = N = 64, so the launcher opts in to more than the 48 KB
-// default.  Each phase is a register-tiled product (each thread 8x8, 8x4 or
-// 4x4 outputs, reading shared memory along conflict-free padded strides).
-// exp(csum[t] - csum[s]) is formed only for s <= t, where it is <= 1.  Steps
-// past the sequence's end load as dt = 0 (decay 1, input 0), which is what
-// padding to a multiple of Q gives the reference, and are not stored.
+// Design, SSD's own decomposition in two kernels:
+//  ssd_cb     one block per (batch row, chunk): C.B^T [Q][Q], computed once
+//             and read by the heads' blocks (4 MB at zamba2's prefill, from
+//             L2), not once per head.
+//  ssd_chunk  one block per (batch, head, chunk), 4,096 blocks of 256
+//             threads at 99 KB of shared memory, two an SM.  A block takes a
+//             ticket from a counter when it starts and works on the chunk the
+//             ticket names, chunk-major, so every chunk's predecessor started
+//             before it.  It computes, on its own: the cumsum of log a, the
+//             intra-chunk output (C.B^T o causal decay) . xdt, and the
+//             chunk's state contribution S.  Then the only sequential part:
+//             it waits until the previous chunk of its row has published H
+//             (a per-row counter, read with acquire), forms H' = exp(total) H
+//             + S, publishes it (written, fenced, the counter released) and
+//             only then adds exp(csum) C . H to its output.  H travels
+//             through a two-slot ring per row (8 MB at zamba2's prefill):
+//             chunk c reads slot (c-1)&1, and chunk c+1 overwrites it only
+//             after waiting for chunk c.  Nothing is added with atomics, so
+//             every run gives the same bits.
+// The products are register-tiled (each thread 2 x 4x4 or 4x4 outputs,
+// float4 reads of shared memory); the intra product gives each thread one
+// block of 4 rows near the top of the causal triangle and one near the
+// bottom, so every thread walks 132 steps.  exp(csum[t] - csum[s]) is formed
+// only for s <= t, where it is <= 1, as 2^((csum[t] - csum[s]) log2 e) on the
+// special-function unit.  Steps past the sequence's end load as
+// dt = 0 (decay 1, input 0), which is what padding to a multiple of Q gives
+// the reference, and are not stored.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int QC = 128;  // chunk capacity
-constexpr int PC = 64;   // head-dim capacity
-constexpr int NC = 64;   // state-dim capacity
-constexpr int NT = 256;  // threads: 16 row groups x 16 lanes
-constexpr int GS = QC + 1;
-constexpr int BS = QC + 1;
-constexpr int CS = NC + 1;
-constexpr size_t SMEM =
-    sizeof(float) * ((size_t)QC * PC + (size_t)NC * BS + (size_t)QC * CS +
-                     (size_t)NC * PC + (size_t)QC * GS + 2 * QC);
+constexpr int QC = 128;       // chunk capacity
+constexpr int PC = 64;        // head-dim capacity
+constexpr int NC = 64;        // state-dim capacity
+constexpr int NT = 256;       // threads: 16 row groups x 16 column groups
+constexpr int TP = QC + 4;    // pitch of the [.][t] tiles (16-byte rows)
+constexpr size_t CB_SMEM = sizeof(float) * 2 * NC * TP;
+// X [QC][PC] (later H^T [NC][PC]); W: G^T [QC][TP], later B*dout [QC][NC]
+// and C^T * exp(csum) [NC][TP]; csum, dout, exp(csum), csum log2(e) [QC]
+constexpr size_t CHUNK_SMEM =
+    sizeof(float) * ((size_t)QC * PC + (size_t)QC * TP + 4 * QC);
+static_assert(QC * NC + NC * TP <= QC * TP, "W holds B*dout and C^T");
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Where element (n, t) of C^T and 4-column group q of row n of H^T lie: the
+// 16-byte groups of a row are permuted by the row, so that the transposing
+// stores spread over the banks (2-way at most) while the products still read
+// 4 consecutive t or p as one float4
+__device__ __forceinline__ int ct_at(int n, int t) {
+  return n * TP + 4 * ((t >> 2) ^ ((n >> 2) & 7)) + (t & 3);
+}
+__device__ __forceinline__ int ht_at(int n, int q) {
+  return n * PC + 4 * (q ^ ((n >> 2) & 15));
+}
+
+// 2^x on the special-function unit (relative error ~2^-22), one operation
+// for each of G^T's 8,192 decays a block, where expf takes several
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// load(k) for k in [0, PER), then store(k, value), U at a time: U loads are
+// in flight together (a loop that stores each value before the next load
+// waits out the memory's latency at every element)
+template <int PER, int U = 8, class Load, class Store>
+__device__ __forceinline__ void staged(Load load, Store store) {
+  static_assert(PER % U == 0, "whole groups");
+#pragma unroll 1
+  for (int k0 = 0; k0 < PER; k0 += U) {
+    decltype(load(0)) v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = load(k0 + u);
+#pragma unroll
+    for (int u = 0; u < U; ++u) store(k0 + u, v[u]);
+  }
+}
+
+struct BC4 {
+  float4 b, c;
+};
+
+// cb[b][c][s][t] = C_t . B_s over the chunk's valid steps, 0 elsewhere
 __global__ void __launch_bounds__(NT)
-    ssd_scan(const float* __restrict__ xdt, const float* __restrict__ loga,
-             const float* __restrict__ bmat, const float* __restrict__ cmat,
-             float* __restrict__ y, float* __restrict__ state, int seq,
-             int nh, int p, int n, int q) {
+    ssd_cb(const float* __restrict__ bmat, const float* __restrict__ cmat,
+           float* __restrict__ cb, int seq, int n, int q, int nc) {
   extern __shared__ float smem[];
-  float* X = smem;             // [QC][PC]  xdt of the chunk
-  float* Bt = X + QC * PC;     // [NC][BS]  B of the chunk, transposed
-  float* Cs = Bt + NC * BS;    // [QC][CS]  C of the chunk
-  float* St = Cs + QC * CS;    // [NC][PC]  state, transposed
-  float* G = St + NC * PC;     // [QC][GS]  (C B^T) o decay, causal
-  float* csum = G + QC * GS;   // [QC]
-  float* dout = csum + QC;     // [QC]      exp(total - csum)
+  float* Bt = smem;              // [NC][TP]  B of the chunk, transposed
+  float* Ct = Bt + NC * TP;      // [NC][TP]  C of the chunk, transposed
+  const int c = blockIdx.x, bb = blockIdx.y, tid = threadIdx.x;
+  const int c0 = c * q, valid = min(q, seq - c0);
+  staged<QC * NC / NT>(
+      [&](int k) {
+        const int i = tid + k * NT, t = i / NC, nn = i % NC;
+        const long long at = ((long long)bb * seq + c0 + t) * n + nn;
+        return t < valid && nn < n
+                   ? make_float2(__ldg(bmat + at), __ldg(cmat + at))
+                   : make_float2(0.f, 0.f);
+      },
+      [&](int k, float2 v) {
+        const int i = tid + k * NT, t = i / NC, nn = i % NC;
+        Bt[nn * TP + t] = v.x;
+        Ct[nn * TP + t] = v.y;
+      });
+  __syncthreads();
+  const int ty = tid / 16, tx = tid % 16;  // rows s = 8ty.., columns t
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  for (int nn = 0; nn < n; ++nn) {
+    const float4 b0 = ld4(Bt + nn * TP + 8 * ty);
+    const float4 b1 = ld4(Bt + nn * TP + 8 * ty + 4);
+    const float4 c0v = ld4(Ct + nn * TP + 4 * tx);
+    const float4 c1v = ld4(Ct + nn * TP + 64 + 4 * tx);
+    const float bs[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    const float cs[8] = {c0v.x, c0v.y, c0v.z, c0v.w,
+                         c1v.x, c1v.y, c1v.z, c1v.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(bs[i], cs[j], acc[i][j]);
+  }
+  float* out = cb + ((long long)bb * nc + c) * QC * QC;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = out + (8 * ty + i) * QC;
+    *reinterpret_cast<float4*>(row + 4 * tx) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + 4 * tx) =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
 
+// csum[t] = the inclusive cumsum of log a over the chunk (steps past valid
+// add 0): warp 0, 4 steps a lane
+__device__ __forceinline__ void chunk_csum(const float* __restrict__ loga,
+                                           long long step0, int nh, int hh,
+                                           int valid, float* csum) {
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int bb = blockIdx.x / nh, hh = blockIdx.x % nh;
-  const long long row_stride = (long long)nh * p;  // xdt/y: one step
-
-  for (int i = tid; i < NC * PC; i += NT) St[i] = 0.f;
-
-  for (int c0 = 0; c0 < seq; c0 += q) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int i = tid; i < QC * PC; i += NT) {
-      const int t = i / PC, pp = i % PC;
-      const bool ok = t < q && c0 + t < seq && pp < p;
-      X[i] = ok ? xdt[((long long)bb * seq + c0 + t) * row_stride +
-                      (long long)hh * p + pp]
-                : 0.f;
+  if (tid < QC)
+    csum[tid] = tid < valid ? __ldg(loga + (step0 + tid) * nh + hh) : 0.f;
+  __syncthreads();
+  if (tid < 32) {
+    float v[4], run = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      run += csum[tid * 4 + j];
+      v[j] = run;
     }
-    for (int i = tid; i < QC * NC; i += NT) {
-      const int t = i / NC, nn = i % NC;
-      const bool ok = t < q && c0 + t < seq && nn < n;
-      const long long at = ((long long)bb * seq + c0 + t) * n + nn;
-      Bt[nn * BS + t] = ok ? bmat[at] : 0.f;
-      Cs[t * CS + nn] = ok ? cmat[at] : 0.f;
+    float pre = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, pre, off);
+      if (tid >= off) pre += o;
     }
-    if (tid < QC) {
-      const bool ok = tid < q && c0 + tid < seq;
-      csum[tid] = ok ? loga[((long long)bb * seq + c0 + tid) * nh + hh] : 0.f;
-    }
-    __syncthreads();
-
-    // inclusive cumsum of log a over the chunk: warp 0, 4 steps a lane
-    if (tid < 32) {
-      float v[4], run = 0.f;
+    const float excl = pre - run;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        run += csum[tid * 4 + j];
-        v[j] = run;
-      }
-      float pre = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, pre, off);
-        if (tid >= off) pre += o;
-      }
-      const float excl = pre - run;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) csum[tid * 4 + j] = v[j] + excl;
-    }
-    __syncthreads();
-    const float total = csum[QC - 1];  // steps past q or seq add 0
-    if (tid < QC) dout[tid] = expf(total - csum[tid]);
-
-    // G[t][s] = (C_t . B_s) exp(csum[t] - csum[s]) for s <= t, else 0
-    {
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int nn = 0; nn < n; ++nn) {
-        float bv[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) bv[j] = Bt[nn * BS + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float cv = Cs[(ty * 8 + i) * CS + nn];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(cv, bv[j], acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = ty * 8 + i;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int s = tx + 16 * j;
-          G[t * GS + s] = s <= t ? acc[i][j] * expf(csum[t] - csum[s]) : 0.f;
-        }
-      }
-    }
-    __syncthreads();
-
-    // y[t][p] = G[t] . X[:, p] + exp(csum[t]) (C_t . H[p])
-    {
-      float intra[8][4], inter[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) intra[i][j] = inter[i][j] = 0.f;
-      const int s_end = min(q, ty * 8 + 8);  // G is 0 past the thread's rows
-      for (int s = 0; s < s_end; ++s) {
-        float xv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xv[j] = X[s * PC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float g = G[(ty * 8 + i) * GS + s];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) intra[i][j] = fmaf(g, xv[j], intra[i][j]);
-        }
-      }
-      for (int nn = 0; nn < n; ++nn) {
-        float sv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = St[nn * PC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float cv = Cs[(ty * 8 + i) * CS + nn];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) inter[i][j] = fmaf(cv, sv[j], inter[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int t = ty * 8 + i;
-        if (t >= q || c0 + t >= seq) continue;
-        const float din = expf(csum[t]);
-        float* yr = y + ((long long)bb * seq + c0 + t) * row_stride +
-                    (long long)hh * p;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int pp = tx + 16 * j;
-          if (pp < p) yr[pp] = intra[i][j] + din * inter[i][j];
-        }
-      }
-    }
-    __syncthreads();
-
-    // H'[p][n] = exp(total) H[p][n] + sum_s X[s][p] B[s][n] dout[s]
-    {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int s = 0; s < q; ++s) {
-        const float w = dout[s];
-        float xv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) xv[j] = X[s * PC + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float bw = Bt[(ty * 4 + i) * BS + s] * w;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(bw, xv[j], acc[i][j]);
-        }
-      }
-      const float decay = expf(total);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float* cell = St + (ty * 4 + i) * PC + tx + 16 * j;
-          *cell = decay * *cell + acc[i][j];
-        }
-    }
+    for (int j = 0; j < 4; ++j) csum[tid * 4 + j] = v[j] + excl;
   }
   __syncthreads();
-  float* sb = state + ((long long)bb * nh + hh) * p * n;
-  for (int i = tid; i < p * n; i += NT) {
-    const int pp = i / n, nn = i % n;
-    sb[i] = St[nn * PC + pp];
+}
+
+// Ct[ct_at(n, t)] = C[t][n] ecs[t] and Bd[t][n] = B[t][n] dout[t]
+template <bool VEC>
+__device__ __forceinline__ void load_bc(const float* __restrict__ bmat,
+                                        const float* __restrict__ cmat,
+                                        long long step0, int n, int valid,
+                                        const float* dout, const float* ecs,
+                                        float* Bd, float* Ct) {
+  const int tid = threadIdx.x;
+  if (VEC) {
+    staged<QC * NC / 4 / NT>(
+        [&](int k) {
+          const int i = tid + k * NT, t = i / (NC / 4);
+          const long long at = (step0 + t) * (NC / 4) + i % (NC / 4);
+          BC4 v;
+          v.b = v.c = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < valid) {
+            v.b = __ldg(reinterpret_cast<const float4*>(bmat) + at);
+            v.c = __ldg(reinterpret_cast<const float4*>(cmat) + at);
+          }
+          return v;
+        },
+        [&](int k, BC4 v) {
+          const int i = tid + k * NT, t = i / (NC / 4), nn = 4 * (i % (NC / 4));
+          const float e = ecs[t], d = dout[t];
+          *reinterpret_cast<float4*>(Bd + t * NC + nn) =
+              make_float4(v.b.x * d, v.b.y * d, v.b.z * d, v.b.w * d);
+          Ct[ct_at(nn, t)] = v.c.x * e;
+          Ct[ct_at(nn + 1, t)] = v.c.y * e;
+          Ct[ct_at(nn + 2, t)] = v.c.z * e;
+          Ct[ct_at(nn + 3, t)] = v.c.w * e;
+        });
+  } else {
+    staged<QC * NC / NT>(
+        [&](int k) {
+          const int i = tid + k * NT, t = i / NC, nn = i % NC;
+          const long long at = (step0 + t) * n + nn;
+          const bool ok = t < valid && nn < n;
+          return make_float2(ok ? __ldg(bmat + at) : 0.f,
+                             ok ? __ldg(cmat + at) : 0.f);
+        },
+        [&](int k, float2 v) {
+          const int i = tid + k * NT, t = i / NC, nn = i % NC;
+          Bd[i] = v.x * dout[t];
+          Ct[ct_at(nn, t)] = v.y * ecs[t];
+        });
   }
+}
+
+// H^T[n][p] into X's place at ht_at, from H[4ty+i][4tx+j] = h[i][j]
+__device__ __forceinline__ void store_ht(float* X, const float (&h)[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(X + ht_at(4 * tx + j, ty)) =
+        make_float4(h[0][j], h[1][j], h[2][j], h[3][j]);
+}
+
+// ya/yb += exp(csum[t]) C_t . H on the thread's rows ra.., rb.. and
+// columns 4tx.. (Ct holds C exp(csum), X holds H^T)
+__device__ __forceinline__ void inter_product(const float* X, const float* Ct,
+                                              int n, int ra, int rb,
+                                              float (&ya)[4][4],
+                                              float (&yb)[4][4]) {
+  const int tx = threadIdx.x % 16;
+  for (int nn = 0; nn < n; ++nn) {
+    const float4 h = ld4(X + ht_at(nn, tx));
+    const float4 ca = ld4(Ct + ct_at(nn, ra)), cbv = ld4(Ct + ct_at(nn, rb));
+    const float hv[4] = {h.x, h.y, h.z, h.w};
+    const float cas[4] = {ca.x, ca.y, ca.z, ca.w};
+    const float cbs[4] = {cbv.x, cbv.y, cbv.z, cbv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ya[i][j] = fmaf(cas[i], hv[j], ya[i][j]);
+        yb[i][j] = fmaf(cbs[i], hv[j], yb[i][j]);
+      }
+  }
+}
+
+// the thread's rows of y
+template <bool VEC>
+__device__ __forceinline__ void store_y(float* __restrict__ y, long long step0,
+                                        long long row_stride, int hh, int p,
+                                        int valid, int ra, int rb,
+                                        const float (&ya)[4][4],
+                                        const float (&yb)[4][4]) {
+  const int tx = threadIdx.x % 16;
+  const auto row = [&](int t, const float(&v)[4]) {
+    if (t >= valid) return;
+    float* yr = y + (step0 + t) * row_stride + (long long)hh * p;
+    if (VEC) {
+      *reinterpret_cast<float4*>(yr + 4 * tx) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * tx + j < p) yr[4 * tx + j] = v[j];
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row(ra + i, ya[i]);
+    row(rb + i, yb[i]);
+  }
+}
+
+// VEC: P = N = 64 and 16-byte aligned rows, read and written as float4.
+template <bool VEC>
+__global__ void __launch_bounds__(NT, 2)
+    ssd_chunk(const float* __restrict__ xdt, const float* __restrict__ loga,
+              const float* __restrict__ bmat, const float* __restrict__ cmat,
+              const float* __restrict__ cb, float* __restrict__ y,
+              float* __restrict__ state, float* hbuf, int* ticket, int* done, int bsz, int seq, int nh, int p, int n,
+              int q, int nc) {
+  extern __shared__ float smem[];
+  float* X = smem;               // [QC][PC]  xdt; later H^T [NC][PC] (ht_at)
+  float* W = X + QC * PC;        // G^T [QC][TP]; later Bd and Ct below
+  float* Bd = W;                 // [QC][NC]  B * exp(total - csum)
+  float* Ct = W + QC * NC;       // [NC][TP]  C^T * exp(csum), at ct_at
+  float* csum = W + QC * TP;     // [QC]
+  float* dout = csum + QC;       // [QC]      exp(total - csum)
+  float* ecs = dout + QC;        // [QC]      exp(csum)
+  float* lcs = ecs + QC;         // [QC]      csum * log2(e)
+  __shared__ int s_ticket;
+
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int rows = bsz * nh;
+  const int c = s_ticket / rows, bh = s_ticket % rows;
+  const int bb = bh / nh, hh = bh % nh;
+  const int c0 = c * q, valid = min(q, seq - c0);
+  const long long step0 = (long long)bb * seq + c0;  // first step's row
+  const long long row_stride = (long long)nh * p;    // xdt/y: one step
+
+  if (VEC) {
+    staged<QC * PC / 4 / NT>(
+        [&](int k) {
+          const int i = tid + k * NT, t = i / (PC / 4);
+          return t < valid
+                     ? __ldg(reinterpret_cast<const float4*>(
+                                 xdt + (step0 + t) * row_stride +
+                                 (long long)hh * PC) +
+                             i % (PC / 4))
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        },
+        [&](int k, float4 v) {
+          reinterpret_cast<float4*>(X)[tid + k * NT] = v;
+        });
+  } else {
+    staged<QC * PC / NT>(
+        [&](int k) {
+          const int i = tid + k * NT, t = i / PC, pp = i % PC;
+          return t < valid && pp < p
+                     ? __ldg(xdt + (step0 + t) * row_stride +
+                             (long long)hh * p + pp)
+                     : 0.f;
+        },
+        [&](int k, float v) { X[tid + k * NT] = v; });
+  }
+  chunk_csum(loga, step0, nh, hh, valid, csum);
+  const float total = csum[QC - 1];  // steps past valid add 0
+  if (tid < QC) {
+    dout[tid] = expf(total - csum[tid]);
+    ecs[tid] = expf(csum[tid]);
+    lcs[tid] = csum[tid] * 1.4426950408889634f;
+  }
+  __syncthreads();
+
+  // G^T[s][t] = (C_t . B_s) exp(csum[t] - csum[s]) for s <= t, else 0
+  const float4* cbc = reinterpret_cast<const float4*>(
+      cb + ((long long)bb * nc + c) * QC * QC);
+  staged<QC * QC / 4 / NT>(
+      [&](int k) {
+        const int i = tid + k * NT, s = i / (QC / 4), t = 4 * (i % (QC / 4));
+        return t + 3 >= s ? __ldg(cbc + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+      },
+      [&](int k, float4 v) {
+        const int i = tid + k * NT, s = i / (QC / 4), t = 4 * (i % (QC / 4));
+        const float ls = lcs[s];
+        const float4 g = make_float4(
+            s <= t ? v.x * fast_exp2(lcs[t] - ls) : 0.f,
+            s <= t + 1 ? v.y * fast_exp2(lcs[t + 1] - ls) : 0.f,
+            s <= t + 2 ? v.z * fast_exp2(lcs[t + 2] - ls) : 0.f,
+            s <= t + 3 ? v.w * fast_exp2(lcs[t + 3] - ls) : 0.f);
+        *reinterpret_cast<float4*>(W + s * TP + t) = g;
+      });
+  __syncthreads();
+
+  // intra-chunk output: rows ra = 4ty.. (s <= 4ty+3) and rb = 124-4ty..
+  // (s <= 127-4ty), columns 4tx..: 132 steps for every thread
+  const int ra = 4 * ty, rb = QC - 4 - 4 * ty;
+  float ya[4][4], yb[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ya[i][j] = yb[i][j] = 0.f;
+  {
+    const int sa = min(ra + 4, valid), sb = min(rb + 4, valid);
+    int s = 0;
+    for (; s < sa; ++s) {
+      const float4 x = ld4(X + s * PC + 4 * tx);
+      const float4 ga = ld4(W + s * TP + ra), gb = ld4(W + s * TP + rb);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      const float gas[4] = {ga.x, ga.y, ga.z, ga.w};
+      const float gbs[4] = {gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ya[i][j] = fmaf(gas[i], xs[j], ya[i][j]);
+          yb[i][j] = fmaf(gbs[i], xs[j], yb[i][j]);
+        }
+    }
+    for (; s < sb; ++s) {
+      const float4 x = ld4(X + s * PC + 4 * tx);
+      const float4 gb = ld4(W + s * TP + rb);
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+      const float gbs[4] = {gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) yb[i][j] = fmaf(gbs[i], xs[j], yb[i][j]);
+    }
+  }
+  __syncthreads();  // G^T is read; W takes Bd and Ct
+
+  load_bc<VEC>(bmat, cmat, step0, n, valid, dout, ecs, Bd, Ct);
+  __syncthreads();
+
+  // the chunk's own state contribution S[p][n], p = 4ty.., n = 4tx..
+  float hs[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) hs[i][j] = 0.f;
+  for (int s = 0; s < valid; ++s) {
+    const float4 x = ld4(X + s * PC + 4 * ty);
+    const float4 bw = ld4(Bd + s * NC + 4 * tx);
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    const float bs[4] = {bw.x, bw.y, bw.z, bw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hs[i][j] = fmaf(xs[i], bs[j], hs[i][j]);
+  }
+
+  // the hand-off: H of the previous chunk, then H' = exp(total) H + S
+  float hprev[4][4];
+  if (c > 0) {
+    if (tid == 0) {
+      while (load_acquire(done + bh) < c) __nanosleep(64);
+      __threadfence();
+    }
+    __syncthreads();  // also: every read of X is done
+    const float* hb = hbuf + ((long long)((c - 1) & 1) * rows + bh) * PC * NC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = __ldcg(
+          reinterpret_cast<const float4*>(hb + (4 * ty + i) * NC + 4 * tx));
+      hprev[i][0] = v.x, hprev[i][1] = v.y, hprev[i][2] = v.z;
+      hprev[i][3] = v.w;
+    }
+  } else {
+    __syncthreads();  // every read of X is done
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hprev[i][j] = 0.f;
+  }
+  const float decay = expf(total);
+  float hnew[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      hnew[i][j] = decay * hprev[i][j] + hs[i][j];
+  if (c == nc - 1) {
+    float* st = state + (long long)bh * p * n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pp = 4 * ty + i, nn = 4 * tx + j;
+        if (pp < p && nn < n) st[pp * n + nn] = hnew[i][j];
+      }
+  } else {
+    float* hb = hbuf + ((long long)(c & 1) * rows + bh) * PC * NC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      __stcg(reinterpret_cast<float4*>(hb + (4 * ty + i) * NC + 4 * tx),
+             make_float4(hnew[i][0], hnew[i][1], hnew[i][2], hnew[i][3]));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) store_release(done + bh, c + 1);
+  }
+  store_ht(X, hprev);
+  __syncthreads();
+  inter_product(X, Ct, n, ra, rb, ya, yb);
+  store_y<VEC>(y, step0, row_stride, hh, p, valid, ra, rb, ya, yb);
+}
+
+bool shapes_ok(int chunk, int p, int n) {
+  return chunk >= 1 && chunk <= QC && p >= 1 && p <= PC && n >= 1 &&
+         n <= NC;
+}
+
+// rows of 64 floats on 16-byte boundaries: the float4 paths
+bool vec_ok(const void* xdt, const void* b, const void* c, const void* y,
+            int p, int n) {
+  const auto aligned = [](const void* q) {
+    return reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  };
+  return p == PC && n == NC && aligned(xdt) && aligned(b) && aligned(c) &&
+         aligned(y);
 }
 
 }  // namespace
@@ -232,22 +529,51 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], all f32 and contiguous ->
-// y [B,S,H,P] and the final state [B,H,P,N], f32.  chunk <= 128, P <= 64,
-// N <= 64.  Returns the launch's cudaError_t.
-int ssm_scan(const void* xdt, const void* loga, const void* b, const void* c,
-             void* y, void* state, int bsz, int seq, int nh, int p, int n,
-             int chunk, void* stream) {
-  if (chunk < 1 || chunk > QC || p < 1 || p > PC || n < 1 || n > NC)
+// b/c [B,S,N] f32, contiguous -> cb [B, nc, 128, 128] f32: C_t . B_s of
+// each chunk at [s][t].  chunk <= 128, N <= 64, S >= 1.  Returns the
+// launch's cudaError_t.
+int ssm_scan_cb(const void* b, const void* c, void* cb, int bsz, int seq,
+                int n, int chunk, void* stream) {
+  if (!shapes_ok(chunk, 1, n) || seq < 1 || bsz < 1)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+      ssd_cb, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CB_SMEM);
   if (err != cudaSuccess) return (int)err;
-  ssd_scan<<<bsz * nh, NT, SMEM, static_cast<cudaStream_t>(stream)>>>(
+  const int nc = (seq + chunk - 1) / chunk;
+  ssd_cb<<<dim3(nc, bsz), NT, CB_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(b), static_cast<const float*>(c),
+      static_cast<float*>(cb), seq, n, chunk, nc);
+  return (int)cudaGetLastError();
+}
+
+// xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], cb from ssm_scan_cb, all f32
+// and contiguous -> y [B,S,H,P] and the final state [B,H,P,N], f32.
+// Scratch: hbuf [2, B*H, 64, 64] f32 and counters [B*H + 1] int32 (set to 0
+// here, on the stream).  chunk <= 128, P <= 64, N <= 64, S >= 1.  Returns
+// the first cudaError_t of the memset and the launch.
+int ssm_scan_chunks(const void* xdt, const void* loga, const void* b,
+                    const void* c, const void* cb, void* y, void* state,
+                    void* hbuf, void* counters, int bsz, int seq, int nh,
+                    int p, int n, int chunk, void* stream) {
+  if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = vec_ok(xdt, b, c, y, p, n);
+  const auto kernel = vec ? ssd_chunk<true> : ssd_chunk<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CHUNK_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = bsz * nh, nc = (seq + chunk - 1) / chunk;
+  int* cnt = static_cast<int*>(counters);
+  err = cudaMemsetAsync(cnt, 0, sizeof(int) * (rows + 1), st);
+  if (err != cudaSuccess) return (int)err;
+  // cnt[0] hands out the tickets, cnt[1 + row] counts published chunks
+  kernel<<<rows * nc, NT, CHUNK_SMEM, st>>>(
       static_cast<const float*>(xdt), static_cast<const float*>(loga),
       static_cast<const float*>(b), static_cast<const float*>(c),
-      static_cast<float*>(y), static_cast<float*>(state), seq, nh, p, n,
-      chunk);
+      static_cast<const float*>(cb), static_cast<float*>(y),
+      static_cast<float*>(state), static_cast<float*>(hbuf), cnt, cnt + 1,
+      bsz, seq, nh, p, n, chunk, nc);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Wrapper of the CUDA chunked SSD scan kernel (``csrc/ssm_scan.cu``)."""
+"""Wrapper of the CUDA chunked SSD scan kernels (``csrc/ssm_scan.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -7,26 +7,24 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: the kernel's shared-memory capacities: chunk, head dim, state dim
+#: the kernels' shared-memory capacities: chunk, head dim, state dim
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 64
+#: the two CUDA kernels each call launches, in order
+KERNELS = ("ssd_cb", "ssd_chunk")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssm_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssm_scan.argtypes = [p] * 6 + [i] * 6 + [p]
-    lib.ssm_scan.restype = ctypes.c_int
+    lib.ssm_scan_cb.argtypes = [p] * 3 + [i] * 4 + [p]
+    lib.ssm_scan_cb.restype = ctypes.c_int
+    lib.ssm_scan_chunks.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.ssm_scan_chunks.restype = ctypes.c_int
     return lib
 
 
-def ssd_scan_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
-                    c: torch.Tensor, chunk: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], all contiguous float32 on
-    one CUDA device → (y [B,S,H,P], final state [B,H,P,N]), float32.
-
-    The scan without the D skip term (the caller adds it), in chunks of
-    ``chunk`` steps; a ragged last chunk acts as if padded with dt = 0."""
+def _check_inputs(xdt, loga, b, c, chunk) -> int:
+    """Raise on what the kernels do not take; return the chunk used."""
     ts = (xdt, loga, b, c)
     if xdt.device.type != "cuda" or any(t.device != xdt.device for t in ts):
         raise ValueError("ssd_scan_kernel needs all inputs on one CUDA "
@@ -52,20 +50,80 @@ def ssd_scan_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"chunk {chunk}, P {p}, N {n} outside the kernel's "
                          f"capacities ({MAX_CHUNK}, {MAX_HEAD_DIM}, "
                          f"{MAX_STATE})")
+    return chunk
+
+
+def cb_kernel(b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
+    """b/c [B,S,N] as ``ssd_scan_kernel`` takes them (S >= 1) → [B, nc,
+    128, 128] float32: per batch row and chunk, C_t · B_s at [s][t] over the
+    chunk's steps, 0 elsewhere (``ssd_cb``, one launch, counted in
+    ``ssd_scan_kernel.by_kernel``)."""
+    bsz, s, n = b.shape
+    nc = -(-s // chunk)
+    cb = torch.empty((bsz, nc, MAX_CHUNK, MAX_CHUNK), dtype=torch.float32,
+                     device=b.device)
+    lib = _lib()
+    with torch.cuda.device(b.device):
+        rc = lib.ssm_scan_cb(_build.ptr(b), _build.ptr(c), _build.ptr(cb),
+                             bsz, s, n, chunk, _build.stream_of(b))
+    _build.check(lib, rc, "ssm_scan (ssd_cb)")
+    ssd_scan_kernel.by_kernel["ssd_cb"] += 1
+    return cb
+
+
+def chunk_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                 c: torch.Tensor, cb: torch.Tensor, chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan from ``cb_kernel``'s C·Bᵀ (``ssd_chunk``, one launch,
+    counted in ``ssd_scan_kernel.by_kernel``): every (batch, head, chunk) a
+    block, the state handed from chunk to chunk → (y, final state)."""
+    bsz, s, h, p = xdt.shape
+    n = b.shape[-1]
     y = torch.empty_like(xdt)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32,
                         device=xdt.device)
-    if bsz * h == 0 or p == 0 or n == 0:
-        return y, state.zero_()
+    hbuf = torch.empty((2, bsz * h, MAX_HEAD_DIM, MAX_STATE),
+                       dtype=torch.float32, device=xdt.device)
+    counters = torch.empty(bsz * h + 1, dtype=torch.int32,
+                           device=xdt.device)
     lib = _lib()
     with torch.cuda.device(xdt.device):
-        rc = lib.ssm_scan(*(_build.ptr(t) for t in (xdt, loga, b, c, y,
-                                                    state)),
-                          bsz, s, h, p, n, chunk, _build.stream_of(xdt))
-    _build.check(lib, rc, "ssm_scan")
-    ssd_scan_kernel.launches += 1
+        rc = lib.ssm_scan_chunks(
+            *(_build.ptr(t) for t in (xdt, loga, b, c, cb, y, state, hbuf,
+                                      counters)),
+            bsz, s, h, p, n, chunk, _build.stream_of(xdt))
+    _build.check(lib, rc, "ssm_scan (ssd_chunk)")
+    ssd_scan_kernel.by_kernel["ssd_chunk"] += 1
     return y, state
 
 
-#: launches of the CUDA kernel since the count was last set to 0
-ssd_scan_kernel.launches = 0
+def ssd_scan_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                    c: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], all contiguous float32 on
+    one CUDA device → (y [B,S,H,P], final state [B,H,P,N]), float32.
+
+    The scan without the D skip term (the caller adds it), in chunks of
+    ``chunk`` steps; a ragged last chunk acts as if padded with dt = 0.
+    Two launches: C·Bᵀ once per batch row and chunk (``cb_kernel``), then
+    the chunks (``chunk_kernel``); ``launches`` counts calls."""
+    chunk = _check_inputs(xdt, loga, b, c, chunk)
+    bsz, s, h, p = xdt.shape
+    if bsz * h == 0 or s == 0 or p == 0 or b.shape[-1] == 0:
+        return (torch.zeros_like(xdt),
+                torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+                            device=xdt.device))
+    out = chunk_kernel(xdt, loga, b, c, cb_kernel(b, c, chunk), chunk)
+    ssd_scan_kernel.launches += 1
+    return out
+
+
+def reset_counts() -> None:
+    """Set the launch counts (calls, and per CUDA kernel) to 0."""
+    ssd_scan_kernel.launches = 0
+    ssd_scan_kernel.by_kernel = dict.fromkeys(KERNELS, 0)
+
+
+#: calls that launched the CUDA kernels since the counts were last set to
+#: 0 (``launches``), and launches per kernel (``by_kernel``)
+reset_counts()

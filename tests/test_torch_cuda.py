@@ -54,6 +54,47 @@ def test_gbt_hist_kernel_matches_plain(cuda, n, f, n_bins):
     assert torch.equal(gsum.cpu(), pg)
 
 
+def _level_case(n_rows: int, sizes: list[int], f: int, n_bins: int,
+                seed: int):
+    """Codes with a 3-valued feature (most rows in few bins, as the fit's
+    data has) and some out of range, f64 gradients, and a level's rows:
+    random ascending ids grouped into nodes of ``sizes`` rows."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, n_bins, (n_rows, f))
+    codes[:, 0] = rng.integers(0, 3, n_rows)
+    codes[rng.random((n_rows, f)) < 0.01] = n_bins + 3
+    grad = rng.normal(size=n_rows)
+    perm = rng.permutation(n_rows)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    order = np.concatenate([np.sort(perm[lo:hi]) for lo, hi in
+                            zip(offsets[:-1], offsets[1:])])
+    return codes, grad, order, offsets
+
+
+@pytest.mark.parametrize("level", ["root", "deep"])
+def test_gbt_level_kernel_matches_plain(cuda, level):
+    """One launch for a whole level, bit for bit with the plain version on
+    a CPU copy: the root (one node of 12,589 rows) and a deep level of
+    1,500 nodes of 0 to 20 rows."""
+    if level == "root":
+        n_rows, sizes = 15800, [12589]
+    else:
+        sizes = list(np.random.default_rng(1).integers(0, 21, 1500))
+        n_rows = 15800
+    codes, grad, order, offsets = _level_case(n_rows, sizes, 7, 64, 0)
+    args = [torch.as_tensor(a, dtype=dt, device=cuda) for a, dt in
+            ((codes, torch.int32), (grad, torch.float64),
+             (order, torch.int32), (offsets, torch.int32))]
+    gh_kernel.level_histogram_kernel.launches = 0
+    gsum, cnt = gh_kernel.level_histogram_kernel(*args, 64)
+    torch.cuda.synchronize()
+    assert gh_kernel.level_histogram_kernel.launches == 1
+    pg, pc = gh_ref.level_histogram_ref(*(a.cpu() for a in args), 64)
+    assert gsum.shape == (len(sizes), 7, 64)
+    assert torch.equal(cnt.cpu().double(), pc)
+    assert torch.equal(gsum.cpu(), pg)
+
+
 def _reference_module(rel: str):
     """A numpy-only module of the JAX package, loaded from its file so that
     the package's ``__init__`` (which imports jax) does not run."""
@@ -77,7 +118,7 @@ def test_gbt_fit_on_the_card_grows_the_reference_trees(cuda):
     y = np.sin(x[:, 0]) + x[:, 1] ** 2 + 0.1 * rng.normal(size=300)
     kw = dict(n_trees=10, max_depth=6, subsample=0.8, seed=0)
     ref = r_flatten(r_gbt.GBTRegressor(**kw).fit(x, y))
-    gh_kernel.grad_histogram_kernel.launches = 0
+    gh_kernel.level_histogram_kernel.launches = 0
     for _ in range(2):
         got = tp_ref.flatten_gbt(GBTRegressor(**kw).fit(x, y, device=cuda))
         for f in ("feature", "threshold_bin", "left", "right", "value",
@@ -85,7 +126,9 @@ def test_gbt_fit_on_the_card_grows_the_reference_trees(cuda):
             assert np.array_equal(getattr(ref, f), getattr(got, f)), f
         assert (ref.base, ref.learning_rate, ref.max_depth) == \
             (got.base, got.learning_rate, got.max_depth)
-    assert gh_kernel.grad_histogram_kernel.launches > 0
+    # one launch per level that splits a node: at most depth levels a tree
+    assert 0 < gh_kernel.level_histogram_kernel.launches \
+        <= 2 * kw["n_trees"] * kw["max_depth"]
 
 
 def test_tree_predict_kernel_matches_plain(cuda):
@@ -321,11 +364,8 @@ SSD_GPU_CASES = [(1, 64, 2, 8, 8, 16), (2, 100, 3, 16, 4, 32),
                  (1, 33, 1, 4, 32, 8), (4, 2048, 64, 64, 64, 128)]
 
 
-@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GPU_CASES)
-def test_ssm_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
-    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
-    from repro_torch.kernels.ssm_scan.ref import ssd_inputs, \
-        ssd_scan_chunked_ref
+def _ssd_case(cuda, b, s, h, p, n):
+    from repro_torch.kernels.ssm_scan.ref import ssd_inputs
     rng = np.random.default_rng(s)
     x = torch.as_tensor(rng.normal(size=(b, s, h, p)) * 0.5,
                         dtype=torch.float32, device=cuda)
@@ -335,15 +375,87 @@ def test_ssm_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
                               dtype=torch.float32, device=cuda)
               for _ in range(2))
     a_log = torch.log(torch.linspace(1.0, 8.0, h, device=cuda))
-    xdt, loga = ssd_inputs(x, dt, a_log)
+    return (*ssd_inputs(x, dt, a_log), bb, cc)
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GPU_CASES)
+def test_ssm_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk):
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_ref
+    xdt, loga, bb, cc = _ssd_case(cuda, b, s, h, p, n)
+    ss_kernel.reset_counts()
     y, st = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, chunk)
     torch.cuda.synchronize()
+    assert ss_kernel.ssd_scan_kernel.launches == 1
+    assert ss_kernel.ssd_scan_kernel.by_kernel == {"ssd_cb": 1,
+                                                   "ssd_chunk": 1}
     y_p, st_p = ssd_scan_chunked_ref(xdt, loga, bb, cc, chunk)
     # f32 in another summation order: the JAX package's 2e-4, relative to
     # the output's scale
     for got, want in ((y, y_p), (st, st_p)):
         torch.testing.assert_close(got, want, rtol=2e-4,
                                    atol=2e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_GPU_CASES)
+def test_ssm_scan_kernel_is_bitwise_deterministic(cuda, b, s, h, p, n, chunk):
+    """The chunks hand the state on through counters: a race in that
+    hand-off would show as a difference between calls."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    args = (*_ssd_case(cuda, b, s, h, p, n), chunk)
+    first = ss_kernel.ssd_scan_kernel(*args)
+    for _ in range(3):
+        for got, want in zip(ss_kernel.ssd_scan_kernel(*args), first):
+            assert torch.equal(got, want)
+
+
+# faults planted in a copy of the source: each chunk hands on the state it
+# received instead of the one it formed (H one chunk late), and the decay
+# exp(total) dropped from the state update
+SSD_FAULTS = {
+    "handed_one_chunk_late": (
+        "make_float4(hnew[i][0], hnew[i][1], hnew[i][2], hnew[i][3])",
+        "make_float4(hprev[i][0], hprev[i][1], hprev[i][2], hprev[i][3])"),
+    "exp_total_dropped": ("hnew[i][j] = decay * hprev[i][j] + hs[i][j];",
+                          "hnew[i][j] = hprev[i][j] + hs[i][j];"),
+}
+# zamba2-1.2b's prefill and a ragged case
+SSD_FAULT_SHAPES = [(4, 2048, 64, 64, 64, 128), (2, 100, 3, 16, 4, 32)]
+
+
+def _ssd_fault_readings(cuda):
+    """Per shape, the largest error of y and of the state over the checks'
+    limit (2e-4 of |want| plus 2e-4 of max |want|)."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_ref
+    out = []
+    for b, s, h, p, n, chunk in SSD_FAULT_SHAPES:
+        args = (*_ssd_case(cuda, b, s, h, p, n), chunk)
+        worst = 0.0
+        for got, want in zip(ss_kernel.ssd_scan_kernel(*args),
+                             ssd_scan_chunked_ref(*args)):
+            tol = 2e-4 * want.abs() + 2e-4 * want.abs().max()
+            worst = max(worst, ((got - want).abs() / tol).max().item())
+        out.append(worst)
+    return out
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_FAULTS))
+def test_ssm_tolerance_sees_planted_faults(cuda, fault, tmp_path,
+                                           monkeypatch):
+    """Each fault, built from a copy of ``csrc`` in a temporary directory,
+    reads above 1 at both shapes; the sound kernel reads below 1 there."""
+    from repro_torch.kernels import _build
+    csrc = _csrc_copy(tmp_path, "ssm_scan", *SSD_FAULTS[fault])
+    sound = _ssd_fault_readings(cuda)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    planted = _ssd_fault_readings(cuda)
+    print(f"ssm_scan fault {fault}: err_over_tol sound {sound}, "
+          f"planted {planted}")
+    assert all(r < 1.0 for r in sound)
+    assert all(r > 1.0 for r in planted)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-1.2b"])

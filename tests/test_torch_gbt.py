@@ -27,6 +27,7 @@ from repro_torch.core.predictors.persist import save_predictor as p_save
 from repro_torch.kernels.gbt_hist import kernel as pkernel
 from repro_torch.kernels.gbt_hist import ops as pops
 from repro_torch.kernels.gbt_hist.ref import grad_histogram_ref as p_hist
+from repro_torch.kernels.gbt_hist.ref import level_histogram_ref as p_level
 from repro_torch.kernels.tree_predict.ref import flatten_gbt as p_flatten
 
 CPU = "cpu"
@@ -87,6 +88,64 @@ def test_plain_histogram_matches_pallas_interpret(seed, n, f, n_bins):
                                atol=1e-4)
 
 
+def _per_node_bincount(codes, grad, order, offsets, n_bins):
+    """The reference's histogram of each node's rows (``np.bincount`` in
+    row order), with codes outside [0, n_bins) dropped in place."""
+    gs, cs = [], []
+    for lo, hi in zip(offsets[:-1], offsets[1:]):
+        rows = order[lo:hi]
+        c, g = codes[rows], grad[rows]
+        gsum = np.zeros((codes.shape[1], n_bins))
+        cnt = np.zeros((codes.shape[1], n_bins))
+        for f in range(codes.shape[1]):
+            keep = (c[:, f] >= 0) & (c[:, f] < n_bins)
+            gsum[f] = np.bincount(c[keep, f], weights=g[keep],
+                                  minlength=n_bins)
+            cnt[f] = np.bincount(c[keep, f], minlength=n_bins)
+        gs.append(gsum)
+        cs.append(cnt)
+    return np.array(gs).reshape(-1, codes.shape[1], n_bins), \
+        np.array(cs).reshape(-1, codes.shape[1], n_bins)
+
+
+@pytest.mark.parametrize("case", ["mixed_sizes", "one_heavy_bin",
+                                  "out_of_range", "all_empty"])
+def test_level_histogram_plain_equals_per_node_bincount(case):
+    """One call for a level's nodes: each node's histogram is
+    ``np.bincount`` over its rows, bit for bit, with empty and 1-row nodes,
+    one bin holding most rows, and codes out of range not counted."""
+    rng = np.random.default_rng(3)
+    n, f, n_bins = 500, 4, 16
+    codes = rng.integers(0, n_bins, size=(n, f))
+    grad = rng.normal(size=n) * 10.0 ** rng.integers(-3, 4, size=n)
+    sizes = [0, 1, 37, 0, 1, 120, 2, 200]
+    if case == "one_heavy_bin":
+        codes[rng.random((n, f)) < 0.9] = 5
+    elif case == "out_of_range":
+        codes[rng.random((n, f)) < 0.2] = n_bins + 2
+        codes[rng.random((n, f)) < 0.1] = -1
+    elif case == "all_empty":
+        sizes = [0, 0]
+    perm = rng.permutation(n)
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    order = np.concatenate([np.sort(perm[lo:hi]) for lo, hi in
+                            zip(offsets[:-1], offsets[1:])]).astype(np.int64)
+    want_g, want_c = _per_node_bincount(codes, grad, order, offsets, n_bins)
+    got_g, got_c = p_level(torch.as_tensor(codes), torch.as_tensor(grad),
+                           torch.as_tensor(order), torch.as_tensor(offsets),
+                           n_bins)
+    assert got_g.dtype == got_c.dtype == torch.float64
+    assert got_g.shape == (len(sizes), f, n_bins)
+    assert np.array_equal(got_g.numpy(), want_g)
+    assert np.array_equal(got_c.numpy(), want_c)
+    # the dispatch takes the plain version for CPU tensors
+    og, oc = pops.level_histogram(torch.as_tensor(codes),
+                                  torch.as_tensor(grad),
+                                  torch.as_tensor(order),
+                                  torch.as_tensor(offsets), n_bins)
+    assert torch.equal(og, got_g) and torch.equal(oc, got_c)
+
+
 def test_histogram_kernel_refuses_cpu_tensors():
     codes, grad = hist_case(0, 8, 2, 4)
     with pytest.raises(ValueError, match="CUDA"):
@@ -95,18 +154,51 @@ def test_histogram_kernel_refuses_cpu_tensors():
                                       4)
 
 
+def three_valued_data(seed, n=3000, f=6):
+    """Regression data whose feature 2 takes 3 values: most of a node's
+    rows then fall in one of its bins."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    x[:, 2] = rng.integers(0, 3, n)
+    y = (np.sin(x[:, 0]) + x[:, 1] ** 2 + 0.5 * x[:, 2]
+         + 0.1 * rng.normal(size=n))
+    return x, y
+
+
+# cases beyond the seed's data, by seed: deep trees on data with a
+# 3-valued feature, a depth of 1, and min_samples_leaf cutting nodes
+FIT_CASES = {3: dict(data=three_valued_data),
+             5: dict(data=three_valued_data, min_samples_leaf=60)}
+
+
 @pytest.mark.parametrize("seed,subsample,max_depth",
-                         [(0, 0.8, 4), (1, 1.0, 3), (2, 0.5, 6)])
+                         [(0, 0.8, 4), (1, 1.0, 3), (2, 0.5, 6),
+                          (3, 0.8, 12), (4, 0.8, 1), (5, 0.8, 8)])
 def test_gbt_fit_grows_identical_node_arrays(seed, subsample, max_depth):
-    x, y = regression_data(seed)
+    extra = dict(FIT_CASES.get(seed, {}))
+    data = extra.pop("data", regression_data)
+    x, y = data(seed)
     kw = dict(n_trees=10, max_depth=max_depth, subsample=subsample,
-              seed=seed)
+              seed=seed, **extra)
     ref = rgbt.GBTRegressor(**kw).fit(x, y)
     port = pgbt.GBTRegressor(**kw).fit(x, y, device=CPU)
     assert_same_trees(ref, port)
-    xt = regression_data(seed + 100, n=64)[0]
+    xt = data(seed + 100, n=64)[0]
     assert np.array_equal(ref.predict(xt), port.predict(xt, device=CPU)
                           .numpy())
+
+
+def test_tree_update_equals_the_references():
+    """The fit's per-tree update (every row descends to its leaf, one
+    gather a level) gives the reference's ``_tree_predict`` bits."""
+    x, y = three_valued_data(11, n=2000)
+    kw = dict(n_trees=5, max_depth=10, subsample=0.8, seed=11)
+    ref = rgbt.GBTRegressor(**kw).fit(x, y)
+    port = pgbt.GBTRegressor(**kw).fit(x, y, device=CPU)
+    codes = rgbt.bin_data(x, ref.edges_)
+    for r_tree, p_tree in zip(ref.trees_, port.trees_):
+        assert np.array_equal(ref._tree_predict(r_tree, codes),
+                              port._tree_predict(p_tree, codes))
 
 
 def test_multi_target_gbt_identical():
@@ -172,22 +264,23 @@ def test_histogram_ops_hands_the_kernel_f64(monkeypatch):
 
 
 def test_histogram_kernel_constants_match_the_source():
-    """The wrapper's block constants are the source's: 8 bins a block,
-    2,048 rows staged in 24 KB of static shared memory."""
+    """The wrapper's block constants are the source's: 4 warps a block,
+    each staging 128 rows, 6 KB of static shared memory."""
     import re
     from repro_torch.kernels import _build
     src = (_build.CSRC / "gbt_hist.cu").read_text()
-    const = dict(re.findall(r"constexpr int (BINS|PER_THREAD) = (\d+);",
+    const = dict(re.findall(r"constexpr int (WARPS|PER_LANE) = (\d+);",
                             src))
-    assert int(const["BINS"]) == pkernel.BINS_PER_BLOCK
-    assert int(const["BINS"]) * 32 * int(const["PER_THREAD"]) \
-        == pkernel.ROWS_PER_CHUNK
+    assert int(const["WARPS"]) == pkernel.WARPS_PER_BLOCK
+    assert 32 * int(const["PER_LANE"]) == pkernel.ROWS_PER_BATCH
     assert pkernel.SMEM_BYTES <= 48 * 1024
 
 
 def test_bench_histogram_work_counts_f64_gradients_and_sums():
     from repro_torch.bench.kernels import gbt_hist_work
-    n, f, b = 12589, 7, 64
-    # int32 codes and f64 gradients read; f64 sums and int32 counts written
-    assert gbt_hist_work(n, f, b) == (n * f * 4 + n * 8 + f * b * (8 + 4),
-                                      2 * n * f)
+    n, f, b, k = 12589, 7, 64, 3
+    # int32 codes, f64 gradients, int32 row ids and offsets read; f64 sums
+    # and int32 counts [K, F, B] written
+    assert gbt_hist_work(n, f, b, k) == (
+        n * f * 4 + n * 8 + n * 4 + (k + 1) * 4 + k * f * b * (8 + 4),
+        2 * n * f)

@@ -107,6 +107,54 @@ def test_ssd_step_matches_reference_and_continues_the_scan():
                                atol=1e-5)
 
 
+def four_phase_scan(xdt, loga, b, c, chunk):
+    """The CUDA kernels' decomposition written out in torch: C·Bᵀ once per
+    batch row and chunk (``ssd_cb``); per (batch, head, chunk) on its own
+    the intra-chunk output and the chunk's state contribution S; the only
+    sequential part H_c = exp(total_c)·H_{c-1} + S_c; then y += (C∘exp(csum))
+    · H_{c-1} (``ssd_chunk``).  Ragged tails load as dt = 0 steps."""
+    bsz, s, h, p = xdt.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    pad = nc * q - s
+    xdt = torch.nn.functional.pad(xdt, (0, 0, 0, 0, 0, pad))
+    loga = torch.nn.functional.pad(loga, (0, 0, 0, pad))
+    b, c = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (b, c))
+    xc = xdt.reshape(bsz, nc, q, h, p)
+    bc, cc = b.reshape(bsz, nc, q, n), c.reshape(bsz, nc, q, n)
+    csum = torch.cumsum(loga.reshape(bsz, nc, q, h), dim=2)   # [B,nc,Q,H]
+    total = csum[:, :, -1]                                     # [B,nc,H]
+    cb = torch.einsum("bctn,bcsn->bcts", cc, bc)               # phase 1
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool))
+    rel = csum[:, :, :, None, :] - csum[:, :, None, :, :]      # [B,nc,t,s,H]
+    gate = torch.where(causal[None, None, :, :, None], torch.exp(rel), 0.0)
+    y = torch.einsum("bcts,bctsh,bcshp->bcthp", cb, gate, xc)  # phase 2
+    dout = torch.exp(total[:, :, None] - csum)                 # [B,nc,Q,H]
+    s_c = torch.einsum("bcsh,bcsn,bcshp->bchpn", dout, bc, xc)
+    hs, state = [], xdt.new_zeros((bsz, h, p, n))              # phase 3
+    for i in range(nc):
+        hs.append(state)
+        state = torch.exp(total[:, i])[..., None, None] * state + s_c[:, i]
+    h_prev = torch.stack(hs, dim=1)                            # [B,nc,H,P,N]
+    ce = cc[:, :, :, None, :] * torch.exp(csum)[..., None]     # phase 4
+    y = y + torch.einsum("bcthn,bchpn->bcthp", ce, h_prev)
+    return y.reshape(bsz, nc * q, h, p)[:, :s], state
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk",
+                         SSD_CASES + [(2, 300, 4, 8, 16, 128)])
+def test_four_phase_scan_matches_chunked_ref(b, s, h, p, n, chunk):
+    """The kernels' four phases equal the chunked form within the JAX
+    package's 2e-4, ragged tails and chunks under 128 included."""
+    x, dt, a_log, bb, cc, _ = ssd_inputs_np(b + s, b, s, h, p, n)
+    xdt, loga = ssd_inputs(*map(torch.as_tensor, (x, dt, a_log)))
+    args = (xdt, loga, torch.as_tensor(bb), torch.as_tensor(cc), chunk)
+    for got, want in zip(four_phase_scan(*args), ssd_scan_chunked_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=2e-4,
+                                   atol=2e-4 * want.abs().max().item())
+
+
 def test_ssd_inputs_are_the_references_decay_and_weighted_input():
     x, dt, a_log, *_ = ssd_inputs_np(2, 1, 6, 2, 3, 4)
     xdt, loga = ssd_inputs(*map(torch.as_tensor, (x, dt, a_log)))
