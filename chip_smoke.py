@@ -21,7 +21,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``PredictorCost`` (``tree_predict`` + ``decide_split`` kernels), with a
    ``CompositeCost`` over it, and the analytic default over a mixed fleet.
    Each plan is held against the exact f64 ``backend="torch"`` sweep.
-   Launch counts of the three kernels are read right after this path.
+   Launch counts of the three kernels are read right after this path
+   (``tree_predict`` also per CUDA kernel: each call one descent with its
+   trees in shared memory, then one fold).
    Then the fit runs again with timers (``fit_split``): its histogram
    calls, its per-tree updates, and the host's growth code in between.
 3. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
@@ -39,6 +41,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 5. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
    and ``ssm_scan`` also against themselves (two calls, the same bits).
+   ``tree_predict`` equals its plain version bit for bit, phase by phase
+   (the leaf matrix, the in-order fold) and on its global route too.
    ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
    two levels of phase 2's fit, as the fit called it (its root, and its
    level with the most nodes), and the card's GBT fit must grow the node
@@ -50,12 +54,20 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
    989 TFLOP/s dense bf16 on the tensor cores; the H100 SXM's published
    rates, defined once in ``repro_torch.bench.common``).  The bf16 flash
-   kernel and SDPA are replayed from a CUDA graph, with the eager time
-   beside it; ``gbt_hist`` is timed at both levels of phase 5, and
-   ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``, ``ssd_chunk``).
+   kernel and SDPA, ``tree_predict`` and ``decide_split`` are replayed
+   from a CUDA graph, with the eager time beside it; the last two are
+   timed by the kernel bench's rows on the decision path's inputs (the
+   fit's ensemble at 56 rows; the predictor sweep), ``tree_predict`` also
+   per CUDA kernel, ``decide_split`` also with L2 overwritten before each
+   call and with its bound at the 30 operations a split that its
+   division-bound form took; ``gbt_hist`` is timed at both levels of
+   phase 5, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
+   ``ssd_chunk``).
 7. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
-   bench at its main path's shape and ``int8_matmul`` at qwen3-1.7b's five
+   bench at its main path's shape (all six: ``tree_predict`` on a
+   synthetic ensemble of the fit's size, ``decide_split`` at E = 2^20 for
+   qwen3-1.7b and for 300 layers) and ``int8_matmul`` at qwen3-1.7b's five
    products (decode B 1 and B 4, the down projection, the LM head,
    prefill) in bf16, each held to its tolerance (``err_over_tol`` < 1;
    ``int8_matmul`` to ``int8_matmul.ref.int8_tolerance``) and timed beside
@@ -617,7 +629,9 @@ def main() -> None:
 
     from repro_torch import configs
     from repro_torch.bench.common import bound, card, timed_ms
-    from repro_torch.bench.kernels import WIDEST_LEVEL, gbt_hist_work
+    from repro_torch.bench.kernels import (WIDEST_LEVEL, decide_split_case,
+                                           decide_split_row, gbt_hist_work,
+                                           tree_predict_row)
     from repro_torch.core import costs as co
     from repro_torch.core import decisions as dec
     from repro_torch.core import offload as off
@@ -712,6 +726,7 @@ def main() -> None:
 
     for w in wrappers.values():
         w.launches = 0
+    tp_kernel.reset_counts()
     gh_ops.level_histogram_kernel = recorded
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -735,9 +750,17 @@ def main() -> None:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(json.dumps({"launch_counts": launches}), flush=True)
+    tp_by_kernel = dict(tp_kernel.tree_predict_kernel.by_kernel)
+    print(json.dumps({"launch_counts": launches,
+                      "tree_predict_by_kernel": tp_by_kernel}), flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the main path")
+    # every call: one descent, its trees in shared memory, then the fold
+    check(tp_by_kernel == {"descend_shared": launches["tree_predict"],
+                           "descend_global": 0,
+                           "fold": launches["tree_predict"]},
+          f"tree_predict launches per kernel {tp_by_kernel}, expected "
+          f"{launches['tree_predict']} descend_shared and fold")
     # one histogram launch per level of each tree, none per node
     most = gbt_kw["n_trees"] * gbt_kw["max_depth"]
     check(launches["gbt_hist"] <= most, f"gbt_hist launched "
@@ -862,26 +885,32 @@ def main() -> None:
     # f64 additions in the plain version's order: exactly equal
     check(torch.equal(tk, tpl), "tree_predict: kernel differs from plain "
           f"(max {(tk - tpl).abs().max().item()}; tolerance: exact)")
+    # each launch against its plain version, and the descent on the global
+    # route (nodes from device memory) at the same shape, through the
+    # wrapper's private helpers: exactly equal
+    tleaf = tp_kernel._descend(*targs, arrays.max_depth)
+    check(torch.equal(tleaf, tp_ref.leaf_matrix_ref(
+        *targs, max_depth=arrays.max_depth)), "tree_predict: the descent's "
+        "leaf matrix differs from leaf_matrix_ref")
+    check(torch.equal(tp_kernel._fold(tleaf, arrays.base),
+                      tp_ref.fold_ref(tleaf, arrays.base)),
+          "tree_predict: the fold differs from fold_ref")
+    check(torch.equal(tp_kernel._fold(tp_kernel._descend(
+        *targs, arrays.max_depth, "descend_global"), arrays.base), tpl),
+        "tree_predict: the global route differs from plain")
+    del tleaf
     records["tree_predict"] = dict(max_abs_err=(tk - tpl).abs().max()
                                    .item(), shape=list(tcodes.shape))
     line("kernel_check", kernel="tree_predict", rows=int(tcodes.shape[0]),
          trees=arrays.n_trees, max_nodes=arrays.max_nodes,
          max_depth=arrays.max_depth,
-         max_abs_err=records["tree_predict"]["max_abs_err"])
+         route=tp_kernel.choose_route(*tcodes.shape, *trees.feature.shape),
+         max_abs_err=records["tree_predict"]["max_abs_err"],
+         leaf_matrix_exact=True, fold_exact=True, global_route_exact=True)
 
     # decide_split: the predictor sweep's packed inputs, and L = 300 random
-    # layers over 2^20 - 3 mixed environments
-    rng = np.random.default_rng(SEED)
-    layers300 = [off.LayerCost(f"l{i}", float(f), float(a)) for i, (f, a)
-                 in enumerate(zip(rng.uniform(1e6, 1e12, 300),
-                                  rng.uniform(1e2, 1e8, 300)))]
-    n300 = N_ENVS - 3
-    specs = list(EDGE_DEVICES.values())
-    envs300 = dec.make_envs(
-        [specs[i] for i in rng.integers(len(specs), size=n300)], a100,
-        link_bw=rng.uniform(1e4, 1e10, n300),
-        link_latency_s=rng.uniform(0.0, 0.05, n300),
-        input_bytes=rng.uniform(0.0, 1e7, n300), device=dev)
+    # layers over 2^20 - 3 mixed environments (the kernel bench's L300 row)
+    layers300, envs300 = decide_split_case(dev, "L300", N_ENVS, SEED)
     packed = {
         "main": (ds_ops.pack_inputs(layers, envs, co.lower_to_accel(pcost))
                  .kernel_args, len(layers)),
@@ -940,46 +969,26 @@ def main() -> None:
     gh_bound = (gh_times["bound_ms"], gh_times["bound_by"])
     del levels
 
-    # tree_predict operations: one compare per split node visited, one f64
-    # add per (row, tree) — counted on this run's data (bytes bound it)
-    visits = 0
-    for i in range(arrays.n_trees):
-        node = torch.zeros(tcodes.shape[0], dtype=torch.int64, device=dev)
-        for _ in range(arrays.max_depth):
-            ft = trees.feature[i][node].long()
-            split = ft >= 0
-            visits += int(split.sum())
-            nxt = torch.where(
-                tcodes[torch.arange(len(node), device=dev), ft.clamp_min(0)]
-                <= trees.threshold_bin[i][node], trees.left[i][node],
-                trees.right[i][node]).long()
-            node = torch.where(split, nxt, node)
-    n_rows = tcodes.shape[0]
-    tp_bound = bound(tcodes.numel() * 4 + 4 * trees.feature.numel() * 4
-                     + trees.scaled_value.numel() * 8 + n_rows * 8,
-                     visits + n_rows * arrays.n_trees)
-    tp_times = dict(
-        ms=timed_ms(lambda: tp_kernel.tree_predict_kernel(*targs, **tkw), 50),
-        plain_ms=timed_ms(lambda: tp_ref.tree_predict_ref(*targs, **tkw), 3,
-                          groups=3),
-        library_ms=None)
-
-    args, n_l = packed["main"]
-    n_env = args[3].numel()
-    ds_bound = bound(3 * (n_l + 1) * 4 + 12 * 4 + n_env * (7 * 4 + 8),
-                     30 * n_env * (n_l + 1))
-    ds_times = dict(
-        ms=timed_ms(lambda: ds_kernel.decide_split_kernel(*args), 20),
-        plain_ms=timed_ms(lambda: ds_ref.decide_split_ref(*args), 5),
-        library_ms=None)
-    args300, _ = packed["L300"]
-    line("timing_extra", kernel="decide_split", case="L300",
-         n_envs=int(args300[3].numel()),
-         ms=timed_ms(lambda: ds_kernel.decide_split_kernel(*args300), 5),
-         plain_ms=timed_ms(lambda: ds_ref.decide_split_ref(*args300), 2,
-                           groups=3),
-         bound_ms=bound(3 * 301 * 4 + 12 * 4 + n300 * 36,
-                        30 * n300 * 301)[0])
+    # tree_predict and decide_split at the decision path's shapes, on its
+    # inputs, timed by the kernel bench's rows: replayed from a CUDA graph
+    # (a few µs of device time; the ctypes path would set an eager time),
+    # eager beside; tree_predict also per CUDA kernel, its bound counting
+    # the nodes this run's rows reach; decide_split also with L2 overwritten
+    # before each call (its 38 MB of inputs fit in the 50 MB L2, and the
+    # caller writes them just before) and with its bound at the 30
+    # operations a split counted before.  L300 is the bench's row (phase 7)
+    tp_row = tree_predict_row(dev, "chip_smoke_fit", (targs, tkw))
+    ds_row = decide_split_row(dev, "predictor_sweep", packed["main"][0])
+    del packed
+    for r in (tp_row, ds_row):
+        line("timing_extra", **r)
+        check(r["err_over_tol"] < 1.0, f"{r['name']} {r['case']}: off by "
+              f"{r['err_over_tol']} of its tolerance ({r['tolerance']})")
+    tp_times, ds_times = (dict(ms=r["us_per_call"] / 1e3,
+                               plain_ms=r["plain_us"] / 1e3, library_ms=None)
+                          for r in (tp_row, ds_row))
+    tp_bound, ds_bound = ((r["bound_us"] / 1e3, r["bound_by"])
+                          for r in (tp_row, ds_row))
 
     src = {"gbt_hist": ("src/repro_torch/csrc/gbt_hist.cu",
                         "src/repro/kernels/gbt_hist/kernel.py:49",
@@ -1000,6 +1009,17 @@ def main() -> None:
                         "library_ms": t["library_ms"],
                         "shape": records[name]["shape"]})
     kernels[0]["levels"] = gh_levels
+    # tree_predict and decide_split: replayed from a CUDA graph, the eager
+    # call beside; per CUDA kernel, and the L2-flushed time and the bound
+    # at 30 operations a split
+    kernels[1].update(timing="graph",
+                      eager_ms=tp_row["us_per_call_eager"] / 1e3,
+                      kernels={k: dict(ms=us / 1e3, launches=tp_by_kernel[k])
+                               for k, us in tp_row["kernels"].items()})
+    kernels[2].update(timing="graph",
+                      eager_ms=ds_row["us_per_call_eager"] / 1e3,
+                      cold_ms=ds_row["us_per_call_cold"] / 1e3,
+                      bound_ms_30ops=ds_row["bound_us_30ops"] / 1e3)
     kernels += serving_kernels(dev, serve_launches)
 
     # -- 7. the kernel bench: int8_matmul's entry point ---------------------

@@ -16,24 +16,30 @@ the kernel's columns are null.
 
 On the card each row holds the kernel against its plain version on the
 same inputs (``err_over_tol``: the largest error over its per-element
-limit; below 1 passes).  ``int8_matmul`` rows and the bf16 flash rows
-time the kernel and the library call through a CUDA graph (``timing:
-"graph"``), so the host's launch path does not enter a few-microsecond
-decode product or a ~0.2 ms attention; the flash rows keep the eager
-times beside them (``us_per_call_eager``, ``library_us_eager``).
+limit; below 1 passes).  ``int8_matmul`` rows, the bf16 flash rows and the
+``tree_predict`` and ``decide_split`` rows time the kernel and the library
+call through a CUDA graph (``timing: "graph"``), so the host's launch path
+does not enter a few-microsecond decode product or a ~0.2 ms attention;
+all but ``int8_matmul`` keep the eager times beside them
+(``us_per_call_eager``, ``library_us_eager``), and ``decide_split`` also
+the time of a call whose inputs come from device memory, not L2
+(``us_per_call_cold``).
 ``int8_matmul`` rows cycle through copies of the weight that together
 exceed the 50 MB L2 cache, so each call reads its weight from device
 memory as a decode step would.  The other rows time eager calls
 (``timing: "eager"``).  ``launches`` counts the kernel's launches while its
 row was timed (warm-up and timed calls; a graph's captured calls once, not
 its replays), not the one call compared with the plain version;
-``int8_matmul`` rows also count them per kernel (``routes``).
+``int8_matmul`` and ``tree_predict`` rows also count them per kernel
+(``routes``).
 """
 from __future__ import annotations
 
 import argparse
 import math
+import statistics
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -293,6 +299,267 @@ def ssm_scan_row(dev: torch.device, b: int = 4, s: int = 2048, h: int = 64,
     return row
 
 
+def random_trees(n_trees: int, max_nodes: int, max_depth: int, n_feat: int,
+                 n_bins: int = 64, seed: int = 0) -> dict:
+    """A seeded synthetic ensemble in the flattened form (numpy, ``[T, M]``
+    int32 ``feature``, ``threshold_bin``, ``left``, ``right`` and f64
+    ``scaled_value``): each tree holds one chain of ``max_depth`` splits,
+    then splits leaves at random (none deeper than ``max_depth``) while two
+    more nodes fit in ``max_nodes``; leaf values ~ N(0, 0.1), padding slots
+    leaves of value 0."""
+    rng = np.random.default_rng(seed)
+    out = {k: np.zeros((n_trees, max_nodes), np.int32)
+           for k in ("feature", "threshold_bin", "left", "right")}
+    out["feature"][:] = -1
+    out["scaled_value"] = np.zeros((n_trees, max_nodes), np.float64)
+    for t in range(n_trees):
+        depth = np.zeros(max_nodes, np.int64)
+        n, chain, open_ = 1, 0, []
+
+        def split(node):
+            nonlocal n
+            out["feature"][t, node] = rng.integers(n_feat)
+            out["threshold_bin"][t, node] = rng.integers(n_bins)
+            out["left"][t, node], out["right"][t, node] = n, n + 1
+            depth[n:n + 2] = depth[node] + 1
+            n += 2
+            open_.extend(c for c in (n - 2, n - 1) if depth[c] < max_depth)
+
+        for _ in range(max_depth):
+            if n + 2 > max_nodes:
+                break
+            split(chain)
+            if chain in open_:
+                open_.remove(chain)
+            chain = n - 2 + int(rng.integers(2))
+        while n + 2 <= max_nodes and open_:
+            i = int(rng.integers(len(open_)))
+            open_[i], open_[-1] = open_[-1], open_[i]
+            split(open_.pop())
+        leaves = np.flatnonzero(out["feature"][t, :n] < 0)
+        out["scaled_value"][t, leaves] = rng.normal(0.0, 0.1, len(leaves))
+    return out
+
+
+def tree_predict_work(codes: torch.Tensor, feature: torch.Tensor,
+                      threshold_bin: torch.Tensor, left: torch.Tensor,
+                      right: torch.Tensor, max_depth: int
+                      ) -> tuple[int, int]:
+    """(bytes, operations) of tree inference on these inputs, counted on
+    this data: the codes read once, of the node arrays only the nodes that
+    some row reaches (24 B each: four int32 and the f64 leaf value; padding
+    slots and nodes no row reaches are not needed), the [N] f64 result
+    written; one compare per split node a row passes and one f64 add per
+    (row, tree)."""
+    n, n_trees = codes.shape[0], feature.shape[0]
+    rows = torch.arange(n, device=codes.device)
+    tree = torch.arange(n_trees, device=codes.device)[:, None]
+    node = torch.zeros((n_trees, n), dtype=torch.int64, device=codes.device)
+    reached = torch.zeros(feature.shape, dtype=torch.bool,
+                          device=codes.device)
+    visits = 0
+    for _ in range(max_depth):
+        reached[tree, node] = True
+        ft = feature[tree, node].long()
+        split = ft >= 0
+        visits += int(split.sum())
+        nxt = torch.where(codes[rows, ft.clamp_min(0)]
+                          <= threshold_bin[tree, node], left[tree, node],
+                          right[tree, node]).long()
+        node = torch.where(split, nxt, node)
+    reached[tree, node] = True
+    nbytes = 4 * codes.numel() + 24 * int(reached.sum()) + 8 * n
+    return nbytes, visits + n * n_trees
+
+
+def tree_predict_inputs(dev: torch.device, n: int = 56, n_trees: int = 200,
+                        max_nodes: int = 643, max_depth: int = 12,
+                        n_feat: int = 7, n_bins: int = 64, seed: int = 0
+                        ) -> tuple[tuple, dict]:
+    """``tree_predict_kernel``'s arguments, ``(codes, *node arrays)`` and
+    ``{max_depth, base}``: ``n`` rows of random codes and a seeded synthetic
+    ensemble (:func:`random_trees`); default: the decision path's 2L = 56
+    feature rows and an ensemble of the chip_smoke fit's size (200 trees,
+    643 node slots, depth 12)."""
+    trees = random_trees(n_trees, max_nodes, max_depth, n_feat, n_bins, seed)
+    nodes = tuple(torch.as_tensor(trees[k], device=dev) for k in
+                  ("feature", "threshold_bin", "left", "right",
+                   "scaled_value"))
+    codes = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, n_bins, (n, n_feat)), dtype=torch.int32, device=dev)
+    return (codes, *nodes), dict(max_depth=max_depth, base=0.5)
+
+
+def tree_predict_row(dev: torch.device, case: str = "decision_path",
+                     inputs: tuple[tuple, dict] | None = None) -> dict:
+    """GBT inference on ``inputs`` (``tree_predict_kernel``'s arguments;
+    default: :func:`tree_predict_inputs`).  Exact: the kernel must equal
+    the plain version bit for bit.  On the card also the eager call's time
+    and each CUDA kernel's from a graph (``kernels``: the descent on its
+    route, then the fold; µs)."""
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    from repro_torch.kernels.tree_predict import ref as tp_ref
+    args, kw = tree_predict_inputs(dev) if inputs is None else inputs
+    codes, feature = args[0], args[1]
+    bms, by = bound(*tree_predict_work(*args[:5], kw["max_depth"]))
+    row = _row("tree_predict", dev, case=case,
+               shape=[codes.shape[0], *feature.shape, kw["max_depth"]],
+               dtype="float64", bound_us=1e3 * bms, bound_by=by)
+
+    def kernel():
+        return tp_kernel.tree_predict_kernel(*args, **kw)
+
+    def plain():
+        return tp_ref.tree_predict_ref(*args, **kw)
+
+    if dev.type == "cuda":
+        got, want = kernel(), plain()
+        row["max_abs_err"] = (got - want).abs().max().item()
+        row["err_over_tol"] = 0.0 if torch.equal(got, want) else math.inf
+        row["tolerance"] = "exact: bit for bit with the plain version"
+    before = tp_kernel.tree_predict_kernel.launches
+    routes = dict(tp_kernel.tree_predict_kernel.by_kernel)
+    _times(row, dev, kernel, plain, None, reps=50, plain_reps=3,
+           graph=dev.type == "cuda", plain_graph=False)
+    if dev.type == "cuda":
+        row["us_per_call_eager"] = 1e3 * timed_ms(kernel, 50)
+    row["launches"] = tp_kernel.tree_predict_kernel.launches - before
+    row["routes"] = {k: v - routes[k] for k, v in
+                     tp_kernel.tree_predict_kernel.by_kernel.items()
+                     if v > routes[k]}
+    if dev.type == "cuda" and codes.shape[0]:
+        route = tp_kernel.choose_route(*codes.shape, *feature.shape)[0]
+        leaf = tp_kernel._descend(*args, kw["max_depth"])
+        row["kernels"] = {
+            route: 1e3 * timed_ms(lambda: tp_kernel._descend(
+                *args, kw["max_depth"]), 50, graph=True),
+            "fold": 1e3 * timed_ms(lambda: tp_kernel._fold(
+                leaf, kw["base"]), 50, graph=True)}
+    return row
+
+
+def decide_split_work(n_envs: int, n_splits: int, spec) -> tuple[int, int]:
+    """(bytes, operations) of the decision sweep on these inputs: the three
+    split rows, the spec and seven f32 columns per environment read once,
+    the split and the cost written; per (environment, split) three FMAs
+    and a compare (7 operations) where the deadline weighs nothing, else 19
+    (``csrc/decide_split.cu``), and 20 per environment (its reciprocals
+    and coefficients)."""
+    from repro_torch.kernels.decide_split.kernel import SPEC_W3
+    per_split = 7 if float(spec[SPEC_W3]) == 0.0 else 19
+    return (3 * n_splits * 4 + len(spec) * 4 + n_envs * (7 * 4 + 8),
+            n_envs * (per_split * n_splits + 20))
+
+
+def decide_split_case(dev: torch.device, case: str = "qwen3",
+                      n_envs: int = 1 << 20, seed: int = 0) -> tuple:
+    """``(layers, envs)`` of one decision sweep under the analytic cost:
+    ``qwen3``, qwen3-1.7b's 28 layers (seq 4096, batch 1) on pi5-arm to
+    edge-server-a100 over ``n_envs`` links from 1e5 to 1e10 B/s; ``L300``,
+    300 random layers over ``n_envs - 3`` mixed environments."""
+    from repro_torch import configs
+    from repro_torch.core import decisions as dec
+    from repro_torch.core import offload as off
+    from repro_torch.hw import EDGE_DEVICES, get_device
+    a100 = get_device("edge-server-a100")
+    if case == "qwen3":
+        layers = off.transformer_layer_costs(
+            configs.get_config("qwen3-1.7b"), seq_len=4096, batch_size=1)
+        return layers, dec.make_envs(
+            get_device("pi5-arm"), a100,
+            link_bw=np.geomspace(1e5, 1e10, n_envs), link_latency_s=0.005,
+            input_bytes=4 * 4096, device=dev)
+    rng = np.random.default_rng(seed)
+    layers = [off.LayerCost(f"l{i}", float(f), float(a)) for i, (f, a)
+              in enumerate(zip(rng.uniform(1e6, 1e12, 300),
+                               rng.uniform(1e2, 1e8, 300)))]
+    n, specs = n_envs - 3, list(EDGE_DEVICES.values())
+    return layers, dec.make_envs(
+        [specs[i] for i in rng.integers(len(specs), size=n)], a100,
+        link_bw=rng.uniform(1e4, 1e10, n),
+        link_latency_s=rng.uniform(0.0, 0.05, n),
+        input_bytes=rng.uniform(0.0, 1e7, n), device=dev)
+
+
+def decide_split_inputs(dev: torch.device, case: str = "qwen3",
+                        n_envs: int = 1 << 20, seed: int = 0) -> tuple:
+    """The eleven kernel arguments (``pack_inputs``) of
+    :func:`decide_split_case`'s sweep."""
+    from repro_torch.core.costs import lower_to_accel
+    from repro_torch.kernels.decide_split.ops import pack_inputs
+    return pack_inputs(*decide_split_case(dev, case, n_envs, seed),
+                       lower_to_accel(None)).kernel_args
+
+
+def timed_cold_ms(fn, reps: int, groups: int = 5) -> float:
+    """Median over ``groups`` of the mean CUDA-event time (ms) of ``reps``
+    calls of ``fn``, each timed alone after three times the L2 cache has
+    been written (so its inputs come from device memory), after 3 warm-up
+    calls.  A spin kernel holds the stream while a group is enqueued, so
+    the card runs it without waiting for the host between the events."""
+    flush = torch.empty(int(3 * L2_BYTES), dtype=torch.uint8, device="cuda")
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(groups):
+        pairs = []
+        torch.cuda._sleep(20_000_000)        # ~10 ms of clock cycles
+        for _ in range(reps):
+            flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        out.append(sum(a.elapsed_time(b) for a, b in pairs) / reps)
+    return statistics.median(out)
+
+
+def decide_split_row(dev: torch.device, case: str = "qwen3",
+                     args: tuple | None = None) -> dict:
+    """The fused decision sweep on ``args``, the kernel's eleven arguments
+    (default: :func:`decide_split_inputs` of ``case``): costs within rtol
+    1e-5 of the plain version, ``split_match_share`` beside.  On the card
+    also ``us_per_call_cold``, each call after L2 was overwritten, and
+    ``bound_us_30ops``, the bound at the 30 operations a split of the
+    kernel before the division-free form."""
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.decide_split import ref as ds_ref
+    args = decide_split_inputs(dev, case) if args is None else args
+    e, n_splits = args[3].numel(), args[0].numel()
+    nbytes, ops = decide_split_work(e, n_splits, args[-1].cpu())
+    bms, by = bound(nbytes, ops)
+    row = _row("decide_split", dev, case=case, shape=[e, n_splits],
+               dtype="float32", bound_us=1e3 * bms, bound_by=by,
+               bound_us_30ops=1e3 * bound(nbytes, 30 * e * n_splits)[0])
+
+    def kernel():
+        return ds_kernel.decide_split_kernel(*args)
+
+    def plain():
+        return ds_ref.decide_split_ref(*args)
+
+    if dev.type == "cuda":
+        (ks, kc), (ps, pc) = kernel(), plain()
+        err = (kc - pc).abs()
+        row["max_abs_err"] = err.max().item()
+        row["err_over_tol"] = (err / (1e-5 * pc.abs()).clamp_min(1e-30)
+                               ).max().item()
+        row["tolerance"] = "rtol 1e-5 on the least cost"
+        row["split_match_share"] = (ks == ps).double().mean().item()
+        del ks, kc, ps, pc, err
+    before = ds_kernel.decide_split_kernel.launches
+    _times(row, dev, kernel, plain, None, reps=20, plain_reps=2,
+           graph=dev.type == "cuda", plain_graph=False)
+    if dev.type == "cuda":
+        row["us_per_call_eager"] = 1e3 * timed_ms(kernel, 20)
+        row["us_per_call_cold"] = 1e3 * timed_cold_ms(kernel, 10)
+    row["launches"] = ds_kernel.decide_split_kernel.launches - before
+    return row
+
+
 def int8_matmul_row(dev: torch.device, case: str = "decode_b4",
                     m: int = 4, k: int = 2048, n: int = 6144,
                     dtype: torch.dtype = torch.bfloat16,
@@ -404,7 +671,10 @@ ROWS = ([(flash_attention_row, {}),
          (gbt_hist_row, dict(distinct=FIT_DISTINCT)),
          (gbt_hist_row, dict(case="widest_level", sizes=WIDEST_LEVEL,
                              distinct=FIT_DISTINCT)),
-         (ssm_scan_row, {})]
+         (ssm_scan_row, {}),
+         (tree_predict_row, {}),
+         (decide_split_row, {}),
+         (decide_split_row, dict(case="L300"))]
         + [(int8_matmul_row, dict(case=c, m=m, k=k, n=n))
            for c, m, k, n in INT8_SHAPES])
 

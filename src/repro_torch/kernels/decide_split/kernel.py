@@ -13,7 +13,11 @@ columns; the kernel rebuilds per split::
 
 and scores latency, energy, price, deadline slack, the queue wait and the
 tail excess with the weights of the lowered cost model (the ``SPEC_*``
-layout below, identical to the reference kernel's).
+layout below, identical to the reference kernel's).  The kernel computes
+that score regrouped: per environment three reciprocals and the weights of
+``dev_t``, ``edge_t``, ``xfer`` and ``ship`` folded into coefficients, so a
+split costs a few FMAs and no division (``ref.decide_split_factored_ref``
+is the same algebra in plain PyTorch; the source's comment derives it).
 """
 from __future__ import annotations
 

@@ -10,6 +10,9 @@ form predictor persistence writes (the reference's ``.npz`` layout).
     (``kernel.tree_predict_kernel``): level-synchronous descent over bin
     codes, leaf values pre-scaled by the learning rate in f64, added one at
     a time in training order onto the ensemble's ``base``;
+  * :func:`leaf_matrix_ref`, :func:`fold_ref` — the same in the kernel's
+    two launches: every (row, tree)'s leaf value ``[N, T]`` (the
+    descent), then each row added in tree order (the fold);
   * :func:`predict_ref`      — binning + :func:`tree_predict_ref`, bit for
     bit with the reference's ``GBTRegressor.predict`` / ``predict_ref``.
 """
@@ -183,6 +186,32 @@ def tree_predict_ref(codes: torch.Tensor, feature: torch.Tensor,
         leaf = _leaves(codes, feature[i], threshold_bin[i], left[i],
                        right[i], max_depth)
         pred = pred + scaled_value[i][leaf]
+    return pred
+
+
+def leaf_matrix_ref(codes: torch.Tensor, feature: torch.Tensor,
+                    threshold_bin: torch.Tensor, left: torch.Tensor,
+                    right: torch.Tensor, scaled_value: torch.Tensor, *,
+                    max_depth: int) -> torch.Tensor:
+    """Plain version of the kernel's descent: ``[N, T]`` f64, the
+    pre-scaled leaf value each row reaches in each tree."""
+    cols = [scaled_value[i][_leaves(codes, feature[i], threshold_bin[i],
+                                    left[i], right[i], max_depth)]
+            for i in range(feature.shape[0])]
+    if not cols:
+        return torch.zeros((codes.shape[0], 0), dtype=torch.float64,
+                           device=codes.device)
+    return torch.stack(cols, dim=1)
+
+
+def fold_ref(leaf: torch.Tensor, base: float) -> torch.Tensor:
+    """Plain version of the kernel's fold: ``[N]`` f64 ``base`` plus each
+    row of ``leaf [N, T]``, one add at a time in tree order (regrouped into
+    partial sums, the f64 result would differ)."""
+    pred = torch.full((leaf.shape[0],), base, dtype=torch.float64,
+                      device=leaf.device)
+    for t in range(leaf.shape[1]):
+        pred = pred + leaf[:, t]
     return pred
 
 

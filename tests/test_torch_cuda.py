@@ -177,6 +177,136 @@ def test_decide_split_kernel_matches_plain(cuda, n_layers, n_envs):
                      <= exact.total_time_s * (1 + 1e-4) + 1e-12)
 
 
+# (descent's route forced through the private helper, or None; N, T, node
+# slots, depth): the decision path's shape; N not a multiple of the 128-row
+# tile with T not a multiple of the trees a block takes (7 at N 1000, T 205
+# in shared memory; 2 at N 1000, T 41 on the global route); N 0 and 1;
+# stumps; trees beyond shared memory (10,001 slots), which choose the global
+# route themselves; the global route forced at the decision path's shape
+TREE_GPU_CASES = [
+    (None, 56, 200, 643, 12),
+    (None, 0, 200, 643, 12),
+    (None, 1, 200, 643, 12),
+    (None, 1000, 205, 643, 12),
+    (None, 300, 37, 101, 6),
+    (None, 56, 10, 1, 0),
+    ("descend_global", 56, 200, 643, 12),
+    ("descend_global", 1000, 205, 643, 12),
+    (None, 57, 3, 10_001, 20),
+    (None, 0, 3, 10_001, 20),
+    (None, 1, 3, 10_001, 20),
+    (None, 1000, 41, 10_001, 20),
+]
+
+
+@pytest.mark.parametrize("route,n,n_trees,max_nodes,depth", TREE_GPU_CASES)
+def test_tree_predict_routes_match_plain(cuda, route, n, n_trees, max_nodes,
+                                         depth):
+    """The whole call on the route it chooses, and the descent (on
+    ``route`` where one is forced) and the fold on their own, bit for bit
+    with the plain version (``torch.equal``), on synthetic ensembles."""
+    from repro_torch.bench.kernels import random_trees
+    trees = random_trees(n_trees, max_nodes, depth, 7, 64, seed=n + depth)
+    nodes = tuple(torch.as_tensor(trees[k], device=cuda) for k in
+                  ("feature", "threshold_bin", "left", "right",
+                   "scaled_value"))
+    codes = torch.as_tensor(np.random.default_rng(n).integers(0, 64, (n, 7)),
+                            dtype=torch.int32, device=cuda)
+    chosen = tp_kernel.choose_route(n, 7, n_trees, max_nodes)[0]
+    assert chosen == ("descend_global" if max_nodes > 9_400
+                      else "descend_shared")
+    tp_kernel.reset_counts()
+    got = tp_kernel.tree_predict_kernel(codes, *nodes, max_depth=depth,
+                                        base=0.25)
+    leaf = tp_kernel._descend(codes, *nodes, depth, route)
+    folded = tp_kernel._fold(leaf, 0.25)
+    torch.cuda.synchronize()
+    want = tp_ref.tree_predict_ref(codes, *nodes, max_depth=depth, base=0.25)
+    assert got.shape == (n,) and torch.equal(got, want)
+    assert torch.equal(leaf, tp_ref.leaf_matrix_ref(codes, *nodes,
+                                                    max_depth=depth))
+    assert torch.equal(folded, tp_ref.fold_ref(leaf, 0.25))
+    expect = dict.fromkeys(tp_kernel.KERNELS, 0)
+    if n:
+        expect[chosen] += 1
+        expect[route or chosen] += 1
+        expect["fold"] = 2
+    assert tp_kernel.tree_predict_kernel.launches == (n > 0)
+    assert tp_kernel.tree_predict_kernel.by_kernel == expect
+    if chosen == "descend_global" and n:
+        with pytest.raises(ValueError, match="shared memory"):
+            tp_kernel._descend(codes, *nodes, depth, "descend_shared")
+
+
+def _decision_inputs(cuda, seed, n_splits, n_envs, **spec_kw):
+    """Random factored inputs of a sweep (links of 1e4 to 1e10 B/s) and
+    its packed spec, f32 on the card."""
+    rng = np.random.default_rng(seed)
+    dcum = np.concatenate(([0.0], np.cumsum(rng.uniform(1e8, 1e11,
+                                                        n_splits - 1))))
+    bvec = np.concatenate(([0.0], rng.uniform(1e2, 1e8, n_splits - 1)))
+    bvec[-1] = 0.0
+    cols = [rng.uniform(1e9, 1e13, n_envs), rng.uniform(1e11, 1e14, n_envs),
+            rng.uniform(1e4, 1e10, n_envs), rng.uniform(0.0, 0.05, n_envs),
+            rng.uniform(0.0, 1e7, n_envs), rng.uniform(5, 50, n_envs),
+            rng.uniform(100, 400, n_envs)]
+    spec = ds_kernel.pack_spec(edge_total=float(dcum[-1]), **spec_kw)
+    return [torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+            for a in (dcum, dcum, bvec, *cols, spec)]
+
+
+DECIDE_SPECS = {
+    "latency": dict(weights=(1.0, 0.0, 0.0, 0.0)),
+    "composite": dict(weights=(1.0, 0.05, 1.0, 0.0), radio_watts=2.5,
+                      price_per_edge_s=0.1, price_per_gb=0.01),
+    # w3 != 0: the path that keeps the divisions of total
+    "queue_tail_deadline": dict(weights=(1.0, 0.05, 1.0, 2.0),
+                                radio_watts=2.5, price_per_edge_s=0.1,
+                                price_per_gb=0.01, deadline_s=0.05,
+                                queue_wait_s=0.02, tail_excess_s=0.03,
+                                tail_weight=0.5),
+    "deadline": dict(weights=(0.0, 0.0, 0.0, 1.0), deadline_s=0.05),
+}
+
+
+@pytest.mark.parametrize("spec_name", sorted(DECIDE_SPECS))
+@pytest.mark.parametrize("n_splits", [1, 2, 29, 301])
+def test_decide_split_kernel_edges_match_plain(cuda, n_splits, spec_name):
+    """L+1 of 1, 2, 29 and 301 (two chunks of splits) over 1,003
+    environments (not a multiple of the 256-thread block): costs within
+    rtol 1e-5 of the plain version, splits matching in > 0.999 of them,
+    each split near-optimal in f64 on the same inputs."""
+    args = _decision_inputs(cuda, n_splits, n_splits, 1003,
+                            **DECIDE_SPECS[spec_name])
+    ks, kc = ds_kernel.decide_split_kernel(*args)
+    ps, pc = ds_ref.decide_split_ref(*args)
+    torch.testing.assert_close(kc, pc, rtol=1e-5, atol=0.0)
+    assert (ks == ps).double().mean().item() > 0.999
+    exact = ds_ref.cost_matrix_ref(*(a.double() for a in args))
+    got = exact.gather(1, ks.long()[:, None])[:, 0]
+    assert torch.all(got <= exact.min(dim=1).values * (1 + 1e-4) + 1e-12)
+
+
+@pytest.mark.parametrize("spec_name", ["composite", "queue_tail_deadline"])
+def test_decide_split_kernel_keeps_the_first_of_tied_splits(cuda,
+                                                            spec_name):
+    """Planted ties of the least cost at splits 3 and 7, and at 100 and 290
+    (across the kernel's chunks of 256 splits): the first is taken."""
+    for first, second, n_splits in ((3, 7, 9), (100, 290, 301)):
+        args = _decision_inputs(cuda, 0, n_splits, 1003,
+                                **DECIDE_SPECS[spec_name])
+        dcum, ecum, bvec = (torch.full((n_splits,), v, device=cuda)
+                            for v in (5e11, 1e9, 1e3))
+        dcum[[first, second]] = 1e9
+        cols = [torch.full_like(a, a[0].item()) for a in args[3:10]]
+        args = [dcum, ecum, bvec, *cols, args[10]]
+        args[10][ds_kernel.SPEC_ETOT] = 1e9
+        ks, _ = ds_kernel.decide_split_kernel(*args)
+        ps, _ = ds_ref.decide_split_ref(*args)
+        assert ps.tolist() == [first] * 1003
+        assert torch.equal(ks, ps)
+
+
 # (B, S, Hq, Hkv, D, window, causal, valid_len, dtype); bf16 with D 64 or
 # 128 runs the tensor-core kernel, the rest the f32 CUDA-core kernel
 FLASH_GPU_CASES = [

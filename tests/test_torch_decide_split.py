@@ -11,6 +11,9 @@
   consistently in f64.
 * Degenerate shapes: L = 0, E = 0, L = 300 (several split blocks) and E not
   a multiple of the Pallas env block.
+* The CUDA kernel's regrouped, division-free f32 arithmetic in plain
+  PyTorch: within ``rtol=1e-5`` of the plain twin, near-optimal in f64, and
+  the first of tied splits.
 """
 import numpy as np
 import pytest
@@ -31,6 +34,7 @@ from repro_torch.core import offload as poff
 from repro_torch.hw import EDGE_DEVICES as P_DEVICES
 from repro_torch.kernels.decide_split import kernel as pkernel
 from repro_torch.kernels.decide_split import ops as pops
+from repro_torch.kernels.decide_split import ref as ds_ref
 from repro_torch.kernels.decide_split.ref import decide_split_ref
 
 CPU = "cpu"
@@ -232,6 +236,59 @@ def test_plain_twin_is_the_cpu_dispatch_and_keeps_first_index_on_ties():
     assert s.tolist() == [0, 0, 0] and c.tolist() == [0.0, 0.0, 0.0]
     with pytest.raises(ValueError, match="CUDA"):
         pkernel.decide_split_kernel(*arrs, spec)
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's regrouped arithmetic (no division per split), in plain
+# PyTorch: ref.decide_split_factored_ref
+# --------------------------------------------------------------------------
+FACTORED_SPECS = {
+    **SPECS,
+    # every weight 0: every split costs 0, the first one is taken
+    "zero": dict(weights=(0.0, 0.0, 0.0, 0.0)),
+    # the deadline alone, active: the slack path of the kernel
+    "deadline": dict(weights=(0.0, 0.0, 0.0, 1.0), deadline_s=0.05),
+}
+
+
+@pytest.mark.parametrize("spec_name", sorted(FACTORED_SPECS))
+@pytest.mark.parametrize("seed,n_layers,n_envs",
+                         [(0, 28, 64), (1, 0, 5), (2, 300, 37), (3, 7, 1),
+                          (4, 28, 4099)])
+def test_factored_arithmetic_matches_plain_and_is_near_optimal(
+        spec_name, seed, n_layers, n_envs):
+    """Costs within the kernel's rtol 1e-5 of the plain version; each
+    chosen split within (1 + 1e-4) f64 optimum + 1e-12 of the f64 costs of
+    the same f32 inputs (links of 1e4 to 1e10 B/s)."""
+    arrs, etot = packed_inputs(seed, n_layers, n_envs)
+    args = [torch.as_tensor(a) for a in arrs] + [torch.as_tensor(
+        pkernel.pack_spec(edge_total=etot, **FACTORED_SPECS[spec_name]))]
+    ps, pc = decide_split_ref(*args)
+    fs, fc = ds_ref.decide_split_factored_ref(*args)
+    assert fs.dtype == torch.int32 and fc.dtype == torch.float32
+    torch.testing.assert_close(fc, pc, rtol=1e-5, atol=0.0)
+    exact = ds_ref.cost_matrix_ref(*(a.double() for a in args))
+    got = exact.gather(1, fs.long()[:, None])[:, 0]
+    assert torch.all(got <= exact.min(dim=1).values * (1 + 1e-4) + 1e-12)
+    if spec_name == "zero":
+        assert not fs.any()
+
+
+def test_factored_arithmetic_keeps_the_first_of_tied_splits():
+    """Splits 3 and 7 (and 100 and 290, across the kernel's 256-split
+    chunks) cost exactly the same least cost: the first is taken."""
+    for first, second, n_splits in ((3, 7, 9), (100, 290, 301)):
+        dcum = torch.full((n_splits,), 5e9)
+        dcum[[first, second]] = 1e9
+        bvec = torch.full((n_splits,), 1e3)
+        ecum = torch.full((n_splits,), 1e10)
+        cols = [torch.full((4,), v) for v in
+                (1e10, 1e12, 1e6, 0.01, 1e3, 10.0, 300.0)]
+        spec = torch.as_tensor(pkernel.pack_spec(
+            (1.0, 0.05, 0.0, 0.0), radio_watts=2.0, edge_total=1e10))
+        for fn in (decide_split_ref, ds_ref.decide_split_factored_ref):
+            s, _ = fn(dcum, ecum, bvec, *cols, spec)
+            assert s.tolist() == [first] * 4
 
 
 # --------------------------------------------------------------------------
