@@ -26,7 +26,30 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    trees in shared memory, then one fold).
    Then the fit runs again with timers (``fit_split``): its histogram
    calls, its per-tree updates, and the host's growth code in between.
-3. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
+3. The profiling loop at full width (the paper's offline loop, as
+   ``benchmarks/fig3_predictions.py`` runs it): ``generate(n_runs=150,
+   max_steps=6, seed=0)`` profiles 150 Table-I runs on the card (600
+   more projected onto the other edge specs), every target finite and
+   > 0, the TF32 flags back to their values afterwards, and one config of
+   each of the six networks counted again on the CPU (equal FLOPs and
+   parameters: ``FlopCounterMode`` counts by formula).  On the normalised
+   80/20 split: ``MultiTargetGBT(300 trees, depth 12, subsample 0.8)``
+   fitted on the card and on the CPU (node arrays equal, all 3 × 300
+   trees), its lowered form's card predictions equal to the plain
+   version's, ``MLPRegressor(hidden=(2048, 1024, 512), epochs=150)`` and
+   ``RidgeRegressor()`` on the card, each family's per-target nRMSE; the
+   MLP also on the card and on the CPU from the same initial weights:
+   one full-batch step (the median gap of the parameters' displacements
+   within ``MLP_STEP_TOL`` of their median) and two epochs
+   (predictions within ``MLP_CARD_TOL`` of their scale), both measured by
+   ``repro_torch.bench.mlp_spread``, which says why two epochs drift more.
+   Then ridge and ``MLPRegressor(hidden=(256, 128), epochs=10)`` fitted on
+   phase 2's per-layer rows, and ``decide_all(PredictorCost(model))`` over
+   phase 2's 2^20 environments with each, held near-optimal against
+   ``backend="torch"``.  ``gbt_hist``, ``tree_predict`` and
+   ``decide_split`` launch counts are set to 0 before the phase and read
+   after it.
+4. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
    published shapes in bf16, each serving 8 greedy requests of 2048 random
    tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
@@ -34,21 +57,21 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    flash launch must have taken ``flash_fwd_wgmma``, and every ``ssm_scan``
    call must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
    request must get 32 in-range tokens and every logit must be finite.
-4. The whole model on the card: at each model's full width in f32, the
+5. The whole model on the card: at each model's full width in f32, the
    kernel path (``build_model(cfg)``) and the plain path
    (``impl="naive"``) on one 512-token prompt with shared weights; their
    last-token logits must agree within 1e-3 of max |logit|.
-5. Each kernel against its plain PyTorch version on the card, at the
+6. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
    and ``ssm_scan`` also against themselves (two calls, the same bits).
    ``tree_predict`` equals its plain version bit for bit, phase by phase
    (the leaf matrix, the in-order fold) and on its global route too.
    ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
-   two levels of phase 2's fit, as the fit called it (its root, and its
-   level with the most nodes), and the card's GBT fit must grow the node
+   two levels of phase 2's fit and two of phase 3's, as the fits called it
+   (each fit's root, and its level with the most nodes), and the card's GBT fit must grow the node
    arrays of the same fit on the CPU (``flatten_gbt``, bit for bit: all 200
    trees with identical splits).
-6. Timing with CUDA events after a warm-up: each kernel, its plain
+7. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
@@ -60,10 +83,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    fit's ensemble at 56 rows; the predictor sweep), ``tree_predict`` also
    per CUDA kernel, ``decide_split`` also with L2 overwritten before each
    call and with its bound at the 30 operations a split that its
-   division-bound form took; ``gbt_hist`` is timed at both levels of
-   phase 5, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
+   division-bound form took; ``gbt_hist`` is timed at the four levels of
+   phase 6, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
    ``ssd_chunk``).
-7. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
+8. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape (all six: ``tree_predict`` on a
    synthetic ensemble of the fit's size, ``decide_split`` at E = 2^20 for
@@ -97,6 +120,9 @@ SEED = 0
 SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
 CHECK_PROMPT = 512                   # the whole-model f32 check
+PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
+MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
+MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
 
 
 def fail(msg: str) -> None:
@@ -261,6 +287,186 @@ def serve_slice(dev, smi: str) -> dict:
           f"flash_attention: {by_kernel} on the serving path, expected all "
           f"{expected['flash_attention']} launches on flash_fwd_wgmma")
     return dict(launches, ssm_scan_by_kernel=ssm_by_kernel)
+
+
+def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
+                    layers, envs, pi5, a100) -> dict:
+    """The paper's offline loop at full width on the card: profile the
+    Table-I grid, fit the fig3 predictors on the profiling dataset, then
+    decide with ridge and an MLP fitted on phase 2's per-layer rows.
+    Returns the three decision kernels' launch counts of this phase."""
+    import collections
+
+    import numpy as np
+    import torch
+    from repro_torch.bench.mlp_spread import one_step_drift, two_epoch_drift
+    from repro_torch.core import costs as co
+    from repro_torch.core import dataset as ds
+    from repro_torch.core import decisions as dec
+    from repro_torch.core.predictors import (MLPRegressor, MultiTargetGBT,
+                                             RidgeRegressor,
+                                             per_target_nrmse)
+    from repro_torch.core.workloads import WorkloadConfig
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    from repro_torch.kernels.tree_predict import ref as tp_ref
+    from repro_torch.oracle.lowered import lower_predictor
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    for w in wrappers.values():
+        w.launches = 0
+    tp_kernel.reset_counts()
+
+    # -- profile: the reference benchmark's grid, each run timed
+    run_s, profile = [], ds.profile_workload
+
+    def timed_run(*args, **kw):
+        t0 = synced()
+        rec = profile(*args, **kw)
+        run_s.append(synced() - t0)
+        return rec
+
+    ds.profile_workload = timed_run
+    t0 = synced()
+    records, data = ds.generate(n_runs=PROFILE_RUNS, max_steps=PROFILE_STEPS,
+                                seed=SEED, device=dev)
+    profile_s = synced() - t0
+    ds.profile_workload = profile
+    measured = [r for r in records if "@" not in r.label]
+    check(len(measured) == PROFILE_RUNS and len(records) == 5 * PROFILE_RUNS,
+          f"{len(measured)} measured and {len(records)} records, expected "
+          f"{PROFILE_RUNS} and {5 * PROFILE_RUNS}")
+    check(all(np.isfinite(v) and v > 0 for r in records
+              for v in r.targets(extended=True).values()),
+          "a profiling target is not finite and positive")
+    # one config of each network again on the CPU: FlopCounterMode counts
+    # by formula, so the card's FLOPs and parameters are the CPU's
+    firsts = {}
+    for r in measured:
+        firsts.setdefault((r.kind, r.config["type_idx"]), r)
+    check(len(firsts) == 6, f"the grid sample covers {sorted(firsts)}")
+    for (kind, ti), r in sorted(firsts.items()):
+        host = ds.profile_workload(WorkloadConfig(**r.config), max_steps=1,
+                                   seed=SEED, device="cpu")
+        check((host.flops_per_step, host.param_count)
+              == (r.flops_per_step, r.param_count),
+              f"{kind}{ti}: card FLOPs/params {r.flops_per_step}/"
+              f"{r.param_count}, CPU {host.flops_per_step}/"
+              f"{host.param_count}")
+    check((torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32) == tf32,
+          f"the TF32 flags were not restored ({tf32} before)")
+    line("profile", runs=len(measured), records=len(records),
+         max_steps=PROFILE_STEPS, profile_s=profile_s,
+         median_run_s=float(np.median(run_s)), max_run_s=max(run_s),
+         by_kind=collections.Counter(r.kind for r in measured),
+         by_optimiser=collections.Counter(r.config["optimiser"]
+                                          for r in measured),
+         median_step_s={k: float(np.median([r.step_time_s for r in measured
+                                             if r.kind == k]))
+                        for k in ("cnn", "mlp")},
+         max_peak_bytes=max(r.peak_bytes for r in measured),
+         flops_params_equal_cpu=sorted(f"{k}{t}" for k, t in firsts),
+         tf32_restored=True)
+
+    # -- fit the fig3 predictors on the normalised 80/20 split
+    norm, _ = data.normalised()
+    tr, te = norm.split(0.8)
+    gbt_kw = dict(n_trees=300, max_depth=12, subsample=0.8)
+    hist_before = wrappers["gbt_hist"].launches
+    launch_level, gh_ops.level_histogram_kernel = \
+        gh_ops.level_histogram_kernel, recorder("profiling_")
+    t0 = synced()
+    gbt = MultiTargetGBT(**gbt_kw).fit(tr.x, tr.y, device=dev)
+    gbt_fit_s = synced() - t0
+    gh_ops.level_histogram_kernel = launch_level
+    hist_launches = wrappers["gbt_hist"].launches - hist_before
+    t0 = time.perf_counter()
+    gbt_cpu = MultiTargetGBT(**gbt_kw).fit(tr.x, tr.y, device="cpu")
+    gbt_cpu_fit_s = time.perf_counter() - t0
+    fields = ("feature", "threshold_bin", "left", "right", "value",
+              "n_nodes", "edges")
+    equal = all(np.array_equal(getattr(fa, f), getattr(fb, f))
+                for a, b in zip(gbt.models_, gbt_cpu.models_)
+                for fa, fb in [(tp_ref.flatten_gbt(a), tp_ref.flatten_gbt(b))]
+                for f in fields)
+    n_trees = sum(len(m.trees_) for m in gbt.models_)
+    check(equal and n_trees == 3 * gbt_kw["n_trees"],
+          "the card's profiling-dataset GBT fit differs from the CPU fit's "
+          "node arrays")
+    low = lower_predictor(gbt)
+    pred_gbt = low.predict(te.x, device=dev)
+    check(torch.equal(pred_gbt.cpu(), low.predict(te.x, device="cpu")),
+          "the lowered GBT's card predictions differ from the plain "
+          "version's (tolerance: exact)")
+    nrmse = {"gbt": per_target_nrmse(pred_gbt.cpu().numpy(), te.y)}
+    fit_s = {"gbt": gbt_fit_s}
+    t0 = synced()
+    mlp = MLPRegressor(hidden=(2048, 1024, 512), epochs=150, lr=1e-3).fit(
+        tr.x, tr.y, device=dev)
+    fit_s["mlp"] = synced() - t0
+    t0 = synced()
+    ridge = RidgeRegressor().fit(tr.x, tr.y, device=dev)
+    fit_s["ridge"] = synced() - t0
+    for name, m in (("mlp", mlp), ("ridge", ridge)):
+        nrmse[name] = per_target_nrmse(m.predict(te.x, device=dev).cpu()
+                                       .numpy(), te.y)
+    check(all(np.isfinite(v).all() for v in nrmse.values()),
+          f"a non-finite nRMSE ({nrmse})")
+    # one step and two epochs from the same initial weights on both devices
+    step_err = one_step_drift(tr.x, tr.y, device=dev)
+    check(step_err <= MLP_STEP_TOL, f"one MLP step: card and CPU parameter "
+          f"displacements differ by {step_err} (median over median; "
+          f"tolerance {MLP_STEP_TOL})")
+    mlp_err = two_epoch_drift(tr.x, tr.y, te.x, device=dev)
+    check(mlp_err <= MLP_CARD_TOL, f"two-epoch MLP: card and CPU predictions "
+          f"differ by {mlp_err} of their scale (tolerance {MLP_CARD_TOL})")
+    line("fig3", rows_train=len(tr.x), rows_test=len(te.x),
+         features=int(tr.x.shape[1]), targets=te.target_names,
+         nrmse={k: v.tolist() for k, v in nrmse.items()},
+         nrmse_mean={k: float(v.mean()) for k, v in nrmse.items()},
+         gbt_vs_mlp_ratio=float(nrmse["mlp"].mean() / nrmse["gbt"].mean()),
+         fit_s=fit_s, gbt_cpu_fit_s=gbt_cpu_fit_s,
+         gbt_hist_launches=hist_launches, trees_equal_cpu=n_trees,
+         mlp_params=mlp.param_count(), mlp_one_step_card_vs_cpu=step_err,
+         mlp_two_epoch_card_vs_cpu=mlp_err)
+
+    # -- decide with ridge and an MLP fitted on phase 2's per-layer rows
+    models = {"ridge": RidgeRegressor().fit(x_layers, y_layers, device=dev),
+              "mlp": MLPRegressor(hidden=(256, 128), epochs=10).fit(
+                  x_layers, y_layers, device=dev)}
+    for name, model in models.items():
+        cost = co.PredictorCost(model, pi5, a100)
+        t0 = synced()
+        plan = dec.decide_all(layers, envs, cost=cost)
+        decide_s = synced() - t0
+        exact = dec.decide_all(layers, envs, cost=cost, backend="torch")
+        check(bool(torch.isfinite(plan.total_time_s).all()),
+              f"{name}: non-finite latency")
+        gap = (plan.total_time_s - exact.total_time_s) / exact.total_time_s
+        check(bool((plan.total_time_s <= exact.total_time_s * (1 + 1e-4)
+                    + 1e-12).all()),
+              f"{name}: a kernel split is worse than the f64 optimum by "
+              f"more than 1e-4 (max {gap.max().item()})")
+        line("plan_check", plan=f"{name}_predictor",
+             predict_and_decide_s=decide_s,
+             split_match_share=(plan.splits == exact.splits).double()
+             .mean().item(), max_rel_gap=gap.max().item(),
+             distinct_splits=int(torch.unique(plan.splits).numel()))
+        del exact
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(json.dumps({"profiling_launch_counts": launches,
+                      "tree_predict_by_kernel":
+                      dict(tp_kernel.tree_predict_kernel.by_kernel)}),
+          flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the profiling path")
+    return launches
 
 
 def fit_split(gbt, gbt_kw: dict, x, y, dev) -> None:
@@ -712,22 +918,26 @@ def main() -> None:
     gbt_kw = dict(n_trees=200, max_depth=12, subsample=0.8, n_bins=64,
                   seed=SEED)
 
-    # the fit's levels as it hands them to the kernel, kept for phases 5
-    # and 6 (references only): its first root, and its level with the most
-    # nodes
+    # a fit's levels as it hands them to the kernel, kept for phases 6 and
+    # 7 (references only): its first root, and its level with the most
+    # nodes; phase 2's fit under "root" / "widest", phase 3's under
+    # "profiling_root" / "profiling_widest"
     levels, launch_level = {}, gh_ops.level_histogram_kernel
 
-    def recorded(*args):
-        args, k = args[:4], args[3].numel() - 1     # n_bins is 64
-        levels.setdefault("root", args)
-        if "widest" not in levels or k > levels["widest"][3].numel() - 1:
-            levels["widest"] = args
-        return launch_level(*args, gbt_kw["n_bins"])
+    def recorder(tag: str):
+        def recorded(*args):
+            args, k = args[:4], args[3].numel() - 1     # n_bins is 64
+            levels.setdefault(f"{tag}root", args)
+            wide = f"{tag}widest"
+            if wide not in levels or k > levels[wide][3].numel() - 1:
+                levels[wide] = args
+            return launch_level(*args, 64)
+        return recorded
 
     for w in wrappers.values():
         w.launches = 0
     tp_kernel.reset_counts()
-    gh_ops.level_histogram_kernel = recorded
+    gh_ops.level_histogram_kernel = recorder("")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gbt = GBTRegressor(**gbt_kw).fit(x, y, device=dev)
@@ -795,21 +1005,25 @@ def main() -> None:
              distinct_splits=int(torch.unique(plan.splits).numel()))
         del exact
 
-    # -- 3. the serving slice at full width -------------------------------
+    # -- 3. the profiling loop at full width ------------------------------
+    profiling_launches = profiling_slice(dev, wrappers, recorder, x, y,
+                                         layers, envs, pi5, a100)
+
+    # -- 4. the serving slice at full width -------------------------------
     serve_launches = serve_slice(dev, smi)
 
-    # -- 4. the whole model on the card -----------------------------------
+    # -- 5. the whole model on the card -----------------------------------
     model_check(dev)
 
-    # -- 5. kernels against their plain versions ---------------------------
+    # -- 6. kernels against their plain versions ---------------------------
     records = {}
 
-    # gbt_hist at two of the fit's levels as the fit called it: the first
+    # gbt_hist at two levels of each fit as the fit called them: the first
     # root (its most rows) and the level with the most nodes; the plain
     # version on a CPU copy adds in np.bincount's order, as the kernel does:
     # exactly equal (the card's torch.bincount uses atomics)
     level_shape, level_err = {}, []
-    for case in ("root", "widest"):
+    for case in levels:
         args = levels[case]
         gsum, cnt = gh_kernel.level_histogram_kernel(*args, 64)
         torch.cuda.synchronize()
@@ -944,7 +1158,7 @@ def main() -> None:
          .mean().item())
     del exact300
 
-    # -- 6. timing ---------------------------------------------------------
+    # -- 7. timing ---------------------------------------------------------
     def level_times(codes_l, grad_l, order, offsets):
         m, f = order.numel(), codes_l.shape[1]
         k = offsets.numel() - 1
@@ -976,7 +1190,7 @@ def main() -> None:
     # the nodes this run's rows reach; decide_split also with L2 overwritten
     # before each call (its 38 MB of inputs fit in the 50 MB L2, and the
     # caller writes them just before) and with its bound at the 30
-    # operations a split counted before.  L300 is the bench's row (phase 7)
+    # operations a split counted before.  L300 is the bench's row (phase 8)
     tp_row = tree_predict_row(dev, "chip_smoke_fit", (targs, tkw))
     ds_row = decide_split_row(dev, "predictor_sweep", packed["main"][0])
     del packed
@@ -1003,6 +1217,7 @@ def main() -> None:
     for name, (source, replaces, t, (bound_ms, bound_by)) in src.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "profiling_launches": profiling_launches[name],
                         "max_abs_err": records[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1022,7 +1237,7 @@ def main() -> None:
                       bound_ms_30ops=ds_row["bound_us_30ops"] / 1e3)
     kernels += serving_kernels(dev, serve_launches)
 
-    # -- 7. the kernel bench: int8_matmul's entry point ---------------------
+    # -- 8. the kernel bench: int8_matmul's entry point ---------------------
     kernels += kernel_bench()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,6 @@
 """repro_torch — the PyTorch + CUDA port of the ``repro`` package.
 
-Three slices are ported.  The paper's profile → predict → decide loop:
+Four slices are ported.  The paper's profile → predict → decide loop:
 
   * ``core.predictors.gbt``   — histogram GBT trained on per-layer times;
     its gradient histogram runs on the card through ``kernels.gbt_hist``;
@@ -8,6 +8,14 @@ Three slices are ported.  The paper's profile → predict → decide loop:
     walked by ``kernels.tree_predict``;
   * ``core.decisions`` / ``core.costs`` — the ``[n_envs, L+1]`` split sweep
     behind ``decide_all``, fused into ``kernels.decide_split``.
+
+The paper's offline profiling loop that feeds it:
+
+  * ``core.workloads`` / ``core.profiler`` — the Table-I CNN/MLP grid,
+    trained and profiled on the card (``ProfileRecord``);
+  * ``core.features`` / ``core.dataset`` — the profiling dataset;
+  * ``core.predictors.{mlp,linear}`` with ``optim`` — the MLP and ridge
+    baselines beside the GBT, lowered by ``oracle.lowered`` too.
 
 And serving the dense and hybrid models of the zoo:
 

@@ -8,7 +8,7 @@ live on the device of the ``EnvArrays`` they are given.
 
   * :class:`AnalyticCost`   — FLOPs / (peak × efficiency) latency.
   * :class:`PredictorCost`  — per-layer latency from a fitted profiling
-    regressor (the port's GBT), one batched ``predict`` per sweep.
+    regressor (GBT, ridge or MLP), one batched ``predict`` per sweep.
   * :class:`CompositeCost`  — latency, energy, price, deadline slack and
     optionally a tail-latency objective, weighted.
   * :class:`QueueAwareCost` — the edge pool's predicted wait folded into
@@ -229,7 +229,7 @@ def _cum_rows(t_dev: torch.Tensor, t_edge: torch.Tensor
 
 @dataclasses.dataclass
 class PredictorCost:
-    """Latency from a fitted profiling regressor (the port's GBT).
+    """Latency from a fitted profiling regressor (GBT, ridge or MLP).
 
     Per-layer times for the device and edge come from ONE batched
     ``model.predict`` over ``[2L, F]`` feature rows — independent of the
@@ -295,7 +295,7 @@ class PredictorCost:
 
     def accel_spec(self) -> AccelSpec:
         """Lower to the fused kernel by compiling the fitted regressor to
-        node arrays (``repro_torch.oracle.lowered``); raises ``TypeError``
+        array form (``repro_torch.oracle.lowered``); raises ``TypeError``
         when the model has no array lowering.  Memoised on the model."""
         if self._accel_cache[0] is self.model:
             return self._accel_cache[1]

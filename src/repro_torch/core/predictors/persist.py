@@ -1,17 +1,17 @@
 """Predictor persistence: ``.npz`` arrays + ``.json`` metadata.
 
 The same two-file format as ``repro.core.predictors.persist``:
-``<path>.npz`` holds the flattened ``tree_predict`` node arrays and bin
-edges, ``<path>.json`` the constructor hyper-parameters plus the fitted
-intercepts.  This is how a GBT fitted by the JAX package becomes the
-port's: :func:`load_predictor` reads what the reference's
-``save_predictor`` writes, and the loaded model grows the identical node
-arrays, so its predictions are the same.  :func:`save_predictor` writes
-the same format, which the reference can load back.
-
-The GBT families are supported; ridge and MLP bundles raise ``TypeError``
-until their slice of the port lands.  Writes go through a temp file +
-``os.replace``, so a reader never observes a half-written model.
+``<path>.npz`` holds the fitted arrays (a GBT's flattened ``tree_predict``
+node arrays and bin edges; ridge's standardisation and weights; the MLP's
+``w{i}``/``b{i}`` as ``p_w{i}``/``p_b{i}`` and its standardisation),
+``<path>.json`` the constructor hyper-parameters plus fitted scalars.  This
+is how a model fitted by the JAX package becomes the port's:
+:func:`load_predictor` reads what the reference's ``save_predictor``
+writes, and the loaded model predicts as the reference's does (GBTs bit
+for bit, since they grow the identical node arrays).  :func:`save_predictor`
+writes the same format, which the reference loads back.  Writes go through
+a temp file + ``os.replace``, so a reader never observes a half-written
+model.
 """
 from __future__ import annotations
 
@@ -22,13 +22,17 @@ import tempfile
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.predictors.gbt import GBTRegressor, MultiTargetGBT
+from repro_torch.core.predictors.linear import RidgeRegressor
+from repro_torch.core.predictors.mlp import MLPRegressor
 from repro_torch.kernels.tree_predict.ref import (TreeArrays, flatten_gbt,
                                                   unflatten_gbt)
 
 FORMAT_VERSION = 1
-_CLASSES = {c.__name__: c for c in (GBTRegressor, MultiTargetGBT)}
+_CLASSES = {c.__name__: c for c in (RidgeRegressor, MLPRegressor,
+                                     GBTRegressor, MultiTargetGBT)}
 #: the reference's histogram switch, replaced in the port by
 #: ``fit(..., device=)``; dropped when reading a reference bundle
 _REFERENCE_ONLY_PARAMS = ("use_kernel",)
@@ -77,17 +81,25 @@ def _gbt_restore(model: GBTRegressor, arrays, base: float,
 
 
 def save_predictor(model, path: str) -> Tuple[str, str]:
-    """Save a fitted GBT; returns ``(npz_path, json_path)``.  ``path`` is
-    the extension-less base path."""
-    if not isinstance(model, (GBTRegressor, MultiTargetGBT)):
+    """Save a fitted regressor; returns ``(npz_path, json_path)``.
+    ``path`` is the extension-less base path."""
+    if not isinstance(model, tuple(_CLASSES.values())):
         raise TypeError(
-            f"cannot persist {type(model).__name__}: the port supports "
-            "GBTRegressor and MultiTargetGBT (ridge and MLP come in a "
-            "later slice)")
+            f"cannot persist {type(model).__name__}: supported families "
+            "are RidgeRegressor, MLPRegressor, GBTRegressor, "
+            "MultiTargetGBT")
     meta: dict = {"format": FORMAT_VERSION,
                   "type": type(model).__name__,
                   "params": _hyperparams(model)}
-    if isinstance(model, GBTRegressor):
+    if isinstance(model, RidgeRegressor):
+        arrays = {"x_mu": model.x_mu_, "x_sd": model.x_sd_, "w": model.w_}
+    elif isinstance(model, MLPRegressor):
+        arrays = {f"p_{k}": v.cpu().numpy() for k, v in model.params_.items()}
+        meta["n_layers"] = model.n_layers_
+        if model.standardize:
+            arrays.update(x_mu=model.x_mu_, x_sd=model.x_sd_,
+                          y_mu=model.y_mu_, y_sd=model.y_sd_)
+    elif isinstance(model, GBTRegressor):
         arrays = _gbt_arrays(model)
         meta["base"] = model.base_
     else:
@@ -105,7 +117,7 @@ def save_predictor(model, path: str) -> Tuple[str, str]:
 
 
 def load_predictor(path: str):
-    """Load a GBT saved by this module's or the reference's
+    """Load a regressor saved by this module's or the reference's
     ``save_predictor`` (``path`` is the same extension-less base path)."""
     with open(f"{path}.json") as f:
         meta = json.load(f)
@@ -114,15 +126,25 @@ def load_predictor(path: str):
                          f"{meta['format']} > supported {FORMAT_VERSION}")
     kind = meta["type"]
     if kind not in _CLASSES:
-        raise TypeError(
-            f"predictor type {kind!r} in {path}.json has no PyTorch port "
-            "yet (supported: GBTRegressor, MultiTargetGBT; ridge and MLP "
-            "come in a later slice)")
-    params = {k: v for k, v in meta["params"].items()
+        raise ValueError(f"unknown predictor type {kind!r} in {path}.json")
+    params = {k: tuple(v) if isinstance(v, list) else v   # JSON -> tuples
+              for k, v in meta["params"].items()
               if k not in _REFERENCE_ONLY_PARAMS}
     model = _CLASSES[kind](**params)
     with np.load(f"{path}.npz") as npz:
         arrays = dict(npz)
+    if kind == "RidgeRegressor":
+        model.x_mu_, model.x_sd_, model.w_ = (arrays["x_mu"],
+                                              arrays["x_sd"], arrays["w"])
+        return model
+    if kind == "MLPRegressor":
+        model.params_ = {k[2:]: torch.as_tensor(v)
+                         for k, v in arrays.items() if k.startswith("p_")}
+        model.n_layers_ = int(meta["n_layers"])
+        if model.standardize:
+            model.x_mu_, model.x_sd_ = arrays["x_mu"], arrays["x_sd"]
+            model.y_mu_, model.y_sd_ = arrays["y_mu"], arrays["y_sd"]
+        return model
     if kind == "GBTRegressor":
         return _gbt_restore(model, arrays, meta["base"])
     model.models_ = []

@@ -14,9 +14,10 @@ Exactness notes:
   * the f64 re-evaluation is written as separate elementwise tensor ops —
     nothing that fuses a multiply and an add — so it replays the
     reference's host arithmetic;
-  * predictor costs take their per-layer times from the lowered trees on
-    the ``tree_predict`` kernel (exact in f64), so the whole path runs on
-    kernels and only the argmin itself is f32.
+  * predictor costs take their per-layer times from the lowered model:
+    a GBT's from the ``tree_predict`` kernel (exact in f64), so the whole
+    path runs on kernels and only the argmin itself is f32; ridge's from
+    an f64 dot and the MLP's from its f32 matmul chain.
 """
 # repro: module-tags=fma-sensitive
 # (DET001: a @ / dot / matmul here would FMA-contract the f64 re-costing)

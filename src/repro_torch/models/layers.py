@@ -136,10 +136,20 @@ def _leaf(name: str, shape: tuple, dtype: torch.dtype,
         return torch.zeros(shape, dtype=f32, device=device)
     if "bias" in name or name.startswith("b_"):
         return torch.zeros(shape, dtype=dtype, device=device)
+    return init_dense(shape, gen, device=device).to(dtype)
+
+
+def init_dense(shape: tuple, gen: torch.Generator, *,
+               scale: float | None = None,
+               device: torch.device | None = None) -> torch.Tensor:
+    """Truncated-normal fan-in init in f32, the reference's
+    ``models.layers.init_dense`` drawn from ``gen`` (the values are not
+    ``jax.random``'s)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    w = torch.empty(shape, dtype=f32, device=device)
+    std = scale if scale is not None else fan_in ** -0.5
+    w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * fan_in ** -0.5).to(dtype)
+    return w * std
 
 
 def init_tree(shapes: dict, dtype: torch.dtype, seed: int,

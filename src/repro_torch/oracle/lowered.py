@@ -1,35 +1,41 @@
 """Compile fitted profiling regressors to pure array form.
 
-The PyTorch twin of ``repro.oracle.lowered`` for the GBT families:
-:func:`lower_predictor` maps a fitted :class:`~repro_torch.core.predictors.
-gbt.GBTRegressor` or ``MultiTargetGBT`` onto flattened ``(feature,
-threshold_bin, left, right, value)`` node arrays walked by
-:mod:`repro_torch.kernels.tree_predict` — the CUDA ``tree_predict`` kernel
-on the card, its plain version on the CPU, both exact in f64 and bit for
-bit with the host ensemble.
+The PyTorch twin of ``repro.oracle.lowered``: :func:`lower_predictor` maps
+each fitted regressor family onto an equivalent array program on a torch
+device —
+
+  * :class:`~repro_torch.core.predictors.linear.RidgeRegressor` → one f64
+    standardise + augmented dot;
+  * :class:`~repro_torch.core.predictors.mlp.MLPRegressor` → the f32
+    matmul chain with f32 (de)standardisation, the host ``predict``'s own
+    dtypes (plain ``torch.matmul``: the reference computes it outside any
+    Pallas kernel too);
+  * :class:`~repro_torch.core.predictors.gbt.GBTRegressor` /
+    ``MultiTargetGBT`` → flattened ``(feature, threshold_bin, left, right,
+    value)`` node arrays walked by :mod:`repro_torch.kernels.tree_predict`
+    — the CUDA ``tree_predict`` kernel on the card, its plain version on
+    the CPU, both exact in f64 and bit for bit with the host ensemble.
+
 :class:`LoweredLayerTimes` packages the lowered model with a
 ``PredictorCost``'s feature function, so the decision kernel path
 (:mod:`repro_torch.kernels.decide_split.ops`) can rebuild the per-layer
-device/edge time vectors on its own.
-
-Ridge and the MLP are not lowered yet: their lowering (and the MLP's
-training loop) is a later slice of the port, and they raise ``TypeError``.
+device/edge time vectors on its own.  Models outside these families raise
+``TypeError``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.predictors.gbt import GBTRegressor, MultiTargetGBT
+from repro_torch.core.predictors.linear import RidgeRegressor, ridge_predict
+from repro_torch.core.predictors.mlp import MLPRegressor, mlp_predict
 from repro_torch.kernels.tree_predict.ops import predict_trees
 from repro_torch.kernels.tree_predict.ref import TreeArrays, flatten_gbt
-
-#: regressor families of the reference whose lowering is still to come
-_LATER_SLICE = ("RidgeRegressor", "LinearRegressor", "MLPRegressor")
 
 
 class LoweredPredictor:
@@ -39,6 +45,40 @@ class LoweredPredictor:
 
     def predict(self, x, *, device: DeviceLike = None) -> torch.Tensor:
         raise NotImplementedError
+
+
+@dataclasses.dataclass
+class LoweredLinear(LoweredPredictor):
+    """Ridge: standardise + augmented dot, all f64."""
+    x_mu: np.ndarray
+    x_sd: np.ndarray
+    w: np.ndarray                       # [F+1, T]
+
+    @classmethod
+    def lower(cls, model: RidgeRegressor) -> "LoweredLinear":
+        return cls(model.x_mu_, model.x_sd_, model.w_)
+
+    def predict(self, x, *, device: DeviceLike = None) -> torch.Tensor:
+        return ridge_predict(x, self.x_mu, self.x_sd, self.w,
+                             resolve_device(device))
+
+
+@dataclasses.dataclass
+class LoweredMLP(LoweredPredictor):
+    """MLP: the f32 matmul chain and f32 (de)standardisation of the host
+    forward; ``stats`` is ``(x_mu, x_sd, y_mu, y_sd)`` or None."""
+    params: dict
+    n_layers: int
+    stats: Optional[tuple]
+
+    @classmethod
+    def lower(cls, model: MLPRegressor) -> "LoweredMLP":
+        return cls(dict(model.params_), model.n_layers_, model._stats())
+
+    def predict(self, x, *, device: DeviceLike = None) -> torch.Tensor:
+        dev = resolve_device(device)
+        pred = mlp_predict(x, self.params, self.n_layers, self.stats, dev)
+        return pred.to(torch.float64)
 
 
 @dataclasses.dataclass
@@ -61,6 +101,14 @@ class LoweredTrees(LoweredPredictor):
         return torch.stack(cols, dim=1)
 
 
+_LOWERINGS: dict[type, Callable] = {
+    RidgeRegressor: LoweredLinear.lower,
+    MLPRegressor: LoweredMLP.lower,
+    GBTRegressor: LoweredTrees.lower,
+    MultiTargetGBT: LoweredTrees.lower,
+}
+
+
 def lower_predictor(model) -> LoweredPredictor:
     """Fitted regressor → :class:`LoweredPredictor`, or ``TypeError`` if
     the model is not one of the lowerable families.
@@ -71,19 +119,16 @@ def lower_predictor(model) -> LoweredPredictor:
     cached = getattr(model, "_lowered_", None)
     if cached is not None:
         return cached
-    if type(model) in (GBTRegressor, MultiTargetGBT):
-        lowered = LoweredTrees.lower(model)
-        model._lowered_ = lowered
-        return lowered
-    if type(model).__name__ in _LATER_SLICE:
+    lowering = _LOWERINGS.get(type(model))
+    if lowering is None:
         raise TypeError(
-            f"{type(model).__name__} has no lowering in the PyTorch port "
-            "yet: ridge and MLP lowering (and the MLP's training loop) come "
-            "in a later slice; use a GBTRegressor or MultiTargetGBT")
-    raise TypeError(
-        f"{type(model).__name__} does not lower to array form: its "
-        "predict evaluates host-side, so predictor-driven decisions must "
-        "use backend='torch' (lowerable: GBTRegressor, MultiTargetGBT)")
+            f"{type(model).__name__} does not lower to array form: its "
+            "predict evaluates host-side, so predictor-driven decisions "
+            "must use backend='torch' (lowerable: RidgeRegressor, "
+            "MLPRegressor, GBTRegressor, MultiTargetGBT)")
+    lowered = lowering(model)
+    model._lowered_ = lowered
+    return lowered
 
 
 # --------------------------------------------------------------------------

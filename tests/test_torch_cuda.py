@@ -830,3 +830,84 @@ def test_int8_tolerance_sees_planted_faults(cuda, fault, tmp_path,
           f"planted {planted}")
     assert all(v < 1.0 for v in sound.values())
     assert all(v > 1.0 for v in planted.values())
+
+
+# --------------------------------------------------------------------------
+# The profiling loop on the card
+# --------------------------------------------------------------------------
+def test_profiler_runs_in_true_f32_and_restores_tf32(cuda, monkeypatch):
+    """Inside the run both TF32 flags are off; after it each is back."""
+    from repro_torch.core import profiler as pprof
+    from repro_torch.core.workloads import WorkloadConfig
+    flags = (torch.backends.cuda.matmul, torch.backends.cudnn)
+    saved = [f.allow_tf32 for f in flags]
+    seen = []
+    loss_fn = pprof.workload_loss
+
+    def spy(model, batch):
+        seen.append([f.allow_tf32 for f in flags])
+        return loss_fn(model, batch)
+
+    monkeypatch.setattr(pprof, "workload_loss", spy)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        rec = pprof.profile_workload(
+            WorkloadConfig("cnn", 1, 5, "adam", 1e-3, 32, dataset_size=128),
+            max_steps=2)
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    assert seen and all(s == [False, False] for s in seen)
+    assert rec.peak_bytes > 0 and rec.step_time_s > 0
+
+
+@pytest.mark.parametrize("kind,ti", [(k, i) for k in ("mlp", "cnn")
+                                     for i in range(3)])
+def test_profile_on_the_card_counts_as_the_cpu(cuda, kind, ti):
+    """FlopCounterMode counts by formula: the card's FLOPs and parameter
+    count equal the CPU profile's of the same config."""
+    from repro_torch.core.profiler import profile_workload
+    from repro_torch.core.workloads import WorkloadConfig
+    wc = WorkloadConfig(kind, ti, 5, "rmsprop", 1e-3, 64, dataset_size=256)
+    card = profile_workload(wc, max_steps=3)
+    host = profile_workload(wc, max_steps=1, device="cpu")
+    assert card.flops_per_step == host.flops_per_step
+    assert card.param_count == host.param_count
+    assert np.isfinite(card.final_loss) and card.peak_bytes > 0
+
+
+def test_profiling_dataset_gbt_fit_on_the_card_equals_the_cpu_fit(cuda):
+    """A MultiTargetGBT on a profiling dataset measured on the card grows
+    the same node arrays on the card as on the CPU."""
+    from repro_torch.core.dataset import generate
+    from repro_torch.core.predictors.gbt import MultiTargetGBT
+    records, data = generate(n_runs=12, max_steps=2)
+    norm, _ = data.normalised()
+    kw = dict(n_trees=30, max_depth=12, subsample=0.8)
+    on_card = MultiTargetGBT(**kw).fit(norm.x, norm.y)
+    on_host = MultiTargetGBT(**kw).fit(norm.x, norm.y, device="cpu")
+    for a, b in zip(on_card.models_, on_host.models_):
+        fa, fb = tp_ref.flatten_gbt(a), tp_ref.flatten_gbt(b)
+        for f in ("feature", "threshold_bin", "left", "right", "value",
+                  "n_nodes", "edges"):
+            assert np.array_equal(getattr(fa, f), getattr(fb, f)), f
+    assert torch.equal(on_card.predict(norm.x).cpu(),
+                       on_host.predict(norm.x, device="cpu"))
+
+
+def test_mlp_fit_on_the_card_agrees_with_the_cpu(cuda):
+    """Two epochs from the same initial weights on the same batches: the
+    card's predictions within 1e-4 of the CPU's (relative to the target
+    scale; cuBLAS and the CPU sum the products in other orders)."""
+    from repro_torch.core.predictors.mlp import MLPRegressor
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(600, 20)).astype(np.float32)
+    y = np.stack([np.sin(x[:, 0]) + x[:, 1], x[:, 2] * x[:, 3],
+                  np.abs(x[:, 4])], axis=1).astype(np.float32)
+    kw = dict(hidden=(256, 128), epochs=2, lr=1e-3)
+    card = MLPRegressor(**kw).fit(x, y).predict(x).cpu().numpy()
+    host = MLPRegressor(**kw).fit(x, y, device="cpu").predict(
+        x, device="cpu").numpy()
+    assert np.abs(card - host).max() <= 1e-4 * np.abs(host).max()

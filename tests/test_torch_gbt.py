@@ -230,12 +230,26 @@ def test_reference_bundle_loads_into_port_and_back(tmp_path, multi):
 
 
 def test_persist_rejects_unported_families(tmp_path):
+    """Ridge and MLP are ported: the reference's bundles of both load and
+    predict in the port, and the port's load back in the reference; only
+    objects of no regressor family are refused."""
     from repro.core.predictors.linear import RidgeRegressor
+    from repro.core.predictors.mlp import MLPRegressor
     x, y = regression_data(1)
-    r_save(RidgeRegressor().fit(x, y), str(tmp_path / "ridge"))
-    with pytest.raises(TypeError, match="later slice"):
-        p_load(str(tmp_path / "ridge"))
-    with pytest.raises(TypeError, match="later slice"):
+    for name, ref, tol in (
+            ("ridge", RidgeRegressor().fit(x, y), 1e-12),
+            ("mlp", MLPRegressor(hidden=(8,), epochs=2).fit(x, y), 1e-5)):
+        r_save(ref, str(tmp_path / name))
+        port = p_load(str(tmp_path / name))
+        assert type(port).__name__ == type(ref).__name__
+        got = port.predict(x, device=CPU).numpy()
+        np.testing.assert_allclose(got, ref.predict(x), rtol=tol,
+                                   atol=tol)
+        p_save(port, str(tmp_path / f"{name}_port"))
+        back = r_load(str(tmp_path / f"{name}_port"))
+        np.testing.assert_allclose(back.predict(x), ref.predict(x),
+                                   rtol=tol, atol=tol)
+    with pytest.raises(TypeError, match="cannot persist"):
         p_save(object(), str(tmp_path / "x"))
 
 

@@ -61,10 +61,24 @@ def test_serving_subpackages_load_no_jax_and_no_reference(module):
 
 
 @pytest.mark.parametrize("module", ["repro_torch.bench.kernels",
+                                    "repro_torch.bench.mlp_spread",
                                     "repro_torch.kernels.int8_matmul.ref",
                                     "repro_torch.kernels.int8_matmul.ops",
                                     "repro_torch.kernels.int8_matmul.kernel"])
 def test_bench_and_int8_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.optim",
+                                    "repro_torch.data",
+                                    "repro_torch.core.profiler",
+                                    "repro_torch.core.workloads",
+                                    "repro_torch.core.features",
+                                    "repro_torch.core.dataset",
+                                    "repro_torch.core.predictors.linear",
+                                    "repro_torch.core.predictors.mlp",
+                                    "repro_torch.oracle"])
+def test_profiling_modules_load_no_jax_and_no_reference(module):
     assert_loads_no_jax_and_no_reference(module)
 
 

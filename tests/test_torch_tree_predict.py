@@ -91,11 +91,34 @@ def test_lowered_trees_multi_target_and_memo():
     assert np.array_equal(got.numpy(), ref.predict(xt))
 
 
-def test_lowering_refuses_other_families():
+def test_lowering_refuses_other_families(tmp_path):
+    """Ridge and MLP lower since their port: a reference bundle of each,
+    loaded into the port, lowers and predicts as the reference does.  A
+    class of another module under the same name, and an object of no
+    family, are refused."""
+    from repro.core.predictors.linear import RidgeRegressor as RRidge
+    from repro.core.predictors.mlp import MLPRegressor as RMLP
+    from repro.core.predictors.persist import save_predictor as r_save
+    from repro_torch.core.predictors.persist import load_predictor as p_load
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(64, 4)).astype(np.float32)
+    y = np.stack([x[:, 0] * 2 + x[:, 1], np.sin(x[:, 2])], axis=1)
+    for name, ref, cls, tol in (
+            ("ridge", RRidge().fit(x, y), lowered.LoweredLinear, 1e-12),
+            ("mlp", RMLP(hidden=(8,), epochs=2).fit(x, y),
+             lowered.LoweredMLP, 1e-5)):
+        r_save(ref, str(tmp_path / name))
+        low = lowered.lower_predictor(p_load(str(tmp_path / name)))
+        assert isinstance(low, cls)
+        got = low.predict(x, device=CPU)
+        assert got.dtype == torch.float64 and got.shape == (64, 2)
+        np.testing.assert_allclose(got.numpy(), ref.predict(x), rtol=tol,
+                                   atol=tol)
+
     class RidgeRegressor:
         pass
 
-    with pytest.raises(TypeError, match="later slice"):
+    with pytest.raises(TypeError, match="does not lower"):
         lowered.lower_predictor(RidgeRegressor())
     with pytest.raises(TypeError, match="does not lower"):
         lowered.lower_predictor(object())
