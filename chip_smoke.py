@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
-path, the serving path and the kernel bench.
+path, the online oracle riding the streaming simulator, the serving path
+and the kernel bench.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,30 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``backend="torch"``.  ``gbt_hist``, ``tree_predict`` and
    ``decide_split`` launch counts are set to 0 before the phase and read
    after it.
-4. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
+4. The online oracle riding the streaming simulator, at the reference's
+   own scale, each check holding the card's run against the same port code
+   on the CPU in this process: (a) the profiling GBT of
+   ``examples/oracle_serving.py`` (120 trees, depth 8, 256 random layers ×
+   the five edge specs) fitted on both (node arrays equal); (b)
+   ``decide_all(oracle.cost_model())`` over phase 2's 2^20 link states on
+   the example's 48 layers, near-optimal against ``backend="torch"``, with
+   the identity correction and again after a uniform 2x slowdown has moved
+   the gain; (c) the example's drift loop (700 observations, the 12 W and
+   15 W specs 3x slower from step 200; window 256, min_refit 120): at
+   least one drift and one refit, the recovered nRMSE below half its peak,
+   and the drift steps, refit versions, refit trees and nRMSE track equal
+   to the CPU's; (d) ``benchmarks/bench_stream.py``'s largest cell (300
+   tasks, 32 nodes, Poisson 200/s) with a ``PredictorCost`` and with an
+   oracle: identical records, no refit, gain 1.0, equal to the CPU run;
+   (e) the example's drifted stream (400 tasks over 400 s, 4 nodes): a
+   drift and a refit through the loop, telemetry equal to the CPU run's;
+   (f) (d)'s stream deciding each admitted task's split over a drifting
+   link with the ``decide_split`` kernel, each within 1e-4 of the f64
+   optimum of its snapshot.  The three decision kernels' launch counts
+   are set to 0 before the phase and read after it (``oracle_launches``);
+   the ``oracle`` line carries the fit and refit times, µs per observe,
+   each stream's time and µs per arrival, and the nRMSE.
+5. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
    published shapes in bf16, each serving 8 greedy requests of 2048 random
    tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
@@ -57,21 +81,22 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    flash launch must have taken ``flash_fwd_wgmma``, and every ``ssm_scan``
    call must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
    request must get 32 in-range tokens and every logit must be finite.
-5. The whole model on the card: at each model's full width in f32, the
+6. The whole model on the card: at each model's full width in f32, the
    kernel path (``build_model(cfg)``) and the plain path
    (``impl="naive"``) on one 512-token prompt with shared weights; their
    last-token logits must agree within 1e-3 of max |logit|.
-6. Each kernel against its plain PyTorch version on the card, at the
+7. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
    and ``ssm_scan`` also against themselves (two calls, the same bits).
    ``tree_predict`` equals its plain version bit for bit, phase by phase
    (the leaf matrix, the in-order fold) and on its global route too.
    ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
-   two levels of phase 2's fit and two of phase 3's, as the fits called it
-   (each fit's root, and its level with the most nodes), and the card's GBT fit must grow the node
-   arrays of the same fit on the CPU (``flatten_gbt``, bit for bit: all 200
-   trees with identical splits).
-7. Timing with CUDA events after a warm-up: each kernel, its plain
+   two levels of phase 2's fit, two of phase 3's and two of phase 4's
+   refits, as the fits called them (each fit's first root, and its level
+   with the most nodes), and the card's GBT fit must grow the node arrays
+   of the same fit on the CPU (``flatten_gbt``, bit for bit: all 200 trees
+   with identical splits).
+8. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
@@ -83,10 +108,13 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    fit's ensemble at 56 rows; the predictor sweep), ``tree_predict`` also
    per CUDA kernel, ``decide_split`` also with L2 overwritten before each
    call and with its bound at the 30 operations a split that its
-   division-bound form took; ``gbt_hist`` is timed at the four levels of
-   phase 6, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
-   ``ssd_chunk``).
-8. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
+   division-bound form took; ``gbt_hist`` is timed at the six levels of
+   phase 7, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
+   ``ssd_chunk``).  Phase 4's new shapes: ``tree_predict`` on one
+   observation's row and on one admission's 32 rows, eager as the path
+   calls it (the graph replay beside), and ``decide_split`` on one
+   admission's E = 1 sweep.
+9. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape (all six: ``tree_predict`` on a
    synthetic ensemble of the fit's size, ``decide_split`` at E = 2^20 for
@@ -109,6 +137,7 @@ fails before printing any result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -467,6 +496,333 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the profiling path")
     return launches
+
+
+def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
+                 host="cpu") -> tuple[dict, dict]:
+    """The online oracle riding the streaming simulator, at the reference's
+    own scale (``examples/oracle_serving.py``, ``benchmarks/
+    bench_stream.py``), on the card and again on ``host`` in the same
+    process.  Returns the three decision kernels' launch counts of this
+    phase, the shapes the timing takes, and the ``oracle`` line's record.
+    """
+    import numpy as np
+    import torch
+    from repro_torch import sim
+    from repro_torch.core import costs as co
+    from repro_torch.core import decisions as dec
+    from repro_torch.core import offload as off
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core.predictors.gbt import GBTRegressor
+    from repro_torch.hw import EDGE_DEVICES
+    from repro_torch.kernels.gbt_hist import ops as gh_ops
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    from repro_torch.kernels.tree_predict import ref as tp_ref
+    from repro_torch.oracle import OnlineOracle
+    from repro_torch.sim import fleet
+
+    specs = list(EDGE_DEVICES.values())
+
+    def synced():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def same_trees(a, b) -> bool:
+        fa, fb = tp_ref.flatten_gbt(a), tp_ref.flatten_gbt(b)
+        return fa.base == fb.base and all(
+            np.array_equal(getattr(fa, f), getattr(fb, f))
+            for f in ("feature", "threshold_bin", "left", "right", "value",
+                      "n_nodes", "edges"))
+
+    for w in wrappers.values():
+        w.launches = 0
+    tp_kernel.reset_counts()
+    out = {}
+    t_phase = time.perf_counter()
+
+    # -- (a) the profiling GBT of examples/oracle_serving.py:31-40 --------
+    rng = np.random.default_rng(SEED)
+    flops = rng.uniform(1e8, 1e11, 256)
+    fit_layers = [off.LayerCost(f"l{i}", flops=float(f), act_bytes=0.0)
+                  for i, f in enumerate(flops)]
+    x = np.concatenate([co.default_layer_features(fit_layers, s)
+                        for s in specs])
+    y = np.concatenate([[off.layer_time(lc.flops, s) for lc in fit_layers]
+                        for s in specs])
+    gbt_kw = dict(n_trees=120, max_depth=8)
+    t0 = synced()
+    gbt = GBTRegressor(**gbt_kw).fit(x, y, device=dev)
+    out["fit_s"] = synced() - t0
+    t0 = time.perf_counter()
+    gbt_host = GBTRegressor(**gbt_kw).fit(x, y, device=host)
+    out["host_fit_s"] = time.perf_counter() - t0
+    check(same_trees(gbt, gbt_host), "oracle (a): the card's profiling GBT "
+          "differs from the CPU fit's node arrays")
+
+    # -- (b) the oracle's sweep, identity and corrected -------------------
+    layers = [off.LayerCost(f"l{i}", flops=float(rng.uniform(1e8, 1e9)),
+                            act_bytes=float(rng.uniform(1e3, 1e5)))
+              for i in range(48)]
+    # phase 2's link states, the example's input size
+    envs = dec.make_envs(pi5, a100, link_bw=bw, input_bytes=1e7, device=dev)
+    sweeper = OnlineOracle(gbt, pi5, a100, refit_on_drift=False,
+                           torch_device=dev)
+    cost = sweeper.cost_model()
+    sweeps = {}
+    for case in ("identity", "gain"):
+        if case == "gain":           # tests/test_oracle.py:346's loop
+            feats = co.default_layer_features(fit_layers[:8], pi5)
+            for i in range(120):
+                f = feats[i % len(feats)]
+                sweeper.observe(f, realised_s=2.0 * sweeper.predict_one(f)
+                                / sweeper.gain)
+            check(abs(sweeper.gain - 2.0) < 0.15,
+                  f"oracle (b): the gain moved to {sweeper.gain}, not ~2")
+        t0 = synced()
+        plan = dec.decide_all(layers, envs, cost=cost, backend="kernel",
+                              device=dev)
+        decide_s = synced() - t0
+        exact = dec.decide_all(layers, envs, cost=cost, backend="torch",
+                               device=dev)
+        gap = (plan.total_time_s - exact.total_time_s) / exact.total_time_s
+        check(bool(torch.isfinite(plan.total_time_s).all()) and bool(
+            (plan.total_time_s <= exact.total_time_s * (1 + 1e-4) + 1e-12)
+            .all()), f"oracle (b) {case}: a kernel split is worse than the "
+            f"f64 optimum by more than 1e-4 (max {gap.max().item()})")
+        sweeps[case] = dict(
+            gain=sweeper.gain, predict_and_decide_s=decide_s,
+            split_match_share=(plan.splits == exact.splits).double()
+            .mean().item(), max_rel_gap=gap.max().item(),
+            distinct_splits=int(torch.unique(plan.splits).numel()))
+        del plan, exact, gap
+    del envs
+    check(cost.accel_spec().lowered.correction == (sweeper.gain, 0.0),
+          "oracle (b): the lowered sweep does not carry the gain")
+    out["sweeps"] = sweeps
+
+    # -- (c) examples/oracle_serving.py's step 3: drift -> refit ----------
+    stream = []
+    for step in range(700):
+        spec = specs[int(rng.integers(len(specs)))]
+        fl = float(rng.uniform(1e8, 1e11))
+        t = off.layer_time(fl, spec)
+        if step >= 200 and spec.tdp_watts in (12, 15):
+            t *= 3.0                 # pi5 + jetson quietly slow down
+        stream.append((co.default_layer_features(
+            [off.LayerCost("q", flops=fl, act_bytes=0.0)], spec)[0], t))
+    loops = []                       # the card's run, then the host's
+    for d, model in ((dev, gbt), (host, gbt_host)):
+        o = OnlineOracle(model, pi5, a100, window=256, min_refit=120,
+                         correction="none", torch_device=d)
+        if d is dev:
+            launch = gh_ops.level_histogram_kernel
+            gh_ops.level_histogram_kernel = recorder("oracle_refit_")
+        drifts, refits, track, observe_s, refit_s = [], [], [], [], []
+        for step, (f, t) in enumerate(stream):
+            t0 = time.perf_counter()
+            res = o.observe(f, t)
+            dt = time.perf_counter() - t0
+            if res["refit_version"] is not None:
+                refits.append((step, res["refit_version"]))
+                refit_s.append(dt)
+            else:
+                observe_s.append(dt)
+            if res["drift"]:
+                drifts.append(step)
+            track.append(o.rolling_nrmse())
+        if d is dev:
+            gh_ops.level_histogram_kernel = launch
+        loops.append((o, drifts, refits, track, observe_s, refit_s))
+    (o, drifts, refits, track, observe_s, refit_s), host_loop = loops
+    peak, recovered = max(track[200:]), float(np.mean(track[-50:]))
+    check(len(drifts) >= 1 and len(refits) >= 1,
+          f"oracle (c): {len(drifts)} drifts and {len(refits)} refits")
+    check(recovered < 0.5 * peak, f"oracle (c): nRMSE recovered to "
+          f"{recovered}, not below half its peak {peak}")
+    check((drifts, refits) == tuple(host_loop[1:3]),
+          f"oracle (c): card drifts/refits {drifts}/{refits}, CPU "
+          f"{host_loop[1]}/{host_loop[2]}")
+    check(track == host_loop[3], "oracle (c): the card's rolling nRMSE "
+          "track differs from the CPU's (tolerance: exact)")
+    for _, v in refits:
+        check(same_trees(o.registry.get(v).model,
+                         host_loop[0].registry.get(v).model),
+              f"oracle (c): refit v{v} on the card differs from the CPU's")
+    out.update(drift_steps=drifts, refits=[v for _, v in refits],
+               refit_steps=[s for s, _ in refits], refit_s=refit_s,
+               host_refit_s=host_loop[5],
+               observe_us=1e6 * float(np.mean(observe_s)),
+               host_observe_us=1e6 * float(np.mean(host_loop[4])),
+               nrmse_pre_drift=float(np.mean(track[150:200])),
+               nrmse_peak=peak, nrmse_recovered=recovered,
+               recovered_over_peak=recovered / peak)
+
+    # -- (d) the static stream: bench_stream.py's largest cell ------------
+    # make_tasks(300, seed=rate + nodes), poisson_arrivals(rate, n=300,
+    # seed=rate * 7 + nodes) at rate 200/s and 32 nodes
+    brng = np.random.default_rng(200 + 32)
+    tasks = [sch.Task(f"t{i}", flops=float(brng.uniform(1e9, 5e11)),
+                      input_bytes=float(brng.uniform(1e4, 1e7)))
+             for i in range(300)]
+    arrivals = sim.poisson_arrivals(200.0, n=300, seed=200 * 7 + 32)
+    nodes = [sch.Node(specs[j % len(specs)]) for j in range(32)]
+
+    def records(tel):
+        return [(r.node_id, r.started_s, r.finished_s) for r in tel.records]
+
+    streams, static = {}, []
+    for d, model in ((dev, gbt), (host, gbt_host)):
+        t0 = synced()
+        plain = sim.simulate_stream(
+            tasks, arrivals, nodes,
+            cost=co.PredictorCost(model, pi5, a100), device=d)
+        plain_s = synced() - t0
+        riding = OnlineOracle(model, pi5, a100, torch_device=d)
+        t0 = synced()
+        tel = sim.simulate_stream(tasks, arrivals, nodes, oracle=riding,
+                                  device=d)
+        oracle_s = synced() - t0
+        check(records(plain) == records(tel) and len(tel) == 300,
+              f"oracle (d) on {d}: the oracle's placements differ from the "
+              "PredictorCost's")
+        check(riding.refits == 0 and riding.gain == 1.0
+              and riding.bias == 0.0, f"oracle (d) on {d}: {riding.refits} "
+              f"refits, gain {riding.gain}")
+        static.append(records(tel))
+        if d is dev:
+            streams.update(static_predictor=dict(
+                stream_s=plain_s, us_per_arrival=1e6 * plain_s / 300),
+                static_oracle=dict(stream_s=oracle_s,
+                                   us_per_arrival=1e6 * oracle_s / 300))
+    check(static[0] == static[1], "oracle (d): the card's records differ "
+          "from the CPU run's")
+
+    # -- (e) examples/oracle_serving.py's step 4, second half -------------
+    for _ in range(60):              # the first half's tasks, drawn as there
+        rng.uniform(1e9, 5e11), rng.uniform(1e4, 1e6)
+    rng.uniform(0.0, 12.0, 60)
+    many = [sch.Task(f"d{i}", flops=float(rng.uniform(1e8, 1e11)),
+                     input_bytes=0.0) for i in range(400)]
+    arr = np.sort(rng.uniform(0.0, 400.0, len(many)))
+    four = [sch.Node(specs[j % len(specs)]) for j in range(4)]
+
+    def ground_truth(task, spec, etc_s, start_s):
+        slow = 3.0 if start_s >= 130.0 and spec.tdp_watts in (12, 15) \
+            else 1.0
+        return slow * off.layer_time(task.flops, spec)
+
+    drifted = []
+    for d, model in ((dev, gbt), (host, gbt_host)):
+        learner = OnlineOracle(model, pi5, a100, window=256, min_refit=64,
+                               correction="none", torch_device=d)
+        t0 = synced()
+        tel = sim.simulate_stream(many, arr, four, oracle=learner,
+                                  service_time_fn=ground_truth, device=d)
+        dt = synced() - t0
+        s = tel.summary()
+        check(learner.drift_triggers >= 1 and learner.refits >= 1,
+              f"oracle (e) on {d}: {learner.drift_triggers} drifts, "
+              f"{learner.refits} refits")
+        drifted.append(([dataclasses.astuple(r) for r in tel.records], s))
+        if d is dev:
+            streams["drifted_oracle"] = dict(
+                stream_s=dt, us_per_arrival=1e6 * dt / len(many),
+                drift_triggers=learner.drift_triggers,
+                refits=learner.refits, oracle_nrmse=s["oracle_nrmse"])
+    check(drifted[0] == drifted[1], "oracle (e): the card's telemetry "
+          "differs from the CPU run's")
+
+    # -- (f) decide at admission over a drifting link ---------------------
+    seen, decide = [], fleet._split_decide
+
+    def recording(*args):
+        plan = decide(*args)
+        seen.append((args[1], plan))
+        return plan
+
+    env = sim.DriftingEnv(pi5, a100, sim.RandomWalkLink(1.25e8, sigma=1.5,
+                                                        seed=SEED + 2),
+                          torch_device=dev)
+    before = wrappers["decide_split"].launches
+    fleet._split_decide = recording
+    t0 = synced()
+    tel = sim.simulate_stream(tasks, arrivals, nodes,
+                              cost=co.PredictorCost(gbt, pi5, a100),
+                              split_env=env, split_layers=layers,
+                              split_backend="kernel", link_update_dt=0.05,
+                              device=dev)
+    admit_s = synced() - t0
+    fleet._split_decide = decide
+    check(records(tel) == static[0], "oracle (f): deciding splits moved a "
+          "placement")
+    worst = 0.0
+    for e, plan in seen:
+        lat = dec.latency_matrix(layers, e)[0]
+        best = lat.min()
+        worst = max(worst, ((lat[int(plan.splits[0])] - best) / best).item())
+    check(len(seen) == 300 and worst <= 1e-4, f"oracle (f): {len(seen)} "
+          f"admissions, worst split {worst} over the f64 optimum (1e-4)")
+    streams["decide_at_admission"] = dict(
+        stream_s=admit_s, us_per_arrival=1e6 * admit_s / 300,
+        decide_split_launches=wrappers["decide_split"].launches - before,
+        distinct_splits=len({int(p.splits[0]) for _, p in seen}),
+        max_rel_gap=worst)
+    out["streams"] = streams
+
+    launches = {k: w.launches for k, w in wrappers.items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"oracle_launch_counts": launches,
+                      "tree_predict_by_kernel":
+                      dict(tp_kernel.tree_predict_kernel.by_kernel)}),
+          flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the oracle path")
+    line("oracle", **out)
+    shapes = {"gbt": gbt, "one_row": stream[0][0][None, :],
+              "admission": np.concatenate([co.default_layer_features(
+                  [off.LayerCost(tasks[0].name, flops=tasks[0].flops,
+                                 act_bytes=0.0)], n.spec) for n in nodes]),
+              "admission_envs": seen[0][0], "layers": layers}
+    return launches, shapes
+
+
+def oracle_timing(dev, shapes: dict) -> dict:
+    """The oracle path's new kernel shapes, timed with CUDA events after a
+    warm-up beside the plain version and the bound: ``tree_predict`` on
+    one observation's row and one admission's 32 rows (the path calls it
+    eagerly), and ``decide_split`` on one admission's E = 1 sweep.  The
+    first refit's root level of ``gbt_hist`` is timed with the fits' other
+    levels."""
+    import torch
+    from repro_torch.bench.kernels import decide_split_row, tree_predict_row
+    from repro_torch.core import costs as co
+    from repro_torch.kernels.decide_split import ops as ds_ops
+    from repro_torch.kernels.tree_predict import ref as tp_ref
+
+    arrays = tp_ref.flatten_gbt(shapes["gbt"])
+    trees = tp_ref.device_trees(arrays, dev)
+    tkw = dict(max_depth=arrays.max_depth, base=arrays.base)
+    rows = {}
+    for case in ("one_row", "admission"):
+        codes = tp_ref.bin_codes_ref(torch.as_tensor(shapes[case],
+                                                     device=dev),
+                                     trees.edges)
+        row = tree_predict_row(dev, f"oracle_{case}", (
+            (codes, trees.feature, trees.threshold_bin, trees.left,
+             trees.right, trees.scaled_value), tkw))
+        check(row["err_over_tol"] < 1.0, f"tree_predict oracle_{case}: off "
+              "its plain version (tolerance: exact)")
+        line("timing_extra", **row)
+        rows[f"tree_predict_{case}"] = row
+    args = ds_ops.pack_inputs(shapes["layers"], shapes["admission_envs"],
+                              co.lower_to_accel(None)).kernel_args
+    row = decide_split_row(dev, "oracle_admission", args)
+    check(row["err_over_tol"] < 1.0, "decide_split oracle_admission: off "
+          f"by {row['err_over_tol']} of its tolerance")
+    line("timing_extra", **row)
+    rows["decide_split_admission"] = row
+    return rows
 
 
 def fit_split(gbt, gbt_kw: dict, x, y, dev) -> None:
@@ -918,10 +1274,12 @@ def main() -> None:
     gbt_kw = dict(n_trees=200, max_depth=12, subsample=0.8, n_bins=64,
                   seed=SEED)
 
-    # a fit's levels as it hands them to the kernel, kept for phases 6 and
-    # 7 (references only): its first root, and its level with the most
+    # a fit's levels as it hands them to the kernel, kept for phases 7 and
+    # 8 (references only): its first root, and its level with the most
     # nodes; phase 2's fit under "root" / "widest", phase 3's under
-    # "profiling_root" / "profiling_widest"
+    # "profiling_root" / "profiling_widest", phase 4's refits (the first
+    # refit's root, the widest level of any) under "oracle_refit_root" /
+    # "oracle_refit_widest"
     levels, launch_level = {}, gh_ops.level_histogram_kernel
 
     def recorder(tag: str):
@@ -1009,13 +1367,17 @@ def main() -> None:
     profiling_launches = profiling_slice(dev, wrappers, recorder, x, y,
                                          layers, envs, pi5, a100)
 
-    # -- 4. the serving slice at full width -------------------------------
+    # -- 4. the oracle loop and the streaming simulator -------------------
+    oracle_launches, oracle_shapes = oracle_slice(dev, wrappers, recorder,
+                                                  bw, pi5, a100)
+
+    # -- 5. the serving slice at full width -------------------------------
     serve_launches = serve_slice(dev, smi)
 
-    # -- 5. the whole model on the card -----------------------------------
+    # -- 6. the whole model on the card -----------------------------------
     model_check(dev)
 
-    # -- 6. kernels against their plain versions ---------------------------
+    # -- 7. kernels against their plain versions ---------------------------
     records = {}
 
     # gbt_hist at two levels of each fit as the fit called them: the first
@@ -1158,7 +1520,7 @@ def main() -> None:
          .mean().item())
     del exact300
 
-    # -- 7. timing ---------------------------------------------------------
+    # -- 8. timing ---------------------------------------------------------
     def level_times(codes_l, grad_l, order, offsets):
         m, f = order.numel(), codes_l.shape[1]
         k = offsets.numel() - 1
@@ -1190,7 +1552,7 @@ def main() -> None:
     # the nodes this run's rows reach; decide_split also with L2 overwritten
     # before each call (its 38 MB of inputs fit in the 50 MB L2, and the
     # caller writes them just before) and with its bound at the 30
-    # operations a split counted before.  L300 is the bench's row (phase 8)
+    # operations a split counted before.  L300 is the bench's row (phase 9)
     tp_row = tree_predict_row(dev, "chip_smoke_fit", (targs, tkw))
     ds_row = decide_split_row(dev, "predictor_sweep", packed["main"][0])
     del packed
@@ -1218,6 +1580,7 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "profiling_launches": profiling_launches[name],
+                        "oracle_launches": oracle_launches[name],
                         "max_abs_err": records[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1235,9 +1598,30 @@ def main() -> None:
                       eager_ms=ds_row["us_per_call_eager"] / 1e3,
                       cold_ms=ds_row["us_per_call_cold"] / 1e3,
                       bound_ms_30ops=ds_row["bound_us_30ops"] / 1e3)
+    # the oracle path's shapes (phase 4), eager as the path calls them,
+    # the graph replay beside; the first refit's root level of gbt_hist
+    oracle_rows = oracle_timing(dev, oracle_shapes)
+    del oracle_shapes
+
+    def oracle_shape(r):
+        return dict(ms=r["us_per_call_eager"] / 1e3, timing="eager",
+                    graph_ms=r["us_per_call"] / 1e3,
+                    plain_ms=r["plain_us"] / 1e3,
+                    bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
+                    shape=r["shape"])
+
+    kernels[0]["oracle_shapes"] = {"refit_root": gh_levels[
+        "oracle_refit_root"]}
+    kernels[1]["oracle_shapes"] = {
+        case: oracle_shape(oracle_rows[f"tree_predict_{case}"])
+        for case in ("one_row", "admission")}
+    kernels[2]["oracle_shapes"] = {"admission": dict(
+        oracle_shape(oracle_rows["decide_split_admission"]),
+        cold_ms=oracle_rows["decide_split_admission"]["us_per_call_cold"]
+        / 1e3)}
     kernels += serving_kernels(dev, serve_launches)
 
-    # -- 8. the kernel bench: int8_matmul's entry point ---------------------
+    # -- 9. the kernel bench: int8_matmul's entry point ---------------------
     kernels += kernel_bench()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

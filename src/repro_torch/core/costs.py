@@ -15,7 +15,9 @@ live on the device of the ``EnvArrays`` they are given.
     any base model.
 
 Each also lowers (:func:`lower_to_accel`) to the :class:`AccelSpec` scalars
-that the fused ``decide_split`` kernel reads.
+that the fused ``decide_split`` kernel reads, and feeds the scheduler's
+``[T, N]`` expected-time-to-compute matrix through :func:`etc_from_cost`
+(``PredictorCost`` and ``QueueAwareCost`` through their ``task_matrix``).
 """
 # repro: module-tags=fma-sensitive
 # (scalarize_weighted must accumulate term-by-term — see its docstring;
@@ -31,8 +33,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core.decisions import (EnvArrays, latency_components,
-                                        seq_cumsum, transfer_bytes,
-                                        transfer_matrix)
+                                        make_envs, seq_cumsum,
+                                        transfer_bytes, transfer_matrix)
 from repro_torch.core.offload import DEFAULT_EFFICIENCY, LayerCost
 from repro_torch.hw import DeviceSpec
 
@@ -305,6 +307,32 @@ class PredictorCost:
         self._accel_cache = (self.model, spec)
         return spec
 
+    def task_matrix(self, tasks, nodes, *,
+                    torch_device: DeviceLike = None) -> np.ndarray:
+        """Predicted ``[T, N]`` f64 expected-time-to-compute matrix for
+        :func:`repro_torch.core.scheduler.etc_matrix`: ONE ``predict`` over
+        all ``N·T`` (node, task) rows on ``torch_device`` (None = cuda),
+        brought to the host once, plus the analytic input-transfer term in
+        numpy — the reference's arithmetic in its order."""
+        layers = [LayerCost(t.name, flops=t.flops, act_bytes=0.0)
+                  for t in tasks]
+        feats = np.concatenate([self.feature_fn(layers, n.spec)
+                                for n in nodes], axis=0)     # [N*T, F]
+        pred = self.model.predict(
+            feats, device=resolve_device(torch_device)).to(F64)
+        if pred.ndim == 2:
+            pred = pred[:, self.target_index]
+        comp = self._corrected(torch.clamp_min(pred, 0.0)).cpu().numpy()
+        comp = comp.reshape(len(nodes), len(tasks)).T
+        link = np.asarray([n.spec.link_bw for n in nodes], np.float64)
+        inp = np.asarray([t.input_bytes for t in tasks], np.float64)
+        return comp + inp[:, None] / np.maximum(link, 1.0)[None, :]
+
+    def _corrected(self, t: torch.Tensor) -> torch.Tensor:
+        """Predicted compute times as served: unchanged here; an oracle's
+        cost model applies its live correction."""
+        return t
+
 
 # --------------------------------------------------------------------------
 # Composite cost: latency + energy + price + deadline slack
@@ -436,13 +464,17 @@ class QueueAwareCost:
 
     ``edge_pool`` is any object with ``wait(now)`` (the reference's
     ``repro.sim.queueing.ServerPool`` qualifies): its current wait is added
-    to every offloading split, re-read on every call.  ``rtt`` (``mean()``)
-    optionally adds the mean RTT as well; ``wait_s`` is a static extra.
-    Advance virtual time with :meth:`set_now`.
+    to every offloading split, re-read on every call.  ``pools`` is any
+    object with ``waits(now) -> [N]`` (the reference's ``NodePools``
+    qualifies): :meth:`task_matrix` adds each node's wait to its column of
+    the base ETC matrix.  ``rtt`` (``mean()``) optionally adds the mean RTT
+    as well; ``wait_s`` is a static extra.  Advance virtual time with
+    :meth:`set_now`.
     """
 
     base: CostModel = dataclasses.field(default_factory=AnalyticCost)
     edge_pool: Optional[object] = None
+    pools: Optional[object] = None
     rtt: Optional[object] = None
     wait_s: float = 0.0
     now: float = 0.0
@@ -480,8 +512,52 @@ class QueueAwareCost:
             xfer_t[..., :-1] += w           # book the wait with transfer
         return dev_t, xfer_t, edge_t
 
+    def task_matrix(self, tasks, nodes, *,
+                    torch_device: DeviceLike = None) -> np.ndarray:
+        """The base model's ``[T, N]`` ETC matrix plus each node's pool wait,
+        the mean RTT and ``wait_s`` on every column."""
+        etc = etc_from_cost(self.base, tasks, nodes, device=torch_device)
+        extra = np.zeros(etc.shape[1], np.float64)
+        if self.pools is not None:
+            extra = extra + self.pools.waits(self.now)
+        if self.rtt is not None:
+            extra = extra + float(self.rtt.mean())
+        if self.wait_s:
+            extra = extra + float(self.wait_s)
+        return etc + extra[None, :]
+
     def accel_spec(self) -> AccelSpec:
         spec = lower_to_accel(self.base)
         return dataclasses.replace(
             spec, queue_wait_s=float(spec.queue_wait_s
                                      + self._edge_wait()))
+
+
+# --------------------------------------------------------------------------
+# Cost-model-driven ETC matrices for the scheduler
+# --------------------------------------------------------------------------
+def etc_from_cost(cost: CostModel, tasks, nodes, *,
+                  device: DeviceLike = None) -> np.ndarray:
+    """``[T, N]`` f64 scalarised cost of running each task wholly on each
+    node, on the host.
+
+    Each task becomes a one-layer chain evaluated at split 0 — the task
+    ships its input over the node's link and executes remotely — which for
+    :class:`AnalyticCost` reproduces ``Node.exec_time``.  Cost models with
+    a ``task_matrix`` fast path (:class:`PredictorCost`,
+    :class:`QueueAwareCost`) are dispatched to it.  The cost runs on the
+    torch ``device`` (None = cuda)."""
+    fast = getattr(cost, "task_matrix", None)
+    if fast is not None:
+        return fast(tasks, nodes, torch_device=device)
+    dev = resolve_device(device)
+    specs = [n.spec for n in nodes]
+    link = np.asarray([s.link_bw for s in specs], np.float64)
+    out = np.empty((len(tasks), len(specs)))
+    for i, t in enumerate(tasks):
+        layers = [LayerCost(t.name, flops=t.flops, act_bytes=0.0)]
+        envs = make_envs(specs, specs, link_bw=link, link_latency_s=0.0,
+                         input_bytes=t.input_bytes, device=dev)
+        out[i] = cost.scalarize(cost.components(layers, envs))[:, 0] \
+            .cpu().numpy()
+    return out

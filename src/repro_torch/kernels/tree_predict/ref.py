@@ -157,17 +157,19 @@ def bin_codes_ref(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
 def _leaves(codes: torch.Tensor, feature: torch.Tensor,
             threshold_bin: torch.Tensor, left: torch.Tensor,
             right: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """``[N]`` leaf slot per row for one tree (its ``[M]`` node rows):
-    ``max_depth`` levels of descent, a row at a leaf staying there."""
-    n = codes.shape[0]
-    rows = torch.arange(n, device=codes.device)
-    node = torch.zeros(n, dtype=torch.int64, device=codes.device)
+    """``[N, T]`` leaf slot per (row, tree) over the ``[T, M]`` node rows:
+    every tree descends at once, ``max_depth`` levels, a row at a leaf
+    staying there."""
+    n, t = codes.shape[0], feature.shape[0]
+    tree = torch.arange(t, device=codes.device)[None, :].expand(n, t)
+    rows = torch.arange(n, device=codes.device)[:, None].expand(n, t)
+    node = torch.zeros((n, t), dtype=torch.int64, device=codes.device)
     for _ in range(max_depth):
-        feat = feature[node].to(torch.int64)
+        feat = feature[tree, node].to(torch.int64)
         split = feat >= 0
         goes_left = split & (codes[rows, feat.clamp_min(0)]
-                             <= threshold_bin[node])
-        nxt = torch.where(goes_left, left[node], right[node])
+                             <= threshold_bin[tree, node])
+        nxt = torch.where(goes_left, left[tree, node], right[tree, node])
         node = torch.where(split, nxt.to(torch.int64), node)
     return node
 
@@ -180,12 +182,11 @@ def tree_predict_ref(codes: torch.Tensor, feature: torch.Tensor,
     node arrays ``[T, M]`` (``scaled_value`` f64, pre-scaled by the
     learning rate) → ``[N]`` f64 ``base`` + each tree's leaf value, added
     one at a time in training order."""
+    leaf = _leaves(codes, feature, threshold_bin, left, right, max_depth)
     pred = torch.full((codes.shape[0],), base, dtype=torch.float64,
                       device=codes.device)
     for i in range(feature.shape[0]):
-        leaf = _leaves(codes, feature[i], threshold_bin[i], left[i],
-                       right[i], max_depth)
-        pred = pred + scaled_value[i][leaf]
+        pred = pred + scaled_value[i][leaf[:, i]]
     return pred
 
 
@@ -195,13 +196,9 @@ def leaf_matrix_ref(codes: torch.Tensor, feature: torch.Tensor,
                     max_depth: int) -> torch.Tensor:
     """Plain version of the kernel's descent: ``[N, T]`` f64, the
     pre-scaled leaf value each row reaches in each tree."""
-    cols = [scaled_value[i][_leaves(codes, feature[i], threshold_bin[i],
-                                    left[i], right[i], max_depth)]
-            for i in range(feature.shape[0])]
-    if not cols:
-        return torch.zeros((codes.shape[0], 0), dtype=torch.float64,
-                           device=codes.device)
-    return torch.stack(cols, dim=1)
+    leaf = _leaves(codes, feature, threshold_bin, left, right, max_depth)
+    tree = torch.arange(feature.shape[0], device=codes.device)[None, :]
+    return scaled_value[tree, leaf]
 
 
 def fold_ref(leaf: torch.Tensor, base: float) -> torch.Tensor:

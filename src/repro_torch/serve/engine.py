@@ -29,21 +29,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import build_model
-
-
-class NullTracer:
-    """The default ``obs``: tracing off, every hook a no-op."""
-
-    enabled = False
-
-    def span(self, *args, **kwargs) -> None:
-        pass
-
-    def instant(self, *args, **kwargs) -> None:
-        pass
-
-
-NULL_TRACER = NullTracer()
+from repro_torch.obs.trace import NULL_TRACER
 
 
 @dataclasses.dataclass

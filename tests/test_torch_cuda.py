@@ -911,3 +911,112 @@ def test_mlp_fit_on_the_card_agrees_with_the_cpu(cuda):
     host = MLPRegressor(**kw).fit(x, y, device="cpu").predict(
         x, device="cpu").numpy()
     assert np.abs(card - host).max() <= 1e-4 * np.abs(host).max()
+
+
+def _oracle_case(seed: int = 19):
+    """A GBT on per-layer rows of the five edge specs, and a feature
+    stream of those specs with the 12 W and 15 W ones 3x slower from step
+    200 (``examples/oracle_serving.py``'s step 3)."""
+    specs = list(EDGE_DEVICES.values())
+    rng = np.random.default_rng(seed)
+    layers = [off.LayerCost(f"l{i}", flops=float(f), act_bytes=0.0)
+              for i, f in enumerate(rng.uniform(1e8, 1e11, 48))]
+    from repro_torch.core.costs import default_layer_features
+    x = np.concatenate([default_layer_features(layers, s) for s in specs])
+    y = np.concatenate([[off.layer_time(lc.flops, s) for lc in layers]
+                        for s in specs])
+    stream = []
+    for step in range(500):
+        spec = specs[int(rng.integers(len(specs)))]
+        flops = float(rng.uniform(1e8, 1e11))
+        t = off.layer_time(flops, spec)
+        if step >= 200 and spec.tdp_watts in (12, 15):
+            t *= 3.0
+        stream.append((default_layer_features(
+            [off.LayerCost("q", flops=flops, act_bytes=0.0)], spec)[0], t))
+    return x, y, stream
+
+
+def test_oracle_refit_on_the_card_grows_the_cpu_refit(cuda):
+    """The drift loop on the card and on the CPU: the same drift steps,
+    refit versions and nRMSE track, and refits equal node for node."""
+    from repro_torch.oracle import OnlineOracle
+    x, y, stream = _oracle_case()
+    runs = []
+    for dev in (cuda, "cpu"):
+        gbt = GBTRegressor(n_trees=30, max_depth=5).fit(x, y, device=dev)
+        o = OnlineOracle(gbt, get_device("pi5-arm"),
+                         get_device("edge-server-a100"), window=256,
+                         min_refit=120, correction="none", torch_device=dev)
+        outs = [o.observe(f, t) for f, t in stream]
+        runs.append((o, [(d["drift"], d["refit_version"]) for d in outs]))
+    (card, a), (host, b) = runs
+    assert a == b and card.refits >= 1
+    assert card.rolling_nrmse() == host.rolling_nrmse()
+    fa, fb = tp_ref.flatten_gbt(card.model), tp_ref.flatten_gbt(host.model)
+    for f in ("feature", "threshold_bin", "left", "right", "value",
+              "n_nodes", "edges"):
+        assert np.array_equal(getattr(fa, f), getattr(fb, f)), f
+
+
+def test_static_stream_on_the_card_equals_the_cpu_run(cuda):
+    """bench_stream's largest cell (300 tasks, 32 nodes, Poisson 200/s)
+    with a PredictorCost and with an oracle: the card's records equal the
+    CPU's, and the oracle stays transparent."""
+    from repro_torch import sim
+    from repro_torch.core import costs as co
+    from repro_torch.core import scheduler as sch
+    from repro_torch.oracle import OnlineOracle
+    x, y, _ = _oracle_case()
+    specs = list(EDGE_DEVICES.values())
+    rng = np.random.default_rng(232)
+    tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
+                      input_bytes=float(rng.uniform(1e4, 1e7)))
+             for i in range(300)]
+    arrivals = sim.poisson_arrivals(200.0, n=300, seed=1432)
+    nodes = [sch.Node(specs[j % len(specs)]) for j in range(32)]
+    pi5, a100 = get_device("pi5-arm"), get_device("edge-server-a100")
+    recs = {}
+    for dev in (cuda, "cpu"):
+        gbt = GBTRegressor(n_trees=30, max_depth=5).fit(x, y, device=dev)
+        plain = sim.simulate_stream(tasks, arrivals, nodes,
+                                    cost=co.PredictorCost(gbt, pi5, a100),
+                                    device=dev)
+        o = OnlineOracle(gbt, pi5, a100, torch_device=dev)
+        riding = sim.simulate_stream(tasks, arrivals, nodes, oracle=o,
+                                     device=dev)
+        recs[str(dev)] = [[(r.node_id, r.started_s, r.finished_s)
+                           for r in t.records] for t in (plain, riding)]
+        assert recs[str(dev)][0] == recs[str(dev)][1]
+        assert o.refits == 0 and o.gain == 1.0
+    assert recs["cuda"] == recs["cpu"]
+
+
+def test_oracle_cost_kernel_sweep_with_gain_is_near_optimal(cuda):
+    """After a uniform 2x slowdown has moved the gain, the decide_split
+    sweep over the oracle's cost (the correction lowered into the layer
+    times) is within 1e-4 of the exact f64 sweep."""
+    from repro_torch.oracle import OnlineOracle
+    x, y, _ = _oracle_case()
+    pi5, a100 = get_device("pi5-arm"), get_device("edge-server-a100")
+    gbt = GBTRegressor(n_trees=30, max_depth=5).fit(x, y, device=cuda)
+    o = OnlineOracle(gbt, pi5, a100, refit_on_drift=False,
+                     torch_device=cuda)
+    feats = x[:40]
+    for i in range(120):
+        f = feats[i % len(feats)]
+        o.observe(f, realised_s=2.0 * o.predict_one(f) / o.gain)
+    assert abs(o.gain - 2.0) < 0.15
+    rng = np.random.default_rng(3)
+    layers = [off.LayerCost(f"l{i}", flops=float(rng.uniform(1e8, 1e9)),
+                            act_bytes=float(rng.uniform(1e3, 1e5)))
+              for i in range(48)]
+    envs = dec.make_envs(pi5, a100, link_bw=np.geomspace(1e4, 1e10, 4096),
+                         input_bytes=1e7, device=cuda)
+    cost = o.cost_model()
+    fast = dec.decide_all(layers, envs, cost=cost, device=cuda)
+    exact = dec.decide_all(layers, envs, cost=cost, backend="torch",
+                           device=cuda)
+    assert bool((fast.total_time_s <= exact.total_time_s * (1 + 1e-4)
+                 + 1e-12).all())
+    assert cost.accel_spec().lowered.correction == (o.gain, 0.0)

@@ -82,6 +82,17 @@ def test_profiling_modules_load_no_jax_and_no_reference(module):
     assert_loads_no_jax_and_no_reference(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.oracle",
+                                    "repro_torch.oracle.online",
+                                    "repro_torch.oracle.registry",
+                                    "repro_torch.sim",
+                                    "repro_torch.obs",
+                                    "repro_torch.core.scheduler",
+                                    "repro_torch.core.pomdp"])
+def test_oracle_and_sim_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_no_file_imports_jax_or_reference(path):
@@ -119,3 +130,35 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
         GBTRegressor(n_trees=1).fit(x, x[:, 0])
     # explicitly asked for, the CPU runs
     assert len(dec.decide_all(layers, envs, device="cpu")) == 1
+
+
+def test_oracle_and_stream_entry_points_need_a_card_by_default(monkeypatch):
+    from repro_torch import sim
+    from repro_torch.core import costs as co
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core.predictors.gbt import GBTRegressor
+    from repro_torch.hw import get_device
+    from repro_torch.oracle import OnlineOracle
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pi5, a100 = get_device("pi5-arm"), get_device("edge-server-a100")
+    x = np.random.default_rng(0).normal(size=(32, 7)).astype(np.float32)
+    gbt = GBTRegressor(n_trees=2, max_depth=2).fit(x, x[:, 0], device="cpu")
+    tasks, nodes = [sch.Task("t", flops=1e9)], [sch.Node(a100)]
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        OnlineOracle(gbt, pi5, a100)
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        sim.simulate_stream(tasks, [0.0], nodes)
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        sim.StreamScheduler(nodes)
+    for cost in (co.PredictorCost(gbt, pi5, a100), co.AnalyticCost()):
+        with pytest.raises(RuntimeError, match="device=None means cuda"):
+            sch.etc_matrix(tasks, nodes, cost=cost)
+    env = sim.DriftingEnv(pi5, a100, sim.FixedLink(1e6))
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        env.snapshot()
+    # explicitly asked for, the CPU runs
+    oracle = OnlineOracle(gbt, pi5, a100, torch_device="cpu")
+    tel = sim.simulate_stream(tasks, [0.0], nodes, oracle=oracle,
+                              device="cpu")
+    assert len(tel) == 1 and oracle.observations == 1
