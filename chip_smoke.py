@@ -1,18 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
-path, the online oracle riding the streaming simulator, the serving path
-and the kernel bench.
+path, the online oracle riding the streaming simulator, the queueing, Pareto
+and fleet slice of the simulator, the serving path and the kernel bench.
 
     python3 chip_smoke.py
 
 Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
-   six CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
+   seven CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register and shared-memory lines;
    the SASS of ``flash_fwd_wgmma`` and of ``w8a16_wgmma`` must hold HGMMA
-   and UTMALDG, and ``w8a16_wgmma``'s must write no A register of a
-   ``wgmma`` still in flight (both kernels' counts are printed).
+   and UTMALDG, and neither may write an A register of a ``wgmma`` still
+   in flight (both kernels' counts are printed).
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel, one launch per tree level: at
@@ -73,7 +73,36 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    are set to 0 before the phase and read after it (``oracle_launches``);
    the ``oracle`` line carries the fit and refit times, µs per observe,
    each stream's time and µs per arrival, and the nRMSE.
-5. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
+5. The queueing, Pareto and fleet slice, extending phase 4: (a)
+   ``benchmarks/bench_fleet.py``'s largest cell (100,000 tasks on 256
+   nodes over one diurnal day of 3,600 s, per-node diurnal links stepped
+   every second, min-min) through ``simulate_stream(engine="fleet")`` on
+   the card (its singleton runs on the ``fleet_scan`` kernel) and on the
+   CPU (the plain version): records, ``summary()`` and counters equal, and
+   every singleton run's inputs and outputs equal on the two devices;
+   (b) its first cell (20,000 tasks, 16 nodes) through the event loop and
+   the fleet engine on the card, records equal, in four split modes: none,
+   decide-at-admission with ``split_backend="kernel"`` from the
+   jetson-orin-nano and from the pi5-arm to edge-server-a100 over a
+   diurnal link, and a ``ParetoStreamScheduler``; every kernel split (the
+   event loop's E = 1 calls and the fleet engine's slab-batched ones)
+   within 1e-4 of the f64 optimum of its environment; (c)
+   ``benchmarks/bench_contention.py``'s tail-vs-mean scenario at its full
+   240 s horizon: each arrival's split decided by ``decide_all(QueueAware
+   Cost(CompositeCost(tail=...)), backend="kernel")`` at E = 1 with the
+   live pool wait and the Weibull tail, for the mean, p99 and cvar
+   policies, each split within 1e-4 of the ``backend="torch"`` sweep at
+   the same pool state, the kernel-driven run's splits and misses equal
+   to the torch-driven run's (a difference is printed with its costs),
+   and tail-aware misses below mean-only; (d)
+   ``benchmarks/bench_stream.py``'s largest cell with
+   ``NodePools.uniform(32, 2)`` and a ``WeibullRTT`` on both engines on
+   the card and on the CPU, all equal.  ``fleet_scan`` and
+   ``decide_split`` launch counts are set to 0 before the phase and read
+   after it; the ``fleet`` line carries each run's wall time, events/s,
+   ``fleet_scan`` launches and steps, the slab sizes, misses per policy
+   and µs per decision.
+6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
    published shapes in bf16, each serving 8 greedy requests of 2048 random
    tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
@@ -81,11 +110,11 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    flash launch must have taken ``flash_fwd_wgmma``, and every ``ssm_scan``
    call must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
    request must get 32 in-range tokens and every logit must be finite.
-6. The whole model on the card: at each model's full width in f32, the
+7. The whole model on the card: at each model's full width in f32, the
    kernel path (``build_model(cfg)``) and the plain path
    (``impl="naive"``) on one 512-token prompt with shared weights; their
    last-token logits must agree within 1e-3 of max |logit|.
-7. Each kernel against its plain PyTorch version on the card, at the
+8. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
    and ``ssm_scan`` also against themselves (two calls, the same bits).
    ``tree_predict`` equals its plain version bit for bit, phase by phase
@@ -96,7 +125,7 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    with the most nodes), and the card's GBT fit must grow the node arrays
    of the same fit on the CPU (``flatten_gbt``, bit for bit: all 200 trees
    with identical splits).
-8. Timing with CUDA events after a warm-up: each kernel, its plain
+9. Timing with CUDA events after a warm-up: each kernel, its plain
    version, the library call where one computes the same function, and
    the bound (the larger of bytes over 3.35 TB/s and operations over the
    peak of the work's type: 67 TFLOP/s f32 outside the tensor cores, or
@@ -109,12 +138,16 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    per CUDA kernel, ``decide_split`` also with L2 overwritten before each
    call and with its bound at the 30 operations a split that its
    division-bound form took; ``gbt_hist`` is timed at the six levels of
-   phase 7, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
+   phase 8, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
    ``ssd_chunk``).  Phase 4's new shapes: ``tree_predict`` on one
    observation's row and on one admission's 32 rows, eager as the path
    calls it (the graph replay beside), and ``decide_split`` on one
-   admission's E = 1 sweep.
-9. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
+   admission's E = 1 sweep.  Phase 5's: ``fleet_scan`` on (a)'s longest
+   singleton run, one launch, eager (f64: its operations over 34 TFLOP/s),
+   its plain version on the card once by the host clock and held bit for
+   bit against it; ``decide_split`` at (b)'s largest fleet slab and at
+   (c)'s E = 1 contention sweep.
+10. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape (all six: ``tree_predict`` on a
    synthetic ensemble of the fit's size, ``decide_split`` at E = 2^20 for
@@ -152,6 +185,12 @@ CHECK_PROMPT = 512                   # the whole-model f32 check
 PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
 MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
 MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
+# benchmarks/bench_fleet.py's cells: its largest (the engine on card and
+# CPU) and its first (event loop against fleet engine), one diurnal day
+FLEET_TASKS, FLEET_NODES, FLEET_DAY_S = 100_000, 256, 3600.0
+COMPARE_TASKS, COMPARE_NODES = 20_000, 16
+# benchmarks/bench_contention.py's tail-vs-mean scenario at full horizon
+CONTENTION_HORIZON_S, CONTENTION_DEADLINE_S = 240.0, 0.35
 
 
 def fail(msg: str) -> None:
@@ -498,11 +537,11 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
     return launches
 
 
-def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
-                 host="cpu") -> tuple[dict, dict]:
+def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
+                 a100) -> tuple[dict, dict]:
     """The online oracle riding the streaming simulator, at the reference's
     own scale (``examples/oracle_serving.py``, ``benchmarks/
-    bench_stream.py``), on the card and again on ``host`` in the same
+    bench_stream.py``), on the card and again on the CPU in the same
     process.  Returns the three decision kernels' launch counts of this
     phase, the shapes the timing takes, and the ``oracle`` line's record.
     """
@@ -555,7 +594,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
     gbt = GBTRegressor(**gbt_kw).fit(x, y, device=dev)
     out["fit_s"] = synced() - t0
     t0 = time.perf_counter()
-    gbt_host = GBTRegressor(**gbt_kw).fit(x, y, device=host)
+    gbt_host = GBTRegressor(**gbt_kw).fit(x, y, device="cpu")
     out["host_fit_s"] = time.perf_counter() - t0
     check(same_trees(gbt, gbt_host), "oracle (a): the card's profiling GBT "
           "differs from the CPU fit's node arrays")
@@ -612,7 +651,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
         stream.append((co.default_layer_features(
             [off.LayerCost("q", flops=fl, act_bytes=0.0)], spec)[0], t))
     loops = []                       # the card's run, then the host's
-    for d, model in ((dev, gbt), (host, gbt_host)):
+    for d, model in ((dev, gbt), ("cpu", gbt_host)):
         o = OnlineOracle(model, pi5, a100, window=256, min_refit=120,
                          correction="none", torch_device=d)
         if d is dev:
@@ -672,7 +711,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
         return [(r.node_id, r.started_s, r.finished_s) for r in tel.records]
 
     streams, static = {}, []
-    for d, model in ((dev, gbt), (host, gbt_host)):
+    for d, model in ((dev, gbt), ("cpu", gbt_host)):
         t0 = synced()
         plain = sim.simulate_stream(
             tasks, arrivals, nodes,
@@ -713,7 +752,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5, a100,
         return slow * off.layer_time(task.flops, spec)
 
     drifted = []
-    for d, model in ((dev, gbt), (host, gbt_host)):
+    for d, model in ((dev, gbt), ("cpu", gbt_host)):
         learner = OnlineOracle(model, pi5, a100, window=256, min_refit=64,
                                correction="none", torch_device=d)
         t0 = synced()
@@ -823,6 +862,402 @@ def oracle_timing(dev, shapes: dict) -> dict:
     line("timing_extra", **row)
     rows["decide_split_admission"] = row
     return rows
+
+
+def fleet_slice(dev) -> tuple[dict, dict]:
+    """The queueing, Pareto and fleet slice (phase 5) through
+    ``simulate_stream`` and ``decide_all``, on the card and, where it says
+    so, again on the CPU in the same process.  Returns the launches of
+    ``fleet_scan`` and ``decide_split`` in this phase (counts set to 0 at
+    its start), the shapes the timing takes, and writes the ``fleet``
+    line."""
+    import numpy as np
+    import torch
+    from repro_torch import sim
+    from repro_torch.core import costs as co
+    from repro_torch.core import decisions as dec
+    from repro_torch.core import offload as off
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core.workloads import WorkloadConfig
+    from repro_torch.hw import EDGE_DEVICES, get_device
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.fleet_scan import ops as fs_ops
+    from repro_torch.sim import fleet
+
+    specs = list(EDGE_DEVICES.values())
+    jetson, pi5, a100 = (get_device(n) for n in (
+        "jetson-orin-nano", "pi5-arm", "edge-server-a100"))
+
+    def synced():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def day(n_tasks, n_nodes):
+        """benchmarks/bench_fleet.py's cell: one diurnal day of 3,600 s,
+        per-node diurnal links stepped every second, make_tasks(seed 0)."""
+        arr = sim.diurnal_arrivals(n_tasks / FLEET_DAY_S * 1.2,
+                                   horizon=FLEET_DAY_S, amplitude=0.6,
+                                   period_s=FLEET_DAY_S / 2,
+                                   seed=1)[:n_tasks]
+        rng = np.random.default_rng(0)
+        tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
+                          input_bytes=float(rng.uniform(1e4, 1e7)))
+                 for i in range(len(arr))]
+        nodes = [sch.Node(specs[j % len(specs)]) for j in range(n_nodes)]
+
+        def links():
+            return sim.ClusterLinks([sim.DiurnalLink(
+                4e7, amplitude=0.5, period_s=FLEET_DAY_S / 2,
+                noise_sigma=0.1, seed=2 + j) for j in range(n_nodes)])
+        return tasks, arr, nodes, links
+
+    def rows_of(tel):
+        return ([dataclasses.astuple(r) for r in tel.records], tel.summary(),
+                dict(tel.counters))
+
+    def events(tel, n_nodes):
+        # bench_fleet.py's count: finishes + arrival batches + link ticks
+        return len(tel) + tel.counters.get("replans", 0) \
+            + int(tel.counters.get("link_refreshes", 0) / max(n_nodes, 1))
+
+    fs_kernel.place_singletons_kernel.launches = 0
+    ds_kernel.decide_split_kernel.launches = 0
+    out, shapes = {}, {}
+    t_phase = time.perf_counter()
+
+    # -- (a) the fleet engine at bench_fleet.py's largest cell ------------
+    tasks, arr, nodes, links = day(FLEET_TASKS, FLEET_NODES)
+    runs, real = {}, fs_ops.place_singletons
+    for d in (dev, "cpu"):
+        calls = []
+
+        def recording(avail, *args):
+            ins = (avail.cpu().clone(), *(a.cpu() for a in args))
+            t0 = synced()
+            res = real(avail, *args)
+            call_s = synced() - t0
+            calls.append((ins, tuple(r.cpu() for r in res),
+                          avail.cpu().clone(), call_s))
+            return res
+
+        fs_ops.place_singletons = recording
+        t0 = synced()
+        tel = sim.simulate_stream(tasks, arr, nodes, policy="min_min",
+                                  links=links(), link_update_dt=1.0,
+                                  engine="fleet", device=d)
+        wall = synced() - t0
+        fs_ops.place_singletons = real
+        runs[str(d)] = (rows_of(tel), calls, wall, events(tel, FLEET_NODES))
+    (card, calls, wall, n_ev), (cpu, host_calls, host_wall, _) = \
+        runs[str(dev)], runs["cpu"]
+    check(len(card[0]) == FLEET_TASKS, f"fleet (a): {len(card[0])} records "
+          f"of {FLEET_TASKS} tasks")
+    check(card == cpu, "fleet (a): the card's records, summary or counters "
+          "differ from the CPU run's (tolerance: exact)")
+    check(len(calls) >= 1 and len(calls) == len(host_calls),
+          f"fleet (a): {len(calls)} singleton runs on the card, "
+          f"{len(host_calls)} on the CPU")
+    # each run's inputs equal on both devices, and the kernel's outputs
+    # and final avail equal to the plain version's on them: bit for bit
+    for (ins, res, av, _), (h_ins, h_res, h_av, _) in zip(calls,
+                                                           host_calls):
+        check(all(torch.equal(a, b) for a, b in zip(ins, h_ins))
+              and all(torch.equal(a, b) for a, b in zip(res, h_res))
+              and torch.equal(av, h_av), "fleet (a): fleet_scan differs "
+              "from its plain version on the CPU run's inputs (exact)")
+    steps = sum(int(c[0][3].numel()) for c in calls)
+    longest = max(range(len(calls)), key=lambda k: calls[k][0][3].numel())
+    shapes["scan"] = calls[longest][0]
+    shapes["scan_plain_cpu_ms"] = 1e3 * host_calls[longest][3]
+    out["fleet"] = dict(
+        tasks=FLEET_TASKS, nodes=FLEET_NODES, horizon_s=FLEET_DAY_S,
+        events=n_ev, card_s=wall, cpu_s=host_wall,
+        card_events_per_s=n_ev / wall, cpu_events_per_s=n_ev / host_wall,
+        fleet_scan_launches=fs_kernel.place_singletons_kernel.launches,
+        fleet_scan_steps=steps, singleton_runs=len(calls),
+        # the launch as the engine made it, host clock to a synchronise
+        fleet_scan_us_per_step=1e6 * sum(c[3] for c in calls) / steps,
+        plain_cpu_us_per_step=1e6 * sum(c[3] for c in host_calls) / steps,
+        makespan_s=card[1]["makespan_s"])
+    del runs, calls, host_calls, card, cpu
+
+    # -- (b) event loop against fleet engine on the card ------------------
+    tasks, arr, nodes, links = day(COMPARE_TASKS, COMPARE_NODES)
+    layers = off.workload_layer_costs(WorkloadConfig(
+        "cnn", 2, epochs=5, optimiser="adam", lr=1e-3, batch_size=32))
+
+    def split_env(device=jetson):
+        return sim.DriftingEnv(device, a100, sim.DiurnalLink(
+            4e7, amplitude=0.5, period_s=FLEET_DAY_S / 2, noise_sigma=0.1,
+            seed=1), input_bytes=2e6, torch_device=dev)
+
+    # the jetson runs this CNN locally at every bandwidth; from the pi5 the
+    # split moves with the link and the task's input (0, 1 or all 4 local)
+    modes = {"none": lambda: {},
+             "decide": lambda: dict(split_env=split_env(),
+                                    split_layers=layers,
+                                    split_backend="kernel"),
+             "decide_pi5": lambda: dict(split_env=split_env(pi5),
+                                        split_layers=layers,
+                                        split_backend="kernel"),
+             "planner": lambda: dict(
+                 split_env=split_env(pi5), split_layers=layers,
+                 split_planner=sim.ParetoStreamScheduler(
+                     device=pi5, torch_device=dev))}
+    compare, seen = {}, {}
+    decide = fleet._split_decide
+    for mode, kw in modes.items():
+        got = {}
+        for engine in ("event", "fleet"):
+            def recording(lay, envs, cost, backend, key=(mode, engine)):
+                plan = decide(lay, envs, cost, backend)
+                seen.setdefault(key, []).append((envs, plan.splits))
+                return plan
+
+            fleet._split_decide = recording
+            before = ds_kernel.decide_split_kernel.launches
+            t0 = synced()
+            tel = sim.simulate_stream(tasks, arr, nodes, policy="min_min",
+                                      links=links(), link_update_dt=1.0,
+                                      engine=engine, device=dev, **kw())
+            wall = synced() - t0
+            fleet._split_decide = decide
+            got[engine] = rows_of(tel)
+            compare[f"{mode}_{engine}"] = dict(
+                stream_s=wall, events_per_s=events(tel, COMPARE_NODES) / wall,
+                decide_split_launches=ds_kernel.decide_split_kernel.launches
+                - before)
+        check(got["event"] == got["fleet"], f"fleet (b) {mode}: the event "
+              "loop's and the fleet engine's records, summary or counters "
+              "differ on the card (tolerance: exact)")
+        if mode.startswith("decide"):
+            compare[f"{mode}_distinct_splits"] = len(
+                {r[8] for r in got["fleet"][0]})
+        if mode == "planner":
+            compare["planner_switches"] = got["fleet"][1].get(
+                "split_switches", 0)
+    # every kernel split within 1e-4 of the f64 optimum of its envs, both
+    # engines' calls in one batched latency sweep each
+    for (mode, engine), calls in seen.items():
+        envs = dec.EnvArrays(*(None if c[0] is None else torch.cat(c)
+                               for c in zip(*(e.columns()
+                                              for e, _ in calls))))
+        picked = torch.cat([s for _, s in calls]).to(dev)
+        lat = dec.latency_matrix(layers, envs)
+        rows = torch.arange(len(envs), device=dev)
+        best = lat.min(dim=1).values
+        chosen = lat[rows, picked]
+        check(bool((chosen <= best * (1 + 1e-4) + 1e-12).all()),
+              f"fleet (b) {mode} {engine}: a kernel split is worse than "
+              f"the f64 optimum by more than 1e-4")
+        sizes = [len(e) for e, _ in calls]
+        compare[f"{mode}_{engine}"].update(
+            calls=len(calls), envs=len(envs),
+            max_rel_gap=((chosen - best) / best).max().item())
+        if engine == "fleet" and mode == "decide_pi5":
+            compare["slab_envs_median"] = float(np.median(sizes))
+            compare["slab_envs_max"] = max(sizes)
+            shapes["slab"] = max(calls, key=lambda c: len(c[0]))[0]
+    check({m for m, _ in seen} == {"decide", "decide_pi5"},
+          f"fleet (b): splits decided in modes {sorted(seen)}")
+    shapes["layers"] = layers
+    out["compare"] = dict(tasks=len(tasks), nodes=COMPARE_NODES, **compare)
+    del seen
+
+    # -- (c) bench_contention.py's tail-vs-mean scenario, full horizon ----
+    crng = np.random.default_rng(3)
+    c_layers = [off.LayerCost(f"l{i}", flops=float(crng.uniform(2e10, 4.5e10)),
+                              act_bytes=float(crng.uniform(2e5, 4e6)))
+                for i in range(8)]
+    arr_ss, rtt_ss = sim.spawn_streams(4, 2)
+    c_arr = sim.mmpp_arrivals([2.0, 40.0], [8.0, 3.0],
+                              horizon=CONTENTION_HORIZON_S, seed=arr_ss)
+    n_c = len(c_arr)
+    rtt_samples = sim.WeibullRTT(shape=0.6, scale=0.02,
+                                 seed=rtt_ss).sample(n_c)
+    rtt_model = sim.WeibullRTT(shape=0.6, scale=0.02, seed=0)
+    c_envs = dec.make_envs(jetson, a100, link_bw=np.asarray([30e6]),
+                           link_latency_s=0.005,
+                           input_bytes=np.asarray([2e6]), device=dev)
+
+    def contention(tail, backend, check_against=None):
+        base = co.CompositeCost(
+            weights={"latency_s": 1.0} if tail is None
+            else {"tail_latency_s": 1.0},
+            tail=tail, rtt=None if tail is None else rtt_model,
+            tail_alpha=0.99)
+        pool = sim.ServerPool(2)
+        cost = co.QueueAwareCost(base=base, edge_pool=pool, rtt=rtt_model)
+        misses, splits, worst, differ, decide_s = 0, [], 0.0, [], 0.0
+        for i in range(n_c):
+            t = float(c_arr[i])
+            cost.set_now(t)
+            t0 = synced()
+            plan = dec.decide_all(c_layers, c_envs, cost=cost,
+                                  backend=backend, device=dev)
+            got = torch.stack([plan.splits.double(), plan.device_time_s,
+                               plan.edge_time_s, plan.transfer_time_s,
+                               plan.scalar_cost]).cpu()[:, 0].tolist()
+            decide_s += time.perf_counter() - t0
+            s, dev_t, edge_t, xfer_t, scal = got
+            if check_against is not None:
+                ex = dec.decide_all(c_layers, c_envs, cost=cost,
+                                    backend=check_against, device=dev)
+                ex_s, ex_c = torch.stack([ex.splits.double(),
+                                          ex.scalar_cost]).cpu()[:, 0] \
+                    .tolist()
+                check(scal <= ex_c * (1 + 1e-4) + 1e-12, f"fleet (c) "
+                      f"{tail}: a kernel split costs {scal}, the f64 "
+                      f"optimum {ex_c} (1e-4)")
+                worst = max(worst, (scal - ex_c) / ex_c)
+                if int(s) != int(ex_s):
+                    differ.append(dict(task=i, kernel_split=int(s),
+                                       kernel_cost=scal,
+                                       torch_split=int(ex_s),
+                                       torch_cost=ex_c))
+            if edge_t > 0.0:             # offloading: queue + tail RTT
+                xfer = xfer_t - cost._edge_wait() + float(rtt_samples[i])
+                _, fin = pool.admit(t + dev_t + xfer, edge_t)
+                realised = fin - t
+            else:
+                realised = dev_t
+            misses += realised > CONTENTION_DEADLINE_S
+            splits.append(int(s))
+        return dict(misses=misses, splits=splits, worst=worst,
+                    differ=differ, us_per_decision=1e6 * decide_s / n_c)
+
+    before = ds_kernel.decide_split_kernel.launches
+    policies = {}
+    for name, tail in (("mean", None), ("p99", "p99"), ("cvar", "cvar")):
+        k_run = contention(tail, "kernel", check_against="torch")
+        t_run = contention(tail, "torch")
+        same = k_run["splits"] == t_run["splits"]
+        if k_run["differ"]:
+            print(json.dumps({"contention_split_differences": {
+                name: k_run["differ"]}}), flush=True)
+        check(same or all(d["kernel_cost"] <= d["torch_cost"] * (1 + 1e-4)
+                          + 1e-12 for d in k_run["differ"]),
+              f"fleet (c) {name}: the kernel run's splits differ from the "
+              "torch run's outside the near-optimal bound")
+        check(not same or k_run["misses"] == t_run["misses"],
+              f"fleet (c) {name}: equal splits but misses "
+              f"{k_run['misses']} (kernel) != {t_run['misses']} (torch)")
+        policies[name] = dict(
+            misses=k_run["misses"], torch_misses=t_run["misses"],
+            splits_equal_torch=same, split_differences=len(k_run["differ"]),
+            max_rel_gap=k_run["worst"],
+            offload_share=float(np.mean(np.asarray(k_run["splits"])
+                                        < len(c_layers))),
+            us_per_decision=k_run["us_per_decision"],
+            torch_us_per_decision=t_run["us_per_decision"])
+    for name in ("p99", "cvar"):
+        check(policies[name]["misses"] < policies["mean"]["misses"],
+              f"fleet (c): {name} misses {policies[name]['misses']} not "
+              f"below mean-only {policies['mean']['misses']}")
+    cost = co.QueueAwareCost(base=co.CompositeCost(
+        weights={"tail_latency_s": 1.0}, tail="p99", rtt=rtt_model,
+        tail_alpha=0.99), edge_pool=sim.ServerPool(2), rtt=rtt_model)
+    shapes["contention"] = (c_layers, c_envs, co.lower_to_accel(cost))
+    out["contention"] = dict(
+        tasks=n_c, deadline_s=CONTENTION_DEADLINE_S,
+        horizon_s=CONTENTION_HORIZON_S,
+        decide_split_launches=ds_kernel.decide_split_kernel.launches
+        - before, policies=policies)
+
+    # -- (d) pools and RTT in the stream: bench_stream.py's largest cell --
+    brng = np.random.default_rng(200 + 32)
+    s_tasks = [sch.Task(f"t{i}", flops=float(brng.uniform(1e9, 5e11)),
+                        input_bytes=float(brng.uniform(1e4, 1e7)))
+               for i in range(300)]
+    s_arr = sim.poisson_arrivals(200.0, n=300, seed=200 * 7 + 32)
+    s_nodes = [sch.Node(specs[j % len(specs)]) for j in range(32)]
+    pooled = {}
+    for d in (dev, "cpu"):
+        for engine in ("event", "fleet"):
+            t0 = synced()
+            tel = sim.simulate_stream(
+                s_tasks, s_arr, s_nodes, pools=sim.NodePools.uniform(32, 2),
+                rtt=sim.WeibullRTT(shape=0.6, scale=0.02, seed=SEED + 5),
+                engine=engine, device=d)
+            pooled[f"{d}_{engine}"] = (rows_of(tel), synced() - t0)
+    want = pooled[f"{dev}_event"][0]
+    check(all(r == want for r, _ in pooled.values()), "fleet (d): pooled "
+          "streams differ between engines or devices (tolerance: exact)")
+    out["pools"] = dict(
+        tasks=300, nodes=32, capacity=2,
+        p99_wait_s=want[1]["p99_wait_s"], mean_wait_s=want[1]["mean_wait_s"],
+        mean_queue_len=want[1]["mean_queue_len"],
+        **{f"{k}_s": t for k, (_, t) in pooled.items()})
+
+    launches = {"fleet_scan": fs_kernel.place_singletons_kernel.launches,
+                "decide_split": ds_kernel.decide_split_kernel.launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"fleet_launch_counts": launches}), flush=True)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was not launched on the fleet path")
+    line("fleet", **out)
+    return launches, shapes
+
+
+def fleet_timing(dev, shapes: dict) -> tuple[dict, list]:
+    """The fleet phase's kernel shapes timed with CUDA events after a
+    warm-up: ``fleet_scan`` on the longest singleton run of (a) (the
+    kernel's record; its plain version on the card once, by the host
+    clock, and held bit for bit against the kernel), and ``decide_split``
+    at (b)'s largest fleet slab and at (c)'s E = 1 contention sweep."""
+    import torch
+    from repro_torch.bench.common import F64_OPS_PER_S, bound, timed_ms
+    from repro_torch.bench.kernels import decide_split_row
+    from repro_torch.core import costs as co
+    from repro_torch.kernels.decide_split import ops as ds_ops
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.fleet_scan import ref as fs_ref
+
+    ins = [t.to(dev) for t in shapes["scan"]]
+    n, n_nodes, k = ins[3].numel(), ins[0].numel(), ins[2].shape[0]
+
+    def kernel():
+        return fs_kernel.place_singletons_kernel(ins[0].clone(), *ins[1:])
+
+    ms = timed_ms(kernel, 1)
+    got = kernel()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = fs_ref.place_singletons_ref(ins[0].clone(), *ins[1:])
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "fleet_scan: the kernel differs from its plain version on the "
+          "card (tolerance: exact)")
+    # each input read once (avail, peak_eff, the [K, N] table, four [n]
+    # columns) and each output written once (four [n] columns, avail);
+    # per step and node two divisions, two additions, a max, a compare
+    nbytes = 8 * (2 * n_nodes + k * n_nodes + 4 * n) + 8 * (4 * n + n_nodes)
+    b_ms, b_by = bound(nbytes, 6 * n_nodes * n, F64_OPS_PER_S)
+    scan = dict(ms=ms, plain_ms=plain_ms,
+                plain_cpu_ms=shapes["scan_plain_cpu_ms"], bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes,
+                bytes_ms=bound(nbytes, 0.0)[0],
+                ops_ms=bound(0.0, 6 * n_nodes * n, F64_OPS_PER_S)[0],
+                us_per_step=1e3 * ms / n, steps=n,
+                nodes=n_nodes, table_rows=k, max_abs_err=0.0)
+    line("kernel_check", kernel="fleet_scan", steps=n, nodes=n_nodes,
+         exact=True, max_abs_err=0.0)
+    line("timing_extra", kernel="fleet_scan", **scan)
+    rows = []
+    for case, (layers, envs, spec) in (
+            ("fleet_slab", (shapes["layers"], shapes["slab"],
+                            co.lower_to_accel(None))),
+            ("contention", shapes["contention"])):
+        row = decide_split_row(dev, case, ds_ops.pack_inputs(
+            layers, envs, spec).kernel_args)
+        check(row["err_over_tol"] < 1.0, f"decide_split {case}: off by "
+              f"{row['err_over_tol']} of its tolerance")
+        line("timing_extra", **row)
+        rows.append(row)
+    return scan, rows
 
 
 def fit_split(gbt, gbt_kw: dict, x, y, dev) -> None:
@@ -1239,11 +1674,11 @@ def main() -> None:
     for k, (source, instances) in wgmma.items():
         sass = hopper_sass(_build, source, k, instances)
         line(f"{k}_build", sass=sass, ptxas=wgmma_ptxas[k])
-        if k == "w8a16_wgmma":
-            # its A registers are the widened weight: kept to the wait
-            check(all(c["inflight_a_writes"] == 0 for c in sass.values()),
-                  f"{k}: SASS writes the A registers of an in-flight wgmma "
-                  f"({sass})")
+        # A registers (w8a16_wgmma's widened weight, flash_fwd_wgmma's P)
+        # kept until the wait that retires their wgmma
+        check(all(c["inflight_a_writes"] == 0 for c in sass.values()),
+              f"{k}: SASS writes the A registers of an in-flight wgmma "
+              f"({sass})")
 
     wrappers = {"gbt_hist": gh_kernel.level_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,
@@ -1274,8 +1709,8 @@ def main() -> None:
     gbt_kw = dict(n_trees=200, max_depth=12, subsample=0.8, n_bins=64,
                   seed=SEED)
 
-    # a fit's levels as it hands them to the kernel, kept for phases 7 and
-    # 8 (references only): its first root, and its level with the most
+    # a fit's levels as it hands them to the kernel, kept for phases 8 and
+    # 9 (references only): its first root, and its level with the most
     # nodes; phase 2's fit under "root" / "widest", phase 3's under
     # "profiling_root" / "profiling_widest", phase 4's refits (the first
     # refit's root, the widest level of any) under "oracle_refit_root" /
@@ -1371,13 +1806,16 @@ def main() -> None:
     oracle_launches, oracle_shapes = oracle_slice(dev, wrappers, recorder,
                                                   bw, pi5, a100)
 
-    # -- 5. the serving slice at full width -------------------------------
+    # -- 5. the queueing, Pareto and fleet slice --------------------------
+    fleet_launches, fleet_shapes = fleet_slice(dev)
+
+    # -- 6. the serving slice at full width -------------------------------
     serve_launches = serve_slice(dev, smi)
 
-    # -- 6. the whole model on the card -----------------------------------
+    # -- 7. the whole model on the card -----------------------------------
     model_check(dev)
 
-    # -- 7. kernels against their plain versions ---------------------------
+    # -- 8. kernels against their plain versions ---------------------------
     records = {}
 
     # gbt_hist at two levels of each fit as the fit called them: the first
@@ -1520,7 +1958,7 @@ def main() -> None:
          .mean().item())
     del exact300
 
-    # -- 8. timing ---------------------------------------------------------
+    # -- 9. timing ---------------------------------------------------------
     def level_times(codes_l, grad_l, order, offsets):
         m, f = order.numel(), codes_l.shape[1]
         k = offsets.numel() - 1
@@ -1552,7 +1990,7 @@ def main() -> None:
     # the nodes this run's rows reach; decide_split also with L2 overwritten
     # before each call (its 38 MB of inputs fit in the 50 MB L2, and the
     # caller writes them just before) and with its bound at the 30
-    # operations a split counted before.  L300 is the bench's row (phase 9)
+    # operations a split counted before.  L300 is the bench's row (phase 10)
     tp_row = tree_predict_row(dev, "chip_smoke_fit", (targs, tkw))
     ds_row = decide_split_row(dev, "predictor_sweep", packed["main"][0])
     del packed
@@ -1581,6 +2019,7 @@ def main() -> None:
                         "replaces": replaces, "launches": launches[name],
                         "profiling_launches": profiling_launches[name],
                         "oracle_launches": oracle_launches[name],
+                        "fleet_launches": fleet_launches.get(name, 0),
                         "max_abs_err": records[name]["max_abs_err"],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1619,9 +2058,24 @@ def main() -> None:
         oracle_shape(oracle_rows["decide_split_admission"]),
         cold_ms=oracle_rows["decide_split_admission"]["us_per_call_cold"]
         / 1e3)}
+    # the fleet phase's shapes (phase 5): fleet_scan on (a)'s longest
+    # singleton run, decide_split at (b)'s largest slab and (c)'s E = 1
+    scan, fleet_rows = fleet_timing(dev, fleet_shapes)
+    del fleet_shapes
+    kernels[2]["fleet_shapes"] = {r["case"]: dict(
+        oracle_shape(r), cold_ms=r["us_per_call_cold"] / 1e3)
+        for r in fleet_rows}
+    kernels.append({"name": "fleet_scan", "route": "cuda",
+                    "source": "src/repro_torch/csrc/fleet_scan.cu",
+                    "replaces": "src/repro/sim/fleet.py:72",
+                    "counterpart_of": "the jitted lax.scan _singleton_scan "
+                    "(not a Pallas kernel)",
+                    "launches": fleet_launches["fleet_scan"],
+                    "library_ms": None, "timing": "eager",
+                    **scan})
     kernels += serving_kernels(dev, serve_launches)
 
-    # -- 9. the kernel bench: int8_matmul's entry point ---------------------
+    # -- 10. the kernel bench: int8_matmul's entry point --------------------
     kernels += kernel_bench()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,7 @@ RESULTS_DIR = os.environ.get("REPRO_RESULTS", "results")
 # The H100 SXM's published rates (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12            # device memory
 F32_OPS_PER_S = 67e12                # f32 outside the tensor cores
+F64_OPS_PER_S = 34e12                # f64 outside the tensor cores
 BF16_OPS_PER_S = 989e12              # dense bf16 on the tensor cores
 
 

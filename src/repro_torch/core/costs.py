@@ -102,6 +102,66 @@ def scalarize_weighted(components: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# Pareto-front extraction over batched component tensors
+# --------------------------------------------------------------------------
+def pareto_front(costs: torch.Tensor) -> torch.Tensor:
+    """Boolean mask of non-dominated points, all objectives minimised.
+
+    ``costs`` is ``[N, K]`` (one candidate set) or ``[E, S, K]`` (batched:
+    one candidate set per environment), compared in f64 on its device; the
+    mask has the input's leading shape.  Point ``j`` dominates ``i`` iff it
+    is no worse on every objective and strictly better on at least one.
+    """
+    c = torch.as_tensor(costs).to(F64)
+    if c.ndim < 2:
+        raise ValueError(f"costs must be [N, K] or [E, S, K], got "
+                         f"{tuple(c.shape)}")
+    # [..., i, j]: does j weakly/strictly improve on i in every/any objective
+    le = torch.all(c[..., None, :, :] <= c[..., :, None, :], dim=-1)
+    lt = torch.any(c[..., None, :, :] < c[..., :, None, :], dim=-1)
+    return ~torch.any(le & lt, dim=-1)
+
+
+def pareto_pick(components: torch.Tensor, objectives: Sequence[str],
+                weights: Optional[Mapping[str, float]] = None, *,
+                subset: Optional[Sequence[str]] = None,
+                scalar: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(front, picks)``: the non-dominated mask and the scalarised
+    argmin *restricted to that front*, per environment, on the device of
+    ``components``.
+
+    ``components`` is ``[..., S, K]`` (candidate splits × objectives).
+    ``subset`` names the objectives the domination test runs on (default:
+    all of ``objectives``).  The ranking over the front is the weighted sum
+    over the full stack, or ``scalar`` — a precomputed ``[..., S]`` ranking
+    (e.g. ``cost.scalarize(components)``) — when given.  Off-front splits
+    rank as ``inf``, and ``torch.argmin`` returns the first of tied minima,
+    as ``np.argmin`` does.
+    """
+    comp = torch.as_tensor(components).to(F64)
+    names = tuple(objectives)
+    if subset is None:
+        dom = comp
+    else:
+        unknown = set(subset) - set(names)
+        if unknown:
+            raise KeyError(f"unknown objective(s) {sorted(unknown)}; "
+                           f"known: {list(names)}")
+        dom = comp[..., [names.index(n) for n in subset]]
+    front = pareto_front(dom)
+    if scalar is None:
+        scalar = scalarize_weighted(comp, names, weights)
+    else:
+        scalar = torch.as_tensor(scalar).to(device=comp.device, dtype=F64)
+        if scalar.shape != comp.shape[:-1]:
+            raise ValueError(f"scalar must be {tuple(comp.shape[:-1])}, "
+                             f"got {tuple(scalar.shape)}")
+    picks = torch.argmin(torch.where(front, scalar, float("inf")), dim=-1)
+    return front, picks
+
+
+# --------------------------------------------------------------------------
 # Accelerator lowering: the scalar spec the decide_split kernel consumes
 # --------------------------------------------------------------------------
 #: canonical objective order of the decision kernel
@@ -360,8 +420,8 @@ class CompositeCost:
                                p99/CVaR_α excess of ``rtt`` over its mean on
                                every offloading split
 
-    ``rtt`` is any object with ``mean()`` and ``tail_stat(tail, alpha)``
-    (the reference's ``repro.sim.queueing`` delay processes qualify).
+    ``rtt`` is a :class:`repro_torch.sim.queueing.DelayProcess` (any
+    object with ``mean()`` and ``tail_stat(tail, alpha)``).
     """
 
     base: CostModel = dataclasses.field(default_factory=AnalyticCost)
@@ -428,6 +488,10 @@ class CompositeCost:
     def latency_parts(self, layers, envs):
         return self.base.latency_parts(layers, envs)
 
+    def pareto(self, layers, envs) -> torch.Tensor:
+        """``[E, L+1]`` mask of Pareto-optimal splits per environment."""
+        return pareto_front(self.components(layers, envs))
+
     def accel_spec(self) -> AccelSpec:
         base_fn = getattr(self.base, "accel_spec", None)
         if base_fn is None:
@@ -462,14 +526,14 @@ class QueueAwareCost:
     """Sojourn-aware wrapper: predicted completion = wait + service (+
     transfer) over any base cost model.
 
-    ``edge_pool`` is any object with ``wait(now)`` (the reference's
-    ``repro.sim.queueing.ServerPool`` qualifies): its current wait is added
-    to every offloading split, re-read on every call.  ``pools`` is any
-    object with ``waits(now) -> [N]`` (the reference's ``NodePools``
-    qualifies): :meth:`task_matrix` adds each node's wait to its column of
-    the base ETC matrix.  ``rtt`` (``mean()``) optionally adds the mean RTT
-    as well; ``wait_s`` is a static extra.  Advance virtual time with
-    :meth:`set_now`.
+    ``edge_pool`` is a live :class:`repro_torch.sim.queueing.ServerPool`
+    (any object with ``wait(now)``): its current wait is added to every
+    offloading split, re-read on every call.  ``pools`` is a
+    :class:`repro_torch.sim.queueing.NodePools` (any object with
+    ``waits(now) -> [N]``): :meth:`task_matrix` adds each node's wait to
+    its column of the base ETC matrix.  ``rtt`` (a ``DelayProcess``)
+    optionally adds the mean RTT as well; ``wait_s`` is a static extra.
+    Advance virtual time with :meth:`set_now`.
     """
 
     base: CostModel = dataclasses.field(default_factory=AnalyticCost)

@@ -115,6 +115,23 @@ def make_envs(dev_spec, edge_spec, link_bw, link_latency_s=0.005,
                                     device=dev) for a in arrs))
 
 
+def stack_envs(envs: Sequence[OffloadEnv], *,
+               device: DeviceLike = None) -> EnvArrays:
+    """Struct-of-arrays from a list of scalar :class:`OffloadEnv`, on
+    ``device`` (None = cuda)."""
+    dev = resolve_device(device)
+    cols = (
+        [e.device.peak_flops_f32 for e in envs],
+        [e.edge.peak_flops_f32 for e in envs],
+        [e.link_bw for e in envs],
+        [e.link_latency_s for e in envs],
+        [e.input_bytes for e in envs],
+        [e.device.tdp_watts for e in envs],
+        [e.edge.tdp_watts for e in envs])
+    return EnvArrays(*(torch.tensor(np.asarray(c, np.float64), dtype=F64,
+                                    device=dev) for c in cols))
+
+
 def _layer_vector(layers: Sequence[LayerCost], attr: str,
                  device: torch.device) -> torch.Tensor:
     """``[L]`` f64 tensor of one :class:`LayerCost` field."""
@@ -217,6 +234,10 @@ class DecisionPlan:
                 return self.total_time_s
             raise KeyError(f"plan carries no components for {name!r}")
         return self.components[:, self.objectives.index(name)]
+
+
+# the pre-CostModel name, kept for existing callers
+BatchDecisions = DecisionPlan
 
 
 def decide_all(layers: Sequence[LayerCost], envs: EnvArrays,

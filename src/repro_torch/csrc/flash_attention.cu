@@ -301,7 +301,10 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 //   call keeps valid maps; no map lives in a device buffer.
 // - wgmma accumulators and the P registers must not be touched while a
 //   wgmma is in flight: each product's registers are read only after a
-//   wgmma.wait_group that retires it, and fenced for the compiler there;
+//   wgmma.wait_group that retires it, and fenced for the compiler there.
+//   ptxas counts P's registers (the A operand of P V) as free once the
+//   wgmma issues, so the softmax between issue and wait could take them:
+//   keep_until_here uses P after the wait, which keeps them P's;
 //   O is rescaled only once the previous P V has retired, and wgmma.fence
 //   comes before registers feed the next product.  A wrong parity on a
 //   full or empty barrier would show as run-to-run differences, not as a
@@ -637,6 +640,7 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     wgmma_wait<0>();  // P V of tile it-1
     reg_fence(o);
     reg_fence(p);
+    keep_until_here(p, sq < 0, smem);  // P's registers stay P's until here
     if (lane == 0) mbar_arrive(empty_v((it - 1) % STAGES));
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
@@ -654,6 +658,7 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     wgmma_wait<0>();
     reg_fence(o);
     reg_fence(p);
+    keep_until_here(p, sq < 0, smem);
   }
 
   // ---- epilogue: O / l in bf16 over this warpgroup's q rows, then TMA ----

@@ -139,14 +139,17 @@ __device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
 // The A registers of a wgmma are read while it runs, but ptxas counts them
 // as free once it is issued and may give them to other values before the
 // wgmma.wait_group that retires it.  A use of their values after that wait
-// keeps them: here an XOR of all 16, stored only if `never` (a value the
-// compiler cannot know to be false, and is not).
-__device__ __forceinline__ void keep_until_here(const uint32_t (&a)[4][4],
+// keeps them: here an XOR of all 4 N, stored only if `never` (a value the
+// compiler cannot know to be false, and is not).  N is the number of A
+// fragments of the products in flight (4 for w8a16_wgmma's k-steps,
+// TK / 16 for flash_fwd_wgmma's P).
+template <int N>
+__device__ __forceinline__ void keep_until_here(const uint32_t (&a)[N][4],
                                                 bool never,
                                                 unsigned char* sink) {
   uint32_t x = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) x ^= a[i][j];
   if (never) *reinterpret_cast<volatile uint32_t*>(sink) = x;

@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("gbt_hist", "tree_predict", "decide_split", "flash_attention",
-           "ssm_scan", "int8_matmul")
+           "ssm_scan", "int8_matmul", "fleet_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

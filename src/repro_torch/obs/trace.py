@@ -4,7 +4,9 @@ the flight-recorder post-mortem the event loops call before re-raising.
 The port does not carry the reference's collecting tracer (``repro.obs``,
 ROADMAP §1 item 11).  Its ``obs=`` seams are duck-typed instead: a tracer
 needs ``enabled``, ``span(...)``, ``instant(...)`` and ``task_spans(...)``
-(and ``last(n)`` for :func:`postmortem_dump`), which a ``repro.obs``
+(the fleet engine's column batches also ``span_arrays(...)`` and
+``instant_arrays(...)``, and :func:`postmortem_dump` ``last(n)``), which a
+``repro.obs``
 tracer passed in by a test provides.  With :data:`NULL_TRACER` every hook
 is a no-op, so traced and untraced runs compute the same numbers.
 """
@@ -31,6 +33,12 @@ class NullTracer:
         pass
 
     def task_spans(self, *args, **kwargs) -> None:
+        pass
+
+    def span_arrays(self, *args, **kwargs) -> None:
+        pass
+
+    def instant_arrays(self, *args, **kwargs) -> None:
         pass
 
     def last(self, n: int = 64) -> list:

@@ -1,25 +1,36 @@
 """repro_torch.sim — the event-driven streaming offload simulator (the
-port of ``repro.sim``, in part).
+port of ``repro.sim``).
 
 Tasks arrive over virtual time (Poisson, trace, Markov-modulated,
-diurnal), link bandwidth drifts as seeded stochastic processes, and the
-decision core (``repro_torch.core.decisions`` / ``costs`` and the
-``decide_split`` kernel) is driven *online* through state snapshots:
-incremental re-planning on the live ``[T, N]`` finish matrix
-(:class:`StreamScheduler`), with run telemetry in the record schema the
-batch benchmarks emit.
+diurnal), link bandwidth and node backlog drift as seeded stochastic
+processes, and the decision core (``repro_torch.core.decisions`` /
+``costs`` and the ``decide_split`` kernel) is driven *online* through state
+snapshots: incremental re-planning on the live ``[T, N]`` finish matrix
+(:class:`StreamScheduler`) and Pareto-front re-picking of offload splits
+(:class:`ParetoStreamScheduler`), with run telemetry in the record schema
+the batch benchmarks emit.
 
   * events    — virtual clock, event heap, arrival processes
   * state     — drifting links snapshotted into ``EnvArrays``
   * stream    — incremental online min-min/HEFT + the event loop
-  * telemetry — p50/p99, misses, energy, utilisation, re-plan counts
-
-``queueing``, ``pareto`` and the fleet engine come in a later slice
-(ROADMAP.md §1 item 6).
+  * fleet     — time-slabbed twin of the event loop
+                (``simulate_stream(..., engine="fleet")``), its singleton
+                runs placed by the ``fleet_scan`` kernel
+  * pareto    — live Pareto-front split re-picking
+  * queueing  — finite-capacity server pools, heavy-tailed RTT
+                processes, Erlang-C/M/M/c validation closed forms
+  * telemetry — p50/p99, misses, energy, utilisation, queue waits,
+                re-plan counts
 """
 from repro_torch.sim.events import (Clock, Event, EventQueue,
                                     diurnal_arrivals, mmpp_arrivals,
                                     poisson_arrivals, trace_arrivals)
+from repro_torch.sim.fleet import decide_all_sharded, simulate_fleet
+from repro_torch.sim.pareto import PARETO_OBJECTIVES, ParetoStreamScheduler
+from repro_torch.sim.queueing import (DelayProcess, LognormalRTT, NodePools,
+                                      ServerPool, WeibullRTT, erlang_c,
+                                      mm1_sojourn, mmc_sojourn,
+                                      spawn_streams)
 from repro_torch.sim.state import (ClusterLinks, DiurnalLink, DriftingEnv,
                                    FixedLink, LinkProcess, RandomWalkLink,
                                    TwoStateLink, step_batch)
@@ -31,5 +42,8 @@ __all__ = [
     "mmpp_arrivals", "diurnal_arrivals", "LinkProcess", "FixedLink",
     "RandomWalkLink", "TwoStateLink", "DiurnalLink", "DriftingEnv",
     "ClusterLinks", "step_batch", "StreamScheduler", "simulate_stream",
-    "TaskRecord", "Telemetry",
+    "simulate_fleet", "decide_all_sharded", "ParetoStreamScheduler",
+    "PARETO_OBJECTIVES", "TaskRecord", "Telemetry", "ServerPool",
+    "NodePools", "DelayProcess", "WeibullRTT", "LognormalRTT",
+    "erlang_c", "mm1_sojourn", "mmc_sojourn", "spawn_streams",
 ]

@@ -20,17 +20,16 @@ arrival events admit tasks, completion events free nodes (optionally
 migrating the tail of the most backlogged queue onto the freed node),
 link events drift the per-node uplinks (:class:`repro_torch.sim.state.
 ClusterLinks`) and the device↔edge split environment
-(:class:`repro_torch.sim.state.DriftingEnv`).  Results land in a
-:class:`repro_torch.sim.telemetry.Telemetry`.
+(:class:`repro_torch.sim.state.DriftingEnv`), and a
+:class:`repro_torch.sim.pareto.ParetoStreamScheduler` may ride along to
+keep each live task's offload split on the Pareto front.  Results land in
+a :class:`repro_torch.sim.telemetry.Telemetry`.
 
-The event heap, the finish matrix and the placements are host code, the
+The event heap, the finish matrix, the server pools
+(:mod:`repro_torch.sim.queueing`) and the placements are host code, the
 reference's f64 arithmetic in its order; the ETC rows a cost model
-predicts and the split decisions run on the torch ``device`` (None =
-cuda).  Not ported yet (ROADMAP.md §1 item 6), and raising
-``NotImplementedError``: finite-capacity pools (``pools=``), sampled RTTs
-(``rtt=``), the Pareto split planner (``split_planner=``,
-``saturation_threshold=``), ``split_backend="sharded"`` and
-``engine="fleet"``.
+predicts, the split decisions and the planner's fronts run on the torch
+``device`` (None = cuda).
 """
 from __future__ import annotations
 
@@ -46,10 +45,6 @@ from repro_torch.sim import fleet
 from repro_torch.sim.events import EventQueue
 from repro_torch.sim.state import ClusterLinks, DriftingEnv
 from repro_torch.sim.telemetry import TaskRecord, Telemetry
-
-#: what a not-yet-ported option raises
-PENDING = ("{} is not ported yet (ROADMAP.md §1 item 6: sim/queueing.py, "
-           "sim/pareto.py and the fleet engine come in a later slice)")
 
 
 def _batches_by_arrival(arrivals: np.ndarray
@@ -80,27 +75,44 @@ class StreamScheduler:
     on the torch ``device`` (None = cuda); ``None`` keeps the analytic
     roofline estimate.  ``rebalance=True`` lets :meth:`on_node_free`
     migrate the tail of the most backlogged queue onto a freed node when
-    that strictly improves its finish time.
+    that strictly improves its finish time.  ``pools`` (a
+    :class:`repro_torch.sim.queueing.NodePools`) routes every placement
+    through a finite-capacity server pool, the realised service drawn at
+    admission from ``service_time_fn``.
     """
 
     def __init__(self, nodes: Sequence[sch.Node], *,
                  policy: str = "min_min", cost=None,
-                 rebalance: bool = False, pools=None,
+                 rebalance: bool = False,
+                 pools=None, service_time_fn=None,
                  telemetry: Optional[Telemetry] = None,
                  device: DeviceLike = None):
         if policy not in ("min_min", "heft"):
             raise ValueError(f"unknown policy {policy!r}; "
                              "use 'min_min' or 'heft'")
-        if pools is not None:
-            raise NotImplementedError(PENDING.format("pools="))
         self.device = resolve_device(device)
         self.policy = policy
         self.cost = cost
         self.rebalance = rebalance
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.nodes = [dataclasses.replace(n) for n in nodes]
-        self.avail = np.asarray([n.available_at for n in self.nodes],
-                                np.float64)
+        self.pools = pools
+        self.service_time_fn = service_time_fn
+        if pools is not None:
+            if rebalance:
+                raise ValueError(
+                    "rebalance=True is incompatible with pools= — "
+                    "migration bookkeeping assumes the believed scalar "
+                    "queue, not realised c-server busy state")
+            if len(pools) != len(self.nodes):
+                raise ValueError(f"pools carries {len(pools)} pools for "
+                                 f"{len(self.nodes)} nodes")
+            # the availability vector IS the pools' earliest-free cache:
+            # admissions update it in place through NodePools.admit
+            self.avail = pools.avail
+        else:
+            self.avail = np.asarray([n.available_at for n in self.nodes],
+                                    np.float64)
         self.assignments: list[sch.Assignment] = []
         self._node_of: dict[int, int] = {}       # id(assignment) -> node j
         self._etc_of: dict[int, float] = {}      # id(assignment) -> etc
@@ -152,9 +164,13 @@ class StreamScheduler:
             order = np.argsort(-etc.mean(axis=1))
             for i in order:
                 j = int(np.argmin(np.maximum(self.avail, now) + etc[i]))
-                start = float(np.maximum(self.avail[j], now))
-                finish = start + float(etc[i, j])
-                self.avail[j] = finish
+                if self.pools is not None:
+                    start, finish = self._admit(tasks[int(i)], j, now,
+                                                float(etc[i, j]))
+                else:
+                    start = float(np.maximum(self.avail[j], now))
+                    finish = start + float(etc[i, j])
+                    self.avail[j] = finish
                 placed.append(self._commit(tasks[int(i)], j, start,
                                            finish, float(etc[i, j])))
             return placed
@@ -162,9 +178,13 @@ class StreamScheduler:
         active = np.ones(len(tasks), bool)
         for _ in range(len(tasks)):
             i, j = sch.masked_argmin(fin, active)
-            start = float(np.maximum(self.avail[j], now))
-            finish = float(fin[i, j])
-            self.avail[j] = fin[i, j]
+            if self.pools is not None:
+                start, finish = self._admit(tasks[i], j, now,
+                                            float(etc[i, j]))
+            else:
+                start = float(np.maximum(self.avail[j], now))
+                finish = float(fin[i, j])
+                self.avail[j] = fin[i, j]
             active[i] = False
             fin[:, j] = np.maximum(self.avail[j], now) + etc[:, j]
             self.column_refreshes += 1
@@ -172,6 +192,25 @@ class StreamScheduler:
             placed.append(self._commit(tasks[i], j, start, finish,
                                        float(etc[i, j])))
         return placed
+
+    def _admit(self, task: sch.Task, j: int, now: float,
+               etc_tj: float) -> tuple[float, float]:
+        """Route one placement through node ``j``'s server pool.
+
+        The realised service time is drawn *at admission* (the pool
+        tracks realised busy-until state, so queue statistics come out
+        exact); ``self.avail`` is the pools' earliest-free cache and is
+        updated in place by ``NodePools.admit``.  With ``capacity=1``
+        and no ``service_time_fn`` this is bit-for-bit the historical
+        scalar bookkeeping: ``start = max(avail[j], now)``,
+        ``avail[j] = start + etc``.
+        """
+        service = etc_tj
+        if self.service_time_fn is not None:
+            start_pred = max(self.pools.pools[j].next_free(), float(now))
+            service = float(self.service_time_fn(
+                task, self.nodes[j].spec, etc_tj, start_pred))
+        return self.pools.admit(j, now, service)
 
     def _commit(self, task: sch.Task, j: int, start: float, finish: float,
                 etc_tj: float) -> sch.Assignment:
@@ -272,12 +311,17 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
 
       * ``arrive``  — admit the batch of tasks arriving at that instant
                       through the incremental :class:`StreamScheduler`
+                      (and, when a ``split_planner`` rides along, admit
+                      each task's offload split against the current
+                      ``split_env`` link observation)
       * ``finish``  — a task completes: record telemetry, free the node
-                      (possibly migrating a queued task onto it)
+                      (possibly migrating a queued task onto it), close
+                      the task's split plan
       * ``link``    — every ``link_update_dt`` seconds of virtual time,
                       drift the per-node uplinks (``links``) and the
-                      device↔edge environment (``split_env``), refreshing
-                      only the affected ETC columns
+                      device↔edge environment (``split_env``), refresh
+                      only the affected ETC columns, and let the split
+                      planner re-pick along the live Pareto fronts
 
     ``service_time_fn(task, node_spec, etc_s, start_s) -> seconds``
     injects a ground-truth service-time model *independent of the
@@ -299,13 +343,27 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
     is bit-transparent: placements are identical to running the same
     fitted model as a plain ``cost=PredictorCost(...)``.
 
-    Passing ``split_env=`` + ``split_layers=`` enables
-    *decide-at-admission*: each placed task's offload split is decided
-    once via :func:`repro_torch.core.decisions.decide_all` against the
-    link observation at its arrival (optionally under ``split_cost=``;
-    ``split_backend=`` is ``"kernel"``, the ``decide_split`` kernel, or
-    ``"torch"``, the exact f64 sweep) and recorded on its
-    :class:`TaskRecord`.
+    Without a ``split_planner``, passing ``split_env=`` +
+    ``split_layers=`` enables *decide-at-admission*: each placed task's
+    offload split is decided once via :func:`repro_torch.core.decisions.
+    decide_all` against the link observation at its arrival (optionally
+    under ``split_cost=``; ``split_backend=`` is ``"kernel"``, the
+    ``decide_split`` kernel, ``"torch"``, the exact f64 sweep, or
+    ``"sharded"``, :func:`repro_torch.sim.fleet.decide_all_sharded`) and
+    recorded on its :class:`TaskRecord`.
+
+    ``pools=`` (a :class:`repro_torch.sim.queueing.NodePools`) replaces
+    the believed scalar queue with finite-capacity c-server FIFO pools
+    tracking *realised* busy state: sojourn = queue wait + service
+    (+ transfer).  With pools the realised service time
+    (``service_time_fn``) is drawn *at admission*; ``capacity=1`` with no
+    service model is bit-for-bit the historical bookkeeping.  ``rtt=`` (a
+    :class:`repro_torch.sim.queueing.DelayProcess`) samples one
+    heavy-tailed network round-trip per task, delaying its completion
+    event and booked as the record's ``transfer_s``.
+    ``saturation_threshold=`` (needs ``split_planner=`` and ``pools=``)
+    fires ``split_planner.on_saturation`` whenever any pool's utilisation
+    crosses the threshold from below.
 
     ``obs=`` takes a duck-typed tracer (``enabled``, ``instant``,
     ``task_spans``, ``last``; a ``repro.obs`` tracer fits) that records
@@ -314,28 +372,41 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
     (:func:`repro_torch.obs.trace.postmortem_dump`, tracing on only) and
     re-raises.
 
+    ``engine="fleet"`` dispatches the whole run to
+    :func:`repro_torch.sim.fleet.simulate_fleet`, the time-slabbed twin
+    of this loop — bit-for-bit equal telemetry in f64, but rejecting the
+    inherently sequential features (``oracle=``, ``rebalance=True``,
+    ``cost=``, ``saturation_threshold=``).
+
     The ETC rows and split decisions run on the torch ``device`` (None =
-    cuda, raising without a card).  ``pools=``, ``rtt=``,
-    ``split_planner=``, ``saturation_threshold=``,
-    ``split_backend="sharded"`` and ``engine="fleet"`` raise
-    ``NotImplementedError`` (ROADMAP.md §1 item 6).
+    cuda, raising without a card).
 
     Returns the filled :class:`Telemetry` (the scheduler's counters and
     one :class:`TaskRecord` per task).
     """
     if engine == "fleet":
-        raise NotImplementedError(PENDING.format("engine='fleet'"))
+        return fleet.simulate_fleet(
+            tasks, arrivals, nodes, policy=policy, cost=cost,
+            oracle=oracle, service_time_fn=service_time_fn, links=links,
+            link_update_dt=link_update_dt, split_planner=split_planner,
+            split_env=split_env, split_layers=split_layers,
+            split_cost=split_cost, split_backend=split_backend,
+            rebalance=rebalance, pools=pools, rtt=rtt,
+            saturation_threshold=saturation_threshold,
+            telemetry=telemetry, obs=obs, device=device)
     if engine != "event":
         raise ValueError(f"unknown engine {engine!r}; "
                          "use 'event' or 'fleet'")
-    for name, value in (("pools=", pools), ("rtt=", rtt),
-                        ("split_planner=", split_planner),
-                        ("saturation_threshold=", saturation_threshold)):
-        if value is not None:
-            raise NotImplementedError(PENDING.format(name))
+    if saturation_threshold is not None and (
+            split_planner is None or pools is None):
+        raise ValueError("saturation_threshold= needs split_planner= "
+                         "and pools= (it re-picks splits when pool "
+                         "utilisation crosses the threshold)")
     dev = resolve_device(device)
     telemetry = telemetry if telemetry is not None else Telemetry()
     obs = obs if obs is not None else NULL_TRACER
+    if pools is not None:
+        pools.obs = obs
     if oracle is not None:
         if cost is not None:
             raise ValueError("pass either cost= or oracle= — the oracle "
@@ -345,10 +416,22 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
         oracle.telemetry = telemetry           # counters/gauges per run
         oracle.obs = obs                       # drift/refit instants
         oracle.registry.obs = obs              # publish instants
-    decide_splits = split_env is not None and split_layers is not None
+    if split_planner is not None:
+        if split_env is None or split_layers is None:
+            raise ValueError("split_planner needs split_env= and "
+                             "split_layers= (shared list or task -> "
+                             "layers)")
+        if split_cost is not None:
+            raise ValueError("split_cost= only applies to the "
+                             "decide-at-admission path (no "
+                             "split_planner)")
+        split_planner.telemetry = telemetry    # one record per run
+        split_planner.obs = obs                # split re-pick instants
+    decide_splits = (split_planner is None and split_env is not None
+                     and split_layers is not None)
     if split_cost is not None and not decide_splits:
         raise ValueError("split_cost= needs split_env= and "
-                         "split_layers=")
+                         "split_layers= without a split_planner")
     split_of: dict[int, int] = {}              # rid -> admission split
 
     def layers_for(task: sch.Task):
@@ -357,8 +440,9 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
         return split_layers
 
     sched = StreamScheduler(nodes, policy=policy, cost=cost,
-                            rebalance=rebalance, telemetry=telemetry,
-                            device=dev)
+                            rebalance=rebalance, pools=pools,
+                            service_time_fn=service_time_fn,
+                            telemetry=telemetry, device=dev)
     arrivals = np.asarray(arrivals, np.float64)
     if arrivals.shape != (len(tasks),):
         raise ValueError(
@@ -379,18 +463,27 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
     completed: set[int] = set()                  # id(assignment)
     spec_at_place: dict[int, object] = {}        # id(a) -> spec at placement
     real_finish: dict[int, float] = {}           # id(a) -> realised finish
+    rtt_of: dict[int, float] = {}                # id(a) -> sampled RTT
+    sat_was = False                              # saturation edge detector
 
     def schedule_finish(a: sch.Assignment) -> None:
         """Queue the completion event: at the believed finish, or at
         ``start + actual`` when a ground-truth model rides along (the
-        scheduler's queue bookkeeping stays belief-driven)."""
+        scheduler's queue bookkeeping stays belief-driven).  With pools
+        the realised service was already drawn at admission, so
+        ``a.finish`` *is* the realised compute finish; a heavy-tailed
+        ``rtt`` sample then delays the completion event further."""
         j = sched.node_index(a)
         spec_at_place[id(a)] = sched.nodes[j].spec
         t = a.finish
-        if service_time_fn is not None:
+        if pools is None and service_time_fn is not None:
             t = a.start + float(service_time_fn(a.task,
                                                 sched.nodes[j].spec,
                                                 sched.etc_of(a), a.start))
+        if rtt is not None:
+            r = float(rtt.sample(1)[0])
+            rtt_of[id(a)] = r
+            t += r
         real_finish[id(a)] = t
         q.push(t, "finish", a)
 
@@ -416,13 +509,30 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
                     live[rid] = a
                     rid_of[id(a)] = rid
                     schedule_finish(a)
-                    if decide_splits:
+                    if split_planner is not None:
+                        split_planner.admit(
+                            rid, layers_for(a.task), split_env.link_bw,
+                            input_bytes=a.task.input_bytes, now=now,
+                            deadline_s=a.task.deadline_s)
+                    elif decide_splits:
                         plan = fleet._split_decide(
                             layers_for(a.task),
                             split_env.snapshot(a.task.input_bytes),
                             split_cost, split_backend)
                         split_of[rid] = int(plan.splits[0])
                         telemetry.count("split_decides")
+                if saturation_threshold is not None:
+                    sat_now = bool(pools.saturated(
+                        now, saturation_threshold).any()) if now > 0 \
+                        else False
+                    if sat_now and not sat_was:
+                        if obs.enabled:
+                            obs.instant("scheduler", "pool_saturation", now,
+                                        args={"threshold":
+                                              saturation_threshold})
+                        split_planner.on_saturation(split_env.link_bw,
+                                                    now=now)
+                    sat_was = sat_now
             elif ev.kind == "finish":
                 a = ev.payload
                 if id(a) in completed or real_finish[id(a)] != now:
@@ -437,16 +547,24 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
                     # with what the prediction actually saw.
                     oracle.observe_task(a.task, spec_at_place[id(a)],
                                         realised_s=now - a.start,
-                                        predicted_s=sched.etc_of(a),
-                                        now=now)
-                split = split_of.pop(rid) if decide_splits else None
+                                        predicted_s=sched.etc_of(a), now=now,
+                                        extra_transfer_s=rtt_of.get(id(a),
+                                                                    0.0))
+                split, switches = None, 0
+                if split_planner is not None:
+                    rec = split_planner.complete(rid, split_env.link_bw,
+                                                 now=now)
+                    split, switches = rec["pick"], rec["switches"]
+                elif decide_splits:
+                    split = split_of.pop(rid)
                 telemetry.complete(TaskRecord(
                     name=a.task.name, arrived_s=float(arrivals[rid]),
                     started_s=a.start, finished_s=now, node=a.node,
                     node_id=j, deadline_s=a.task.deadline_s,
                     energy_j=(now - a.start)
                     * sched.nodes[j].spec.tdp_watts,
-                    split=split))
+                    split=split, switches=switches,
+                    transfer_s=rtt_of.get(id(a), 0.0)))
                 if obs.enabled:
                     span_args = {}
                     if split is not None:
@@ -456,7 +574,8 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
                     obs.task_spans(
                         f"{a.node}@{j}", rid, a.task.name,
                         float(arrivals[rid]), a.start, now,
-                        transfer_s=0.0, args=span_args or None)
+                        transfer_s=rtt_of.get(id(a), 0.0),
+                        args=span_args or None)
                 del live[rid]
                 migrated = sched.on_node_free(j, now)
                 if migrated is not None:
@@ -473,6 +592,8 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
                                     args={"nodes": int(len(changed))})
                 if split_env is not None:
                     split_env.step(link_update_dt)
+                    if split_planner is not None:
+                        split_planner.on_link(split_env.link_bw, now=now)
                 if to_arrive > 0 or live:
                     q.push(now + link_update_dt, "link", None)
     except Exception as e:

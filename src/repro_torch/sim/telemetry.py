@@ -70,13 +70,17 @@ class TaskRecord:
 class Telemetry:
     """Accumulates task records and scheduler counters for one run.
 
-    Records arrive one at a time through :meth:`complete`, the event
-    loop's path (the reference's column-batch ``complete_arrays`` serves
-    its fleet engine and comes with it, ROADMAP.md §1 item 6).
+    Records arrive one at a time (:meth:`complete`, the event loop's
+    path) or as column batches (:meth:`complete_arrays`, the fleet
+    engine's path).  Batches are held as arrays and only materialised
+    into :class:`TaskRecord` objects when ``records`` is first read, so
+    a 10⁵-task slabbed run never builds per-task Python objects inside
+    its hot loop; insertion order is preserved across both paths.
     """
 
     def __init__(self):
-        self.records: list[TaskRecord] = []
+        self._records: list[TaskRecord] = []
+        self._pending: list[tuple] = []      # deferred column batches
         self.counters: Counter = Counter()
         self.gauges: dict[str, float] = {}
 
@@ -90,11 +94,59 @@ class Telemetry:
         self.gauges[key] = float(value)
 
     def complete(self, record: TaskRecord) -> None:
-        self.records.append(record)
+        if self._pending:
+            self._materialise()
+        self._records.append(record)
+
+    def complete_arrays(self, names, arrived_s, started_s, finished_s, *,
+                        node, node_id, deadline_s, energy_j,
+                        split=None, switches=None,
+                        transfer_s=None) -> None:
+        """Ingest one batch of completed tasks as parallel columns (all
+        length n; ``deadline_s``/``split`` entries may be ``None``,
+        ``split``/``switches`` may be ``None`` wholesale).  Equivalent
+        to n :meth:`complete` calls in column order, but deferred."""
+        n = len(names)
+        for label, col in (("arrived_s", arrived_s),
+                           ("started_s", started_s),
+                           ("finished_s", finished_s), ("node", node),
+                           ("node_id", node_id),
+                           ("deadline_s", deadline_s),
+                           ("energy_j", energy_j)):
+            if len(col) != n:
+                raise ValueError(f"column {label} has {len(col)} rows, "
+                                 f"expected {n}")
+        self._pending.append((list(names), arrived_s, started_s,
+                              finished_s, node, node_id, deadline_s,
+                              energy_j, split, switches, transfer_s))
+
+    def _materialise(self) -> None:
+        recs = self._records
+        for (names, arrived, started, finished, node, node_id, deadline,
+             energy, split, switches, transfer) in self._pending:
+            for k in range(len(names)):
+                recs.append(TaskRecord(
+                    name=names[k], arrived_s=float(arrived[k]),
+                    started_s=float(started[k]),
+                    finished_s=float(finished[k]), node=node[k],
+                    node_id=int(node_id[k]),
+                    deadline_s=deadline[k], energy_j=float(energy[k]),
+                    split=None if split is None else split[k],
+                    switches=0 if switches is None
+                    else int(switches[k]),
+                    transfer_s=0.0 if transfer is None
+                    else float(transfer[k])))
+        self._pending.clear()
+
+    @property
+    def records(self) -> list[TaskRecord]:
+        if self._pending:
+            self._materialise()
+        return self._records
 
     # -- reductions -------------------------------------------------------
     def __len__(self) -> int:
-        return len(self.records)
+        return len(self._records) + sum(len(b[0]) for b in self._pending)
 
     @property
     def deadline_misses(self) -> int:

@@ -5,6 +5,7 @@ On a machine with one they run with::
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
+import dataclasses
 import importlib.util
 import shutil
 import sys
@@ -1020,3 +1021,110 @@ def test_oracle_cost_kernel_sweep_with_gain_is_near_optimal(cuda):
     assert bool((fast.total_time_s <= exact.total_time_s * (1 + 1e-4)
                  + 1e-12).all())
     assert cost.accel_spec().lowered.correction == (o.gain, 0.0)
+
+
+# --------------------------------------------------------------------------
+# the fleet engine's singleton scan, and the contention stack's sweep
+# --------------------------------------------------------------------------
+def _scan_case(n_nodes, n, k, seed, ties):
+    rng = np.random.default_rng(seed)
+    peak = rng.uniform(1e10, 1e13, n_nodes)
+    rows = rng.uniform(1e5, 1e8, (k, n_nodes))
+    avail = rng.uniform(0, 2, n_nodes)
+    if ties:                             # identical nodes: first index wins
+        peak[:], rows[:], avail[:] = 1e12, 1e7, 0.0
+    ts = np.sort(rng.uniform(0, 10, n))
+    fls, ibs = rng.uniform(1e9, 5e11, n), rng.uniform(1e4, 1e7, n)
+    segs = np.sort(rng.integers(0, k, n)).astype(np.int64)
+    return [torch.as_tensor(a) for a in (avail, peak, rows, ts, fls, ibs,
+                                         segs)]
+
+
+@pytest.mark.parametrize("n_nodes", [1, 2, 31, 32, 33, 256, 300, 1000,
+                                     9684])
+@pytest.mark.parametrize("ties", [False, True])
+def test_fleet_scan_kernel_matches_plain_bit_for_bit(cuda, n_nodes, ties):
+    """One block places every task, its etc rows a chunk ahead (up to 64
+    steps a chunk, one at MAX_NODES): j, start, finish, etc and
+    the final avail equal to the plain version on a CPU copy, bit for bit
+    (IEEE f64 divisions and additions, first index on ties)."""
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.fleet_scan import ref as fs_ref
+    cpu = _scan_case(n_nodes, 900, 7, n_nodes, ties)
+    gpu = [x.to(cuda) for x in cpu]
+    want = fs_ref.place_singletons_ref(*cpu)
+    got = fs_kernel.place_singletons_kernel(*gpu)
+    torch.cuda.synchronize()
+    for w, g in zip(want, got):
+        assert torch.equal(w, g.cpu())
+    assert torch.equal(cpu[0], gpu[0].cpu())
+    if ties:
+        assert int(got[0][0]) == 0
+
+
+def test_fleet_engine_on_the_card_equals_the_cpu(cuda):
+    """A diurnal day of 3,000 tasks on 24 nodes: one singleton run through
+    fleet_scan on the card, the plain version on the CPU; the same
+    records, summary and counters."""
+    from repro_torch import sim
+    from repro_torch.core import scheduler as sch
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    specs = list(EDGE_DEVICES.values())
+    arr = sim.diurnal_arrivals(3000 / 600.0 * 1.2, horizon=600.0,
+                               amplitude=0.6, period_s=300.0, seed=1)[:3000]
+    rng = np.random.default_rng(0)
+    tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
+                      input_bytes=float(rng.uniform(1e4, 1e7)))
+             for i in range(len(arr))]
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        links = sim.ClusterLinks([sim.DiurnalLink(
+            4e7, amplitude=0.5, period_s=300.0, noise_sigma=0.1, seed=2 + j)
+            for j in range(24)])
+        before = fs_kernel.place_singletons_kernel.launches
+        tel = sim.simulate_stream(tasks, arr, [sch.Node(specs[j % 5])
+                                               for j in range(24)],
+                                  links=links, engine="fleet", device=dev)
+        if dev.type == "cuda":
+            assert fs_kernel.place_singletons_kernel.launches > before
+        out.append(([dataclasses.astuple(r) for r in tel.records],
+                    tel.summary(), dict(tel.counters)))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("tail", [None, "p99", "cvar"])
+def test_decide_split_with_live_pool_wait_and_rtt_tail_is_near_optimal(
+        cuda, tail):
+    """QueueAwareCost over CompositeCost(tail=...): the live ServerPool
+    wait and the WeibullRTT tail excess lowered into the kernel, every
+    split within 1e-4 of the exact f64 sweep's scalar cost."""
+    from repro_torch.core import costs as co
+    from repro_torch.sim import queueing as q
+    rtt = q.WeibullRTT(shape=0.6, scale=0.02, seed=0)
+    base = co.CompositeCost(
+        weights={"latency_s": 1.0} if tail is None
+        else {"tail_latency_s": 1.0},
+        tail=tail, rtt=None if tail is None else rtt, tail_alpha=0.99)
+    pool = q.ServerPool(2)
+    pool.admit(0.0, 0.08)
+    pool.admit(0.0, 0.05)
+    cost = co.QueueAwareCost(base=base, edge_pool=pool, rtt=rtt)
+    rng = np.random.default_rng(3)
+    layers = [off.LayerCost(f"l{i}", flops=float(rng.uniform(2e10, 4.5e10)),
+                            act_bytes=float(rng.uniform(2e5, 4e6)))
+              for i in range(8)]
+    jetson, a100 = get_device("jetson-orin-nano"), \
+        get_device("edge-server-a100")
+    for now in (0.0, 0.03, 0.2):
+        cost.set_now(now)
+        spec = cost.accel_spec()
+        assert spec.queue_wait_s == pytest.approx(pool.wait(now)
+                                                  + rtt.mean())
+        envs = dec.make_envs(jetson, a100,
+                             link_bw=np.geomspace(1e6, 1e9, 2048),
+                             input_bytes=2e6, device=cuda)
+        fast = dec.decide_all(layers, envs, cost=cost, device=cuda)
+        exact = dec.decide_all(layers, envs, cost=cost, backend="torch",
+                               device=cuda)
+        assert bool((fast.scalar_cost <= exact.scalar_cost * (1 + 1e-4)
+                     + 1e-12).all())

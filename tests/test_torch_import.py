@@ -93,6 +93,17 @@ def test_oracle_and_sim_modules_load_no_jax_and_no_reference(module):
     assert_loads_no_jax_and_no_reference(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.sim.queueing",
+                                    "repro_torch.sim.pareto",
+                                    "repro_torch.sim.fleet",
+                                    "repro_torch.kernels.fleet_scan.ref",
+                                    "repro_torch.kernels.fleet_scan.ops",
+                                    "repro_torch.kernels.fleet_scan.kernel"])
+def test_queueing_pareto_and_fleet_modules_load_no_jax_and_no_reference(
+        module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_no_file_imports_jax_or_reference(path):
@@ -135,6 +146,7 @@ def test_device_none_means_cuda_and_raises_without_a_card(monkeypatch):
 def test_oracle_and_stream_entry_points_need_a_card_by_default(monkeypatch):
     from repro_torch import sim
     from repro_torch.core import costs as co
+    from repro_torch.core import decisions as dec
     from repro_torch.core import scheduler as sch
     from repro_torch.core.predictors.gbt import GBTRegressor
     from repro_torch.hw import get_device
@@ -157,6 +169,12 @@ def test_oracle_and_stream_entry_points_need_a_card_by_default(monkeypatch):
     env = sim.DriftingEnv(pi5, a100, sim.FixedLink(1e6))
     with pytest.raises(RuntimeError, match="device=None means cuda"):
         env.snapshot()
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        sim.simulate_stream(tasks, [0.0], nodes, engine="fleet")
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        sim.ParetoStreamScheduler()
+    with pytest.raises(RuntimeError, match="device=None means cuda"):
+        dec.stack_envs([])
     # explicitly asked for, the CPU runs
     oracle = OnlineOracle(gbt, pi5, a100, torch_device="cpu")
     tel = sim.simulate_stream(tasks, [0.0], nodes, oracle=oracle,

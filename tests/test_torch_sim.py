@@ -7,8 +7,10 @@ times, link paths (scalar and batched steps), ``EnvArrays`` snapshots,
 ``StreamScheduler`` placements (at t = 0 equal to the batch schedules),
 ``simulate_stream`` records and ``summary()`` (static and drifting links,
 rebalancing, a predictor cost, decide-at-admission with
-``split_backend="torch"`` against the reference's ``"numpy"``), and the
-deferred options raise ``NotImplementedError`` naming their ROADMAP item.
+``split_backend="torch"`` against the reference's ``"numpy"``), and each
+option that came with the queueing, Pareto and fleet modules (pools, RTTs,
+the split planner, its saturation hook, the fleet engine, the sharded
+split backend) against the reference's run of it.
 """
 import dataclasses
 import json
@@ -518,21 +520,56 @@ def test_traced_run_equals_untraced_and_dumps_on_failure(tmp_path,
     assert dump["error"] == "RuntimeError: planted" and dump["n_events"] > 0
 
 
-@pytest.mark.parametrize("option", ["pools", "rtt", "split_planner",
-                                    "saturation_threshold", "fleet",
-                                    "sharded"])
-def test_deferred_options_raise_naming_their_item(option):
-    tasks, nodes = make_tasks(psch, 3), make_nodes(psch, P_SPECS)
-    kw = {"device": CPU}
+def queueing(port):
+    from repro.sim import queueing as rq
+    from repro_torch.sim import queueing as pq
+    return pq if port else rq
+
+
+def planner(sim, port):
+    return sim.ParetoStreamScheduler(
+        **({"torch_device": CPU} if port else {}))
+
+
+#: nodes of the option runs: one per edge spec, as ``links`` builds them
+N_OPT = len(P_SPECS)
+
+#: each option the event loop gained with the queueing, Pareto and fleet
+#: modules, run against the reference (the port's "sharded" split backend
+#: against the reference's "numpy" one, the port's fleet engine against the
+#: reference's event loop)
+OPTIONS = {
+    "pools": {"pools": lambda s, p: queueing(p).NodePools.uniform(N_OPT, 2)},
+    "rtt": {"rtt": lambda s, p: queueing(p).WeibullRTT(shape=0.6,
+                                                       scale=0.02, seed=3),
+            "pools": lambda s, p: queueing(p).NodePools.uniform(N_OPT, None)},
+    "split_planner": {"split_planner": planner, "split_env": split_env,
+                      "split_layers": lambda s, p: cnn_layers(
+                          poff if p else roff, PWorkload if p else RWorkload),
+                      "link_update_dt": lambda s, p: 0.1},
+    "saturation_threshold": {
+        "split_planner": planner, "split_env": split_env,
+        "split_layers": lambda s, p: cnn_layers(
+            poff if p else roff, PWorkload if p else RWorkload),
+        "pools": lambda s, p: queueing(p).NodePools.uniform(N_OPT, 1),
+        "saturation_threshold": lambda s, p: 0.3},
+    "fleet": {"links": links, "link_update_dt": lambda s, p: 0.1,
+              "rtt": lambda s, p: queueing(p).WeibullRTT(seed=5)},
+    "sharded": {"split_env": split_env,
+                "split_layers": lambda s, p: cnn_layers(
+                    poff if p else roff, PWorkload if p else RWorkload),
+                "split_backend": lambda s, p: "sharded" if p else "numpy"},
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_option_runs_like_reference(option):
+    """Every option of ``simulate_stream`` runs, record for record and
+    summary for summary as the reference's run of it."""
+    kw = dict(OPTIONS[option])
     if option == "fleet":
-        kw["engine"] = "fleet"
-    elif option == "sharded":
-        kw.update(split_env=split_env(psim, True),
-                  split_layers=cnn_layers(poff, PWorkload),
-                  split_backend="sharded")
-    else:
-        kw[option] = object()
-    with pytest.raises(NotImplementedError, match="§1 item 6"):
-        psim.simulate_stream(tasks, np.zeros(3), nodes, **kw)
-    with pytest.raises(NotImplementedError, match="§1 item 6"):
-        psim.StreamScheduler(nodes, pools=object(), device=CPU)
+        kw["engine"] = lambda s, p: "fleet" if p else "event"
+    want, got = run_both(50, N_OPT, 2, **kw)
+    assert len(got) > 0
+    assert record_tuples(got) == record_tuples(want)
+    assert got.summary() == want.summary()
