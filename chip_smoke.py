@@ -103,17 +103,44 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``fleet_scan`` launches and steps, the slab sizes, misses per policy
    and µs per decision.
 6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
-   max_len=2088, seed=0)`` on qwen3-1.7b and on zamba2-1.2b at their
-   published shapes in bf16, each serving 8 greedy requests of 2048 random
-   tokens with 32 new tokens (``flash_attention`` and ``ssm_scan``
-   kernels; their launch counts are read right after both models, every
-   flash launch must have taken ``flash_fwd_wgmma``, and every ``ssm_scan``
-   call must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
-   request must get 32 in-range tokens and every logit must be finite.
-7. The whole model on the card: at each model's full width in f32, the
-   kernel path (``build_model(cfg)``) and the plain path
-   (``impl="naive"``) on one 512-token prompt with shared weights; their
-   last-token logits must agree within 1e-3 of max |logit|.
+   max_len=2088, seed=0)`` on qwen3-1.7b, zamba2-1.2b, deepseek-v2-lite-16b
+   (MLA + MoE) and phi-3-vision-4.2b at their published shapes in bf16,
+   one at a time (each freed before the next loads), each serving 8 greedy
+   requests of 2048 random tokens with 32 new tokens (``flash_attention``
+   and ``ssm_scan`` kernels; their launch counts are read right after the
+   four models, every flash launch at head dim 64 or 128 must have taken
+   ``flash_fwd_wgmma`` and the others (MLA's 192 with v padded from 128,
+   phi-3's 96) ``flash_fwd``, and every ``ssm_scan`` call must have
+   launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every request must
+   get 32 in-range tokens and every logit must be finite.
+6b. Continuous batching at full width and depth in bf16:
+   ``ContinuousBatchEngine(deepseek-moe-16b, slots=4, max_len=2088,
+   cost=AnalyticCost(), decision_backend="kernel")`` over 8 requests of
+   1024-2048 seeded random tokens, 32 greedy new tokens each, arriving
+   50 ms apart on its virtual clock, with a seeded link observation at each
+   admission.  Each admission runs a batch-1 prefill (28
+   ``flash_fwd_wgmma`` launches), splices its cache into a slot and
+   re-plans the request's split (one ``decide_split`` launch, E = 1);
+   decode runs the four slots at ragged positions.  Checks: 32 in-range
+   tokens and finite logits per request, ``admitted_at >= arrived_at``,
+   occupancy > 1, 8 re-plans, each split within 1e-4 of the f64 optimum
+   of its environment, launches exactly 8 x 28 flash (all on the tensor
+   cores) and 8 ``decide_split``.  The ``continuous`` line carries each
+   admission's prefill and re-plan wall time, decode steps/s and
+   tokens/s, peak memory and each request's virtual sojourn and queue
+   wait.
+7. The whole model on the card, f32: the kernel path
+   (``build_model(cfg)``) and the plain path (``impl="naive"``) on one
+   512-token prompt with shared weights, for qwen3-1.7b, zamba2-1.2b and
+   phi-3-vision-4.2b whole (phi-3 also on a seeded embeddings prompt) and
+   deepseek-moe-16b and deepseek-v2-lite-16b at full width cut to 4 layers
+   (``MODEL_CHECKS``); their last-token logits must agree within 1e-3 of
+   max |logit|.  The MoE lines count the (token, layer) expert choices
+   that differ between the two paths and the smallest gap between a
+   token's k-th and (k+1)-th router probability.  Then the continuous
+   engine in f32 on deepseek-moe-16b cut to 4 layers: its greedy tokens
+   for 4 requests x 8 tokens must equal ``ServeEngine(batch_size=1)``'s on
+   the same weights (a mismatch prints the step and the top-2 logit gap).
 8. Each kernel against its plain PyTorch version on the card, at the
    slices' shapes, with the tolerance stated beside each check; flash
    and ``ssm_scan`` also against themselves (two calls, the same bits).
@@ -139,7 +166,11 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    call and with its bound at the 30 operations a split that its
    division-bound form took; ``gbt_hist`` is timed at the six levels of
    phase 8, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
-   ``ssd_chunk``).  Phase 4's new shapes: ``tree_predict`` on one
+   ``ssd_chunk``).  Flash at the new models' shapes (``OTHER_FLASH_SHAPES``:
+   the MLA prefill, phi-3's D 96, one MoE admission) through ``ops`` as the
+   models call it, each first held against its plain version in bf16 and
+   f32 (1e-5 of max |want|) and against a second call bit for bit, with
+   SDPA beside it.  Phase 4's new shapes: ``tree_predict`` on one
    observation's row and on one admission's 32 rows, eager as the path
    calls it (the graph replay beside), and ``decide_split`` on one
    admission's E = 1 sweep.  Phase 5's: ``fleet_scan`` on (a)'s longest
@@ -179,9 +210,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 N_ENVS = 1 << 20
 SEED = 0
-SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b")
+SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "deepseek-v2-lite-16b",
+               "phi-3-vision-4.2b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
+# continuous batching (phase 6b): prompts drawn from 1024-2048 tokens,
+# arriving 50 ms apart on the engine's virtual clock
+CONT_ARCH, CONT_PROMPT, CONT_GAP_S = "deepseek-moe-16b", (1024, 2048), 0.05
 CHECK_PROMPT = 512                   # the whole-model f32 check
+# f32 checks at full width; the MoE models' depth cut to 4 layers (their
+# 27-28 f32 layers are ~65-68 GB)
+CHECK_LAYERS = 4
+MODEL_CHECKS = (("qwen3-1.7b", None), ("zamba2-1.2b", None),
+                ("deepseek-moe-16b", CHECK_LAYERS),
+                ("deepseek-v2-lite-16b", CHECK_LAYERS),
+                ("phi-3-vision-4.2b", None))
+# (case, B, S, H, D of q/k, D of v) of flash_attention on the new models'
+# paths: deepseek-v2-lite's MLA prefill, phi-3-vision's prefill, one
+# deepseek-moe admission
+OTHER_FLASH_SHAPES = (("mla_dsv2lite", 4, 2048, 16, 192, 128),
+                      ("phi3v_d96", 4, 2048, 32, 96, 96),
+                      ("moe_admission", 1, 2048, 16, 128, 128))
 PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
 MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
 MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
@@ -276,6 +324,9 @@ def serve_slice(dev, smi: str) -> dict:
     wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
                 "ssm_scan": ss_kernel.ssd_scan_kernel}
     expected = dict.fromkeys(wrappers, 0)
+    # bf16 at head dim 64 or 128 on the tensor cores, MLA's 192 (v 128,
+    # padded) and phi-3's 96 on the CUDA cores
+    flash_expected = dict.fromkeys(fa_kernel.KERNELS, 0)
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     fa_kernel.reset_counts()
     ss_kernel.reset_counts()
@@ -283,11 +334,15 @@ def serve_slice(dev, smi: str) -> dict:
         cfg = get_config(arch)
         check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
         if cfg.family == "hybrid":
-            expected["flash_attention"] += n_batches * -(
-                -cfg.num_layers // cfg.shared_attn_every)
+            n_flash = n_batches * -(-cfg.num_layers // cfg.shared_attn_every)
             expected["ssm_scan"] += n_batches * cfg.num_layers
         else:
-            expected["flash_attention"] += n_batches * cfg.num_layers
+            n_flash = n_batches * cfg.num_layers
+        expected["flash_attention"] += n_flash
+        d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_kind == "mla"
+             else cfg.head_dim)
+        flash_expected["flash_fwd_wgmma" if d in (64, 128)
+                       else "flash_fwd"] += n_flash
         before = {k: w.launches for k, w in wrappers.items()}
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
@@ -341,7 +396,9 @@ def serve_slice(dev, smi: str) -> dict:
     print(json.dumps({"serve_launch_counts": launches,
                       "flash_by_kernel": by_kernel,
                       "ssm_by_kernel": ssm_by_kernel,
-                      "expected": expected}), flush=True)
+                      "expected": expected,
+                      "flash_by_kernel_expected": flash_expected}),
+          flush=True)
     # every scan call: C·Bᵀ once, then the chunks
     check(ssm_by_kernel == dict.fromkeys(ss_kernel.KERNELS,
                                          expected["ssm_scan"]),
@@ -350,11 +407,237 @@ def serve_slice(dev, smi: str) -> dict:
     for k, n in launches.items():
         check(n == expected[k], f"kernel {k} launched {n} times on the "
               f"serving path, expected {expected[k]}")
-    # every bf16 prefill of the served models takes the tensor-core kernel
-    check(by_kernel["flash_fwd_wgmma"] == expected["flash_attention"],
-          f"flash_attention: {by_kernel} on the serving path, expected all "
-          f"{expected['flash_attention']} launches on flash_fwd_wgmma")
+    # every bf16 prefill at head dim 64 or 128 takes the tensor-core
+    # kernel, the others the CUDA-core one
+    check(by_kernel == flash_expected,
+          f"flash_attention: {by_kernel} on the serving path, expected "
+          f"{flash_expected}")
     return dict(launches, ssm_scan_by_kernel=ssm_by_kernel)
+
+
+class LifecycleRecorder:
+    """The engine's duck-typed ``obs`` seam: keeps each request's
+    virtual-clock (arrived, admitted, finished) and the admit and replan
+    instants."""
+    enabled = True
+
+    def __init__(self):
+        self.spans, self.instants = {}, []
+
+    def instant(self, track, name, ts, *, tid=0, args=None):
+        self.instants.append((name, tid, ts))
+
+    def task_spans(self, track, tid, name, arrived_s, started_s,
+                   finished_s, **kw):
+        self.spans[tid] = (arrived_s, started_s, finished_s)
+
+
+def continuous_slice(dev, smi: str) -> dict:
+    """Continuous batching at full width and depth in bf16 (phase 6b):
+    ``ContinuousBatchEngine`` on deepseek-moe-16b, re-planning each
+    admitted request's split with the ``decide_split`` kernel.  Returns
+    the phase's launch counts, its per-admission times, and the
+    ``decide_split`` row of its last admission's E = 1 sweep (timed after
+    the counts are read)."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+    from repro_torch.bench.kernels import decide_split_row
+    from repro_torch.configs import get_config
+    from repro_torch.core.costs import AnalyticCost, lower_to_accel
+    from repro_torch.core.decisions import decide_all, make_envs
+    from repro_torch.core.offload import transformer_layer_costs
+    from repro_torch.hw import get_device
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.decide_split import ops as ds_ops
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.serve import ContinuousBatchEngine, Request
+
+    cfg = get_config(CONT_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.num_layers == 28
+          and cfg.d_model == 2048 and cfg.num_experts == 64,
+          f"{CONT_ARCH} is not at its published shape")
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(CONT_PROMPT[0], CONT_PROMPT[1] + 1,
+                        size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in lens]
+    # the link observed at each admission: 100 kB/s to 3 GB/s, log-uniform
+    bws = 10.0 ** rng.uniform(5.0, 9.5, size=SERVE_REQUESTS)
+    link = iter(bws.tolist())
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    recorder = LifecycleRecorder()
+    eng = ContinuousBatchEngine(
+        cfg, slots=SERVE_BATCH, max_len=SERVE_PROMPT + SERVE_NEW + 8,
+        seed=SEED, cost=AnalyticCost(), link_bw=lambda: next(link),
+        decision_backend="kernel", obs=recorder, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    times = {"prefill": [], "replan": [], "decode": []}
+    finite = []
+
+    def timed(fn, key, logits_at=None):
+        def wrapped(*args):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize(dev)
+            times[key].append(time.perf_counter() - t)
+            if logits_at is not None:
+                finite.append(torch.isfinite(out[logits_at]).all())
+            return out
+        return wrapped
+
+    eng._prefill = timed(eng._prefill, "prefill", 0)
+    eng._plan_offload = timed(eng._plan_offload, "replan")
+    eng.api = dc.replace(eng.api, decode_step=timed(
+        eng.api.decode_step, "decode", 0))
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW,
+                    arrived_at=i * CONT_GAP_S)
+            for i, p in enumerate(prompts)]
+    fa_kernel.reset_counts()
+    ds_kernel.decide_split_kernel.launches = 0
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    serve_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa_kernel.flash_attention_kernel.launches,
+                "decide_split": ds_kernel.decide_split_kernel.launches}
+    by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    check(sorted(r.rid for r in done) == list(range(SERVE_REQUESTS)),
+          f"{CONT_ARCH}: not every request was answered")
+    for r in done:
+        check(r.output is not None and r.output.shape == (SERVE_NEW,)
+              and bool(((r.output >= 0)
+                        & (r.output < cfg.vocab_size)).all()),
+              f"{CONT_ARCH}: request {r.rid} did not get {SERVE_NEW} "
+              "in-range tokens")
+        check(r.admitted_at >= r.arrived_at,
+              f"request {r.rid} admitted at {r.admitted_at} before its "
+              f"arrival at {r.arrived_at}")
+    check(bool(torch.stack(finite).all()), f"{CONT_ARCH}: a non-finite logit")
+    check(eng.occupancy > 1.0, f"occupancy {eng.occupancy}: the slots were "
+          "not shared")
+    check(eng.replans == SERVE_REQUESTS,
+          f"{eng.replans} re-plans for {SERVE_REQUESTS} admissions")
+    # each admission's split near-optimal against the exact f64 sweep on
+    # the same environment
+    jetson, a100 = get_device("jetson-orin-nano"), get_device(
+        "edge-server-a100")
+    gaps, splits = [], []
+    for r in sorted(done, key=lambda r: r.rid):
+        seq = len(r.prompt)
+        envs = make_envs(jetson, a100, link_bw=[bws[r.rid]],
+                         input_bytes=4.0 * seq, device=dev)
+        layers = transformer_layer_costs(cfg, seq, 1)
+        exact = decide_all(layers, envs, cost=AnalyticCost(),
+                           backend="torch", device=dev)[0]
+        got, ref = r.offload.total_time_s, exact.total_time_s
+        check(got <= ref * (1 + 1e-4) + 1e-12, f"request {r.rid}: kernel "
+              f"split {r.offload.split} costs {got}, the f64 optimum "
+              f"(split {exact.split}) {ref}")
+        gaps.append((got - ref) / ref)
+        splits.append((r.offload.split, exact.split))
+    want = {"flash_attention": SERVE_REQUESTS * cfg.num_layers,
+            "decide_split": SERVE_REQUESTS}
+    print(json.dumps({"continuous_launch_counts": launches,
+                      "flash_by_kernel": by_kernel, "expected": want}),
+          flush=True)
+    for k, n in launches.items():
+        check(n == want[k], f"kernel {k} launched {n} times in continuous "
+              f"serving, expected {want[k]}")
+    check(by_kernel["flash_fwd_wgmma"] == want["flash_attention"],
+          f"flash_attention: {by_kernel} in continuous serving, expected "
+          f"all {want['flash_attention']} launches on flash_fwd_wgmma")
+    check(sorted(recorder.spans) == list(range(SERVE_REQUESTS))
+          and [n for n, _, _ in recorder.instants].count("replan")
+          == SERVE_REQUESTS, "the obs seam missed a request's lifecycle")
+    decode_s = sum(times["decode"])
+    line("continuous", model=CONT_ARCH, dtype=cfg.dtype,
+         layers=cfg.num_layers, d_model=cfg.d_model, slots=SERVE_BATCH,
+         requests=SERVE_REQUESTS, prompt_tokens=lens.tolist(),
+         new_tokens=SERVE_NEW, init_s=init_s, serve_s=serve_s,
+         prefill_s_per_admission=times["prefill"],
+         replan_s_per_admission=times["replan"],
+         decode_steps=eng.steps, decode_s=decode_s,
+         decode_steps_per_s=eng.steps / decode_s,
+         decode_tokens_per_s=eng.tokens_out / decode_s,
+         occupancy=eng.occupancy, replans=eng.replans,
+         splits_kernel_vs_f64=splits, max_rel_gap=max(gaps),
+         link_bw=bws.tolist(),
+         sojourn_s={rid: f - a for rid, (a, _, f) in recorder.spans.items()},
+         queue_wait_s={rid: s - a
+                       for rid, (a, s, _) in recorder.spans.items()},
+         max_memory_allocated_bytes=peak, launches=launches, device=smi)
+    del eng, done, finite
+    torch.cuda.empty_cache()
+    # the last admission's sweep as the engine packs it, timed beside its
+    # plain version
+    row = decide_split_row(dev, "continuous_admission", ds_ops.pack_inputs(
+        layers, envs, lower_to_accel(AnalyticCost())).kernel_args)
+    check(row["err_over_tol"] < 1.0, "decide_split continuous_admission: "
+          f"off by {row['err_over_tol']} of its tolerance")
+    line("timing_extra", **row)
+    return dict(launches, prefill_s=times["prefill"],
+                replan_s=times["replan"], decide_split_row=row)
+
+
+def continuous_f32_check(dev) -> None:
+    """The continuous engine's greedy tokens equal ``ServeEngine(
+    batch_size=1)``'s on the same weights: deepseek-moe-16b at full width
+    in f32, its depth cut to 4 layers (28 f32 layers are ~68 GB)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.serve import ContinuousBatchEngine, Request, ServeEngine
+
+    cfg = get_config(CONT_ARCH).replace(num_layers=CHECK_LAYERS,
+                                        dtype="float32")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in rng.integers(256, 1025, size=4)]
+    gaps = {}                       # (rid, step) -> static top-2 gap
+
+    def top2(logits):
+        t = torch.topk(logits.float(), 2, dim=-1).values
+        return ((t[..., 0] - t[..., 1]) / logits.abs().max()).tolist()
+
+    t0 = time.perf_counter()
+    eng = ContinuousBatchEngine(cfg, slots=4, max_len=1100, seed=SEED,
+                                device=dev)
+    done = eng.serve([Request(rid=i, prompt=p, max_new_tokens=8,
+                              arrived_at=i * 0.01)
+                      for i, p in enumerate(prompts)])
+    static = ServeEngine(cfg, batch_size=1, max_len=1100, device=dev)
+    static.load_params(eng.params)
+    del eng
+    sample = static._sample
+    for r in sorted(done, key=lambda r: r.rid):
+        step = iter(range(9))
+
+        def recording(logits, temperature, gen, rid=r.rid, step=step):
+            gaps[rid, next(step)] = top2(logits[0])
+            return sample(logits, temperature, gen)
+
+        static._sample = recording
+        want = static.generate_batch(r.prompt[None], 8)[0]
+        if not np.array_equal(r.output, want):
+            bad = int(np.flatnonzero(r.output != want)[0])
+            fail(f"continuous f32 check: request {r.rid} differs from "
+                 f"ServeEngine(batch_size=1) at step {bad} ({r.output} vs "
+                 f"{want}); the static top-2 logit gap there "
+                 f"{gaps[r.rid, bad]} of max|logit|")
+    line("continuous_check", model=CONT_ARCH, dtype="float32",
+         reduced=f"num_layers {get_config(CONT_ARCH).num_layers}→"
+         f"{CHECK_LAYERS}", d_model=cfg.d_model, requests=len(done),
+         new_tokens=8, prompt_tokens=[len(p) for p in prompts],
+         tokens_equal=True, min_top2_gap=min(gaps.values()),
+         seconds=time.perf_counter() - t0)
+    del static
+    torch.cuda.empty_cache()
 
 
 def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
@@ -1304,37 +1587,81 @@ def fit_split(gbt, gbt_kw: dict, x, y, dev) -> None:
 
 
 def model_check(dev) -> None:
-    """Each model at full width in f32: the kernel path against the plain
-    path (``impl="naive"``) with shared weights on one prompt."""
+    """Each model in f32 (``MODEL_CHECKS``: full width, some at cut depth):
+    the kernel path against the plain path (``impl="naive"``) with shared
+    weights on one prompt, phi-3-vision's also as embeddings.  MoE lines
+    count the (token, layer) expert choices that differ between the two
+    paths and the smallest gap between a token's k-th and (k+1)-th router
+    probability."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
 
     # plain f32 products on both paths (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    for arch in SERVE_ARCHS:
-        cfg = get_config(arch).replace(dtype="float32")
+    route = moe_mod.route
+    for arch, layers in MODEL_CHECKS:
+        full = get_config(arch)
+        cfg = full.replace(dtype="float32",
+                           num_layers=layers or full.num_layers)
         fast, plain = build_model(cfg), build_model(cfg, impl="naive")
         params = fast.init_params(SEED, dev)
-        tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
-            0, cfg.vocab_size, size=(1, CHECK_PROMPT)), device=dev)
-        with torch.inference_mode():
-            got, _ = fast.prefill(params, {"tokens": tokens}, CHECK_PROMPT)
-            want, _ = plain.prefill(params, {"tokens": tokens},
-                                    CHECK_PROMPT)
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        line("model_check", model=arch, dtype="float32",
-             prompt_tokens=CHECK_PROMPT, max_abs_err=err,
-             max_abs_logit=scale, rel_err=err / scale,
-             same_argmax=bool(got.argmax() == want.argmax()))
-        check(bool(torch.isfinite(got).all()), f"{arch}: non-finite logits")
-        # f32 sums in other orders through every layer: 1e-3 of max|logit|
-        check(err <= 1e-3 * scale, f"{arch}: kernel path differs from the "
-              f"plain path by {err / scale} of max|logit| (tolerance 1e-3)")
-        del params, got, want
+        rng = np.random.default_rng(SEED)
+        prompts = {"tokens": {"tokens": torch.as_tensor(rng.integers(
+            0, cfg.vocab_size, size=(1, CHECK_PROMPT)), device=dev)}}
+        if cfg.takes_embeddings:
+            prompts["embeds"] = {"embeds": torch.as_tensor(rng.normal(
+                size=(1, CHECK_PROMPT, cfg.d_model)), dtype=torch.float32,
+                device=dev)}
+        for kind, batch in prompts.items():
+            routes = {"fast": [], "plain": []}
+
+            def recording(p, x_flat, c, sink=None):
+                w, idx, aux = route(p, x_flat, c)
+                probs = torch.softmax(x_flat.float() @ p["router"].float(),
+                                      dim=-1)
+                top = torch.topk(probs, c.top_k + 1, dim=-1).values
+                sink.append((idx.sort(dim=-1).values,
+                             (top[:, -2] - top[:, -1]).min().item()))
+                return w, idx, aux
+
+            with torch.inference_mode():
+                moe_mod.route = lambda *a: recording(*a, sink=routes["fast"])
+                got, _ = fast.prefill(params, batch, CHECK_PROMPT)
+                moe_mod.route = lambda *a: recording(*a,
+                                                     sink=routes["plain"])
+                want, _ = plain.prefill(params, batch, CHECK_PROMPT)
+                moe_mod.route = route
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            extra = {}
+            if cfg.num_experts:
+                extra = dict(
+                    expert_choices_differing=sum(
+                        int((a[0] != b[0]).any(dim=-1).sum())
+                        for a, b in zip(routes["fast"], routes["plain"])),
+                    token_layer_choices=CHECK_PROMPT * cfg.num_layers,
+                    min_router_gap_k_vs_k1=min(g for _, g in
+                                               routes["plain"]))
+            line("model_check", model=arch, dtype="float32", prompt=kind,
+                 layers=cfg.num_layers,
+                 reduced=(f"num_layers {full.num_layers}→{layers}"
+                          if layers else None),
+                 prompt_tokens=CHECK_PROMPT, max_abs_err=err,
+                 max_abs_logit=scale, rel_err=err / scale,
+                 same_argmax=bool(got.argmax() == want.argmax()), **extra)
+            check(bool(torch.isfinite(got).all()),
+                  f"{arch}: non-finite logits")
+            # f32 sums in other orders through every layer: 1e-3 of
+            # max|logit|
+            check(err <= 1e-3 * scale, f"{arch} ({kind}): kernel path "
+                  f"differs from the plain path by {err / scale} of "
+                  "max|logit| (tolerance 1e-3)")
+            del got, want
+        del params
         torch.cuda.empty_cache()
 
 
@@ -1347,6 +1674,7 @@ def serving_kernels(dev, launches: dict) -> list:
                                           bound, timed_ms)
     from repro_torch.bench.kernels import flash_work, ssm_cb_work, ssm_work
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.kernels.ssm_scan import ref as ss_ref
@@ -1411,14 +1739,16 @@ def serving_kernels(dev, launches: dict) -> list:
                 timed[case, dtype] = (q, k, v, err.max().item())
             del got, want, err
 
-    def flash_times(q, k, v, ops_per_s, graph):
-        """The kernel and SDPA replayed from a CUDA graph (``graph``), so
-        the ctypes launch path stays out of a ~0.2 ms figure, and eager."""
+    def flash_times(q, k, v, ops_per_s, graph, kernel=None):
+        """The kernel (by default the wrapper on q, k, v) and SDPA replayed
+        from a CUDA graph (``graph``), so the ctypes launch path stays out
+        of a ~0.2 ms figure, and eager."""
         b, s, hq, d = q.shape
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
-        def kernel():
+        def wrapper():
             return fa_kernel.flash_attention_kernel(q, k, v)
+        kernel = kernel or wrapper
 
         def sdpa():
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
@@ -1432,7 +1762,8 @@ def serving_kernels(dev, launches: dict) -> list:
             library_eager_ms=timed_ms(sdpa, 10),
             timing="graph" if graph else "eager",
             bound=bound(*flash_work(b, s, hq, k.shape[2], d,
-                                    q.element_size()), ops_per_s))
+                                    q.element_size(), v.shape[-1]),
+                        ops_per_s))
 
     bf16 = torch.bfloat16
     # the tensor-core kernel's walk over key tiles at the qwen3 shape
@@ -1464,6 +1795,55 @@ def serving_kernels(dev, launches: dict) -> list:
              **{k: v for k, v in t.items() if k != "bound"},
              bound_ms=t["bound"][0], bound_by=t["bound"][1])
     del timed
+
+    # the shapes of phase 6's and 6b's new models, through ``ops`` as the
+    # models call it (from a CUDA graph, eager beside): deepseek-v2-lite's
+    # MLA prefill (q/k 192, v 128, padded to 192) and phi-3-vision's head
+    # dim 96, both on the CUDA-core kernel, and one deepseek-moe admission
+    # (batch 1, D 128, tensor cores)
+    other_shapes = {}
+    for case, b, s, h, d, dv in OTHER_FLASH_SHAPES:
+        for dtype in (bf16, torch.float32):
+            q, k = (randn(b, s, h, d, dtype=dtype, scale=1.0)
+                    for _ in range(2))
+            v = randn(b, s, h, dv, dtype=dtype, scale=1.0)
+            fa_kernel.reset_counts()
+            got = fa_ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+            taken = [n for n, c in fa_kernel.flash_attention_kernel
+                     .by_kernel.items() if c]
+            check(torch.equal(got, fa_ops.flash_attention(q, k, v)),
+                  f"flash_attention {case} {dtype}: two calls on the same "
+                  "inputs differ")
+            if dtype == torch.float32:
+                want = plain_attn(q, k, v)
+                tol = 1e-5 * want.abs().max()
+                rule = "1e-5 of max|want|"
+            else:
+                want, tol = (t.transpose(1, 2) for t in fa_ref.bf16_tolerance(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+                rule = ("2e-5 + 2^-8 (|want| + min(sum p|v|, "
+                        "8 sqrt(sum p^2 v^2)))")
+            err = (got.float() - want).abs()
+            over = (err / tol).max().item()
+            line("kernel_check", kernel="flash_attention", case=case,
+                 dtype=str(dtype).split(".")[-1], shape=[b, s, h, h, d],
+                 v_head_dim=dv, cuda_kernel=taken,
+                 max_abs_err=err.max().item(), err_over_tol=over,
+                 tolerance=rule, same_bits_in_two_calls=True)
+            check(over <= 1.0, f"flash_attention {case} {dtype}: off by "
+                  f"{over} of its tolerance ({rule})")
+            if dtype == bf16:
+                t = flash_times(q, k, v, BF16_OPS_PER_S, True,
+                                lambda: fa_ops.flash_attention(q, k, v))
+                other_shapes[case] = dict(
+                    {k_: v_ for k_, v_ in t.items() if k_ != "bound"},
+                    bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                    max_abs_err=err.max().item(), shape=[b, s, h, h, d],
+                    v_head_dim=dv, cuda_kernel=taken[0])
+                line("timing_extra", kernel="flash_attention", case=case,
+                     dtype="bfloat16", **other_shapes[case])
+            del q, k, v, got, want, tol, err
 
     b, s, h, p, n, chunk = 4, 2048, 64, 64, 64, 128   # zamba2's Mamba2
     x = randn(b, s, h, p)
@@ -1534,9 +1914,13 @@ def serving_kernels(dev, launches: dict) -> list:
                     "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
                     "bound_by": t["bound"][1],
                     "library_ms": t["library_ms"], "shape": shape})
-    # flash: replayed from a CUDA graph; the eager call beside it
+    # flash: replayed from a CUDA graph; the eager call beside it; the new
+    # models' shapes, and the continuous phase's launches (6b)
     out[0].update(timing="graph", eager_ms=fa["eager_ms"],
-                  library_eager_ms=fa["library_eager_ms"])
+                  library_eager_ms=fa["library_eager_ms"],
+                  other_shapes=other_shapes,
+                  continuous_launches=launches["continuous"][
+                      "flash_attention"])
     # ssm_scan: launches count calls; each CUDA kernel's own record
     out[1]["kernels"] = ss["kernels"]
     return out
@@ -1812,8 +2196,12 @@ def main() -> None:
     # -- 6. the serving slice at full width -------------------------------
     serve_launches = serve_slice(dev, smi)
 
+    # -- 6b. continuous batching at full width, a split per admission ------
+    serve_launches["continuous"] = continuous_slice(dev, smi)
+
     # -- 7. the whole model on the card -----------------------------------
     model_check(dev)
+    continuous_f32_check(dev)
 
     # -- 8. kernels against their plain versions ---------------------------
     records = {}
@@ -2036,7 +2424,11 @@ def main() -> None:
     kernels[2].update(timing="graph",
                       eager_ms=ds_row["us_per_call_eager"] / 1e3,
                       cold_ms=ds_row["us_per_call_cold"] / 1e3,
-                      bound_ms_30ops=ds_row["bound_us_30ops"] / 1e3)
+                      bound_ms_30ops=ds_row["bound_us_30ops"] / 1e3,
+                      continuous_launches=serve_launches["continuous"][
+                          "decide_split"],
+                      continuous_replan_ms=[t * 1e3 for t in serve_launches[
+                          "continuous"]["replan_s"]])
     # the oracle path's shapes (phase 4), eager as the path calls them,
     # the graph replay beside; the first refit's root level of gbt_hist
     oracle_rows = oracle_timing(dev, oracle_shapes)
@@ -2058,6 +2450,11 @@ def main() -> None:
         oracle_shape(oracle_rows["decide_split_admission"]),
         cold_ms=oracle_rows["decide_split_admission"]["us_per_call_cold"]
         / 1e3)}
+    # phase 6b's admissions (E = 1, deepseek-moe's 28 layers, analytic)
+    kernels[2]["continuous_shapes"] = {"admission": dict(
+        oracle_shape(serve_launches["continuous"]["decide_split_row"]),
+        cold_ms=serve_launches["continuous"]["decide_split_row"][
+            "us_per_call_cold"] / 1e3)}
     # the fleet phase's shapes (phase 5): fleet_scan on (a)'s longest
     # singleton run, decide_split at (b)'s largest slab and (c)'s E = 1
     scan, fleet_rows = fleet_timing(dev, fleet_shapes)

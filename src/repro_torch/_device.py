@@ -1,6 +1,7 @@
 """Device resolution shared by every entry point of the port."""
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import numpy as np
@@ -31,3 +32,20 @@ def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+@contextlib.contextmanager
+def true_f32():
+    """TF32 off for matmuls and cuDNN convolutions inside the block; each
+    flag that was on is switched back on at the end (only the legacy
+    ``allow_tf32`` flags are touched, so a flag that was off keeps its
+    setting untouched)."""
+    flags = [f for f in (torch.backends.cuda.matmul, torch.backends.cudnn)
+             if f.allow_tf32]
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f in flags:
+            f.allow_tf32 = True

@@ -57,12 +57,15 @@ INT8_SHAPES = (("decode_b1", 1, 2048, 6144),
 L2_BYTES = 50e6
 
 
-def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int
-               ) -> tuple[int, int]:
-    """(bytes, operations) of causal attention: q, k, v read and o written
-    once; q·kᵀ and p·v over the causal (row, col) pairs."""
+def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int,
+               dv: int | None = None) -> tuple[int, int]:
+    """(bytes, operations) of causal attention with q/k head dim ``d`` and
+    v/o head dim ``dv`` (default ``d``): q, k, v read and o written once;
+    q·kᵀ and p·v over the causal (row, col) pairs."""
+    dv = d if dv is None else dv
     pairs = s * (s + 1) // 2
-    return (2 * b * s * hq + 2 * b * s * hkv) * d * el, 4 * d * pairs * b * hq
+    return ((b * s * hq + b * s * hkv) * (d + dv) * el,
+            2 * (d + dv) * pairs * b * hq)
 
 
 def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int

@@ -41,7 +41,6 @@ with (a ``DeviceSpec``, default ``xps15-i5`` as in the reference, whose
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import Optional
@@ -52,7 +51,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import DeviceLike, resolve_device, true_f32
 from repro_torch.core.workloads import (WorkloadConfig, init_workload,
                                         synthetic_image_data, workload_loss)
 from repro_torch.hw import DeviceSpec, get_device
@@ -91,23 +90,6 @@ class ProfileRecord:
             out["step_time"] = self.step_time_s
             out["peak_bytes"] = self.peak_bytes
         return out
-
-
-@contextlib.contextmanager
-def true_f32():
-    """TF32 off for matmuls and cuDNN convolutions inside the block; each
-    flag that was on is switched back on at the end (only the legacy
-    ``allow_tf32`` flags are touched, so a flag that was off keeps its
-    setting untouched)."""
-    flags = [f for f in (torch.backends.cuda.matmul, torch.backends.cudnn)
-             if f.allow_tf32]
-    for f in flags:
-        f.allow_tf32 = False
-    try:
-        yield
-    finally:
-        for f in flags:
-            f.allow_tf32 = True
 
 
 class _BytesAccessed(TorchDispatchMode):

@@ -3,6 +3,7 @@ CPU, the CUDA kernel on the card."""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -11,15 +12,23 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, scale=None
                     ) -> torch.Tensor:
-    """q [B,S,Hq,D], k/v [B,S,Hkv,D] → [B,S,Hq,D] in q's dtype.
+    """q/k [B,S,H,D] (k with Hkv heads), v [B,S,Hkv,Dv], Dv <= D →
+    [B,S,Hq,Dv] in q's dtype.
 
     CPU tensors take :func:`attention_ref`; CUDA tensors the kernel, which
-    reads this layout with strides and masks the ragged tail itself (no
-    padding, no transposed copies)."""
+    reads this layout with strides and masks the ragged tail itself.  The
+    kernel takes v at q's head dim, so a narrower v (MLA's) is zero-padded
+    to D and the output sliced back: the padded columns hold exact zeros
+    and the kept ones are untouched."""
     if q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             scale=scale)
         return out.transpose(1, 2)
-    return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                  scale=scale)
+    dv = v.shape[-1]
+    if dv == q.shape[-1]:
+        return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                      scale=scale)
+    out = flash_attention_kernel(q, k, F.pad(v, (0, q.shape[-1] - dv)),
+                                 causal=causal, window=window, scale=scale)
+    return out[..., :dv]

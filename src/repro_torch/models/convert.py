@@ -5,8 +5,9 @@ leaf as a numpy array (``np.asarray`` of the JAX array; bf16 leaves come
 as numpy's ``bfloat16`` extension type) and returns the port's
 :class:`~repro_torch.models.layers.ParamTree`:
 
-  * dense: the stacked ``layers`` leaves ``[L, ...]`` become L per-layer
-    entries;
+  * dense, moe and vlm: the stacked ``layers`` leaves ``[L, ...]``
+    (nested ones too: ``moe.shared``, the MLA projections) become L
+    per-layer entries;
   * hybrid: the ``mamba`` leaves ``[G, K, ...]`` become the L real layers
     (flat index ``g*K + k``); the padded slots are dropped.
 
@@ -41,7 +42,7 @@ def params_from_jax(cfg, tree: dict, device: DeviceLike = None) -> ParamTree:
     dev = resolve_device(device)
     out = {k: _take(v, (), dev) for k, v in tree.items()
            if k not in ("layers", "mamba")}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "vlm"):
         out["layers"] = [_take(tree["layers"], l, dev)
                          for l in range(cfg.num_layers)]
     elif cfg.family == "hybrid":

@@ -1,4 +1,5 @@
-"""Uniform model API over the ported families (``dense`` and ``hybrid``).
+"""Uniform model API over the ported families (``dense``, ``moe``, ``vlm``
+and ``hybrid``).
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose callables are
 functions of (params, batch[, cache]) on the params' device.
@@ -31,16 +32,15 @@ def build_model(cfg, *, impl: str = "chunked") -> ModelAPI:
     if impl not in ("chunked", "naive"):
         raise ValueError(f"unknown impl {impl!r}; expected 'chunked' or "
                          "'naive'")
-    if cfg.family == "dense":
-        transformer.layer_shapes(cfg)        # raises for MoE / MLA / VLM
+    if cfg.family in ("dense", "moe", "vlm"):
         mod = transformer
     elif cfg.family == "hybrid":
         mod = hybrid
     else:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            "serves the dense and hybrid families); ROADMAP.md §1 item 8 "
-            "ports the rest of the model zoo")
+            "serves the dense, moe, vlm and hybrid families); ROADMAP.md "
+            "§1 item 8 ports the rest of the model zoo")
     return ModelAPI(
         cfg=cfg,
         init_params=lambda seed=0, device=None: mod.init_params(cfg, seed,

@@ -1,9 +1,11 @@
-"""Decoder-only transformer, dense family: prefill and decode.
+"""Decoder-only transformer: the dense, MoE, MLA and VLM families; prefill
+and decode.
 
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` with one
 entry per layer (``params["layers"][l]``) where the reference stacks a
 leading ``[L, ...]`` axis and scans; weights keep the reference's
-``[in, out]`` layout.  Decode updates the KV cache in place.
+``[in, out]`` layout.  Decode updates the cache in place: K/V for GQA, the
+latent ``ckv``/``kr`` for MLA.
 
     init_params(cfg, seed, device)              -> params
     forward(params, batch, cfg)                 -> logits [B,S,V]
@@ -11,8 +13,10 @@ leading ``[L, ...]`` axis and scans; weights keep the reference's
     decode_step(params, batch, cache, cfg)      -> (logits [B,1,V], cache)
     init_cache(cfg, batch_size, max_len, device) -> cache (zeros, pos 0)
 
-MoE, MLA and VLM configs raise ``NotImplementedError``: ROADMAP.md §1
-item 8 ports them.
+A VLM prompt may come as ``batch["embeds"]`` [B,S,d] (no sqrt(d) scale on
+that path, as in the reference); decode always takes tokens.  The MoE
+layers' auxiliary loss is dropped here: :func:`repro_torch.models.moe.
+route` returns it, and the loss functions wait for ROADMAP.md §1 item 9.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
                                        matmul, mlp_param_shapes, rms_norm)
 
@@ -31,25 +37,19 @@ def dtype_of(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _require_dense(cfg) -> None:
-    if (cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.num_experts
-            or cfg.takes_embeddings):
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with attn_kind "
-            f"{cfg.attn_kind!r}, {cfg.num_experts} experts — the port runs "
-            "the dense GQA family only; MoE, MLA and VLM models are "
-            "ROADMAP.md §1 item 8")
-
-
 # --------------------------------------------------------------------------
 # Parameter shapes
 # --------------------------------------------------------------------------
 def layer_shapes(cfg) -> dict:
-    _require_dense(cfg)
     d = cfg.d_model
-    return {"ln1_scale": (d,), "ln2_scale": (d,),
-            "attn": attn_mod.attn_param_shapes(cfg),
-            "mlp": mlp_param_shapes(d, cfg.d_ff, cfg.mlp_act)}
+    shapes = {"ln1_scale": (d,), "ln2_scale": (d,),
+              "attn": (mla_mod.mla_param_shapes(cfg) if cfg.attn_kind == "mla"
+                       else attn_mod.attn_param_shapes(cfg))}
+    if cfg.num_experts:
+        shapes["moe"] = moe_mod.moe_param_shapes(cfg)
+    else:
+        shapes["mlp"] = mlp_param_shapes(d, cfg.d_ff, cfg.mlp_act)
+    return shapes
 
 
 def param_shapes(cfg) -> dict:
@@ -69,34 +69,51 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------
+def _ffn(lp, x, cfg):
+    if cfg.num_experts:
+        return moe_mod.moe_mlp(lp["moe"], x, cfg)[0]
+    return gated_mlp(x, lp["mlp"], cfg.mlp_act)
+
+
 def block_full(lp, x, cfg, positions, impl):
-    """One pre-norm layer over a full segment.  Returns (x, (k, v))."""
-    h, kv = attn_mod.gqa_self_attention(
-        lp["attn"], rms_norm(x, lp["ln1_scale"], cfg.norm_eps), cfg,
-        positions=positions, impl=impl)
+    """One pre-norm layer over a full segment.  Returns (x, kv): (k, v), or
+    (c_kv, k_rope) for MLA."""
+    xn = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        h, kv = mla_mod.mla_self_attention(lp["attn"], xn, cfg,
+                                           positions=positions, impl=impl)
+    else:
+        h, kv = attn_mod.gqa_self_attention(lp["attn"], xn, cfg,
+                                            positions=positions, impl=impl)
     x = x + h
-    f = gated_mlp(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp["mlp"],
-                  cfg.mlp_act)
-    return x + f, kv
+    return x + _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg), kv
 
 
 def block_decode(lp, x, cfg, cache_l, pos):
-    """One layer, one token; writes this token's K/V into ``cache_l``."""
-    h, (k, v) = attn_mod.gqa_decode_attention(
-        lp["attn"], rms_norm(x, lp["ln1_scale"], cfg.norm_eps), cfg,
-        k_cache=cache_l["k"], v_cache=cache_l["v"], pos=pos)
+    """One layer, one token; writes this token's K/V (or latent) into
+    ``cache_l``."""
+    xn = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
+    if cfg.attn_kind == "mla":
+        h, _ = mla_mod.mla_decode_attention(
+            lp["attn"], xn, cfg, ckv_cache=cache_l["ckv"],
+            kr_cache=cache_l["kr"], pos=pos, absorbed=cfg.mla_absorbed)
+    else:
+        h, _ = attn_mod.gqa_decode_attention(
+            lp["attn"], xn, cfg, k_cache=cache_l["k"], v_cache=cache_l["v"],
+            pos=pos)
     x = x + h
-    f = gated_mlp(rms_norm(x, lp["ln2_scale"], cfg.norm_eps), lp["mlp"],
-                  cfg.mlp_act)
-    return x + f, {"k": k, "v": v}
+    return x + _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg)
 
 
 # --------------------------------------------------------------------------
 # Full-model passes
 # --------------------------------------------------------------------------
 def _embed_in(params, batch, cfg):
-    """Token embedding times sqrt(d_model), in the config's dtype (the
-    reference's convention for every dense model, Qwen included)."""
+    """A VLM's ``embeds`` as given, else the token embedding times
+    sqrt(d_model), in the config's dtype (the reference's convention for
+    every model, Qwen included)."""
+    if cfg.takes_embeddings and "embeds" in batch:
+        return batch["embeds"].to(dtype_of(cfg))
     x = params["embed"][batch["tokens"]].to(dtype_of(cfg))
     return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
@@ -125,12 +142,16 @@ def forward(params, batch, cfg, *, impl="chunked"):
 # KV cache: prefill & decode
 # --------------------------------------------------------------------------
 def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
-    """(shape, dtype) of each cache tensor, stacked over layers; the cache
-    also carries ``pos``, an int."""
-    _require_dense(cfg)
+    """(shape, dtype) of each cache tensor, stacked over layers: K/V, or
+    MLA's latent ``ckv`` and rope key ``kr``; the cache also carries
+    ``pos``, an int (or [B] ragged positions, set by the caller)."""
+    l, dt = cfg.num_layers, dtype_of(cfg)
     s = min(max_len, cfg.window) if cfg.window else max_len
-    kv = (cfg.num_layers, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": {"k": (kv, dtype_of(cfg)), "v": (kv, dtype_of(cfg))}}
+    if cfg.attn_kind == "mla":
+        return {"layers": {"ckv": ((l, batch_size, s, cfg.kv_lora_rank), dt),
+                           "kr": ((l, batch_size, s, cfg.qk_rope_dim), dt)}}
+    kv = (l, batch_size, s, cfg.num_kv_heads, cfg.head_dim)
+    return {"layers": {"k": (kv, dt), "v": (kv, dt)}}
 
 
 def init_cache(cfg, batch_size: int, max_len: int,
@@ -149,10 +170,11 @@ def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
     cache = init_cache(cfg, b, max_len, x.device)
-    cache_len = cache["layers"]["k"].shape[2]
+    names = list(cache["layers"])
+    cache_len = cache["layers"][names[0]].shape[2]
     for l, lp in enumerate(params["layers"]):
         x, kv = block_full(lp, x, cfg, positions, impl)
-        for name, val in zip(("k", "v"), kv):
+        for name, val in zip(names, kv):
             if cfg.window and s >= cache_len:
                 # ring-buffer invariant: token p lives at slot p % window
                 val = torch.roll(val[:, -cache_len:],
@@ -169,8 +191,8 @@ def decode_step(params, batch, cache, cfg):
     x = _embed_in(params, {"tokens": batch["token"]}, cfg)
     pos = cache["pos"]
     for l, lp in enumerate(params["layers"]):
-        x, _ = block_decode(lp, x, cfg, {"k": cache["layers"]["k"][l],
-                                         "v": cache["layers"]["v"][l]}, pos)
+        x = block_decode(lp, x, cfg, {name: val[l] for name, val in
+                                      cache["layers"].items()}, pos)
     x = rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return _lm_head(params, x, cfg), cache

@@ -39,10 +39,16 @@ class Request:
     max_new_tokens: int = 16
     temperature: float = 0.0
     arrived_at: float = 0.0
+    # virtual time of admission to a slot: filled by ContinuousBatchEngine
+    # (admitted_at >= arrived_at); stays 0.0 under ServeEngine
+    admitted_at: float = 0.0
     # filled on completion
     output: Optional[np.ndarray] = None
     first_token_s: float = 0.0
     total_s: float = 0.0
+    # the SplitDecision that ContinuousBatchEngine plans at admission when
+    # it carries a cost model (ServeEngine plans per batch: offload_plan)
+    offload: Optional[object] = None
 
 
 @dataclasses.dataclass

@@ -645,6 +645,85 @@ def test_head_dim_256_serves_on_the_card(cuda):
     assert fa_kernel.flash_attention_kernel.launches == cfg.num_layers
 
 
+# (B, S, H, D, Dv): phi-3-vision's head dim 96, deepseek-v2-lite's MLA
+# prefill (q/k 192 = 128 + 64 rope, v 128), and ragged lengths of both
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,s,h,d,dv", [(2, 300, 32, 96, 96),
+                                        (1, 2048, 32, 96, 96),
+                                        (2, 300, 16, 192, 128),
+                                        (1, 2048, 16, 192, 128),
+                                        (1, 77, 4, 192, 128)])
+def test_flash_attention_other_head_dims_on_the_cuda_core_kernel(
+        cuda, b, s, h, d, dv, dtype):
+    """Head dims 96 and 192 (v 128, zero-padded to 192 by ``ops``) run
+    the CUDA-core kernel, within the plain version's tolerance."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, _ = _flash_inputs(cuda, b, s, h, h, d, dtype)
+    v = _flash_inputs(cuda, b, s, h, h, dv, dtype, seed=1)[2]
+    scale = d ** -0.5
+    fa_kernel.reset_counts()
+    got = fa_ops.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, h, dv)
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 1, "flash_fwd_wgmma": 0}
+    _check_flash(got, q, k, v, scale=scale)
+    assert torch.equal(fa_ops.flash_attention(q, k, v, scale=scale), got)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b",
+                                  "phi-3-vision-4.2b"])
+def test_moe_mla_vlm_prefill_runs_the_kernel(cuda, arch):
+    """The reduced MoE, MLA and VLM models in f32: the kernel path against
+    the naive path, one flash launch a layer."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import build_model
+    cfg = reduced_config(arch).replace(dtype="float32")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 150)), device=cuda)
+    params = build_model(cfg).init_params(0, cuda)
+    fa_kernel.reset_counts()
+    got, _ = build_model(cfg).prefill(params, {"tokens": tokens}, 160)
+    assert fa_kernel.flash_attention_kernel.launches == cfg.num_layers
+    want, _ = build_model(cfg, impl="naive").prefill(params,
+                                                     {"tokens": tokens}, 160)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+
+
+def test_continuous_engine_on_the_card_matches_static_decoding(cuda):
+    """Reduced deepseek-moe-16b in f32 served by ``ContinuousBatchEngine``
+    on the card: one batch-1 prefill (a flash launch a layer) and one
+    ``decide_split`` launch per admission, and the greedy tokens of
+    ``ServeEngine(batch_size=1)``."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.costs import AnalyticCost
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.serve import ContinuousBatchEngine, Request, ServeEngine
+    cfg = reduced_config("deepseek-moe-16b").replace(dtype="float32")
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=n,
+                                               dtype=np.int32),
+                    max_new_tokens=5, arrived_at=i * 0.004)
+            for i, n in enumerate((9, 33, 17, 5, 21))]
+    eng = ContinuousBatchEngine(cfg, slots=2, max_len=64, seed=1,
+                                cost=AnalyticCost(), device=cuda)
+    fa_kernel.reset_counts()
+    ds_kernel.decide_split_kernel.launches = 0
+    done = eng.serve(reqs)
+    assert eng.replans == ds_kernel.decide_split_kernel.launches == 5
+    assert fa_kernel.flash_attention_kernel.launches == 5 * cfg.num_layers
+    assert eng.occupancy > 1.0
+    ref = ServeEngine(cfg, batch_size=1, max_len=64, device=cuda)
+    ref.load_params(eng.params)
+    for r in done:
+        np.testing.assert_array_equal(
+            r.output, ref.generate_batch(r.prompt[None], 5)[0])
+
+
 # (M, K, N): qwen3-1.7b's five timed products (decode B 1 and B 4, the
 # down projection, the LM head, prefill), the JAX package's ragged
 # INT8_CASES, empty M, N, K, and bf16 shapes on w8a16_wgmma: ragged M, K

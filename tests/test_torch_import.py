@@ -104,6 +104,14 @@ def test_queueing_pareto_and_fleet_modules_load_no_jax_and_no_reference(
     assert_loads_no_jax_and_no_reference(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.moe",
+                                    "repro_torch.models.mla",
+                                    "repro_torch.models.transformer",
+                                    "repro_torch.serve.continuous"])
+def test_moe_mla_and_continuous_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_no_file_imports_jax_or_reference(path):

@@ -1,6 +1,8 @@
 """The ported serving path end to end at small size: reduced qwen3-1.7b
-(with and without a sliding window) and reduced zamba2-1.2b in f32, with the
-JAX package's initial weights carried over by ``params_from_jax``.  Prefill
+(with and without a sliding window), deepseek-moe-16b (MoE),
+deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b (VLM) and zamba2-1.2b
+in f32, with the JAX package's initial weights carried over by
+``params_from_jax``.  Prefill
 logits and caches match, then 8 teacher-forced decode steps on the JAX
 greedy tokens match; greedy tokens are compared only where the reference's
 top-2 logit margin exceeds 10× the tolerance."""
@@ -26,7 +28,10 @@ CPU = torch.device("cpu")
 TOL = 1e-5
 MAX_LEN, PROMPT, STEPS = 48, 21, 8
 CASES = {"qwen3": ("qwen3-1.7b", 0), "qwen3-swa": ("qwen3-1.7b", 16),
-         "zamba2": ("zamba2-1.2b", 0)}
+         "zamba2": ("zamba2-1.2b", 0), "moe": ("deepseek-moe-16b", 0),
+         "mla": ("deepseek-v2-lite-16b", 0), "vlm": ("phi-3-vision-4.2b", 0)}
+FAMILY_ARCHS = ["deepseek-moe-16b", "deepseek-v2-lite-16b",
+                "phi-3-vision-4.2b"]
 
 
 def configs(name, window):
@@ -113,8 +118,9 @@ def test_caches_match(run, when):
     want, got = run["cache"] if when == "prefill" else run["final_cache"]
     assert int(want["pos"]) == got["pos"] == PROMPT + (
         0 if when == "prefill" else STEPS)
-    if pc.family == "dense":
-        for name in ("k", "v"):
+    if pc.family != "hybrid":             # K/V, or MLA's ckv/kr
+        assert set(got["layers"]) == set(want["layers"])
+        for name in want["layers"]:
             np.testing.assert_allclose(got["layers"][name].numpy(),
                                        want["layers"][name], rtol=1e-5,
                                        atol=1e-5)
@@ -195,9 +201,68 @@ def test_forward_matches_reference():
     assert_logits_close(np.asarray(want), got.numpy())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b",
-                                  "phi-3-vision-4.2b", "xlstm-350m",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_param_count_matches_reference(arch):
+    rc, pc = configs(arch, 0)
+    assert param_count(build_model(pc).param_shapes()) == \
+        r_registry.param_count(r_build(rc).param_shapes())
+
+
+@pytest.mark.parametrize("arch,low,high",
+                         [("deepseek-moe-16b", 16.0e9, 17.5e9),
+                          ("deepseek-v2-lite-16b", 15.0e9, 16.5e9),
+                          ("phi-3-vision-4.2b", 3.7e9, 3.9e9)])
+def test_family_published_sizes(arch, low, high):
+    """The full configs' sizes (all 28 deepseek-moe layers MoE, the
+    reference's stated deviation; phi-3's phi-3-mini backbone, 3.8B, the
+    vision encoder being a stub)."""
+    n = param_count(build_model(get_config(arch)).param_shapes())
+    assert low < n < high, n
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_matches_reference(arch):
+    rc, pc = configs(arch, 0)
+    ref = r_build(rc)
+    rp = ref.init_params(jax.random.key(2))
+    pp = params_from_jax(pc, jax.tree_util.tree_map(np.asarray, rp), CPU)
+    tokens = np.random.default_rng(3).integers(0, rc.vocab_size, (2, 9))
+    from repro.models import transformer as r_tf
+    want, _ = r_tf.forward(rp, {"tokens": jnp.asarray(tokens)}, rc)
+    for impl in ("chunked", "naive"):
+        got = build_model(pc, impl=impl).forward(
+            pp, {"tokens": torch.as_tensor(tokens)})
+        assert_logits_close(np.asarray(want), got.numpy())
+
+
+def test_vlm_prefills_embeds_like_the_reference():
+    """phi-3-vision's prompt as embeddings (no sqrt(d) scale), then a token
+    decode step on that cache."""
+    rc, pc = configs("phi-3-vision-4.2b", 0)
+    ref = r_build(rc)
+    rp = ref.init_params(jax.random.key(4))
+    pp = params_from_jax(pc, jax.tree_util.tree_map(np.asarray, rp), CPU)
+    embeds = np.random.default_rng(5).normal(
+        size=(2, rc.num_image_tokens + 3, rc.d_model)).astype(np.float32)
+    rl, rcache = jax.jit(lambda p, b: ref.prefill(p, b, MAX_LEN))(
+        rp, {"embeds": jnp.asarray(embeds)})
+    port = build_model(pc)
+    pl, pcache = port.prefill(pp, {"embeds": torch.as_tensor(embeds)},
+                              MAX_LEN)
+    assert_logits_close(np.asarray(rl), pl.numpy())
+    tok = np.asarray([[7], [300]])
+    rl, _ = ref.decode_step(rp, {"token": jnp.asarray(tok)}, rcache)
+    pl, _ = port.decode_step(pp, {"token": torch.as_tensor(tok)}, pcache)
+    assert_logits_close(np.asarray(rl), pl.numpy())
+    # the embeds path is not the token path scaled: it takes them as given
+    tokens = torch.zeros((2, embeds.shape[1]), dtype=torch.int64)
+    pt, _ = port.prefill(pp, {"tokens": tokens}, MAX_LEN)
+    assert not torch.allclose(pt, build_model(pc).prefill(
+        pp, {"tokens": tokens, "embeds": torch.as_tensor(embeds)},
+        MAX_LEN)[0])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
 def test_unported_families_name_their_roadmap_item(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
         build_model(p_reduced(arch))

@@ -32,7 +32,10 @@ def requests(cls, vocab, max_new=6):
             for i, n in enumerate(PROMPT_LENS)]
 
 
-@pytest.fixture(scope="module", params=["qwen3-1.7b", "zamba2-1.2b"])
+@pytest.fixture(scope="module", params=["qwen3-1.7b", "zamba2-1.2b",
+                                        "deepseek-moe-16b",
+                                        "deepseek-v2-lite-16b",
+                                        "phi-3-vision-4.2b"])
 def engines(request):
     rcfg = r_reduced(request.param).replace(dtype="float32")
     pcfg = p_reduced(request.param).replace(dtype="float32")
