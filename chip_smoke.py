@@ -9,10 +9,12 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
    seven CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
-   ``nvcc`` each), with each build's register and shared-memory lines;
-   the SASS of ``flash_fwd_wgmma`` and of ``w8a16_wgmma`` must hold HGMMA
-   and UTMALDG, and neither may write an A register of a ``wgmma`` still
-   in flight (both kernels' counts are printed).
+   ``nvcc`` each), with each build's register, spill and shared-memory
+   lines; the SASS of each of ``flash_fwd_wgmma``'s five instances (D, Dv
+   = 64, 96, 128, 192/128, 256) and of ``w8a16_wgmma`` must hold HGMMA
+   and UTMALDG, none may write an A register of a ``wgmma`` still in
+   flight (every instance's count is printed), and no
+   ``flash_fwd_wgmma`` instance may spill.
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel, one launch per tree level: at
@@ -104,15 +106,15 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    and µs per decision.
 6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=2088, seed=0)`` on qwen3-1.7b, zamba2-1.2b, deepseek-v2-lite-16b
-   (MLA + MoE) and phi-3-vision-4.2b at their published shapes in bf16,
-   one at a time (each freed before the next loads), each serving 8 greedy
-   requests of 2048 random tokens with 32 new tokens (``flash_attention``
-   and ``ssm_scan`` kernels; their launch counts are read right after the
-   four models, every flash launch at head dim 64 or 128 must have taken
-   ``flash_fwd_wgmma`` and the others (MLA's 192 with v padded from 128,
-   phi-3's 96) ``flash_fwd``, and every ``ssm_scan`` call must have
-   launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every request must
-   get 32 in-range tokens and every logit must be finite.
+   (MLA + MoE), phi-3-vision-4.2b and gemma-2b (MQA, head dim 256) at their
+   published shapes in bf16, one at a time (each freed before the next
+   loads), each serving 8 greedy requests of 2048 random tokens with 32 new
+   tokens (``flash_attention`` and ``ssm_scan`` kernels; their launch
+   counts are read right after the five models: all 224 flash launches
+   must have taken ``flash_fwd_wgmma``, at head dims 128, 64, 192 with v
+   at 128, 96 and 256, none ``flash_fwd``, and every ``ssm_scan`` call
+   must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
+   request must get 32 in-range tokens and every logit must be finite.
 6b. Continuous batching at full width and depth in bf16:
    ``ContinuousBatchEngine(deepseek-moe-16b, slots=4, max_len=2088,
    cost=AnalyticCost(), decision_backend="kernel")`` over 8 requests of
@@ -131,13 +133,13 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    wait.
 7. The whole model on the card, f32: the kernel path
    (``build_model(cfg)``) and the plain path (``impl="naive"``) on one
-   512-token prompt with shared weights, for qwen3-1.7b, zamba2-1.2b and
-   phi-3-vision-4.2b whole (phi-3 also on a seeded embeddings prompt) and
-   deepseek-moe-16b and deepseek-v2-lite-16b at full width cut to 4 layers
-   (``MODEL_CHECKS``); their last-token logits must agree within 1e-3 of
-   max |logit|.  The MoE lines count the (token, layer) expert choices
-   that differ between the two paths and the smallest gap between a
-   token's k-th and (k+1)-th router probability.  Then the continuous
+   512-token prompt with shared weights, for qwen3-1.7b, zamba2-1.2b,
+   phi-3-vision-4.2b and gemma-2b whole (phi-3 also on a seeded embeddings
+   prompt) and deepseek-moe-16b and deepseek-v2-lite-16b at full width cut
+   to 4 layers (``MODEL_CHECKS``); their last-token logits must agree
+   within 1e-3 of max |logit|.  The MoE lines count the (token, layer)
+   expert choices that differ between the two paths and the smallest gap
+   between a token's k-th and (k+1)-th router probability.  Then the continuous
    engine in f32 on deepseek-moe-16b cut to 4 layers: its greedy tokens
    for 4 requests x 8 tokens must equal ``ServeEngine(batch_size=1)``'s on
    the same weights (a mismatch prints the step and the top-2 logit gap).
@@ -166,18 +168,20 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    call and with its bound at the 30 operations a split that its
    division-bound form took; ``gbt_hist`` is timed at the six levels of
    phase 8, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
-   ``ssd_chunk``).  Flash at the new models' shapes (``OTHER_FLASH_SHAPES``:
-   the MLA prefill, phi-3's D 96, one MoE admission) through ``ops`` as the
-   models call it, each first held against its plain version in bf16 and
-   f32 (1e-5 of max |want|) and against a second call bit for bit, with
-   SDPA beside it.  Phase 4's new shapes: ``tree_predict`` on one
-   observation's row and on one admission's 32 rows, eager as the path
-   calls it (the graph replay beside), and ``decide_split`` on one
-   admission's E = 1 sweep.  Phase 5's: ``fleet_scan`` on (a)'s longest
-   singleton run, one launch, eager (f64: its operations over 34 TFLOP/s),
-   its plain version on the card once by the host clock and held bit for
-   bit against it; ``decide_split`` at (b)'s largest fleet slab and at
-   (c)'s E = 1 contention sweep.
+   ``ssd_chunk``).  Flash at the other served shapes (``OTHER_FLASH_SHAPES``:
+   the MLA prefill with v at 128, phi-3's D 96, gemma's D 256 with one kv
+   head, one MoE admission) through ``ops`` as the models call it, each
+   first held against its plain version in bf16 (tensor cores) and f32
+   (CUDA cores, 1e-5 of max |want|) and against a second call bit for
+   bit, with SDPA beside it and, in bf16, the CUDA-core kernel at the same
+   shape (unaligned copies of the inputs, eager).  Phase 4's new shapes:
+   ``tree_predict`` on one observation's row and on one admission's 32
+   rows, eager as the path calls it (the graph replay beside), and
+   ``decide_split`` on one admission's E = 1 sweep.  Phase 5's:
+   ``fleet_scan`` on (a)'s longest singleton run, one launch, eager (f64:
+   its operations over 34 TFLOP/s), its plain version on the card once by
+   the host clock and held bit for bit against it; ``decide_split`` at
+   (b)'s largest fleet slab and at (c)'s E = 1 contention sweep.
 10. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
    bench at its main path's shape (all six: ``tree_predict`` on a
@@ -203,6 +207,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -211,7 +216,7 @@ ROOT = Path(__file__).resolve().parent
 N_ENVS = 1 << 20
 SEED = 0
 SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "deepseek-v2-lite-16b",
-               "phi-3-vision-4.2b")
+               "phi-3-vision-4.2b", "gemma-2b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
 # continuous batching (phase 6b): prompts drawn from 1024-2048 tokens,
 # arriving 50 ms apart on the engine's virtual clock
@@ -223,13 +228,14 @@ CHECK_LAYERS = 4
 MODEL_CHECKS = (("qwen3-1.7b", None), ("zamba2-1.2b", None),
                 ("deepseek-moe-16b", CHECK_LAYERS),
                 ("deepseek-v2-lite-16b", CHECK_LAYERS),
-                ("phi-3-vision-4.2b", None))
-# (case, B, S, H, D of q/k, D of v) of flash_attention on the new models'
-# paths: deepseek-v2-lite's MLA prefill, phi-3-vision's prefill, one
-# deepseek-moe admission
-OTHER_FLASH_SHAPES = (("mla_dsv2lite", 4, 2048, 16, 192, 128),
-                      ("phi3v_d96", 4, 2048, 32, 96, 96),
-                      ("moe_admission", 1, 2048, 16, 128, 128))
+                ("phi-3-vision-4.2b", None), ("gemma-2b", None))
+# (case, B, S, Hq, Hkv, D of q/k, D of v) of flash_attention on the served
+# models' paths: deepseek-v2-lite's MLA prefill, phi-3-vision's prefill,
+# gemma-2b's prefill (MQA), one deepseek-moe admission
+OTHER_FLASH_SHAPES = (("mla_dsv2lite", 4, 2048, 16, 16, 192, 128),
+                      ("phi3v_d96", 4, 2048, 32, 32, 96, 96),
+                      ("gemma_d256", 1, 2048, 8, 1, 256, 256),
+                      ("moe_admission", 1, 2048, 16, 16, 128, 128))
 PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
 MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
 MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
@@ -263,7 +269,6 @@ def inflight_a_writes(body: str) -> int:
     issue, so a kernel must keep them in use until the wait (0 expected;
     the order is the listing's, so a write reached round a loop's back
     edge is not seen)."""
-    import re
     pending, group, hits = [], [], 0
     for ins in re.findall(r"/\*[0-9a-f]{4}\*/\s+([^;]*);", body):
         if ins.startswith("HGMMA"):
@@ -324,8 +329,8 @@ def serve_slice(dev, smi: str) -> dict:
     wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
                 "ssm_scan": ss_kernel.ssd_scan_kernel}
     expected = dict.fromkeys(wrappers, 0)
-    # bf16 at head dim 64 or 128 on the tensor cores, MLA's 192 (v 128,
-    # padded) and phi-3's 96 on the CUDA cores
+    # bf16 at every served (D, Dv) on the tensor cores: 64, 96, 128, MLA's
+    # 192 with v at 128, gemma's 256
     flash_expected = dict.fromkeys(fa_kernel.KERNELS, 0)
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     fa_kernel.reset_counts()
@@ -339,9 +344,9 @@ def serve_slice(dev, smi: str) -> dict:
         else:
             n_flash = n_batches * cfg.num_layers
         expected["flash_attention"] += n_flash
-        d = (cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.attn_kind == "mla"
-             else cfg.head_dim)
-        flash_expected["flash_fwd_wgmma" if d in (64, 128)
+        dims = ((cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+                if cfg.attn_kind == "mla" else (cfg.head_dim,) * 2)
+        flash_expected["flash_fwd_wgmma" if dims in fa_kernel.BLOCK_Q
                        else "flash_fwd"] += n_flash
         before = {k: w.launches for k, w in wrappers.items()}
         torch.cuda.reset_peak_memory_stats(dev)
@@ -407,9 +412,9 @@ def serve_slice(dev, smi: str) -> dict:
     for k, n in launches.items():
         check(n == expected[k], f"kernel {k} launched {n} times on the "
               f"serving path, expected {expected[k]}")
-    # every bf16 prefill at head dim 64 or 128 takes the tensor-core
-    # kernel, the others the CUDA-core one
-    check(by_kernel == flash_expected,
+    # every bf16 prefill takes the tensor-core kernel
+    check(by_kernel == flash_expected
+          and flash_expected["flash_fwd"] == 0,
           f"flash_attention: {by_kernel} on the serving path, expected "
           f"{flash_expected}")
     return dict(launches, ssm_scan_by_kernel=ssm_by_kernel)
@@ -1690,13 +1695,12 @@ def serving_kernels(dev, launches: dict) -> list:
                                     v.transpose(1, 2), **kw).transpose(1, 2)
 
     # (case, B, S, Hq, Hkv, D, window, valid_len); the first two are the
-    # prefill attention of qwen3-1.7b and of zamba2's shared block; the
-    # last is gemma-2b's head dim (not on this path)
+    # prefill attention of qwen3-1.7b and of zamba2's shared block (the
+    # other served shapes are OTHER_FLASH_SHAPES)
     cases = [("qwen3", 4, 2048, 16, 8, 128, 0, 0),
              ("zamba2", 4, 2048, 32, 32, 64, 0, 0),
              ("window512", 4, 2048, 16, 8, 128, 512, 0),
-             ("valid_len1500", 4, 2048, 16, 8, 128, 0, 1500),
-             ("gemma_d256", 1, 2048, 8, 1, 256, 0, 0)]
+             ("valid_len1500", 4, 2048, 16, 8, 128, 0, 1500)]
     timed = {}
     for case, b, s, hq, hkv, d, window, valid in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1771,7 +1775,8 @@ def serving_kernels(dev, launches: dict) -> list:
     per_head = {c: sum(len(getattr(t, c)) for t in tiles)
                 for c in ("skipped", "masked", "full")}
     line("flash_tiles", shape=[4, 2048, 16, 8, 128],
-         block_q=fa_kernel.BLOCK_Q[128], block_k=fa_kernel.BLOCK_K,
+         block_q=fa_kernel.BLOCK_Q[128, 128],
+         block_k=fa_kernel.BLOCK_K[128, 128],
          query_tiles_per_head=len(tiles),
          key_tiles_per_head=per_head,
          visited_per_call=4 * 16 * (per_head["masked"] + per_head["full"]),
@@ -1796,22 +1801,37 @@ def serving_kernels(dev, launches: dict) -> list:
              bound_ms=t["bound"][0], bound_by=t["bound"][1])
     del timed
 
-    # the shapes of phase 6's and 6b's new models, through ``ops`` as the
-    # models call it (from a CUDA graph, eager beside): deepseek-v2-lite's
-    # MLA prefill (q/k 192, v 128, padded to 192) and phi-3-vision's head
-    # dim 96, both on the CUDA-core kernel, and one deepseek-moe admission
-    # (batch 1, D 128, tensor cores)
+    def unaligned(t):
+        """A copy of ``t`` whose base is 2 bytes past a 16-byte boundary:
+        TMA cannot take it, so the call runs the CUDA-core flash_fwd."""
+        buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=dev)
+        out = buf[1:1 + t.numel()].view(t.shape)
+        out.copy_(t)
+        return out
+
+    # the shapes of phase 6's and 6b's models besides qwen3 and zamba2,
+    # through ``ops`` as the models call it (from a CUDA graph, eager
+    # beside): deepseek-v2-lite's MLA prefill (q/k 192, v 128 at its own
+    # width), phi-3-vision's head dim 96, gemma-2b's 256 (MQA) and one
+    # deepseek-moe admission (batch 1, D 128), all bf16 on the tensor cores
+    # and f32 on the CUDA cores; in bf16 also the CUDA-core kernel at the
+    # same shape (unaligned copies of the same inputs), eager
     other_shapes = {}
-    for case, b, s, h, d, dv in OTHER_FLASH_SHAPES:
+    for case, b, s, hq, hkv, d, dv in OTHER_FLASH_SHAPES:
         for dtype in (bf16, torch.float32):
-            q, k = (randn(b, s, h, d, dtype=dtype, scale=1.0)
-                    for _ in range(2))
-            v = randn(b, s, h, dv, dtype=dtype, scale=1.0)
+            q = randn(b, s, hq, d, dtype=dtype, scale=1.0)
+            k = randn(b, s, hkv, d, dtype=dtype, scale=1.0)
+            v = randn(b, s, hkv, dv, dtype=dtype, scale=1.0)
             fa_kernel.reset_counts()
             got = fa_ops.flash_attention(q, k, v)
             torch.cuda.synchronize()
             taken = [n for n, c in fa_kernel.flash_attention_kernel
                      .by_kernel.items() if c]
+            route = "flash_fwd_wgmma" if dtype == bf16 else "flash_fwd"
+            check(taken == [route], f"flash_attention {case} {dtype}: ran "
+                  f"{taken}, expected {route}")
+            check(got.shape == (b, s, hq, dv), f"flash_attention {case}: "
+                  f"output {tuple(got.shape)}")
             check(torch.equal(got, fa_ops.flash_attention(q, k, v)),
                   f"flash_attention {case} {dtype}: two calls on the same "
                   "inputs differ")
@@ -1827,7 +1847,7 @@ def serving_kernels(dev, launches: dict) -> list:
             err = (got.float() - want).abs()
             over = (err / tol).max().item()
             line("kernel_check", kernel="flash_attention", case=case,
-                 dtype=str(dtype).split(".")[-1], shape=[b, s, h, h, d],
+                 dtype=str(dtype).split(".")[-1], shape=[b, s, hq, hkv, d],
                  v_head_dim=dv, cuda_kernel=taken,
                  max_abs_err=err.max().item(), err_over_tol=over,
                  tolerance=rule, same_bits_in_two_calls=True)
@@ -1836,13 +1856,25 @@ def serving_kernels(dev, launches: dict) -> list:
             if dtype == bf16:
                 t = flash_times(q, k, v, BF16_OPS_PER_S, True,
                                 lambda: fa_ops.flash_attention(q, k, v))
+                qu, ku, vu = unaligned(q), unaligned(k), unaligned(v)
+                fa_kernel.reset_counts()
+                fa_ops.flash_attention(qu, ku, vu)
+                check(fa_kernel.flash_attention_kernel.by_kernel[
+                    "flash_fwd"] == 1, f"flash_attention {case}: the "
+                    "unaligned copies did not run flash_fwd")
+                fwd_ms = timed_ms(lambda: fa_ops.flash_attention(qu, ku, vu),
+                                  3)
                 other_shapes[case] = dict(
                     {k_: v_ for k_, v_ in t.items() if k_ != "bound"},
                     bound_ms=t["bound"][0], bound_by=t["bound"][1],
-                    max_abs_err=err.max().item(), shape=[b, s, h, h, d],
-                    v_head_dim=dv, cuda_kernel=taken[0])
+                    max_abs_err=err.max().item(), err_over_tol=over,
+                    shape=[b, s, hq, hkv, d], v_head_dim=dv,
+                    cuda_kernel=taken[0], flash_fwd_eager_ms=fwd_ms,
+                    over_library=t["ms"] / t["library_ms"],
+                    flash_fwd_over_ms=fwd_ms / t["ms"])
                 line("timing_extra", kernel="flash_attention", case=case,
                      dtype="bfloat16", **other_shapes[case])
+                del qu, ku, vu
             del q, k, v, got, want, tol, err
 
     b, s, h, p, n, chunk = 4, 2048, 64, 64, 64, 128   # zamba2's Mamba2
@@ -2040,7 +2072,9 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     build_s = time.perf_counter() - t0
-    wgmma = {"flash_fwd_wgmma": ("flash_attention", 2),   # D 64 and 128
+    # flash_fwd_wgmma at (D, Dv) = (64, 64), (96, 96), (128, 128),
+    # (192, 128) and (256, 256)
+    wgmma = {"flash_fwd_wgmma": ("flash_attention", 5),
              "w8a16_wgmma": ("int8_matmul", 1)}
     wgmma_ptxas = {k: [] for k in wgmma}
     for name, log in logs.items():
@@ -2063,6 +2097,14 @@ def main() -> None:
         check(all(c["inflight_a_writes"] == 0 for c in sass.values()),
               f"{k}: SASS writes the A registers of an in-flight wgmma "
               f"({sass})")
+        # built in this run (a fresh checkout): every instance's spill
+        # line, and no spills
+        spills = [ln for ln in wgmma_ptxas[k] if "spill" in ln]
+        check(source not in logs or (len(spills) == instances and not any(
+                  int(n) for ln in spills
+                  for n in re.findall(r"(\d+) bytes spill", ln))),
+              f"{k}: ptxas spills, or not one spill line per instance "
+              f"({spills})")
 
     wrappers = {"gbt_hist": gh_kernel.level_histogram_kernel,
                 "tree_predict": tp_kernel.tree_predict_kernel,

@@ -6,17 +6,25 @@
 // (B, Hq, nq, nk) runs the kv dimension innermost and keeps m, l and acc in
 // VMEM scratch across the nk steps of one query block.
 //
-// What bounds it on the H100: operations.  A causal prefill at S = 2048,
-// D = 128 does ~69 GFLOP of products against ~100 MB of q/k/v/o, about
-// 700 operations per byte, above the card's bf16 line (~295).
+// What bounds it on the H100: operations, at every served shape (bf16,
+// causal, S = 2048; operations over 989 TFLOP/s, bytes over 3.35 TB/s):
+//   qwen3-1.7b      B 4, H 16/8, D 128        ~69 GFLOP / ~100 MB
+//   phi-3-vision    B 4, H 32,   D 96         103 GFLOP / 201 MB  0.104 ms
+//   deepseek-v2-lite MLA B 4, H 16, D 192, Dv 128
+//                                              86 GFLOP / 168 MB  0.087 ms
+//   gemma-2b        B 1, H 8/1,  D 256         17 GFLOP /  19 MB  0.017 ms
+// 500 to 900 operations per byte, above the card's bf16 line (~295): the
+// products have to run on the tensor cores, which is what flash_fwd_wgmma
+// does at each of these head dims.
 //
-// Two kernels, one function; the dispatch looks at dtype, head dim and
-// alignment only.  bf16 with D = 64 or 128 whose bases are 16-byte aligned
-// and whose strides are multiples of 8 elements (every prefill of the
-// served models) takes flash_fwd_wgmma, warp-specialised wgmma fed by TMA,
-// described above it.  Everything else (f32, other head dims, unaligned
-// rows) takes flash_fwd, all in f32 on the CUDA cores, built for head dims
-// up to 64, 128 and 256 (gemma-2b's 256 needs 138 KB of shared memory):
+// Two kernels, one function; the dispatch looks at dtype, head dims and
+// alignment only.  bf16 with (D, Dv) in {(64, 64), (96, 96), (128, 128),
+// (192, 128), (256, 256)} whose bases are 16-byte aligned and whose strides
+// are multiples of 8 elements (every prefill of the served models) takes
+// flash_fwd_wgmma<D, Dv>, warp-specialised wgmma fed by TMA, described
+// above it.  Everything else (f32, other head dims, unaligned rows) takes
+// flash_fwd, all in f32 on the CUDA cores, built for head dims up to 64,
+// 128 and 256 (256 needs 138 KB of shared memory), v at Dv <= D:
 //
 // One block of 128 threads per (64 query rows, q head, batch).  The
 // block loops over 32-column key tiles in order; the grid runs the blocks in
@@ -74,11 +82,11 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int group, int sq,
-              int sk, int d, int valid_len, long long q_sb, long long q_ss,
-              long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-              long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-              long long o_ss, long long o_sh, float scale, int causal,
-              int window) {
+              int sk, int d, int dv, int valid_len, long long q_sb,
+              long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+              long long o_sb, long long o_ss, long long o_sh, float scale,
+              int causal, int window) {
   constexpr int QS = DMAX + 1;  // padded strides: no bank conflicts
   constexpr int KS = BK + 1;
   constexpr int PS = BK + 1;
@@ -124,10 +132,10 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < BK * DMAX; i += NT) {
       const int r = i / DMAX, c = i % DMAX;
-      float kx = 0.f, vx = 0.f;
+      float kx = 0.f, vx = 0.f;  // v's columns dv .. d-1 read as 0
       if (k0 + r < sk && c < d) {
         kx = to_f32(kb[(k0 + r) * k_ss + c]);
-        vx = to_f32(vb[(k0 + r) * v_ss + c]);
+        if (c < dv) vx = to_f32(vb[(k0 + r) * v_ss + c]);
       }
       Kt[c * KS + r] = kx;
       Vs[r * DMAX + c] = vx;
@@ -210,14 +218,14 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int c = tx + 16 * j;
-      if (c < d) store(ob + row * o_ss + c, acc[i][j] * inv);
+      if (c < dv) store(ob + row * o_ss + c, acc[i][j] * inv);
     }
   }
 }
 
 template <typename T, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int d, int valid_len,
+           int hq, int hkv, int sq, int sk, int d, int dv, int valid_len,
            const long long* st, float scale, int causal, int window,
            cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DMAX>();
@@ -228,7 +236,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + BQ - 1) / BQ, hq, b);
   flash_fwd<T, DMAX><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq / hkv, sq, sk, d,
+      static_cast<const T*>(v), static_cast<T*>(o), hq / hkv, sq, sk, d, dv,
       valid_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], scale, causal, window);
   return (int)cudaGetLastError();
@@ -236,26 +244,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int sq, int sk, int d, int valid_len,
+             int hq, int hkv, int sq, int sk, int d, int dv, int valid_len,
              const long long* st, float scale, int causal, int window,
              cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, d, valid_len, st,
-                         scale, causal, window, stream);
+    return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
+                         st, scale, causal, window, stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, d, valid_len, st,
-                          scale, causal, window, stream);
-  return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, sk, d, valid_len, st,
-                        scale, causal, window, stream);
+    return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
+                          st, scale, causal, window, stream);
+  return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
+                        st, scale, causal, window, stream);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 with D = 64 or 128: flash_fwd_wgmma, warpgroup MMA fed by TMA.
+// bf16 with (D, Dv) = (64, 64), (96, 96), (128, 128), (192, 128) or
+// (256, 256): flash_fwd_wgmma<D, Dv>, warpgroup MMA fed by TMA.
 //
 // One CTA per (TQ query rows, q head, batch), of one producer warpgroup and
-// NC consumer warpgroups of 64 query rows each: NC = 2 at D 128 (TQ 128),
-// NC = 3 at D 64 (TQ 192; the products are half as long there for the same
-// softmax, so a third warpgroup keeps more of them in flight).
+// NC consumer warpgroups of 64 query rows each: NC = 3 at D 64 (TQ 192; the
+// products are half as long there for the same softmax, so a third
+// warpgroup keeps more of them in flight), NC = 2 (TQ 128) at the others.
+// A key tile is TK = 128 keys, 64 at D 256 (key_tile).
 // - The producer gives up registers (setmaxnreg 24) and one thread starts
 //   every TMA load: the q tile once, then each live key tile's K and V into
 //   a ring of STAGES shared-memory stages, each completing on that stage's
@@ -263,15 +273,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 //   mbarrier.  K and V have a full and an empty barrier each, so a stage's
 //   K is refilled as soon as S of its tile is done.
 // - The consumers (setmaxnreg 240 at NC 2, 160 at NC 3) take TK-key tiles
-//   in order.  S = Q K^T is wgmma m64n128k16 with both operands in shared
-//   memory (K is K-major as stored, D contiguous).  The online softmax runs
-//   in registers, the row max and sum reduced over the 4 lanes that share a
-//   row.  O += P V takes P in bf16 registers as the A operand (the S
-//   accumulator fragment is the A fragment, no shuffles) and V as the
-//   MN-major B operand (transposed by the descriptor).  Tile j's S = Q K^T
-//   is started together with tile j-1's P V, so j's softmax overlaps that
-//   product, and the consumer warpgroups take turns to start them (named
-//   barriers), so one's softmax also overlaps another's products.
+//   in order.  S = Q K^T is wgmma m64nTKk16, D / 16 k-steps, with both
+//   operands in shared memory (K is K-major as stored, D contiguous).  The
+//   online softmax runs in registers, the row max and sum reduced over the
+//   4 lanes that share a row.  O += P V takes P in bf16 registers as the A
+//   operand (the S accumulator fragment is the A fragment, no shuffles) and
+//   V as the MN-major B operand (transposed by the descriptor), one
+//   m64nDvk16 per 16 keys (m64n64k16 + m64n32k16 at Dv 96).  Tile j's
+//   S = Q K^T is started together with tile j-1's P V, so j's softmax
+//   overlaps that product, and the consumer warpgroups take turns to start
+//   them (named barriers), so one's softmax also overlaps another's
+//   products.
 // Scores are scaled by scale * log2(e) in f32 and the softmax uses exp2.
 // The mask runs only on tiles that straddle the diagonal, the window's
 // lower edge or min(sk, valid_len): a tile wholly inside takes the
@@ -283,17 +295,36 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 // third of L2; inside a chunk the heaviest query tiles go first and the q
 // heads of one kv head sit side by side, so K and V come from L2.
 //
+// Per head dim (shared memory of q, the K ring and the V ring; registers
+// of a consumer thread: O, S/P in f32, P in bf16):
+//   D 64         NC 3, TK 128: 24 + 32 + 32 KB;  o[32], sc[64], p[8][4]
+//   D 96, 128    NC 2, TK 128: 32 + 64 + 64 KB;  o[48 | 64], sc[64], p[8][4]
+//   D 192, Dv 128 NC 2, TK 128: 48 + 96 + 64 KB; o[64], sc[64], p[8][4]
+//   D 256        NC 2, TK 64:  64 + 64 + 64 KB;  o[128], sc[32], p[4][4]
+// At D 256 a 128-key tile would take 256 KB for K and V alone, so the key
+// tile halves: S is m64n64k16, P four fragments, and P V one m64n256k16
+// into 128 accumulators, which fit under setmaxnreg 240 with S and P.
+//
 // Where trouble is likely, and what the code does about it:
 // - Tensor maps are 4-D, [D, H, S, B], with the caller's strides.  A 2-D
 //   [B*S, H*D] map would let the ragged last tile of one batch read the
 //   next batch's rows, and a TMA store through it would overwrite them;
 //   the 4-D map zero-fills loads and clips stores past S by itself.
 // - With the 128-byte swizzle a box's inner extent is at most 128 bytes
-//   (64 bf16), so at D 128 each tile is two boxes of 64 columns, one after
-//   the other in shared memory.  The K-major descriptors (Q, K) step 32
-//   bytes per 16 columns inside a box and jump to the second box after 64;
-//   the MN-major descriptor of V spans both boxes with its leading byte
-//   offset.  Every box starts on a 1024-byte boundary, the swizzle's period.
+//   (64 bf16), so a tile of D columns is ceil(D / 64) boxes of 64 columns,
+//   one after the other in shared memory, each on a 1024-byte boundary
+//   (the swizzle's period).  The K-major descriptors (Q, K) step 32 bytes
+//   per 16 columns inside a box and jump to the next box after 64; the
+//   MN-major descriptor of V spans the boxes with its leading byte offset.
+// - D 96: the second box of q, K and V is half filled.  The maps' extent
+//   is 96, so TMA zero-fills columns 96-127 and counts their bytes towards
+//   expect_tx (as it does for a ragged S tile).  Q K^T stops at column 96
+//   (6 k-steps), P V takes an n32 product over the first half of V's
+//   second box, and the store of O clips at column 96: no zero column is
+//   multiplied or written.
+// - D 192, Dv 128 (MLA): K and V tiles differ in size (three boxes and
+//   two), and so do their ring stages and expect_tx; the V and O maps are
+//   encoded at Dv, and O is staged in the first two of q's three boxes.
 // - cuTensorMapEncodeTiled lives in libcuda, which the build does not link
 //   (no -lcuda): the runtime hands it over once (cudaGetDriverEntryPoint).
 // - Each CUtensorMap is encoded on the host per call and passed by value as
@@ -310,37 +341,41 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 //   full or empty barrier would show as run-to-run differences, not as a
 //   crash: the card tests compare calls bit for bit.
 // ---------------------------------------------------------------------------
-constexpr int TK = 128;        // keys per tile
 constexpr int STAGES = 2;      // K/V ring depth
 constexpr int WG_THREADS = 128;
 constexpr int BOX = 64;        // bf16 columns per TMA box (128 bytes)
 constexpr int ROW_BYTES = 128; // one row of a box in shared memory
 
-// Consumer warpgroups per CTA, 64 query rows each.  At D 64 the products
-// are half as long for the same softmax, so a third warpgroup keeps more of
-// them in flight and each K/V tile feeds 192 rows.
+// Consumer warpgroups per CTA (64 query rows each) and keys per tile, by
+// the q/k head dim.
 constexpr int consumer_groups(int d) { return d == 64 ? 3 : 2; }
+constexpr int key_tile(int d) { return d == 256 ? 64 : 128; }
 
-template <int D>
+template <int D, int DV>
 struct WgSmem {
   static constexpr int NC = consumer_groups(D);
-  static constexpr int TQ = 64 * NC;              // query rows per CTA
-  static constexpr int Q_HALF = TQ * ROW_BYTES;   // one 64-column box of q
-  static constexpr int KV_HALF = TK * ROW_BYTES;  // one box of a K or V tile
-  static constexpr int Q_BYTES = TQ * D * 2;
-  static constexpr int KV_BYTES = TK * D * 2;
-  static constexpr int K_OFF = Q_BYTES;
-  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int TQ = 64 * NC;               // query rows per CTA
+  static constexpr int TK = key_tile(D);           // keys per tile
+  static constexpr int QB = (D + BOX - 1) / BOX;   // boxes of a q or K row
+  static constexpr int VB = (DV + BOX - 1) / BOX;  // boxes of a V or O row
+  static constexpr int Q_BOX = TQ * ROW_BYTES;     // one box of the q tile
+  static constexpr int KV_BOX = TK * ROW_BYTES;    // one box of a K/V tile
+  static constexpr int K_BYTES = QB * KV_BOX;
+  static constexpr int V_BYTES = VB * KV_BOX;
+  static constexpr int K_OFF = QB * Q_BOX;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * V_BYTES;
   // q_full, then full_k, full_v, empty_k and empty_v per stage; 1024
   // bytes of slack to align the base to the swizzle's period
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 4 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "over the 227 KB of shared memory");
+  static_assert(VB <= QB, "O is staged in the q tile's boxes");
 };
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory;
-// scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
+// S: d[64 x N] (+)= A[64 x 16] B[16 x N], A and B K-major in shared
+// memory, N = 128 (d[64]) or 64 (d[32]); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
+                                         uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " REGS64
@@ -348,9 +383,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : ACC64(d)
       : "l"(a), "l"(b), "r"(scale_d));
 }
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
 
-// d[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in shared
-// memory (imm-trans-b = 1).
+// O: d[64 x N] += A[64 x 16] B[16 x N], A in registers, B MN-major in
+// shared memory (imm-trans-b = 1); N = 64 (d[32]), 128 (d[64]) or 256
+// (d[128]).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
                                          uint64_t b) {
   asm volatile(
@@ -360,14 +414,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t b) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : ACC32(d)
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " REGS128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : ACC128(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+// Dv 96 (d[48]): columns 0-63 from the box at b (n64), 64-95 from the
+// first half of the box at b2 (n32).
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t b, uint64_t b2) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REGS32
+      ", {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, "
+      "%45, %46, %47}, {%48, %49, %50, %51}, %53, p, 1, 1, 1;\n}\n"
+      : ACC32(d), ACC16(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "l"(b2),
+        "r"(1));
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -382,6 +451,7 @@ struct KeyTiles {
   int first, count;
 };
 
+template <int TK>
 __device__ __forceinline__ KeyTiles key_tiles(int q0, int q_last, int kv_lim,
                                               int causal, int window) {
   const int hi = causal ? min(kv_lim, q_last + 1) : kv_lim;
@@ -391,23 +461,25 @@ __device__ __forceinline__ KeyTiles key_tiles(int q0, int q_last, int kv_lim,
 
 // Every (row, col) of the tile is live: it lies wholly below kv_lim, below
 // the diagonal and inside the window.
+template <int TK>
 __device__ __forceinline__ bool tile_full(int k0, int q0, int q_last,
                                           int kv_lim, int causal, int window) {
   return k0 + TK <= kv_lim && (!causal || k0 + TK - 1 <= q0) &&
          (window <= 0 || q_last - k0 < window);
 }
 
-// Online softmax of one tile for this thread's two rows (row0, row0 + 8):
-// s in, p out (same registers), m and l updated, corr returned per row.
-template <bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
+// Online softmax of one tile of TK keys for this thread's two rows (row0,
+// row0 + 8), whose N = TK / 2 scores are N / 4 n8 blocks of 4: s in, p
+// out (same registers), m and l updated, corr returned per row.
+template <bool MASK, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
                                              float (&l)[2], float (&corr)[2],
                                              int row0, int col0, int kv_lim,
                                              int causal, int window,
                                              float scale_log2) {
   float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[4 * j + e] * scale_log2;
@@ -433,7 +505,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     l[i] *= corr[i];  // this thread's share of the row sum
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < N / 4; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float x = s[4 * j + e];
@@ -445,7 +517,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     }
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -453,8 +525,8 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
                     const __grid_constant__ CUtensorMap o_map, int hq,
                     int group, int batch, int sq, int kv_lim,
                     float scale_log2, int causal, int window, int chunk) {
-  using L = WgSmem<D>;
-  constexpr int HALVES = D / BOX, NC = L::NC, TQ = L::TQ;
+  using L = WgSmem<D, DV>;
+  constexpr int NC = L::NC, TQ = L::TQ, TK = L::TK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -468,8 +540,8 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
   auto full_v = [&](int s) { return bar(1, s); };
   auto empty_k = [&](int s) { return bar(2, s); };
   auto empty_v = [&](int s) { return bar(3, s); };
-  auto k_tile = [&](int s) { return sbase + L::K_OFF + s * L::KV_BYTES; };
-  auto v_tile = [&](int s) { return sbase + L::V_OFF + s * L::KV_BYTES; };
+  auto k_tile = [&](int s) { return sbase + L::K_OFF + s * L::K_BYTES; };
+  auto v_tile = [&](int s) { return sbase + L::V_OFF + s * L::V_BYTES; };
 
   // CTAs run in chunks of `chunk` (batch, kv head) pairs, whose K and V
   // fit in L2 together; inside a chunk the heaviest query tiles go first,
@@ -485,7 +557,7 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
   const int bb = pair / (hq / group);
   const int h = pair % (hq / group) * group + in_chunk % group;
   const int q_last = min(q0 + TQ, sq) - 1;
-  const KeyTiles tiles = key_tiles(q0, q_last, kv_lim, causal, window);
+  const KeyTiles tiles = key_tiles<TK>(q0, q_last, kv_lim, causal, window);
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -506,10 +578,10 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     if (threadIdx.x == 0) {
       // only the q rows below sq: a box wholly past S is never asked for
       const int q_boxes = min(NC, (sq - q0 + 63) / 64);
-      mbar_expect_tx(q_full, q_boxes * HALVES * 64 * ROW_BYTES);
+      mbar_expect_tx(q_full, q_boxes * L::QB * 64 * ROW_BYTES);
       for (int w = 0; w < q_boxes; ++w)
-        for (int x = 0; x < HALVES; ++x)
-          tma_load(sbase + x * L::Q_HALF + w * 64 * ROW_BYTES, &q_map, q_full,
+        for (int x = 0; x < L::QB; ++x)
+          tma_load(sbase + x * L::Q_BOX + w * 64 * ROW_BYTES, &q_map, q_full,
                    x * BOX, h, q0 + 64 * w, bb);
       const int kvh = h / group;
       for (int it = 0; it < tiles.count; ++it) {
@@ -518,14 +590,14 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
         const int k0 = tiles.first + it * TK;
         // a stage's K is free once S of its tile is done, its V once P V is
         mbar_wait(empty_k(s), phase ^ 1);
-        mbar_expect_tx(full_k(s), L::KV_BYTES);
-        for (int x = 0; x < HALVES; ++x)
-          tma_load(k_tile(s) + x * L::KV_HALF, &k_map, full_k(s), x * BOX,
+        mbar_expect_tx(full_k(s), L::K_BYTES);
+        for (int x = 0; x < L::QB; ++x)
+          tma_load(k_tile(s) + x * L::KV_BOX, &k_map, full_k(s), x * BOX,
                    kvh, k0, bb);
         mbar_wait(empty_v(s), phase ^ 1);
-        mbar_expect_tx(full_v(s), L::KV_BYTES);
-        for (int x = 0; x < HALVES; ++x)
-          tma_load(v_tile(s) + x * L::KV_HALF, &v_map, full_v(s), x * BOX,
+        mbar_expect_tx(full_v(s), L::V_BYTES);
+        for (int x = 0; x < L::VB; ++x)
+          tma_load(v_tile(s) + x * L::KV_BOX, &v_map, full_v(s), x * BOX,
                    kvh, k0, bb);
       }
     }
@@ -543,11 +615,11 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
   const int row0 = q0 + 64 * c + 16 * warp + g;  // and row0 + 8
   const uint32_t q_rows = sbase + 64 * ROW_BYTES * c;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
-  float sc[64];            // S of the tile in hand, then its P in f32
+  float sc[TK / 2];        // S of the tile in hand, then its P in f32
   uint32_t p[TK / 16][4];  // P of the previous tile in bf16
 
   // S = Q K^T of tile `it` into sc, started and committed, not waited for
@@ -558,10 +630,10 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       // 16 columns of D a step: 32 bytes inside a box, then the next box
       const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n128(sc,
-                    sw128_desc(q_rows + (kk / 4) * L::Q_HALF + off, 16, 1024),
-                    sw128_desc(k_src + (kk / 4) * L::KV_HALF + off, 16, 1024),
-                    kk > 0);
+      wgmma_ss(sc,
+               sw128_desc(q_rows + (kk / 4) * L::Q_BOX + off, 16, 1024),
+               sw128_desc(k_src + (kk / 4) * L::KV_BOX + off, 16, 1024),
+               kk > 0);
     }
     wgmma_commit();
   };
@@ -571,17 +643,22 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     mbar_wait(full_v(it % STAGES), (it / STAGES) & 1);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk)
-      // 16 keys a step (2048 bytes); the two boxes of D lie KV_HALF apart
-      // (the descriptor's leading byte offset)
-      wgmma_rs(o, p[kk],
-               sw128_desc(v_src + kk * 16 * ROW_BYTES, L::KV_HALF, 1024));
+    for (int kk = 0; kk < TK / 16; ++kk) {
+      // 16 keys a step (2048 bytes); the boxes of Dv lie KV_BOX apart (the
+      // descriptor's leading byte offset)
+      const uint32_t at = v_src + kk * 16 * ROW_BYTES;
+      if constexpr (DV == 96)
+        wgmma_rs(o, p[kk], sw128_desc(at, L::KV_BOX, 1024),
+                 sw128_desc(at + L::KV_BOX, L::KV_BOX, 1024));
+      else
+        wgmma_rs(o, p[kk], sw128_desc(at, L::KV_BOX, 1024));
+    }
     wgmma_commit();
   };
   // the online softmax of tile `it` on sc, masked only where it straddles
   auto softmax = [&](int it) {
     const int k0 = tiles.first + it * TK;
-    if (tile_full(k0, q0, q_last, kv_lim, causal, window))
+    if (tile_full<TK>(k0, q0, q_last, kv_lim, causal, window))
       softmax_tile<false>(sc, m, l, corr, row0, k0 + 2 * t, kv_lim, causal,
                           window, scale_log2);
     else
@@ -643,7 +720,7 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     keep_until_here(p, sq < 0, smem);  // P's registers stay P's until here
     if (lane == 0) mbar_arrive(empty_v((it - 1) % STAGES));
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       o[4 * j] *= corr[0];
       o[4 * j + 1] *= corr[0];
       o[4 * j + 2] *= corr[1];
@@ -670,12 +747,12 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     inv[i] = l[i] > 0.f ? 1.f / l[i] : 0.f;
   }
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = 16 * warp + g + 8 * i;  // row within the warpgroup
       // column 8j + 2t: box j / 8, 16-byte chunk j % 8, swizzled by r % 8
-      const int off = (j / 8) * L::Q_HALF + r * ROW_BYTES +
+      const int off = (j / 8) * L::Q_BOX + r * ROW_BYTES +
                       (((j % 8) ^ (r % 8)) * 16) + 4 * t;
       *reinterpret_cast<uint32_t*>(smem + 64 * ROW_BYTES * c + off) =
           pack_bf16(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
@@ -683,8 +760,8 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + c), "r"(WG_THREADS) : "memory");
   if (tid == 0 && q0 + 64 * c < sq) {
-    for (int x = 0; x < HALVES; ++x)
-      tma_store(&o_map, q_rows + x * L::Q_HALF, x * BOX, h, q0 + 64 * c, bb);
+    for (int x = 0; x < L::VB; ++x)
+      tma_store(&o_map, q_rows + x * L::Q_BOX, x * BOX, h, q0 + 64 * c, bb);
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
@@ -714,21 +791,21 @@ int encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
 
-template <int D>
+template <int D, int DV>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
                  int hq, int hkv, int sq, int sk, int valid_len,
                  const long long* st, float scale, int causal, int window,
                  cudaStream_t stream) {
-  constexpr int smem = WgSmem<D>::BYTES;
+  using L = WgSmem<D, DV>;
   // the shared-memory limit is raised once per device, not per launch
   static unsigned raised = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 32 || !(raised >> dev & 1u)) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma<D>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<D, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               L::BYTES);
     if (err != cudaSuccess) return (int)err;
     if (dev < 32) raised |= 1u << dev;
   }
@@ -740,34 +817,47 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
                     64);
   if (!rc)
     rc = encode_map(encode, &maps[1], k, D, hkv, sk, b, st[3], st[4], st[5],
-                    TK);
+                    L::TK);
   if (!rc)
-    rc = encode_map(encode, &maps[2], v, D, hkv, sk, b, st[6], st[7], st[8],
-                    TK);
+    rc = encode_map(encode, &maps[2], v, DV, hkv, sk, b, st[6], st[7], st[8],
+                    L::TK);
   if (!rc)
-    rc = encode_map(encode, &maps[3], o, D, hq, sq, b, st[9], st[10], st[11],
-                    64);
+    rc = encode_map(encode, &maps[3], o, DV, hq, sq, b, st[9], st[10],
+                    st[11], 64);
   if (rc) return rc;
-  constexpr int TQ = WgSmem<D>::TQ;
-  const long long blocks = (long long)((sq + TQ - 1) / TQ) * hq * b;
+  const long long blocks = (long long)((sq + L::TQ - 1) / L::TQ) * hq * b;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // (batch, kv head) pairs whose K and V take 16 MB, a third of L2
-  const long long pair_bytes = 4LL * std::max(sk, 1) * D;
+  const long long pair_bytes = 2LL * std::max(sk, 1) * (D + DV);
   const int chunk = (int)std::min<long long>(
       (long long)b * hkv, std::max(1LL, (16LL << 20) / pair_bytes));
-  flash_fwd_wgmma<D><<<(unsigned)blocks, (WgSmem<D>::NC + 1) * WG_THREADS,
-                       smem, stream>>>(
+  flash_fwd_wgmma<D, DV><<<(unsigned)blocks, (L::NC + 1) * WG_THREADS,
+                           L::BYTES, stream>>>(
       maps[0], maps[1], maps[2], maps[3], hq, hq / hkv, b, sq,
       std::min(sk, valid_len), scale * 1.4426950408889634f, causal, window,
       chunk);
   return (int)cudaGetLastError();
 }
 
+using WgmmaLaunch = int (*)(const void*, const void*, const void*, void*, int,
+                            int, int, int, int, int, const long long*, float,
+                            int, int, cudaStream_t);
+
+// The instance of flash_fwd_wgmma for q/k head dim d and v head dim dv, or
+// null where there is none.
+WgmmaLaunch wgmma_instance(int d, int dv) {
+  if (d == 64 && dv == 64) return launch_wgmma<64, 64>;
+  if (d == 96 && dv == 96) return launch_wgmma<96, 96>;
+  if (d == 128 && dv == 128) return launch_wgmma<128, 128>;
+  if (d == 192 && dv == 128) return launch_wgmma<192, 128>;
+  if (d == 256 && dv == 256) return launch_wgmma<256, 256>;
+  return nullptr;
+}
+
 // TMA reads and writes whole rows from 16-byte aligned addresses: every
 // base 16-byte aligned and every stride a multiple of 8 elements.
 bool tma_ready(const void* q, const void* k, const void* v, const void* o,
-               int d, const long long* st) {
-  if (d != 64 && d != 128) return false;
+               const long long* st) {
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
@@ -787,14 +877,15 @@ const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D], o [B,Sq,Hq,D], each addressed by its
-// (batch, seq, head) element strides with D contiguous; dtype 0 = f32,
-// 1 = bf16; D <= 256.  *kernel is set to the kernel launched: 0 =
-// flash_fwd (CUDA cores), 1 = flash_fwd_wgmma (tensor cores).  Returns the
-// launch's cudaError_t, or kEncodeFailed + a CUresult.
+// q [B,Sq,Hq,D], k [B,Sk,Hkv,D], v [B,Sk,Hkv,Dv], o [B,Sq,Hq,Dv], each
+// addressed by its (batch, seq, head) element strides with the head dim
+// contiguous; dtype 0 = f32, 1 = bf16; Dv <= D <= 256.  *kernel is set to
+// the kernel launched: 0 = flash_fwd (CUDA cores), 1 = flash_fwd_wgmma
+// (tensor cores).  Returns the launch's cudaError_t, or kEncodeFailed + a
+// CUresult.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
                     int dtype, int b, int hq, int hkv, int sq, int sk, int d,
-                    int valid_len, long long q_sb, long long q_ss,
+                    int dv, int valid_len, long long q_sb, long long q_ss,
                     long long q_sh, long long k_sb, long long k_ss,
                     long long k_sh, long long v_sb, long long v_ss,
                     long long v_sh, long long o_sb, long long o_ss,
@@ -804,22 +895,20 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   *kernel = -1;
-  if (d < 1 || d > 256 || hkv < 1 || hq % hkv != 0)
+  if (d < 1 || d > 256 || dv < 1 || dv > d || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && tma_ready(q, k, v, o, d, st)) {
+  const WgmmaLaunch wgmma = dtype == 1 ? wgmma_instance(d, dv) : nullptr;
+  if (wgmma && tma_ready(q, k, v, o, st)) {
     *kernel = 1;
-    return d == 64 ? launch_wgmma<64>(q, k, v, o, b, hq, hkv, sq, sk,
-                                      valid_len, st, scale, causal, window, s)
-                   : launch_wgmma<128>(q, k, v, o, b, hq, hkv, sq, sk,
-                                       valid_len, st, scale, causal, window,
-                                       s);
+    return wgmma(q, k, v, o, b, hq, hkv, sq, sk, valid_len, st, scale,
+                 causal, window, s);
   }
   *kernel = 0;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, valid_len, st,
-                           scale, causal, window, s);
+    return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
+                           st, scale, causal, window, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, d,
+    return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, d, dv,
                                    valid_len, st, scale, causal, window, s);
   *kernel = -1;
   return (int)cudaErrorInvalidValue;

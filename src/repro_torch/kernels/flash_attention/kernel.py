@@ -12,16 +12,19 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dimension the kernels take (the CUDA-core kernel's largest
-#: tile; the tensor-core kernel takes bf16 with D 64 or 128)
+#: tile)
 MAX_HEAD_DIM = 256
 #: the two kernels behind ``flash_attention``, by the number the C entry
 #: reports: f32 / other head dims / unaligned rows on the CUDA cores, and
-#: bf16 with D 64 or 128 on the tensor cores (wgmma fed by TMA)
+#: bf16 at the (D, Dv) of ``BLOCK_Q`` on the tensor cores (wgmma fed by TMA)
 KERNELS = ("flash_fwd", "flash_fwd_wgmma")
-#: query rows per CTA of ``flash_fwd_wgmma`` by head dim (64 per consumer
-#: warpgroup: ``consumer_groups`` in the source) and keys per tile (``TK``)
-BLOCK_Q = {64: 192, 128: 128}
-BLOCK_K = 128
+#: the instances of ``flash_fwd_wgmma`` by (q/k head dim, v head dim): query
+#: rows per CTA (64 per consumer warpgroup: ``consumer_groups`` in the
+#: source) and keys per tile (``key_tile``)
+BLOCK_Q = {(64, 64): 192, (96, 96): 128, (128, 128): 128, (192, 128): 128,
+           (256, 256): 128}
+BLOCK_K = {(64, 64): 128, (96, 96): 128, (128, 128): 128, (192, 128): 128,
+           (256, 256): 64}
 
 
 class KeyTiles(NamedTuple):
@@ -35,12 +38,14 @@ class KeyTiles(NamedTuple):
 
 
 def classify_key_tiles(sq: int, sk: int, *, d: int = 128,
-                       causal: bool = True, window: int = 0,
-                       valid_len: int = 0, block_q: int | None = None,
-                       block_k: int = BLOCK_K) -> list[KeyTiles]:
-    """For each query tile of ``block_q`` rows (the kernel's at head dim
-    ``d`` by default), which key tiles the tensor-core kernel skips, visits
-    with the mask, and visits whole.
+                       dv: int | None = None, causal: bool = True,
+                       window: int = 0, valid_len: int = 0,
+                       block_q: int | None = None,
+                       block_k: int | None = None) -> list[KeyTiles]:
+    """For each query tile of ``block_q`` rows and key tiles of ``block_k``
+    keys (by default the kernel's at head dims ``d`` and ``dv``, ``dv``
+    defaulting to ``d``), which key tiles the tensor-core kernel skips,
+    visits with the mask, and visits whole.
 
     The kernel's rule (``key_tiles`` and ``tile_full`` in
     ``csrc/flash_attention.cu``): the visited tiles run from the tile of
@@ -50,7 +55,9 @@ def classify_key_tiles(sq: int, sk: int, *, d: int = 128,
     live: it ends at or below ``min(sk, valid_len)``, its last column is at
     or before the tile's first row (causal) and its first column is inside
     the window of the tile's last row.  ``valid_len`` 0 means ``sk``."""
-    block_q = block_q or BLOCK_Q[d]
+    dims = (d, d if dv is None else dv)
+    block_q = block_q or BLOCK_Q[dims]
+    block_k = block_k or BLOCK_K[dims]
     kv_lim = min(sk, valid_len or sk)
     n_k = -(-sk // block_k)
     out = []
@@ -73,7 +80,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention.argtypes = (
-        [p, p, p, p, i, i, i, i, i, i, i, i] + [ll] * 12
+        [p, p, p, p] + [i] * 9 + [ll] * 12
         + [ctypes.c_float, i, i, p, ctypes.POINTER(i)])
     lib.flash_attention.restype = ctypes.c_int
     return lib
@@ -83,8 +90,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0, scale=None, valid_len: int = 0
                            ) -> torch.Tensor:
-    """q [B,Sq,Hq,D], k/v [B,Sk,Hkv,D] on one CUDA device, all float32 or
-    all bfloat16, each with a unit stride on D → [B,Sq,Hq,D] in q's dtype.
+    """q [B,Sq,Hq,D], k [B,Sk,Hkv,D] and v [B,Sk,Hkv,Dv] (Dv <= D) on one
+    CUDA device, all float32 or all bfloat16, each with a unit stride on its
+    head dim → [B,Sq,Hq,Dv] in q's dtype.
 
     Masks as :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`
     (``valid_len`` 0 means Sk); f32 softmax statistics and accumulators."""
@@ -95,21 +103,23 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if q.dtype not in _DTYPES or not (k.dtype == v.dtype == q.dtype):
         raise TypeError("q, k and v must all be float32 or all bfloat16, "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q [B,Sq,Hq,D] and k = v [B,Sk,Hkv,D], "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if (q.ndim, k.ndim, v.ndim) != (4, 4, 4) or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"expected q [B,Sq,Hq,D], k [B,Sk,Hkv,D] and v "
+                         f"[B,Sk,Hkv,Dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, hq, d = q.shape
     _, sk, hkv, dk = k.shape
-    if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv:
-        raise ValueError(f"incompatible q {tuple(q.shape)} and k "
-                         f"{tuple(k.shape)}: batch and D must agree and "
-                         "Hq be a multiple of Hkv")
+    dv = v.shape[-1]
+    if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv or not 0 < dv <= d:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)}: batch "
+                         "and D must agree, Hq be a multiple of Hkv and "
+                         "0 < Dv <= D")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need a unit stride on the head dim")
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     scale = float(scale if scale is not None else d ** -0.5)
@@ -119,7 +129,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, int(valid_len or sk),
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
+            int(valid_len or sk),
             *strides, scale, int(causal), int(window),
             _build.stream_of(q), ctypes.byref(taken))
     _build.check(lib, rc, "flash_attention")

@@ -3,7 +3,6 @@ CPU, the CUDA kernel on the card."""
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -16,19 +15,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     [B,S,Hq,Dv] in q's dtype.
 
     CPU tensors take :func:`attention_ref`; CUDA tensors the kernel, which
-    reads this layout with strides and masks the ragged tail itself.  The
-    kernel takes v at q's head dim, so a narrower v (MLA's) is zero-padded
-    to D and the output sliced back: the padded columns hold exact zeros
-    and the kept ones are untouched."""
+    reads this layout with strides, masks the ragged tail itself and takes
+    v at its own head dim (MLA's 128 beside q/k's 192) as it is."""
     if q.device.type == "cpu":
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window,
                             scale=scale)
         return out.transpose(1, 2)
-    dv = v.shape[-1]
-    if dv == q.shape[-1]:
-        return flash_attention_kernel(q, k, v, causal=causal, window=window,
-                                      scale=scale)
-    out = flash_attention_kernel(q, k, F.pad(v, (0, q.shape[-1] - dv)),
-                                 causal=causal, window=window, scale=scale)
-    return out[..., :dv]
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  scale=scale)

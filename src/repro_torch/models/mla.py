@@ -5,9 +5,8 @@ plus one shared rope key of ``qk_rope_dim``; per-head keys and values are
 rebuilt with up-projections.  The decode cache holds only (c_kv, k_rope).
 
 Prefill packs the rope part into the head dim, so one attention call takes
-q/k at ``qk_nope_dim + qk_rope_dim`` and v at ``v_head_dim``
-(``kernels.flash_attention.ops`` pads v for the kernel).  Two decode
-paths:
+q/k at ``qk_nope_dim + qk_rope_dim`` and v at ``v_head_dim`` (on the card
+the kernel takes v at that width, unpadded).  Two decode paths:
 
   * ``absorbed=False``: rebuild K/V for the whole context each step;
   * ``absorbed=True``: fold W_uk into the query and W_uv past the

@@ -308,8 +308,8 @@ def test_decide_split_kernel_keeps_the_first_of_tied_splits(cuda,
         assert torch.equal(ks, ps)
 
 
-# (B, S, Hq, Hkv, D, window, causal, valid_len, dtype); bf16 with D 64 or
-# 128 runs the tensor-core kernel, the rest the f32 CUDA-core kernel
+# (B, S, Hq, Hkv, D, window, causal, valid_len, dtype); bf16 with D 64, 96,
+# 128 or 256 runs the tensor-core kernel, the rest the f32 CUDA-core kernel
 FLASH_GPU_CASES = [
     (1, 128, 4, 4, 32, 0, True, 0, torch.float32),
     (2, 200, 8, 2, 64, 0, True, 0, torch.float32),
@@ -345,6 +345,17 @@ FLASH_GPU_CASES = [
     (1, 257, 4, 1, 64, 129, False, 0, torch.bfloat16),
     (2, 193, 4, 2, 64, 0, True, 0, torch.bfloat16),
     (1, 385, 4, 1, 64, 191, True, 300, torch.bfloat16),
+    # D 96 and 256 on the tensor cores (64-key tiles at 256): ragged S,
+    # windows at and beside the tile edge, valid_len, non-causal, MQA
+    (2, 77, 8, 1, 256, 0, True, 0, torch.bfloat16),
+    (1, 300, 8, 1, 256, 0, True, 0, torch.bfloat16),
+    (1, 300, 8, 1, 256, 64, True, 0, torch.bfloat16),
+    (1, 300, 8, 1, 256, 65, True, 0, torch.bfloat16),
+    (2, 300, 8, 1, 256, 0, True, 129, torch.bfloat16),
+    (1, 257, 4, 1, 256, 0, False, 200, torch.bfloat16),
+    (2, 77, 4, 2, 96, 0, True, 0, torch.bfloat16),
+    (1, 300, 8, 8, 96, 129, True, 250, torch.bfloat16),
+    (1, 257, 4, 1, 96, 40, False, 0, torch.bfloat16),
 ]
 
 
@@ -369,11 +380,13 @@ def _check_flash(got, q, k, v, **kw):
     assert over <= 1.0, f"bf16 kernel off by {over} of its tolerance"
 
 
-def _flash_inputs(cuda, b, s, hq, hkv, d, dtype=torch.bfloat16, seed=0):
-    """Unit-scale q, k, v (scores of std 1, so the softmax is not flat)."""
+def _flash_inputs(cuda, b, s, hq, hkv, d, dtype=torch.bfloat16, seed=0,
+                  dv=None):
+    """Unit-scale q, k, v (scores of std 1, so the softmax is not flat); v
+    at head dim ``dv`` (default ``d``)."""
     gen = torch.Generator(device=cuda).manual_seed(seed + s + d)
-    return tuple(torch.randn((b, s, h, d), generator=gen, device=cuda)
-                 .to(dtype) for h in (hq, hkv, hkv))
+    return tuple(torch.randn((b, s, h, w), generator=gen, device=cuda)
+                 .to(dtype) for h, w in ((hq, d), (hkv, d), (hkv, dv or d)))
 
 
 def test_flash_attention_unaligned_rows_take_the_cuda_core_kernel(cuda):
@@ -403,7 +416,7 @@ def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, window,
     fa_kernel.reset_counts()
     got = fa_kernel.flash_attention_kernel(q, k, v, **kw)
     torch.cuda.synchronize()
-    wgmma = dtype == torch.bfloat16 and d in (64, 128)
+    wgmma = dtype == torch.bfloat16 and (d, d) in fa_kernel.BLOCK_Q
     assert fa_kernel.flash_attention_kernel.by_kernel == {
         "flash_fwd": int(not wgmma), "flash_fwd_wgmma": int(wgmma)}
     _check_flash(got, q, k, v, **kw)
@@ -432,17 +445,23 @@ def test_flash_attention_reads_fused_qkv_views(cuda, d):
                                                   v.contiguous()), q, k, v)
 
 
-@pytest.mark.parametrize("b,s,hq,hkv,d", [(4, 2048, 16, 8, 128),
-                                          (4, 2048, 32, 32, 64)])
-def test_flash_attention_is_bitwise_deterministic(cuda, b, s, hq, hkv, d):
-    """Calls on the same inputs give the same bits at the qwen3-1.7b and
-    zamba2-1.2b prefill shapes: a race on the K/V ring (a wrong barrier
-    parity) would show as a difference between calls."""
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv", [(4, 2048, 16, 8, 128, 128),
+                                             (4, 2048, 32, 32, 64, 64),
+                                             (4, 2048, 32, 32, 96, 96),
+                                             (4, 2048, 16, 16, 192, 128),
+                                             (1, 2048, 8, 1, 256, 256)])
+def test_flash_attention_is_bitwise_deterministic(cuda, b, s, hq, hkv, d, dv):
+    """Calls on the same inputs give the same bits at the prefill shapes of
+    qwen3-1.7b, zamba2-1.2b, phi-3-vision, deepseek-v2-lite's MLA and
+    gemma-2b: a race on the K/V ring (a wrong barrier parity) would show
+    as a difference between calls."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d)
+    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d, dv=dv)
+    fa_kernel.reset_counts()
     first = fa_kernel.flash_attention_kernel(q, k, v)
     for _ in range(3):
         assert torch.equal(fa_kernel.flash_attention_kernel(q, k, v), first)
+    assert fa_kernel.flash_attention_kernel.by_kernel["flash_fwd_wgmma"] == 4
 
 
 # faults planted in a copy of the source: the diagonal tile's causal test
@@ -454,8 +473,9 @@ FLASH_FAULTS = {
         "return {lo, hi > lo ? (hi - lo + TK - 1) / TK : 0};",
         "return {lo, hi > lo ? (hi - lo - 1) / TK : 0};"),
 }
-# the qwen3-1.7b prefill shape and a ragged one
-FLASH_FAULT_SHAPES = [(4, 2048, 16, 8, 128), (1, 700, 8, 1, 128)]
+# the qwen3-1.7b prefill shape and ragged ones at D 128, 96 and 256
+FLASH_FAULT_SHAPES = [(4, 2048, 16, 8, 128), (1, 700, 8, 1, 128),
+                      (1, 700, 8, 2, 96), (1, 700, 8, 1, 256)]
 
 
 def _flash_fault_readings(cuda):
@@ -476,7 +496,7 @@ def test_flash_tolerance_sees_planted_faults(cuda, fault, tmp_path,
                                              monkeypatch):
     """Each fault, built from a copy of ``csrc`` (``flash_attention.cu``
     and the header it includes) in a temporary directory, reads above 1 at
-    both shapes; the sound kernel reads below 1 there."""
+    every shape; the sound kernel reads below 1 there."""
     from repro_torch.kernels import _build
     csrc = _csrc_copy(tmp_path, "flash_attention", *FLASH_FAULTS[fault])
     sound = _flash_fault_readings(cuda)
@@ -620,7 +640,8 @@ def test_serving_path_runs_the_kernels(cuda, arch):
 
 def test_head_dim_256_serves_on_the_card(cuda):
     """gemma-2b at full width (head dim 256, MQA), cut to 2 layers: the
-    kernel path against the naive path in f32, then served in bf16."""
+    kernel path against the naive path in f32, then served in bf16 on the
+    tensor-core kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models import build_model
@@ -636,31 +657,33 @@ def test_head_dim_256_serves_on_the_card(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
     del params
-    fa_kernel.flash_attention_kernel.launches = 0
+    fa_kernel.reset_counts()
     engine = ServeEngine(cfg.replace(dtype="bfloat16"), batch_size=1,
                          max_len=64, device=cuda)
     done = engine.serve([Request(rid=0, prompt=np.arange(40) % 97,
                                  max_new_tokens=4)])
     assert len(done[0].output) == 4
     assert fa_kernel.flash_attention_kernel.launches == cfg.num_layers
+    # bf16 at head dim 256: every prefill on the tensor cores
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 0, "flash_fwd_wgmma": cfg.num_layers}
 
 
 # (B, S, H, D, Dv): phi-3-vision's head dim 96, deepseek-v2-lite's MLA
 # prefill (q/k 192 = 128 + 64 rope, v 128), and ragged lengths of both
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("b,s,h,d,dv", [(2, 300, 32, 96, 96),
-                                        (1, 2048, 32, 96, 96),
-                                        (2, 300, 16, 192, 128),
-                                        (1, 2048, 16, 192, 128),
-                                        (1, 77, 4, 192, 128)])
+OTHER_HEAD_DIMS = [(2, 300, 32, 96, 96), (1, 2048, 32, 96, 96),
+                   (2, 300, 16, 192, 128), (1, 2048, 16, 192, 128),
+                   (1, 77, 4, 192, 128)]
+
+
+@pytest.mark.parametrize("b,s,h,d,dv", OTHER_HEAD_DIMS)
 def test_flash_attention_other_head_dims_on_the_cuda_core_kernel(
-        cuda, b, s, h, d, dv, dtype):
-    """Head dims 96 and 192 (v 128, zero-padded to 192 by ``ops``) run
-    the CUDA-core kernel, within the plain version's tolerance."""
+        cuda, b, s, h, d, dv):
+    """f32 at head dims 96 and 192 (v 128, taken at its own width) runs
+    the CUDA-core kernel, within the JAX package's 2e-5."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    q, k, _ = _flash_inputs(cuda, b, s, h, h, d, dtype)
-    v = _flash_inputs(cuda, b, s, h, h, dv, dtype, seed=1)[2]
+    q, k, v = _flash_inputs(cuda, b, s, h, h, d, torch.float32, dv=dv)
     scale = d ** -0.5
     fa_kernel.reset_counts()
     got = fa_ops.flash_attention(q, k, v, scale=scale)
@@ -670,6 +693,46 @@ def test_flash_attention_other_head_dims_on_the_cuda_core_kernel(
         "flash_fwd": 1, "flash_fwd_wgmma": 0}
     _check_flash(got, q, k, v, scale=scale)
     assert torch.equal(fa_ops.flash_attention(q, k, v, scale=scale), got)
+
+
+# (B, S, Hq, Hkv, D, Dv, window, valid_len): the shapes above, gemma-2b's
+# head dim 256 with one kv head, and ragged S, a window and valid_len at
+# each new head dim
+TENSOR_CORE_HEAD_DIMS = [
+    (b, s, h, h, d, dv, 0, 0) for b, s, h, d, dv in OTHER_HEAD_DIMS] + [
+    (1, 2048, 8, 1, 256, 256, 0, 0), (2, 77, 8, 1, 256, 256, 0, 0),
+    (1, 300, 8, 1, 256, 256, 100, 0), (2, 300, 8, 1, 256, 256, 0, 250),
+    (1, 300, 16, 16, 192, 128, 64, 0), (2, 300, 16, 16, 192, 128, 0, 129),
+    (2, 77, 32, 32, 96, 96, 33, 0), (1, 300, 32, 32, 96, 96, 0, 257)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv,window,valid_len",
+                         TENSOR_CORE_HEAD_DIMS)
+def test_flash_attention_other_head_dims_on_the_tensor_cores(
+        cuda, b, s, hq, hkv, d, dv, window, valid_len):
+    """bf16 at head dims 96, 192 (v 128) and 256 runs flash_fwd_wgmma
+    through ``ops`` as the models call it: within ``bf16_tolerance`` of
+    the plain version, [B,S,Hq,Dv], the same bits in two calls."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    q, k, v = _flash_inputs(cuda, b, s, hq, hkv, d, dv=dv)
+    scale = d ** -0.5
+    kw = dict(scale=scale, window=window)
+    fa_kernel.reset_counts()
+    if valid_len:
+        got = fa_kernel.flash_attention_kernel(q, k, v, valid_len=valid_len,
+                                               **kw)
+        again = fa_kernel.flash_attention_kernel(q, k, v,
+                                                 valid_len=valid_len, **kw)
+    else:
+        got = fa_ops.flash_attention(q, k, v, **kw)
+        again = fa_ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, hq, dv)
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 0, "flash_fwd_wgmma": 2}
+    _check_flash(got, q, k, v, valid_len=valid_len, **kw)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b",

@@ -23,13 +23,19 @@ FLASH_CASES = [
     (1, 256, 2, 2, 128, 31, "float32", 2e-5),   # sliding window
     (2, 128, 4, 2, 64, 0, "bfloat16", 3e-2),
     (1, 384, 6, 6, 64, 100, "bfloat16", 3e-2),
+    # the tensor-core kernel's new head dims: phi-3-vision's 96 and
+    # gemma-2b's 256 (MQA), ragged and windowed
+    (2, 150, 8, 2, 96, 0, "float32", 2e-5),
+    (1, 200, 4, 4, 96, 40, "bfloat16", 3e-2),
+    (1, 130, 8, 1, 256, 0, "float32", 2e-5),
+    (2, 77, 4, 1, 256, 24, "bfloat16", 3e-2),
 ]
 
 
-def qkv(seed, b, s, hq, hkv, d, dtype="float32"):
+def qkv(seed, b, s, hq, hkv, d, dtype="float32", dv=None):
     rng = np.random.default_rng(seed)
-    arrs = [(rng.normal(size=(b, s, h, d)) * 0.5).astype(np.float32)
-            for h in (hq, hkv, hkv)]
+    arrs = [(rng.normal(size=(b, s, h, w)) * 0.5).astype(np.float32)
+            for h, w in ((hq, d), (hkv, d), (hkv, dv or d))]
     jx = [jnp.asarray(a, dtype) for a in arrs]
     pt = [torch.as_tensor(a).to(getattr(torch, dtype)) for a in arrs]
     return jx, pt
@@ -48,6 +54,21 @@ def test_plain_flash_matches_pallas_interpret(b, s, hq, hkv, d, window,
     want = r_flash(jq, jk, jv, window=window, qblk=64, kblk=64)
     got = flash_attention(q, k, v, window=window)
     assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5),
+                                       ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("b,s,h,window", [(2, 150, 4, 0), (1, 77, 16, 20)])
+def test_plain_flash_mla_v_narrower_than_qk(b, s, h, window, dtype, tol):
+    """deepseek-v2-lite's MLA prefill: q/k at 192, v at 128, against the
+    JAX package's ``naive_attention`` (the Pallas kernel takes v at q's
+    width only); the result is [B,S,H,128]."""
+    (jq, jk, jv), (q, k, v) = qkv(s + h, b, s, h, h, 192, dtype, dv=128)
+    scale = 192 ** -0.5
+    want = r_attn.naive_attention(jq, jk, jv, window=window, scale=scale)
+    got = flash_attention(q, k, v, window=window, scale=scale)
+    assert got.dtype == q.dtype and got.shape == (b, s, h, 128)
     np.testing.assert_allclose(as_np(got), as_np(want), rtol=tol, atol=tol)
 
 
@@ -108,6 +129,24 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     fake = torch.empty(0, device="meta")
     assert ops.flash_attention(fake, fake, fake, window=3) == "kernel"
     assert called == [{"causal": True, "window": 3, "scale": None}]
+
+
+def test_cuda_mla_call_hands_the_kernel_v_at_its_own_width(monkeypatch):
+    """A (192, 128) call reaches the kernel with v at 128, not padded to
+    192, and returns the kernel's [B,S,H,128] as it is."""
+    from repro_torch.kernels.flash_attention import ops
+    handed = []
+
+    def kernel(q, k, v, **kw):
+        handed.append(v)
+        return torch.empty((*q.shape[:3], v.shape[-1]), device="meta")
+
+    monkeypatch.setattr(ops, "flash_attention_kernel", kernel)
+    q = k = torch.empty((2, 64, 16, 192), device="meta")
+    v = torch.empty((2, 64, 16, 128), device="meta")
+    out = ops.flash_attention(q, k, v, scale=192 ** -0.5)
+    assert len(handed) == 1 and handed[0] is v
+    assert out.shape == (2, 64, 16, 128)
 
 
 def _tensor_core_emulation(q, k, v, *, causal, window, valid_len):
@@ -183,66 +222,83 @@ def _live(sq, sk, causal, window, valid_len):
     return (p[0, 0, 0] > 0) & live
 
 
-@pytest.mark.parametrize("d", [64, 128])
+#: the tensor-core kernel's instances by q/k head dim: (D, Dv)
+WGMMA_DIMS = {64: (64, 64), 96: (96, 96), 128: (128, 128), 192: (192, 128),
+              256: (256, 256)}
+
+
+@pytest.mark.parametrize("d", sorted(WGMMA_DIMS))
 @pytest.mark.parametrize("sq,sk,causal,window,valid_len", TILE_CASES)
 def test_key_tile_classes_cover_the_mask(sq, sk, causal, window, valid_len,
                                          d):
-    """At the kernel's tile sizes for head dim ``d``: every full tile is
-    wholly live, every skipped tile wholly masked, and every live pair lies
-    in a visited tile; the three classes partition the key tiles."""
+    """At the kernel's tile sizes for head dim ``d`` (and its v head dim):
+    every full tile is wholly live, every skipped tile wholly masked, and
+    every live pair lies in a visited tile; the three classes partition
+    the key tiles."""
     from repro_torch.kernels.flash_attention.kernel import (
         BLOCK_K, BLOCK_Q, classify_key_tiles)
     ok = _live(sq, sk, causal, window, valid_len)
-    n_k = -(-sk // BLOCK_K)
-    bq = BLOCK_Q[d]
-    tiles = classify_key_tiles(sq, sk, d=d, causal=causal, window=window,
-                               valid_len=valid_len)
+    dims = WGMMA_DIMS[d]
+    bq, bk = BLOCK_Q[dims], BLOCK_K[dims]
+    n_k = -(-sk // bk)
+    tiles = classify_key_tiles(sq, sk, d=d, dv=dims[1], causal=causal,
+                               window=window, valid_len=valid_len)
     assert [t.q0 for t in tiles] == list(range(0, sq, bq))
     for t in tiles:
         rows = ok[t.q0:t.q0 + bq]
         assert sorted(t.skipped + t.masked + t.full) == list(range(n_k))
         for j in t.full:
-            assert rows[:, j * BLOCK_K:(j + 1) * BLOCK_K].all()
-            assert (j + 1) * BLOCK_K <= sk
+            assert rows[:, j * bk:(j + 1) * bk].all()
+            assert (j + 1) * bk <= sk
         for j in t.skipped:
-            assert not rows[:, j * BLOCK_K:(j + 1) * BLOCK_K].any()
+            assert not rows[:, j * bk:(j + 1) * bk].any()
     if causal and window == 0 and sq == sk and not valid_len:
         # a causal prefill masks only the tiles that the diagonal crosses
         assert all(t.masked == list(range(
-            t.q0 // BLOCK_K, (min(t.q0 + bq, sq) - 1) // BLOCK_K + 1))
+            t.q0 // bk, (min(t.q0 + bq, sq) - 1) // bk + 1))
             for t in tiles)
 
 
 def test_tile_sizes_match_the_source():
     """``BLOCK_Q`` is 64 rows per consumer warpgroup of the CUDA source
-    (``consumer_groups``) at D 64 and 128; ``BLOCK_K`` is its ``TK``."""
+    (``consumer_groups``) and ``BLOCK_K`` its ``key_tile``, both by q/k
+    head dim, for exactly the (D, Dv) instances that ``wgmma_instance``
+    launches."""
     import re
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import BLOCK_K, BLOCK_Q
     src = (_build.CSRC / "flash_attention.cu").read_text()
     groups = re.search(r"int consumer_groups\(int d\) \{ return d == 64 \? "
                        r"(\d+) : (\d+); \}", src)
-    assert BLOCK_Q == {64: 64 * int(groups[1]), 128: 64 * int(groups[2])}
-    assert re.search(r"constexpr int TK = (\d+);", src)[1] == str(BLOCK_K)
+    tile = re.search(r"int key_tile\(int d\) \{ return d == 256 \? "
+                     r"(\d+) : (\d+); \}", src)
+    instances = {(int(a), int(b)) for a, b in re.findall(
+        r"return launch_wgmma<(\d+), (\d+)>;", src)}
+    assert instances == set(BLOCK_Q) == set(BLOCK_K) == set(
+        WGMMA_DIMS.values())
+    for d, dv in instances:
+        assert BLOCK_Q[d, dv] == 64 * int(groups[1 if d == 64 else 2])
+        assert BLOCK_K[d, dv] == int(tile[1 if d == 256 else 2])
     assert re.search(r"TQ = 64 \* NC;", src)
+    assert re.search(r"TK = key_tile\(D\);", src)
 
 
 def _tile_walk(q, k, v, *, causal, window, valid_len, block_q, block_k):
     """The tensor-core kernel's walk in plain f32 torch, one head (q [Sq,D],
-    k/v [Sk,D]): per query tile the visited key tiles in order, the mask
-    applied on masked tiles only, masked scores p = 0 explicitly and
-    corr = 1 while a row has seen nothing."""
+    k [Sk,D], v [Sk,Dv]): per query tile the visited key tiles in order,
+    the mask applied on masked tiles only, masked scores p = 0 explicitly
+    and corr = 1 while a row has seen nothing."""
     from repro_torch.kernels.flash_attention.kernel import classify_key_tiles
     sq, sk, d = q.shape[0], k.shape[0], q.shape[1]
     kv_lim = min(sk, valid_len or sk)
-    out = torch.zeros_like(q)
+    out = torch.zeros(sq, v.shape[1])
     for t in classify_key_tiles(sq, sk, causal=causal, window=window,
                                 valid_len=valid_len, block_q=block_q,
                                 block_k=block_k):
         row = torch.arange(t.q0, min(t.q0 + block_q, sq))[:, None]
         m = torch.full((len(row), 1), -torch.inf)
         l = torch.zeros(len(row), 1)
-        acc = torch.zeros(len(row), d)
+        acc = torch.zeros(len(row), v.shape[1])
         for j in sorted(t.masked + t.full):
             col = torch.arange(j * block_k, min((j + 1) * block_k, sk))[None]
             s = q[row[:, 0]] @ k[col[0]].T * d ** -0.5
@@ -282,5 +338,29 @@ def test_tile_walk_matches_attention_ref(sq, sk, causal, window, valid_len,
     kw = dict(causal=causal, window=window, valid_len=valid_len)
     got = _tile_walk(q, k, v, block_q=block_q, block_k=block_k, **kw)
     want = attention_ref(q[None, None], k[None, None], v[None, None], **kw)
+    np.testing.assert_allclose(got.numpy(), want[0, 0].numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("d", sorted(WGMMA_DIMS))
+@pytest.mark.parametrize("sq,sk,causal,window,valid_len",
+                         [(300, 300, True, 0, 0), (257, 257, True, 129, 0),
+                          (255, 255, False, 0, 129), (200, 330, True, 65, 0),
+                          (129, 129, True, 0, 1)])
+def test_tile_walk_matches_attention_ref_at_head_dims(sq, sk, causal, window,
+                                                      valid_len, d):
+    """The walk at each instance's (D, Dv) and its own block sizes (64 keys
+    a tile at D 256) gives the plain attention (f32, 2e-5)."""
+    from repro_torch.kernels.flash_attention.kernel import BLOCK_K, BLOCK_Q
+    dims = WGMMA_DIMS[d]
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (torch.as_tensor(rng.normal(size=(s, w)) * 0.3,
+                               dtype=torch.float32)
+               for s, w in ((sq, d), (sk, d), (sk, dims[1])))
+    kw = dict(causal=causal, window=window, valid_len=valid_len)
+    got = _tile_walk(q, k, v, block_q=BLOCK_Q[dims], block_k=BLOCK_K[dims],
+                     **kw)
+    want = attention_ref(q[None, None], k[None, None], v[None, None], **kw)
+    assert got.shape == (sq, dims[1])
     np.testing.assert_allclose(got.numpy(), want[0, 0].numpy(), rtol=2e-5,
                                atol=2e-5)

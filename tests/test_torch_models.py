@@ -1,8 +1,8 @@
 """The ported serving path end to end at small size: reduced qwen3-1.7b
 (with and without a sliding window), deepseek-moe-16b (MoE),
-deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b (VLM) and zamba2-1.2b
-in f32, with the JAX package's initial weights carried over by
-``params_from_jax``.  Prefill
+deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b (VLM), zamba2-1.2b and
+gemma-2b at its real head dim 256 with one kv head in f32, with the JAX
+package's initial weights carried over by ``params_from_jax``.  Prefill
 logits and caches match, then 8 teacher-forced decode steps on the JAX
 greedy tokens match; greedy tokens are compared only where the reference's
 top-2 logit margin exceeds 10× the tolerance."""
@@ -29,14 +29,18 @@ TOL = 1e-5
 MAX_LEN, PROMPT, STEPS = 48, 21, 8
 CASES = {"qwen3": ("qwen3-1.7b", 0), "qwen3-swa": ("qwen3-1.7b", 16),
          "zamba2": ("zamba2-1.2b", 0), "moe": ("deepseek-moe-16b", 0),
-         "mla": ("deepseek-v2-lite-16b", 0), "vlm": ("phi-3-vision-4.2b", 0)}
+         "mla": ("deepseek-v2-lite-16b", 0), "vlm": ("phi-3-vision-4.2b", 0),
+         "gemma-d256": ("gemma-2b", 0)}
+# reduced configs carried back to a published shape the kernels see: gemma-2b
+# at its real head dim (its reduced config has 64) and MQA
+REPLACE = {"gemma-2b": dict(head_dim=256)}
 FAMILY_ARCHS = ["deepseek-moe-16b", "deepseek-v2-lite-16b",
                 "phi-3-vision-4.2b"]
 
 
 def configs(name, window):
-    rc = r_reduced(name).replace(dtype="float32")
-    pc = p_reduced(name).replace(dtype="float32")
+    rc = r_reduced(name).replace(dtype="float32", **REPLACE.get(name, {}))
+    pc = p_reduced(name).replace(dtype="float32", **REPLACE.get(name, {}))
     if window:
         rc, pc = rc.with_window(window), pc.with_window(window)
     return rc, pc
