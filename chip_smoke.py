@@ -8,7 +8,7 @@ and fleet slice of the simulator, the serving path and the kernel bench.
 Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
-   seven CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
+   eight CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register, spill and shared-memory
    lines; the SASS of each of ``flash_fwd_wgmma``'s five instances (D, Dv
    = 64, 96, 128, 192/128, 256) and of ``w8a16_wgmma`` must hold HGMMA
@@ -105,16 +105,22 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``fleet_scan`` launches and steps, the slab sizes, misses per policy
    and µs per decision.
 6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
-   max_len=2088, seed=0)`` on qwen3-1.7b, zamba2-1.2b, deepseek-v2-lite-16b
-   (MLA + MoE), phi-3-vision-4.2b and gemma-2b (MQA, head dim 256) at their
-   published shapes in bf16, one at a time (each freed before the next
-   loads), each serving 8 greedy requests of 2048 random tokens with 32 new
-   tokens (``flash_attention`` and ``ssm_scan`` kernels; their launch
-   counts are read right after the five models: all 224 flash launches
-   must have taken ``flash_fwd_wgmma``, at head dims 128, 64, 192 with v
-   at 128, 96 and 256, none ``flash_fwd``, and every ``ssm_scan`` call
-   must have launched ``ssd_cb`` and ``ssd_chunk`` once each).  Every
-   request must get 32 in-range tokens and every logit must be finite.
+   max_len=prompt + 40, seed=0)`` on qwen3-1.7b, zamba2-1.2b,
+   deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b, gemma-2b (MQA,
+   head dim 256), xlstm-350m (24 blocks, ``[m, m, m, s] × 6``) and
+   whisper-tiny (4 + 4 layers over 1,500 encoder frames drawn on the host
+   from the seed) at their published shapes in bf16, one at a time (each
+   freed before the next loads), each serving 8 greedy requests of 2048
+   random tokens (whisper: 224, its previous-text prompt cap) with 32 new
+   tokens (``flash_attention``, ``ssm_scan`` and ``slstm_scan`` kernels;
+   their launch counts are read right after the seven models: all 248
+   flash launches must have taken ``flash_fwd_wgmma``, at head dims 128,
+   64, 192 with v at 128, 96 and 256, none ``flash_fwd``, with
+   whisper's 24 non-causal encoder and cross-attention calls among them;
+   every ``ssm_scan`` call must have launched ``ssd_cb`` and
+   ``ssd_chunk`` once each; ``slstm_scan`` 12 times, once an sLSTM block
+   a batch).  Every request must get 32 in-range tokens and every logit
+   must be finite.
 6b. Continuous batching at full width and depth in bf16:
    ``ContinuousBatchEngine(deepseek-moe-16b, slots=4, max_len=2088,
    cost=AnalyticCost(), decision_backend="kernel")`` over 8 requests of
@@ -134,8 +140,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 7. The whole model on the card, f32: the kernel path
    (``build_model(cfg)``) and the plain path (``impl="naive"``) on one
    512-token prompt with shared weights, for qwen3-1.7b, zamba2-1.2b,
-   phi-3-vision-4.2b and gemma-2b whole (phi-3 also on a seeded embeddings
-   prompt) and deepseek-moe-16b and deepseek-v2-lite-16b at full width cut
+   phi-3-vision-4.2b, gemma-2b and xlstm-350m whole (phi-3 also on a
+   seeded embeddings prompt; xlstm's plain path runs the sLSTM's step
+   loop), whisper-tiny whole on a 224-token prompt over seeded frames, and
+   deepseek-moe-16b and deepseek-v2-lite-16b at full width cut
    to 4 layers (``MODEL_CHECKS``); their last-token logits must agree
    within 1e-3 of max |logit|.  The MoE lines count the (token, layer)
    expert choices that differ between the two paths and the smallest gap
@@ -144,8 +152,11 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    for 4 requests x 8 tokens must equal ``ServeEngine(batch_size=1)``'s on
    the same weights (a mismatch prints the step and the top-2 logit gap).
 8. Each kernel against its plain PyTorch version on the card, at the
-   slices' shapes, with the tolerance stated beside each check; flash
-   and ``ssm_scan`` also against themselves (two calls, the same bits).
+   slices' shapes, with the tolerance stated beside each check; flash,
+   ``ssm_scan`` and ``slstm_scan`` also against themselves (two calls,
+   the same bits).  ``slstm_scan`` at xlstm-350m's prefill (B 4, S 2048,
+   H 4, du 256) in bf16 and f32 against its plain step loop: f32 h and
+   the final state within 1e-4, bf16 h within 2^-7 |h| + 1e-4.
    ``tree_predict`` equals its plain version bit for bit, phase by phase
    (the leaf matrix, the in-order fold) and on its global route too.
    ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
@@ -167,10 +178,13 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    per CUDA kernel, ``decide_split`` also with L2 overwritten before each
    call and with its bound at the 30 operations a split that its
    division-bound form took; ``gbt_hist`` is timed at the six levels of
-   phase 8, and ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
-   ``ssd_chunk``).  Flash at the other served shapes (``OTHER_FLASH_SHAPES``:
-   the MLA prefill with v at 128, phi-3's D 96, gemma's D 256 with one kv
-   head, one MoE admission) through ``ops`` as the models call it, each
+   phase 8, ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
+   ``ssd_chunk``), and ``slstm_scan`` eager in bf16 and f32 beside its
+   plain step loop (no library call computes it).  Flash at the other
+   served shapes (``OTHER_FLASH_SHAPES``: the MLA prefill with v at 128,
+   phi-3's D 96, gemma's D 256 with one kv head, one MoE admission,
+   whisper's non-causal encoder over 1,500 frames and its cross-attention
+   of 224 queries over them) through ``ops`` as the models call it, each
    first held against its plain version in bf16 (tensor cores) and f32
    (CUDA cores, 1e-5 of max |want|) and against a second call bit for
    bit, with SDPA beside it and, in bf16, the CUDA-core kernel at the same
@@ -216,8 +230,11 @@ ROOT = Path(__file__).resolve().parent
 N_ENVS = 1 << 20
 SEED = 0
 SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "deepseek-v2-lite-16b",
-               "phi-3-vision-4.2b", "gemma-2b")
+               "phi-3-vision-4.2b", "gemma-2b", "xlstm-350m", "whisper-tiny")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
+# whisper's decoder prompt: its previous-text cap, n_text_ctx // 2 = 224
+# (the encoder takes its 1,500 frames)
+PROMPT_OF = {"whisper-tiny": 224}
 # continuous batching (phase 6b): prompts drawn from 1024-2048 tokens,
 # arriving 50 ms apart on the engine's virtual clock
 CONT_ARCH, CONT_PROMPT, CONT_GAP_S = "deepseek-moe-16b", (1024, 2048), 0.05
@@ -228,14 +245,20 @@ CHECK_LAYERS = 4
 MODEL_CHECKS = (("qwen3-1.7b", None), ("zamba2-1.2b", None),
                 ("deepseek-moe-16b", CHECK_LAYERS),
                 ("deepseek-v2-lite-16b", CHECK_LAYERS),
-                ("phi-3-vision-4.2b", None), ("gemma-2b", None))
-# (case, B, S, Hq, Hkv, D of q/k, D of v) of flash_attention on the served
-# models' paths: deepseek-v2-lite's MLA prefill, phi-3-vision's prefill,
-# gemma-2b's prefill (MQA), one deepseek-moe admission
-OTHER_FLASH_SHAPES = (("mla_dsv2lite", 4, 2048, 16, 16, 192, 128),
-                      ("phi3v_d96", 4, 2048, 32, 32, 96, 96),
-                      ("gemma_d256", 1, 2048, 8, 1, 256, 256),
-                      ("moe_admission", 1, 2048, 16, 16, 128, 128))
+                ("phi-3-vision-4.2b", None), ("gemma-2b", None),
+                ("xlstm-350m", None), ("whisper-tiny", None))
+# (case, B, Sq, Sk, Hq, Hkv, D of q/k, D of v, causal) of flash_attention
+# on the served models' paths: deepseek-v2-lite's MLA prefill,
+# phi-3-vision's prefill, gemma-2b's prefill (MQA), one deepseek-moe
+# admission, whisper-tiny's encoder over 1,500 frames and its decoder's
+# cross-attention (224 prompt tokens against the frames), both non-causal
+OTHER_FLASH_SHAPES = (
+    ("mla_dsv2lite", 4, 2048, 2048, 16, 16, 192, 128, True),
+    ("phi3v_d96", 4, 2048, 2048, 32, 32, 96, 96, True),
+    ("gemma_d256", 1, 2048, 2048, 8, 1, 256, 256, True),
+    ("moe_admission", 1, 2048, 2048, 16, 16, 128, 128, True),
+    ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
+    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False))
 PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
 MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
 MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
@@ -323,11 +346,13 @@ def serve_slice(dev, smi: str) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.serve import Request, ServeEngine
 
     wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
-                "ssm_scan": ss_kernel.ssd_scan_kernel}
+                "ssm_scan": ss_kernel.ssd_scan_kernel,
+                "slstm_scan": sl_kernel.slstm_scan_kernel}
     expected = dict.fromkeys(wrappers, 0)
     # bf16 at every served (D, Dv) on the tensor cores: 64, 96, 128, MLA's
     # 192 with v at 128, gemma's 256
@@ -335,12 +360,20 @@ def serve_slice(dev, smi: str) -> dict:
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     fa_kernel.reset_counts()
     ss_kernel.reset_counts()
+    sl_kernel.slstm_scan_kernel.launches = 0
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
+        prompt = PROMPT_OF.get(arch, SERVE_PROMPT)
         check(cfg.dtype == "bfloat16", f"{arch}: dtype {cfg.dtype}")
         if cfg.family == "hybrid":
             n_flash = n_batches * -(-cfg.num_layers // cfg.shared_attn_every)
             expected["ssm_scan"] += n_batches * cfg.num_layers
+        elif cfg.family == "ssm":     # one sLSTM block a group, no attention
+            n_flash = 0
+            expected["slstm_scan"] += (n_batches * cfg.num_layers
+                                       // cfg.slstm_every)
+        elif cfg.family == "audio":   # encoder self; decoder self and cross
+            n_flash = n_batches * (cfg.enc_layers + 2 * cfg.num_layers)
         else:
             n_flash = n_batches * cfg.num_layers
         expected["flash_attention"] += n_flash
@@ -352,7 +385,7 @@ def serve_slice(dev, smi: str) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         eng = ServeEngine(cfg, batch_size=SERVE_BATCH,
-                          max_len=SERVE_PROMPT + SERVE_NEW + 8, seed=SEED,
+                          max_len=prompt + SERVE_NEW + 8, seed=SEED,
                           device=dev)
         torch.cuda.synchronize(dev)
         init_s = time.perf_counter() - t0
@@ -365,7 +398,7 @@ def serve_slice(dev, smi: str) -> dict:
         eng._sample = checked
         rng = np.random.default_rng(0)
         reqs = [Request(rid=i, prompt=rng.integers(
-                    0, cfg.vocab_size, size=SERVE_PROMPT, dtype=np.int32),
+                    0, cfg.vocab_size, size=prompt, dtype=np.int32),
                         max_new_tokens=SERVE_NEW, temperature=0.0,
                         arrived_at=i * 1e-3)
                 for i in range(SERVE_REQUESTS)]
@@ -384,7 +417,8 @@ def serve_slice(dev, smi: str) -> dict:
         st = eng.stats
         line("serve", model=arch, dtype=cfg.dtype, layers=cfg.num_layers,
              d_model=cfg.d_model, batch=SERVE_BATCH,
-             requests=SERVE_REQUESTS, prompt_tokens=SERVE_PROMPT,
+             requests=SERVE_REQUESTS, prompt_tokens=prompt,
+             encoder_frames=cfg.enc_seq if cfg.family == "audio" else None,
              new_tokens=SERVE_NEW, init_s=init_s, serve_s=serve_s,
              prefill_s=st.prefill_s, decode_s=st.decode_s,
              decode_tokens_per_s=st.tokens_per_s,
@@ -1615,12 +1649,17 @@ def model_check(dev) -> None:
         fast, plain = build_model(cfg), build_model(cfg, impl="naive")
         params = fast.init_params(SEED, dev)
         rng = np.random.default_rng(SEED)
+        n_prompt = PROMPT_OF.get(arch, CHECK_PROMPT)
         prompts = {"tokens": {"tokens": torch.as_tensor(rng.integers(
-            0, cfg.vocab_size, size=(1, CHECK_PROMPT)), device=dev)}}
+            0, cfg.vocab_size, size=(1, n_prompt)), device=dev)}}
         if cfg.takes_embeddings:
             prompts["embeds"] = {"embeds": torch.as_tensor(rng.normal(
-                size=(1, CHECK_PROMPT, cfg.d_model)), dtype=torch.float32,
+                size=(1, n_prompt, cfg.d_model)), dtype=torch.float32,
                 device=dev)}
+        if cfg.family == "audio":     # the encoder's seeded frames
+            prompts["tokens"]["frames"] = torch.as_tensor(rng.normal(
+                size=(1, cfg.enc_seq, cfg.d_model)), dtype=torch.float32,
+                device=dev)
         for kind, batch in prompts.items():
             routes = {"fast": [], "plain": []}
 
@@ -1635,10 +1674,10 @@ def model_check(dev) -> None:
 
             with torch.inference_mode():
                 moe_mod.route = lambda *a: recording(*a, sink=routes["fast"])
-                got, _ = fast.prefill(params, batch, CHECK_PROMPT)
+                got, _ = fast.prefill(params, batch, n_prompt)
                 moe_mod.route = lambda *a: recording(*a,
                                                      sink=routes["plain"])
-                want, _ = plain.prefill(params, batch, CHECK_PROMPT)
+                want, _ = plain.prefill(params, batch, n_prompt)
                 moe_mod.route = route
             scale = want.abs().max().item()
             err = (got - want).abs().max().item()
@@ -1648,14 +1687,14 @@ def model_check(dev) -> None:
                     expert_choices_differing=sum(
                         int((a[0] != b[0]).any(dim=-1).sum())
                         for a, b in zip(routes["fast"], routes["plain"])),
-                    token_layer_choices=CHECK_PROMPT * cfg.num_layers,
+                    token_layer_choices=n_prompt * cfg.num_layers,
                     min_router_gap_k_vs_k1=min(g for _, g in
                                                routes["plain"]))
             line("model_check", model=arch, dtype="float32", prompt=kind,
                  layers=cfg.num_layers,
                  reduced=(f"num_layers {full.num_layers}→{layers}"
                           if layers else None),
-                 prompt_tokens=CHECK_PROMPT, max_abs_err=err,
+                 prompt_tokens=n_prompt, max_abs_err=err,
                  max_abs_logit=scale, rel_err=err / scale,
                  same_argmax=bool(got.argmax() == want.argmax()), **extra)
             check(bool(torch.isfinite(got).all()),
@@ -1677,10 +1716,14 @@ def serving_kernels(dev, launches: dict) -> list:
     import torch.nn.functional as F
     from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S,
                                           bound, timed_ms)
-    from repro_torch.bench.kernels import flash_work, ssm_cb_work, ssm_work
+    from repro_torch.bench.kernels import (flash_work, slstm_work,
+                                           ssm_cb_work, ssm_work)
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.kernels.ssm_scan import ref as ss_ref
 
@@ -1743,7 +1786,7 @@ def serving_kernels(dev, launches: dict) -> list:
                 timed[case, dtype] = (q, k, v, err.max().item())
             del got, want, err
 
-    def flash_times(q, k, v, ops_per_s, graph, kernel=None):
+    def flash_times(q, k, v, ops_per_s, graph, kernel=None, causal=True):
         """The kernel (by default the wrapper on q, k, v) and SDPA replayed
         from a CUDA graph (``graph``), so the ctypes launch path stays out
         of a ~0.2 ms figure, and eager."""
@@ -1751,22 +1794,24 @@ def serving_kernels(dev, launches: dict) -> list:
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
         def wrapper():
-            return fa_kernel.flash_attention_kernel(q, k, v)
+            return fa_kernel.flash_attention_kernel(q, k, v, causal=causal)
         kernel = kernel or wrapper
 
         def sdpa():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
 
         return dict(
             ms=timed_ms(kernel, 10, graph=graph),
             eager_ms=timed_ms(kernel, 10),
-            plain_ms=timed_ms(lambda: plain_attn(q, k, v), 3, groups=3),
+            plain_ms=timed_ms(lambda: plain_attn(q, k, v, causal=causal), 3,
+                              groups=3),
             library_ms=timed_ms(sdpa, 10, graph=graph),
             library_eager_ms=timed_ms(sdpa, 10),
             timing="graph" if graph else "eager",
             bound=bound(*flash_work(b, s, hq, k.shape[2], d,
-                                    q.element_size(), v.shape[-1]),
+                                    q.element_size(), v.shape[-1],
+                                    sk=k.shape[1], causal=causal),
                         ops_per_s))
 
     bf16 = torch.bfloat16
@@ -1812,18 +1857,21 @@ def serving_kernels(dev, launches: dict) -> list:
     # the shapes of phase 6's and 6b's models besides qwen3 and zamba2,
     # through ``ops`` as the models call it (from a CUDA graph, eager
     # beside): deepseek-v2-lite's MLA prefill (q/k 192, v 128 at its own
-    # width), phi-3-vision's head dim 96, gemma-2b's 256 (MQA) and one
-    # deepseek-moe admission (batch 1, D 128), all bf16 on the tensor cores
-    # and f32 on the CUDA cores; in bf16 also the CUDA-core kernel at the
-    # same shape (unaligned copies of the same inputs), eager
+    # width), phi-3-vision's head dim 96, gemma-2b's 256 (MQA), one
+    # deepseek-moe admission (batch 1, D 128) and whisper-tiny's two
+    # non-causal shapes (the encoder, 1,500 rows: ragged for both the
+    # 192-row query tile and the 128-key tile; the cross-attention, Sq 224
+    # against Sk 1,500), all bf16 on the tensor cores and f32 on the CUDA
+    # cores; in bf16 also the CUDA-core kernel at the same shape (unaligned
+    # copies of the same inputs), eager
     other_shapes = {}
-    for case, b, s, hq, hkv, d, dv in OTHER_FLASH_SHAPES:
+    for case, b, s, sk, hq, hkv, d, dv, causal in OTHER_FLASH_SHAPES:
         for dtype in (bf16, torch.float32):
             q = randn(b, s, hq, d, dtype=dtype, scale=1.0)
-            k = randn(b, s, hkv, d, dtype=dtype, scale=1.0)
-            v = randn(b, s, hkv, dv, dtype=dtype, scale=1.0)
+            k = randn(b, sk, hkv, d, dtype=dtype, scale=1.0)
+            v = randn(b, sk, hkv, dv, dtype=dtype, scale=1.0)
             fa_kernel.reset_counts()
-            got = fa_ops.flash_attention(q, k, v)
+            got = fa_ops.flash_attention(q, k, v, causal=causal)
             torch.cuda.synchronize()
             taken = [n for n, c in fa_kernel.flash_attention_kernel
                      .by_kernel.items() if c]
@@ -1832,43 +1880,47 @@ def serving_kernels(dev, launches: dict) -> list:
                   f"{taken}, expected {route}")
             check(got.shape == (b, s, hq, dv), f"flash_attention {case}: "
                   f"output {tuple(got.shape)}")
-            check(torch.equal(got, fa_ops.flash_attention(q, k, v)),
+            check(torch.equal(got, fa_ops.flash_attention(q, k, v,
+                                                          causal=causal)),
                   f"flash_attention {case} {dtype}: two calls on the same "
                   "inputs differ")
             if dtype == torch.float32:
-                want = plain_attn(q, k, v)
+                want = plain_attn(q, k, v, causal=causal)
                 tol = 1e-5 * want.abs().max()
                 rule = "1e-5 of max|want|"
             else:
                 want, tol = (t.transpose(1, 2) for t in fa_ref.bf16_tolerance(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal))
                 rule = ("2e-5 + 2^-8 (|want| + min(sum p|v|, "
                         "8 sqrt(sum p^2 v^2)))")
             err = (got.float() - want).abs()
             over = (err / tol).max().item()
             line("kernel_check", kernel="flash_attention", case=case,
                  dtype=str(dtype).split(".")[-1], shape=[b, s, hq, hkv, d],
-                 v_head_dim=dv, cuda_kernel=taken,
+                 keys=sk, causal=causal, v_head_dim=dv, cuda_kernel=taken,
                  max_abs_err=err.max().item(), err_over_tol=over,
                  tolerance=rule, same_bits_in_two_calls=True)
             check(over <= 1.0, f"flash_attention {case} {dtype}: off by "
                   f"{over} of its tolerance ({rule})")
             if dtype == bf16:
                 t = flash_times(q, k, v, BF16_OPS_PER_S, True,
-                                lambda: fa_ops.flash_attention(q, k, v))
+                                lambda: fa_ops.flash_attention(
+                                    q, k, v, causal=causal), causal=causal)
                 qu, ku, vu = unaligned(q), unaligned(k), unaligned(v)
                 fa_kernel.reset_counts()
-                fa_ops.flash_attention(qu, ku, vu)
+                fa_ops.flash_attention(qu, ku, vu, causal=causal)
                 check(fa_kernel.flash_attention_kernel.by_kernel[
                     "flash_fwd"] == 1, f"flash_attention {case}: the "
                     "unaligned copies did not run flash_fwd")
-                fwd_ms = timed_ms(lambda: fa_ops.flash_attention(qu, ku, vu),
-                                  3)
+                fwd_ms = timed_ms(lambda: fa_ops.flash_attention(
+                    qu, ku, vu, causal=causal), 3)
                 other_shapes[case] = dict(
                     {k_: v_ for k_, v_ in t.items() if k_ != "bound"},
                     bound_ms=t["bound"][0], bound_by=t["bound"][1],
                     max_abs_err=err.max().item(), err_over_tol=over,
-                    shape=[b, s, hq, hkv, d], v_head_dim=dv,
+                    shape=[b, s, hq, hkv, d], keys=sk, causal=causal,
+                    v_head_dim=dv,
                     cuda_kernel=taken[0], flash_fwd_eager_ms=fwd_ms,
                     over_library=t["ms"] / t["library_ms"],
                     flash_fwd_over_ms=fwd_ms / t["ms"])
@@ -1930,7 +1982,62 @@ def serving_kernels(dev, launches: dict) -> list:
     line("timing_extra", kernel="ssm_scan", shape=[b, s, h, p, n, chunk],
          **{k: v for k, v in ss.items() if k != "bound"},
          bound_ms=ss["bound"][0], bound_by=ss["bound"][1])
-    del cb
+    del cb, x, dt, bm, cm, xdt, loga, args, y, st, y_p, st_p
+
+    # slstm_scan at xlstm-350m's prefill (B 4, S 2048, H 4, du 256): pre of
+    # unit scale, R at the init's scale (std du^-1/2), in bf16 as served
+    # and in f32, against the plain step loop: f32 h and the final state
+    # within 1e-4 absolute (|h| <= 1: |c| <= n), bf16 h within one bf16 ulp
+    # of |h| (2^-7 |h| bounds it) plus 1e-4
+    xcfg = get_config("xlstm-350m")
+    xb, xs = SERVE_BATCH, SERVE_PROMPT
+    xh, du = xcfg.num_heads, xcfg.d_model // xcfg.num_heads
+    pre = randn(4, xb, xs, xh * du, scale=1.0)
+    r32 = randn(4, xh, du, du, scale=du ** -0.5)
+    sl = {}
+    for dtype in (bf16, torch.float32):
+        r = r32.to(dtype)
+        got, st = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
+        torch.cuda.synchronize()
+        again, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
+        check(torch.equal(got, again) and all(
+            torch.equal(a, c) for a, c in zip(st, st2)),
+            f"slstm_scan {dtype}: two calls on the same inputs differ")
+        t0 = time.perf_counter()
+        want, st_want = sl_ref.slstm_scan_ref(pre, r, out_dtype=dtype)
+        torch.cuda.synchronize()
+        plain_host_s = time.perf_counter() - t0
+        err = (got.float() - want.float()).abs()
+        tol = 1e-4 + (want.float().abs() * 2.0 ** -7 if dtype == bf16
+                      else 0.0)
+        over = (err / tol).max().item()
+        state_err = max((a - c).abs().max().item()
+                        for a, c in zip(st, st_want))
+        name = str(dtype).split(".")[-1]
+        line("kernel_check", kernel="slstm_scan", dtype=name,
+             shape=[xb, xs, xh, du], max_abs_err_h=err.max().item(),
+             err_over_tol_h=over, max_abs_err_state=state_err,
+             max_abs_h=want.float().abs().max().item(),
+             tolerance="h: 1e-4 (+ 2^-7 |h| in bf16); state: 1e-4",
+             same_bits_in_two_calls=True)
+        check(over <= 1.0 and state_err <= 1e-4, f"slstm_scan {name}: h "
+              f"off by {over} of its tolerance, state by {state_err} "
+              "(tolerance 1e-4)")
+        b_ms, b_by = bound(*slstm_work(xb, xs, xh, du, r.element_size(),
+                                       got.element_size()), F32_OPS_PER_S)
+        sl[name] = dict(
+            ms=timed_ms(lambda: sl_kernel.slstm_scan_kernel(
+                pre, r, out_dtype=dtype), 3, groups=3),
+            plain_ms=timed_ms(lambda: sl_ref.slstm_scan_ref(
+                pre, r, out_dtype=dtype), 1, groups=1),
+            plain_host_s=plain_host_s, library_ms=None,
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err.max().item(),
+            state_max_abs_err=state_err)
+        sl[name]["us_per_step"] = sl[name]["ms"] * 1e3 / xs
+        line("timing_extra", kernel="slstm_scan", dtype=name,
+             shape=[xb, xs, xh, du], timing="eager", **sl[name])
+        del got, again, st, st2, want, st_want, err, tol
+    del pre, r32
 
     out = []
     for name, t, err, shape, source, replaces in (
@@ -1955,6 +2062,16 @@ def serving_kernels(dev, launches: dict) -> list:
                       "flash_attention"])
     # ssm_scan: launches count calls; each CUDA kernel's own record
     out[1]["kernels"] = ss["kernels"]
+    # slstm_scan: the bf16 call as served, the f32 one beside it
+    out.append({"name": "slstm_scan", "route": "cuda",
+                "source": "src/repro_torch/csrc/slstm_scan.cu",
+                "replaces": "src/repro/models/xlstm.py:156",
+                "counterpart_of": "the lax.scan of slstm_scan (not a Pallas "
+                "kernel)",
+                "launches": launches["slstm_scan"],
+                "shape": [xb, xs, xh, du],
+                "timing": "eager", **sl["bfloat16"],
+                "float32": sl["float32"]})
     return out
 
 

@@ -58,14 +58,29 @@ L2_BYTES = 50e6
 
 
 def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int,
-               dv: int | None = None) -> tuple[int, int]:
-    """(bytes, operations) of causal attention with q/k head dim ``d`` and
-    v/o head dim ``dv`` (default ``d``): q, k, v read and o written once;
-    q·kᵀ and p·v over the causal (row, col) pairs."""
+               dv: int | None = None, *, sk: int | None = None,
+               causal: bool = True) -> tuple[int, int]:
+    """(bytes, operations) of attention of ``s`` queries over ``sk`` keys
+    (default ``s``) with q/k head dim ``d`` and v/o head dim ``dv``
+    (default ``d``): q, k, v read and o written once; q·kᵀ and p·v over
+    the live (row, col) pairs, the causal triangle or all of them."""
     dv = d if dv is None else dv
-    pairs = s * (s + 1) // 2
-    return ((b * s * hq + b * s * hkv) * (d + dv) * el,
+    sk = s if sk is None else sk
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    return ((b * s * hq + b * sk * hkv) * (d + dv) * el,
             2 * (d + dv) * pairs * b * hq)
+
+
+def slstm_work(b: int, s: int, h: int, du: int, r_el: int, out_el: int
+               ) -> tuple[int, int]:
+    """(bytes, operations) of the sLSTM recurrence: pre [4, B, S, d] f32
+    and R [4, H, du, du] read once, h [B, S, d] and the four [B, d] f32
+    states written once; per step and row the four gates' block-diagonal
+    products, 2 · 4 H du² operations (the cell's ~20 a unit are left
+    out)."""
+    d = h * du
+    return (16 * b * s * d + 4 * h * du * du * r_el + b * s * d * out_el
+            + 16 * b * d, 2 * b * s * 4 * h * du * du)
 
 
 def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int

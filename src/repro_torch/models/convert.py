@@ -9,7 +9,11 @@ as numpy's ``bfloat16`` extension type) and returns the port's
     (nested ones too: ``moe.shared``, the MLA projections) become L
     per-layer entries;
   * hybrid: the ``mamba`` leaves ``[G, K, ...]`` become the L real layers
-    (flat index ``g*K + k``); the padded slots are dropped.
+    (flat index ``g*K + k``); the padded slots are dropped;
+  * ssm: the ``mlstm`` leaves ``[G, M, ...]`` become G·M entries (flat
+    index ``g*M + m``), the ``slstm`` leaves ``[G, ...]`` G entries;
+  * audio: ``enc_layers`` ``[Le, ...]`` and ``dec_layers`` ``[L, ...]``
+    become per-layer entries.
 
 Weights keep the reference's ``[in, out]`` layout, so nothing is
 transposed.  This is how the tests feed equal weights to both packages.
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import xlstm_model
 from repro_torch.models.layers import ParamTree
 
 
@@ -40,15 +45,22 @@ def _take(tree, index, device):
 
 def params_from_jax(cfg, tree: dict, device: DeviceLike = None) -> ParamTree:
     dev = resolve_device(device)
-    out = {k: _take(v, (), dev) for k, v in tree.items()
-           if k not in ("layers", "mamba")}
     if cfg.family in ("dense", "moe", "vlm"):
-        out["layers"] = [_take(tree["layers"], l, dev)
-                         for l in range(cfg.num_layers)]
+        stacked = {"layers": range(cfg.num_layers)}
     elif cfg.family == "hybrid":
         k = cfg.shared_attn_every
-        out["mamba"] = [_take(tree["mamba"], (l // k, l % k), dev)
-                        for l in range(cfg.num_layers)]
+        stacked = {"mamba": [(l // k, l % k) for l in range(cfg.num_layers)]}
+    elif cfg.family == "ssm":
+        g, m = xlstm_model._grouping(cfg)
+        stacked = {"mlstm": [(i, j) for i in range(g) for j in range(m)]}
+        if cfg.slstm_every:
+            stacked["slstm"] = range(g)
+    elif cfg.family == "audio":
+        stacked = {"enc_layers": range(cfg.enc_layers),
+                   "dec_layers": range(cfg.num_layers)}
     else:
-        raise NotImplementedError(f"family {cfg.family!r} is not ported")
+        raise ValueError(f"unknown family {cfg.family!r}")
+    out = {k: _take(v, (), dev) for k, v in tree.items() if k not in stacked}
+    for key, indices in stacked.items():
+        out[key] = [_take(tree[key], i, dev) for i in indices]
     return ParamTree(out)

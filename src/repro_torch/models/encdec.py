@@ -1,0 +1,224 @@
+"""Whisper-style encoder-decoder backbone (arXiv:2212.04356).
+
+As in the reference, the mel-spectrogram and conv frontend are a stub: the
+encoder takes precomputed frame embeddings [B, enc_seq, d].  Sinusoidal
+positions on both sides (the decoder's a deviation from whisper's learned
+table, kept from the reference), bias-free projections, layer norms with
+the ``(1 + scale)`` convention, the tied head ``x @ embed.T``.
+
+Parameters are a :class:`~repro_torch.models.layers.ParamTree` with one
+entry per layer: ``params["enc_layers"][l]``, ``params["dec_layers"][l]``.
+Self- and cross-attention over full segments go through
+``attention.chunked_attention`` (the flash kernel on the card) or, with
+``impl="naive"``, ``attention.naive_attention``.  Decode writes the
+self-attention K/V cache in place; the cross K/V are written once, at
+prefill.
+
+    encode(params, frames, cfg)                    -> enc_out [B,enc_seq,d]
+    decode_full(params, tokens, enc_out, cfg)      -> (logits, kvs)
+    prefill(params, batch, cfg, max_len)           -> (logits [B,1,V], cache)
+    decode_step(params, batch, cache, cfg)         -> (logits [B,1,V], cache)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
+                                       layer_norm, matmul, mlp_param_shapes,
+                                       sinusoidal_positions)
+from repro_torch.models.transformer import dtype_of
+
+
+def _ln_shapes(d):
+    return {"scale": (d,), "bias": (d,)}
+
+
+def enc_layer_shapes(cfg) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": _ln_shapes(d),
+        "attn": attn_mod.attn_param_shapes(cfg),
+        "ln2": _ln_shapes(d),
+        "mlp": mlp_param_shapes(d, cfg.d_ff, "gelu_plain"),
+    }
+
+
+def dec_layer_shapes(cfg) -> dict:
+    d = cfg.d_model
+    return {
+        "ln1": _ln_shapes(d),
+        "self_attn": attn_mod.attn_param_shapes(cfg),
+        "ln2": _ln_shapes(d),
+        "cross_attn": attn_mod.attn_param_shapes(cfg),
+        "ln3": _ln_shapes(d),
+        "mlp": mlp_param_shapes(d, cfg.d_ff, "gelu_plain"),
+    }
+
+
+def param_shapes(cfg) -> dict:
+    d = cfg.d_model
+    return {
+        "embed": (cfg.vocab_size, d),
+        "enc_layers": [enc_layer_shapes(cfg) for _ in range(cfg.enc_layers)],
+        "enc_final_ln": _ln_shapes(d),
+        "dec_layers": [dec_layer_shapes(cfg) for _ in range(cfg.num_layers)],
+        "dec_final_ln": _ln_shapes(d),
+    }
+
+
+def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
+    return init_tree(param_shapes(cfg), dtype_of(cfg), seed,
+                     resolve_device(device))
+
+
+def _ln(x, p, eps):
+    return layer_norm(x, p["scale"], p["bias"], eps)
+
+
+def _mha(params, x, cfg, *, kv=None, causal, impl):
+    """Self (``kv=None``) or cross attention, no rope.  Returns (out,
+    (k, v))."""
+    b, s, _ = x.shape
+    h, hd = cfg.num_heads, cfg.head_dim
+    src = x if kv is None else kv
+    q = matmul(x, params["wq"]).reshape(b, s, h, hd)
+    k = matmul(src, params["wk"]).reshape(b, src.shape[1], h, hd)
+    v = matmul(src, params["wv"]).reshape(b, src.shape[1], h, hd)
+    if impl == "naive":
+        out = attn_mod.naive_attention(q, k, v, causal=causal)
+    else:
+        out = attn_mod.chunked_attention(q, k, v, causal=causal)
+    return matmul(out.reshape(b, s, h * hd), params["wo"]), (k, v)
+
+
+def encode(params, frames, cfg, *, impl="chunked"):
+    """frames [B, enc_seq, d] (the stubbed frontend's output) → encoder
+    output [B, enc_seq, d]: non-causal self-attention layers."""
+    x = frames.to(dtype_of(cfg))
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device).to(x.dtype)[None]
+    for lp in params["enc_layers"]:
+        a, _ = _mha(lp["attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
+                    causal=False, impl=impl)
+        x = x + a
+        x = x + gated_mlp(_ln(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
+                          "gelu_plain")
+    return _ln(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def _dec_embed(params, tokens, cfg):
+    """Token embeddings plus the sinusoidal table's first S rows."""
+    x = params["embed"][tokens].to(dtype_of(cfg))
+    pos = sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device)
+    return x + pos.to(x.dtype)[None]
+
+
+def _dec_embed_at(params, token, cfg, pos: int):
+    """One token's embedding plus position ``pos``'s sin/cos, the angle
+    formed in f32 from ``pos`` (the reference's decode formula)."""
+    x = params["embed"][token].to(dtype_of(cfg))
+    d = cfg.d_model
+    dim = torch.arange(d // 2, dtype=torch.float32, device=x.device)
+    ang = (torch.tensor(float(pos), dtype=torch.float32, device=x.device)
+           / (10000.0 ** (2 * dim / d)))
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)]).to(x.dtype)
+    return x + pe[None, None, :]
+
+
+def decode_full(params, tokens, enc_out, cfg, *, impl="chunked"):
+    """Teacher-forced decoder pass.  Returns (logits [B,S,V], kvs): per
+    layer ((self k, v), (cross k, v))."""
+    x = _dec_embed(params, tokens, cfg)
+    kvs = []
+    for lp in params["dec_layers"]:
+        a, skv = _mha(lp["self_attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
+                      causal=True, impl=impl)
+        x = x + a
+        c, ckv = _mha(lp["cross_attn"], _ln(x, lp["ln2"], cfg.norm_eps), cfg,
+                      kv=enc_out, causal=False, impl=impl)
+        x = x + c
+        x = x + gated_mlp(_ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
+                          "gelu_plain")
+        kvs.append((skv, ckv))
+    x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
+    return matmul(x, params["embed"].T), kvs
+
+
+def forward(params, batch, cfg, *, impl="chunked"):
+    """batch {"frames", "tokens"} → logits [B,S,V]."""
+    enc_out = encode(params, batch["frames"], cfg, impl=impl)
+    return decode_full(params, batch["tokens"], enc_out, cfg, impl=impl)[0]
+
+
+# --------------------------------------------------------------------------
+# Cache / decode
+# --------------------------------------------------------------------------
+def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+    """(shape, dtype) of each cache tensor, stacked over decoder layers;
+    the cache also carries ``pos``, an int."""
+    l, dtype = cfg.num_layers, dtype_of(cfg)
+    h, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "self_k": ((l, batch_size, max_len, h, hd), dtype),
+        "self_v": ((l, batch_size, max_len, h, hd), dtype),
+        "cross_k": ((l, batch_size, cfg.enc_seq, h, hd), dtype),
+        "cross_v": ((l, batch_size, cfg.enc_seq, h, hd), dtype),
+    }
+
+
+def init_cache(cfg, batch_size: int, max_len: int,
+               device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    cache = {name: torch.zeros(shape, dtype=dt, device=dev) for name,
+             (shape, dt) in cache_shapes(cfg, batch_size, max_len).items()}
+    cache["pos"] = 0
+    return cache
+
+
+def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
+    """batch: frames + tokens (the prompt).  Encodes, runs the decoder
+    over the prompt and builds the self and cross caches."""
+    tokens = batch["tokens"]
+    enc_out = encode(params, batch["frames"], cfg, impl=impl)
+    logits, kvs = decode_full(params, tokens, enc_out, cfg, impl=impl)
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    s = tokens.shape[1]
+    for l, ((sk, sv), (ck, cv)) in enumerate(kvs):
+        cache["self_k"][l, :, :s] = sk
+        cache["self_v"][l, :, :s] = sv
+        cache["cross_k"][l] = ck
+        cache["cross_v"][l] = cv
+    cache["pos"] = s
+    return logits[:, -1:], cache
+
+
+def decode_step(params, batch, cache, cfg):
+    """One token.  batch: {"token": [B,1]}.  Writes the token's self K/V
+    at ``pos`` in place; cross-attention sees all ``enc_seq`` frames (its
+    query position ``enc_seq - 1``)."""
+    pos = cache["pos"]
+    x = _dec_embed_at(params, batch["token"], cfg, pos)
+    h, hd = cfg.num_heads, cfg.head_dim
+    b = x.shape[0]
+    for l, lp in enumerate(params["dec_layers"]):
+        xn = _ln(x, lp["ln1"], cfg.norm_eps)
+        sa = lp["self_attn"]
+        q = matmul(xn, sa["wq"]).reshape(b, 1, h, hd)
+        cache["self_k"][l, :, pos] = matmul(xn, sa["wk"]).reshape(b, h, hd)
+        cache["self_v"][l, :, pos] = matmul(xn, sa["wv"]).reshape(b, h, hd)
+        a = attn_mod.decode_attention(q, cache["self_k"][l],
+                                      cache["self_v"][l], pos)
+        x = x + matmul(a.reshape(b, 1, h * hd), sa["wo"])
+        xn = _ln(x, lp["ln2"], cfg.norm_eps)
+        ca = lp["cross_attn"]
+        q = matmul(xn, ca["wq"]).reshape(b, 1, h, hd)
+        c = attn_mod.decode_attention(q, cache["cross_k"][l],
+                                      cache["cross_v"][l], cfg.enc_seq - 1)
+        x = x + matmul(c.reshape(b, 1, h * hd), ca["wo"])
+        x = x + gated_mlp(_ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
+                          "gelu_plain")
+    x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
+    cache["pos"] = pos + 1
+    return matmul(x, params["embed"].T), cache

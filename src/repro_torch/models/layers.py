@@ -1,5 +1,5 @@
-"""Shared low-level layers: norms, rotary embeddings, gated MLPs, parameter
-initialisation.
+"""Shared low-level layers: norms, rotary and sinusoidal positions, gated
+MLPs, parameter initialisation.
 
 Numerics policy (the reference's): weights and activations in
 ``cfg.dtype`` (bf16 on the card, f32 in the tests); norm statistics,
@@ -37,6 +37,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (normed * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with f32 statistics (biased variance), scaled by
+    ``1 + scale`` as :func:`rms_norm` is, plus ``bias``."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    normed = (x32 - mu) * torch.rsqrt(var + eps)
+    return (normed * (1.0 + scale.float()) + bias.float()).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Rotary position embedding
 # --------------------------------------------------------------------------
@@ -57,6 +68,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device=None
+                         ) -> torch.Tensor:
+    """The classic sin/cos table [seq, d_model] in f32 (whisper's encoder
+    and, in this port as in the reference, its decoder)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Uniform model API over the ported families (``dense``, ``moe``, ``vlm``
-and ``hybrid``).
+"""Uniform model API over the model families: ``dense``, ``moe``, ``vlm``,
+``hybrid``, ``ssm`` (xLSTM) and ``audio`` (whisper's encoder-decoder).
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose callables are
 functions of (params, batch[, cache]) on the params' device.
@@ -10,7 +10,7 @@ import dataclasses
 import math
 from typing import Any, Callable
 
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,20 +27,18 @@ class ModelAPI:
 
 def build_model(cfg, *, impl: str = "chunked") -> ModelAPI:
     """``impl="chunked"`` runs prefill through the port's kernels on the
-    card (flash attention, the SSD scan); ``"naive"`` is the plain oracle
-    path (full score matrix, plain chunked scan)."""
+    card (flash attention, the SSD scan, the sLSTM recurrence); ``"naive"``
+    is the plain oracle path (full score matrix, plain chunked scan, the
+    sLSTM's plain step loop).  An audio model's ``forward`` and
+    ``prefill`` take ``{"frames", "tokens"}``."""
     if impl not in ("chunked", "naive"):
         raise ValueError(f"unknown impl {impl!r}; expected 'chunked' or "
                          "'naive'")
-    if cfg.family in ("dense", "moe", "vlm"):
-        mod = transformer
-    elif cfg.family == "hybrid":
-        mod = hybrid
-    else:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            "serves the dense, moe, vlm and hybrid families); ROADMAP.md "
-            "§1 item 8 ports the rest of the model zoo")
+    mod = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "hybrid": hybrid, "ssm": xlstm_model,
+           "audio": encdec}.get(cfg.family)
+    if mod is None:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     return ModelAPI(
         cfg=cfg,
         init_params=lambda seed=0, device=None: mod.init_params(cfg, seed,

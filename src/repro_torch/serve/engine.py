@@ -9,14 +9,17 @@ loop.
 One deliberate difference from the reference engine: it builds its model
 with ``impl="naive"`` (a full ``[B, Hkv, G, S, S]`` f32 score matrix per
 layer); this engine builds with the default ``impl="chunked"``, so prefill
-attention runs the flash-attention kernel and Mamba2 prefill the SSD scan
-kernel on the card.  The reference calls the two implementations
+attention runs the flash-attention kernel, Mamba2 prefill the SSD scan
+kernel and the sLSTM recurrence its scan kernel on the card.  The reference calls the two implementations
 numerically equivalent; the tests hold this engine against the reference
 engine.
 
 Reproduced as the reference does it (not repaired): :meth:`ServeEngine.
-serve` left-pads shorter prompts with token 0 under no attention mask, and
-fills a short last batch with copies of its last request (``rid=-1``).
+serve` left-pads shorter prompts with token 0 under no attention mask (an
+xLSTM's recurrent state takes the zeros in), and fills a short last batch
+with copies of its last request (``rid=-1``).  An audio model's encoder
+frames (the stubbed frontend's output) are drawn on the host from the
+batch's seed, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -120,13 +123,16 @@ class ServeEngine:
         """
         b, s = prompts.shape
         assert b == self.batch_size, (b, self.batch_size)
-        if self.cfg.family == "audio":
-            raise NotImplementedError(
-                "audio (encoder-decoder) serving is not ported yet: "
-                "ROADMAP.md §1 item 8")
         t0 = self._now()
         batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                            device=self.device)}
+        if self.cfg.family == "audio":
+            # the stubbed frontend's frames, drawn on the host as the
+            # reference engine draws them, uploaded once per batch
+            frames = np.random.default_rng(seed).normal(
+                size=(b, self.cfg.enc_seq, self.cfg.d_model))
+            batch["frames"] = torch.as_tensor(frames.astype(np.float32),
+                                              device=self.device)
         logits, cache = self.api.prefill(self.params, batch, self.max_len)
         t_pf = self._now()
         self.stats.prefill_s += t_pf - t0

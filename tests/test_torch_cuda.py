@@ -1270,3 +1270,155 @@ def test_decide_split_with_live_pool_wait_and_rtt_tail_is_near_optimal(
                                device=cuda)
         assert bool((fast.scalar_cost <= exact.scalar_cost * (1 + 1e-4)
                      + 1e-12).all())
+
+
+# --------------------------------------------------------------------------
+# The sLSTM recurrence and whisper's attention shapes
+# --------------------------------------------------------------------------
+# (B, S, H, du, dtype of R and h): B 1-4, S 1, 7 and 2048 (xlstm-350m's
+# prefill at its width, H 4 and du 256), head counts other than 4, B past
+# one group of 4 rows, and unit counts that are not powers of two
+SLSTM_GPU_CASES = [
+    (b, s, 4, 256, dtype) for b in (1, 4) for s in (1, 7, 2048)
+    for dtype in (torch.float32, torch.bfloat16)] + [
+    (2, 300, 8, 32, torch.float32), (3, 65, 2, 128, torch.bfloat16),
+    (5, 33, 3, 24, torch.float32), (2, 40, 2, 30, torch.float32),
+    (1, 9, 3, 6, torch.bfloat16)]
+
+
+def _slstm_inputs(cuda, b, s, h, du, dtype, seed=0):
+    """pre [4, B, S, d] of unit scale and R [4, H, du, du] at the model's
+    init scale (std du^-1/2, as ``init_dense`` draws it)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed + s + du)
+    pre = torch.randn((4, b, s, h * du), generator=gen, device=cuda)
+    r = torch.randn((4, h, du, du), generator=gen, device=cuda) * du ** -0.5
+    return pre, r.to(dtype)
+
+
+@pytest.mark.parametrize("b,s,h,du,dtype", SLSTM_GPU_CASES)
+def test_slstm_scan_kernel_matches_plain(cuda, b, s, h, du, dtype):
+    """f32: h and the final (c, n, h, m) within 1e-4 absolute of the plain
+    step loop (|h| <= 1, since |c| <= n); bf16 (R and h): the f32 state as
+    in f32, and h within one bf16 ulp of |h| (2^-7 |h| bounds it) plus
+    1e-4, as both round the same f32 h to bf16."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
+    pre, r = _slstm_inputs(cuda, b, s, h, du, dtype)
+    sl_kernel.slstm_scan_kernel.launches = 0
+    got, st = sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert sl_kernel.slstm_scan_kernel.launches == 1
+    want, st_want = sl_ref.slstm_scan_ref(pre, r, out_dtype=dtype)
+    assert got.dtype == dtype and got.shape == (b, s, h * du)
+    tol = 1e-4 + (want.float().abs() * 2.0 ** -7 if dtype == torch.bfloat16
+                  else 0.0)
+    assert bool(((got.float() - want.float()).abs() <= tol).all()), \
+        (got.float() - want.float()).abs().max().item()
+    for name, g, w in zip("cnhm", st, st_want):
+        assert g.dtype == torch.float32
+        err = (g - w).abs().max().item()
+        assert err <= 1e-4, (name, err)
+    # the same bits in a second call
+    again, st2 = sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, c) for a, c in zip(st, st2))
+
+
+def test_slstm_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    pre, r = _slstm_inputs(cuda, 2, 5, 4, 16, torch.float32)
+    sl_kernel.slstm_scan_kernel.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        sl_kernel.slstm_scan_kernel(pre.cpu(), r.cpu())
+    with pytest.raises(ValueError, match="H du"):
+        sl_kernel.slstm_scan_kernel(pre, r[:, :3].contiguous())
+    with pytest.raises(ValueError, match="expected pre"):
+        sl_kernel.slstm_scan_kernel(pre[:3], r)
+    with pytest.raises(TypeError, match="float32"):
+        sl_kernel.slstm_scan_kernel(pre.to(torch.bfloat16), r)
+    with pytest.raises(ValueError, match="contiguous"):
+        sl_kernel.slstm_scan_kernel(pre.transpose(2, 3).contiguous()
+                                    .transpose(2, 3), r)
+    with pytest.raises(ValueError, match="du"):
+        sl_kernel.slstm_scan_kernel(torch.zeros(4, 1, 2, 512, device=cuda),
+                                    torch.zeros(4, 1, 512, 512,
+                                                device=cuda))
+    assert sl_kernel.slstm_scan_kernel.launches == 0
+
+
+# whisper-tiny's flash shapes (B, Sq, Sk, H, D, causal): the encoder over
+# 1,500 frames, cross-attention of a 224-token prompt, the decoder's self
+# attention, and ragged small ones around the 192-row and 128-key tiles
+WHISPER_FLASH_CASES = [(4, 1500, 1500, 6, 64, False),
+                       (4, 224, 1500, 6, 64, False),
+                       (4, 224, 224, 6, 64, True),
+                       (2, 100, 300, 4, 64, False),
+                       (1, 193, 129, 6, 64, False)]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", WHISPER_FLASH_CASES)
+def test_flash_attention_at_whisper_shapes(cuda, b, sq, sk, h, d, causal):
+    """bf16 on flash_fwd_wgmma<64, 64> through ``ops``, within
+    ``bf16_tolerance``; f32 on flash_fwd within 2e-5."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk)
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((b, sq, h, d), generator=gen, device=cuda).to(dtype)
+        k, v = (torch.randn((b, sk, h, d), generator=gen, device=cuda)
+                .to(dtype) for _ in range(2))
+        fa_kernel.reset_counts()
+        got = fa_ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        wgmma = dtype == torch.bfloat16
+        assert fa_kernel.flash_attention_kernel.by_kernel == {
+            "flash_fwd": int(not wgmma), "flash_fwd_wgmma": int(wgmma)}
+        assert got.shape == (b, sq, h, d)
+        _check_flash(got, q, k, v, causal=causal)
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
+def test_xlstm_and_whisper_run_their_kernels(cuda, arch):
+    """Reduced xlstm-350m and whisper-tiny in f32: the kernel path against
+    the naive path (one slstm_scan launch a group; one flash launch an
+    encoder layer and two a decoder layer), then served in bf16 (whisper
+    at its published head dim 64, which the tensor-core kernel takes)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = reduced_config(arch).replace(dtype="float32")
+    if cfg.family == "audio":
+        cfg = cfg.replace(head_dim=64)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(2, 150)), device=cuda)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)), dtype=torch.float32,
+            device=cuda)
+    params = build_model(cfg).init_params(0, cuda)
+    fa_kernel.reset_counts()
+    sl_kernel.slstm_scan_kernel.launches = 0
+    got, _ = build_model(cfg).prefill(params, batch, 160)
+    n_flash = (cfg.enc_layers + 2 * cfg.num_layers
+               if cfg.family == "audio" else 0)
+    n_slstm = (cfg.num_layers // cfg.slstm_every
+               if cfg.family == "ssm" else 0)
+    assert fa_kernel.flash_attention_kernel.launches == n_flash
+    assert sl_kernel.slstm_scan_kernel.launches == n_slstm
+    want, _ = build_model(cfg, impl="naive").prefill(params, batch, 160)
+    torch.testing.assert_close(got, want, rtol=1e-4,
+                               atol=1e-4 * want.abs().max().item())
+    fa_kernel.reset_counts()
+    sl_kernel.slstm_scan_kernel.launches = 0
+    engine = ServeEngine(cfg.replace(dtype="bfloat16"), batch_size=2,
+                         max_len=64, device=cuda)
+    done = engine.serve([Request(rid=i, prompt=np.arange(20 + i) % 97,
+                                 max_new_tokens=4) for i in range(3)])
+    assert [len(r.output) for r in done] == [4, 4, 4]
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 0, "flash_fwd_wgmma": 2 * n_flash}
+    assert sl_kernel.slstm_scan_kernel.launches == 2 * n_slstm

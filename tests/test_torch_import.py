@@ -112,6 +112,16 @@ def test_moe_mla_and_continuous_modules_load_no_jax_and_no_reference(module):
     assert_loads_no_jax_and_no_reference(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.xlstm",
+                                    "repro_torch.models.xlstm_model",
+                                    "repro_torch.models.encdec",
+                                    "repro_torch.kernels.slstm_scan.ref",
+                                    "repro_torch.kernels.slstm_scan.ops",
+                                    "repro_torch.kernels.slstm_scan.kernel"])
+def test_xlstm_and_encdec_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
                          ids=lambda p: str(p.relative_to(PORT)))
 def test_no_file_imports_jax_or_reference(path):

@@ -266,12 +266,6 @@ def test_vlm_prefills_embeds_like_the_reference():
         MAX_LEN)[0])
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "whisper-tiny"])
-def test_unported_families_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 8"):
-        build_model(p_reduced(arch))
-
-
 def test_unknown_impl_is_rejected():
     with pytest.raises(ValueError, match="impl"):
         build_model(p_reduced("qwen3-1.7b"), impl="flash")

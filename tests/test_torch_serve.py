@@ -35,7 +35,8 @@ def requests(cls, vocab, max_new=6):
 @pytest.fixture(scope="module", params=["qwen3-1.7b", "zamba2-1.2b",
                                         "deepseek-moe-16b",
                                         "deepseek-v2-lite-16b",
-                                        "phi-3-vision-4.2b"])
+                                        "phi-3-vision-4.2b", "xlstm-350m",
+                                        "whisper-tiny"])
 def engines(request):
     rcfg = r_reduced(request.param).replace(dtype="float32")
     pcfg = p_reduced(request.param).replace(dtype="float32")
@@ -130,12 +131,14 @@ def test_offload_plan_matches_reference(backend):
     assert set(want.splits.tolist()) == {0, 2}     # local and offloaded
 
 
-def test_launcher_runs_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m",
+                                  "whisper-tiny"])
+def test_launcher_runs_on_the_cpu(capsys, arch):
     from repro_torch.launch import serve
-    serve.main(["--device", "cpu", "--requests", "3", "--batch-size", "2",
-                "--prompt-len", "8", "--max-new", "3"])
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                "--batch-size", "2", "--prompt-len", "8", "--max-new", "3"])
     out = capsys.readouterr().out
-    assert "[serve] qwen3-1.7b on cpu: 3 requests, 12 tokens" in out
+    assert f"[serve] {arch} on cpu: 3 requests, 12 tokens" in out
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -143,5 +146,8 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     cfg = p_reduced("qwen3-1.7b")
     with pytest.raises(RuntimeError, match="device=None means cuda"):
         ServeEngine(cfg, batch_size=1, max_len=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServeEngine(p_reduced("whisper-tiny"), device="cpu")
+    # the audio family serves too, its frames drawn on the host
+    eng = ServeEngine(p_reduced("whisper-tiny").replace(dtype="float32"),
+                      batch_size=2, max_len=16, device="cpu")
+    out = eng.generate_batch(np.ones((2, 5), np.int32), 3)
+    assert out.shape == (2, 3) and eng.stats.tokens_out == 6
