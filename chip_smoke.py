@@ -14,7 +14,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    = 64, 96, 128, 192/128, 256) and of ``w8a16_wgmma`` must hold HGMMA
    and UTMALDG, none may write an A register of a ``wgmma`` still in
    flight (every instance's count is printed), and no
-   ``flash_fwd_wgmma`` instance may spill.
+   ``flash_fwd_wgmma`` instance may spill; no instance of ``fleet_scan``'s
+   registers route or of ``slstm_scan``'s cluster route may use local
+   memory (ptxas: 0 bytes of stack frame and of spills).
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel, one launch per tree level: at
@@ -79,9 +81,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``benchmarks/bench_fleet.py``'s largest cell (100,000 tasks on 256
    nodes over one diurnal day of 3,600 s, per-node diurnal links stepped
    every second, min-min) through ``simulate_stream(engine="fleet")`` on
-   the card (its singleton runs on the ``fleet_scan`` kernel) and on the
-   CPU (the plain version): records, ``summary()`` and counters equal, and
-   every singleton run's inputs and outputs equal on the two devices;
+   the card (its singleton runs on the ``fleet_scan`` kernel, each on the
+   registers route) and on the CPU (the plain version): records,
+   ``summary()`` and counters equal, and every singleton run's inputs and
+   outputs equal on the two devices;
    (b) its first cell (20,000 tasks, 16 nodes) through the event loop and
    the fleet engine on the card, records equal, in four split modes: none,
    decide-at-admission with ``split_backend="kernel"`` from the
@@ -102,8 +105,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the card and on the CPU, all equal.  ``fleet_scan`` and
    ``decide_split`` launch counts are set to 0 before the phase and read
    after it; the ``fleet`` line carries each run's wall time, events/s,
-   ``fleet_scan`` launches and steps, the slab sizes, misses per policy
-   and µs per decision.
+   ``fleet_scan`` launches (per route) and steps, the slab sizes, misses
+   per policy and µs per decision.
 6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=prompt + 40, seed=0)`` on qwen3-1.7b, zamba2-1.2b,
    deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b, gemma-2b (MQA,
@@ -119,7 +122,7 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    whisper's 24 non-causal encoder and cross-attention calls among them;
    every ``ssm_scan`` call must have launched ``ssd_cb`` and
    ``ssd_chunk`` once each; ``slstm_scan`` 12 times, once an sLSTM block
-   a batch).  Every request must get 32 in-range tokens and every logit
+   a batch, all on its cluster route).  Every request must get 32 in-range tokens and every logit
    must be finite.
 6b. Continuous batching at full width and depth in bf16:
    ``ContinuousBatchEngine(deepseek-moe-16b, slots=4, max_len=2088,
@@ -155,8 +158,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    slices' shapes, with the tolerance stated beside each check; flash,
    ``ssm_scan`` and ``slstm_scan`` also against themselves (two calls,
    the same bits).  ``slstm_scan`` at xlstm-350m's prefill (B 4, S 2048,
-   H 4, du 256) in bf16 and f32 against its plain step loop: f32 h and
-   the final state within 1e-4, bf16 h within 2^-7 |h| + 1e-4.
+   H 4, du 256) in bf16 and f32 on both routes (cluster, as served, and
+   block) against its plain step loop: f32 h and the final state within
+   1e-4, bf16 h within 2^-7 |h| + 1e-4.
    ``tree_predict`` equals its plain version bit for bit, phase by phase
    (the leaf matrix, the in-order fold) and on its global route too.
    ``gbt_hist`` must equal the plain version on a CPU copy bit for bit at
@@ -179,8 +183,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    call and with its bound at the 30 operations a split that its
    division-bound form took; ``gbt_hist`` is timed at the six levels of
    phase 8, ``ssm_scan`` as a call and per CUDA kernel (``ssd_cb``,
-   ``ssd_chunk``), and ``slstm_scan`` eager in bf16 and f32 beside its
-   plain step loop (no library call computes it).  Flash at the other
+   ``ssd_chunk``), and ``slstm_scan`` eager in bf16 and f32 on both
+   routes, beside its plain step loop (no library call computes it).  Flash at the other
    served shapes (``OTHER_FLASH_SHAPES``: the MLA prefill with v at 128,
    phi-3's D 96, gemma's D 256 with one kv head, one MoE admission,
    whisper's non-causal encoder over 1,500 frames and its cross-attention
@@ -193,8 +197,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    rows, eager as the path calls it (the graph replay beside), and
    ``decide_split`` on one admission's E = 1 sweep.  Phase 5's:
    ``fleet_scan`` on (a)'s longest singleton run, one launch, eager (f64:
-   its operations over 34 TFLOP/s), its plain version on the card once by
-   the host clock and held bit for bit against it; ``decide_split`` at
+   its operations over 34 TFLOP/s), on the registers and the shared
+   route, its plain version on the card once by the host clock and held
+   bit for bit against each; ``decide_split`` at
    (b)'s largest fleet slab and at (c)'s E = 1 contention sweep.
 10. The kernel bench, ``repro_torch.bench.kernels.main()``, the entry point
    of ``int8_matmul`` (W8A16; no other path runs it): every kernel of the
@@ -360,7 +365,7 @@ def serve_slice(dev, smi: str) -> dict:
     n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
     fa_kernel.reset_counts()
     ss_kernel.reset_counts()
-    sl_kernel.slstm_scan_kernel.launches = 0
+    sl_kernel.reset_counts()
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         prompt = PROMPT_OF.get(arch, SERVE_PROMPT)
@@ -432,12 +437,19 @@ def serve_slice(dev, smi: str) -> dict:
     launches = {k: w.launches for k, w in wrappers.items()}
     by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
     ssm_by_kernel = dict(ss_kernel.ssd_scan_kernel.by_kernel)
+    slstm_by_route = dict(sl_kernel.slstm_scan_kernel.by_route)
     print(json.dumps({"serve_launch_counts": launches,
                       "flash_by_kernel": by_kernel,
                       "ssm_by_kernel": ssm_by_kernel,
+                      "slstm_by_route": slstm_by_route,
                       "expected": expected,
                       "flash_by_kernel_expected": flash_expected}),
           flush=True)
+    # every sLSTM prefill (B 4, du 256) on the cluster route
+    check(slstm_by_route == {"cluster": expected["slstm_scan"],
+                             "block": 0},
+          f"slstm_scan: {slstm_by_route} on the serving path, expected "
+          f"all {expected['slstm_scan']} on the cluster route")
     # every scan call: C·Bᵀ once, then the chunks
     check(ssm_by_kernel == dict.fromkeys(ss_kernel.KERNELS,
                                          expected["ssm_scan"]),
@@ -451,7 +463,8 @@ def serve_slice(dev, smi: str) -> dict:
           and flash_expected["flash_fwd"] == 0,
           f"flash_attention: {by_kernel} on the serving path, expected "
           f"{flash_expected}")
-    return dict(launches, ssm_scan_by_kernel=ssm_by_kernel)
+    return dict(launches, ssm_scan_by_kernel=ssm_by_kernel,
+                slstm_scan_by_route=slstm_by_route)
 
 
 class LifecycleRecorder:
@@ -1244,7 +1257,7 @@ def fleet_slice(dev) -> tuple[dict, dict]:
         return len(tel) + tel.counters.get("replans", 0) \
             + int(tel.counters.get("link_refreshes", 0) / max(n_nodes, 1))
 
-    fs_kernel.place_singletons_kernel.launches = 0
+    fs_kernel.reset_counts()
     ds_kernel.decide_split_kernel.launches = 0
     out, shapes = {}, {}
     t_phase = time.perf_counter()
@@ -1281,6 +1294,11 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     check(len(calls) >= 1 and len(calls) == len(host_calls),
           f"fleet (a): {len(calls)} singleton runs on the card, "
           f"{len(host_calls)} on the CPU")
+    # 256 nodes: every singleton run on the registers route
+    scan_by_route = dict(fs_kernel.place_singletons_kernel.by_route)
+    check(scan_by_route == {"registers": len(calls), "shared": 0},
+          f"fleet (a): fleet_scan launches per route {scan_by_route}, "
+          f"expected all {len(calls)} on the registers route")
     # each run's inputs equal on both devices, and the kernel's outputs
     # and final avail equal to the plain version's on them: bit for bit
     for (ins, res, av, _), (h_ins, h_res, h_av, _) in zip(calls,
@@ -1298,6 +1316,7 @@ def fleet_slice(dev) -> tuple[dict, dict]:
         events=n_ev, card_s=wall, cpu_s=host_wall,
         card_events_per_s=n_ev / wall, cpu_events_per_s=n_ev / host_wall,
         fleet_scan_launches=fs_kernel.place_singletons_kernel.launches,
+        fleet_scan_by_route=scan_by_route,
         fleet_scan_steps=steps, singleton_runs=len(calls),
         # the launch as the engine made it, host clock to a synchronise
         fleet_scan_us_per_step=1e6 * sum(c[3] for c in calls) / steps,
@@ -1516,18 +1535,23 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     launches = {"fleet_scan": fs_kernel.place_singletons_kernel.launches,
                 "decide_split": ds_kernel.decide_split_kernel.launches}
     out["phase_s"] = time.perf_counter() - t_phase
-    print(json.dumps({"fleet_launch_counts": launches}), flush=True)
+    print(json.dumps({"fleet_launch_counts": launches,
+                      "fleet_scan_by_route": dict(
+                          fs_kernel.place_singletons_kernel.by_route)}),
+          flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the fleet path")
     line("fleet", **out)
+    launches["fleet_scan_by_route"] = dict(
+        fs_kernel.place_singletons_kernel.by_route)
     return launches, shapes
 
 
 def fleet_timing(dev, shapes: dict) -> tuple[dict, list]:
     """The fleet phase's kernel shapes timed with CUDA events after a
     warm-up: ``fleet_scan`` on the longest singleton run of (a) (the
-    kernel's record; its plain version on the card once, by the host
-    clock, and held bit for bit against the kernel), and ``decide_split``
+    kernel's record, on both routes; its plain version on the card once, by
+    the host clock, and held bit for bit against each), and ``decide_split``
     at (b)'s largest fleet slab and at (c)'s E = 1 contention sweep."""
     import torch
     from repro_torch.bench.common import F64_OPS_PER_S, bound, timed_ms
@@ -1540,19 +1564,29 @@ def fleet_timing(dev, shapes: dict) -> tuple[dict, list]:
     ins = [t.to(dev) for t in shapes["scan"]]
     n, n_nodes, k = ins[3].numel(), ins[0].numel(), ins[2].shape[0]
 
-    def kernel():
-        return fs_kernel.place_singletons_kernel(ins[0].clone(), *ins[1:])
+    def kernel(route):
+        return fs_kernel.place_singletons_kernel(ins[0].clone(), *ins[1:],
+                                                 route=route)
 
-    ms = timed_ms(kernel, 1)
-    got = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = fs_ref.place_singletons_ref(ins[0].clone(), *ins[1:])
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    check(all(torch.equal(a, b) for a, b in zip(got, want)),
-          "fleet_scan: the kernel differs from its plain version on the "
-          "card (tolerance: exact)")
+    # both routes (registers as the path takes it, shared the parent's
+    # design), each held bit for bit against the plain version and timed in
+    # this call
+    check(fs_kernel.choose_route(n_nodes) == "registers",
+          f"fleet_scan: {n_nodes} nodes are not on the registers route")
+    times = {}
+    for route in fs_kernel.ROUTES:
+        got = kernel(route)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"fleet_scan {route}: the kernel differs from its plain "
+              "version on the card (tolerance: exact)")
+        times[route] = timed_ms(lambda: kernel(route), 1)
+    ms = times["registers"]
     # each input read once (avail, peak_eff, the [K, N] table, four [n]
     # columns) and each output written once (four [n] columns, avail);
     # per step and node two divisions, two additions, a max, a compare
@@ -1564,7 +1598,9 @@ def fleet_timing(dev, shapes: dict) -> tuple[dict, list]:
                 bytes_ms=bound(nbytes, 0.0)[0],
                 ops_ms=bound(0.0, 6 * n_nodes * n, F64_OPS_PER_S)[0],
                 us_per_step=1e3 * ms / n, steps=n,
-                nodes=n_nodes, table_rows=k, max_abs_err=0.0)
+                nodes=n_nodes, table_rows=k, max_abs_err=0.0,
+                shared_ms=times["shared"],
+                shared_us_per_step=1e3 * times["shared"] / n)
     line("kernel_check", kernel="fleet_scan", steps=n, nodes=n_nodes,
          exact=True, max_abs_err=0.0)
     line("timing_extra", kernel="fleet_scan", **scan)
@@ -1986,9 +2022,11 @@ def serving_kernels(dev, launches: dict) -> list:
 
     # slstm_scan at xlstm-350m's prefill (B 4, S 2048, H 4, du 256): pre of
     # unit scale, R at the init's scale (std du^-1/2), in bf16 as served
-    # and in f32, against the plain step loop: f32 h and the final state
-    # within 1e-4 absolute (|h| <= 1: |c| <= n), bf16 h within one bf16 ulp
-    # of |h| (2^-7 |h| bounds it) plus 1e-4
+    # and in f32, on both routes (the cluster route as served, the block
+    # route the parent's design), each against the plain step loop: f32 h
+    # and the final state within 1e-4 absolute (|h| <= 1: |c| <= n), bf16
+    # h within one bf16 ulp of |h| (2^-7 |h| bounds it) plus 1e-4; each
+    # route the same bits in two calls; both timed in this call
     xcfg = get_config("xlstm-350m")
     xb, xs = SERVE_BATCH, SERVE_PROMPT
     xh, du = xcfg.num_heads, xcfg.d_model // xcfg.num_heads
@@ -1997,46 +2035,64 @@ def serving_kernels(dev, launches: dict) -> list:
     sl = {}
     for dtype in (bf16, torch.float32):
         r = r32.to(dtype)
-        got, st = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
-        torch.cuda.synchronize()
-        again, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
-        check(torch.equal(got, again) and all(
-            torch.equal(a, c) for a, c in zip(st, st2)),
-            f"slstm_scan {dtype}: two calls on the same inputs differ")
+        name = str(dtype).split(".")[-1]
         t0 = time.perf_counter()
         want, st_want = sl_ref.slstm_scan_ref(pre, r, out_dtype=dtype)
         torch.cuda.synchronize()
         plain_host_s = time.perf_counter() - t0
-        err = (got.float() - want.float()).abs()
         tol = 1e-4 + (want.float().abs() * 2.0 ** -7 if dtype == bf16
                       else 0.0)
-        over = (err / tol).max().item()
-        state_err = max((a - c).abs().max().item()
-                        for a, c in zip(st, st_want))
-        name = str(dtype).split(".")[-1]
-        line("kernel_check", kernel="slstm_scan", dtype=name,
-             shape=[xb, xs, xh, du], max_abs_err_h=err.max().item(),
-             err_over_tol_h=over, max_abs_err_state=state_err,
-             max_abs_h=want.float().abs().max().item(),
-             tolerance="h: 1e-4 (+ 2^-7 |h| in bf16); state: 1e-4",
-             same_bits_in_two_calls=True)
-        check(over <= 1.0 and state_err <= 1e-4, f"slstm_scan {name}: h "
-              f"off by {over} of its tolerance, state by {state_err} "
-              "(tolerance 1e-4)")
         b_ms, b_by = bound(*slstm_work(xb, xs, xh, du, r.element_size(),
-                                       got.element_size()), F32_OPS_PER_S)
+                                       want.element_size()), F32_OPS_PER_S)
+        check(sl_kernel.choose_route(xb, du, dtype) == "cluster",
+              f"slstm_scan {name}: xlstm-350m's shape is not on the "
+              "cluster route")
+        routes = {}
+        for route in sl_kernel.ROUTES:
+            got, st = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                                  route=route)
+            torch.cuda.synchronize()
+            again, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                                     route=route)
+            check(torch.equal(got, again) and all(
+                torch.equal(a, c) for a, c in zip(st, st2)),
+                f"slstm_scan {name} {route}: two calls on the same inputs "
+                "differ")
+            err = (got.float() - want.float()).abs()
+            over = (err / tol).max().item()
+            state_err = max((a - c).abs().max().item()
+                            for a, c in zip(st, st_want))
+            line("kernel_check", kernel="slstm_scan", dtype=name,
+                 route=route, shape=[xb, xs, xh, du],
+                 max_abs_err_h=err.max().item(), err_over_tol_h=over,
+                 max_abs_err_state=state_err,
+                 max_abs_h=want.float().abs().max().item(),
+                 tolerance="h: 1e-4 (+ 2^-7 |h| in bf16); state: 1e-4",
+                 same_bits_in_two_calls=True)
+            check(over <= 1.0 and state_err <= 1e-4, f"slstm_scan {name} "
+                  f"{route}: h off by {over} of its tolerance, state by "
+                  f"{state_err} (tolerance 1e-4)")
+            ms = timed_ms(lambda: sl_kernel.slstm_scan_kernel(
+                pre, r, out_dtype=dtype, route=route), 3, groups=3)
+            routes[route] = dict(ms=ms, us_per_step=ms * 1e3 / xs,
+                                 max_abs_err=err.max().item(),
+                                 state_max_abs_err=state_err)
+            del got, again, st, st2, err
         sl[name] = dict(
-            ms=timed_ms(lambda: sl_kernel.slstm_scan_kernel(
-                pre, r, out_dtype=dtype), 3, groups=3),
+            **routes["cluster"],
             plain_ms=timed_ms(lambda: sl_ref.slstm_scan_ref(
                 pre, r, out_dtype=dtype), 1, groups=1),
             plain_host_s=plain_host_s, library_ms=None,
-            bound_ms=b_ms, bound_by=b_by, max_abs_err=err.max().item(),
-            state_max_abs_err=state_err)
-        sl[name]["us_per_step"] = sl[name]["ms"] * 1e3 / xs
+            bound_ms=b_ms, bound_by=b_by,
+            cluster_plan=[sl_kernel.CLUSTER, sl_kernel.LANES],
+            block_ms=routes["block"]["ms"],
+            block_us_per_step=routes["block"]["us_per_step"],
+            block_over_cluster=routes["block"]["ms"]
+            / routes["cluster"]["ms"])
         line("timing_extra", kernel="slstm_scan", dtype=name,
-             shape=[xb, xs, xh, du], timing="eager", **sl[name])
-        del got, again, st, st2, want, st_want, err, tol
+             shape=[xb, xs, xh, du], timing="eager",
+             bound_us_per_step=b_ms * 1e3 / xs, **sl[name])
+        del want, st_want, tol
     del pre, r32
 
     out = []
@@ -2062,13 +2118,15 @@ def serving_kernels(dev, launches: dict) -> list:
                       "flash_attention"])
     # ssm_scan: launches count calls; each CUDA kernel's own record
     out[1]["kernels"] = ss["kernels"]
-    # slstm_scan: the bf16 call as served, the f32 one beside it
+    # slstm_scan: the bf16 call as served (cluster route; the block
+    # route's time beside it), the f32 one beside it
     out.append({"name": "slstm_scan", "route": "cuda",
                 "source": "src/repro_torch/csrc/slstm_scan.cu",
                 "replaces": "src/repro/models/xlstm.py:156",
                 "counterpart_of": "the lax.scan of slstm_scan (not a Pallas "
                 "kernel)",
                 "launches": launches["slstm_scan"],
+                "launches_by_route": launches["slstm_scan_by_route"],
                 "shape": [xb, xs, xh, du],
                 "timing": "eager", **sl["bfloat16"],
                 "float32": sl["float32"]})
@@ -2194,6 +2252,12 @@ def main() -> None:
     wgmma = {"flash_fwd_wgmma": ("flash_attention", 5),
              "w8a16_wgmma": ("int8_matmul", 1)}
     wgmma_ptxas = {k: [] for k in wgmma}
+    # the scans' instances that keep their state in registers: fleet_scan's
+    # registers route at 1-8 nodes a lane, slstm_scan's cluster route at
+    # 2 R dtypes × 2 h dtypes; none may touch local memory
+    frames = {"singleton_scan_registers": ("fleet_scan", 8),
+              "slstm_scan_cluster": ("slstm_scan", 4)}
+    frame_lines = {k: [] for k in frames}
     for name, log in logs.items():
         entry = name          # a source may hold several kernels
         for ln in log.splitlines():
@@ -2205,6 +2269,18 @@ def main() -> None:
                 for k in wgmma:
                     if k in entry:
                         wgmma_ptxas[k].append(ln.strip())
+                for k in frames:
+                    if k in entry and "stack frame" in ln:
+                        frame_lines[k].append(ln.strip())
+    for k, (source, instances) in frames.items():
+        check(source not in logs or (
+                  len(frame_lines[k]) == instances
+                  and all(re.fullmatch(r"0 bytes stack frame, 0 bytes spill "
+                                       r"stores, 0 bytes spill loads", ln)
+                          for ln in frame_lines[k])),
+              f"{k}: local memory (stack or spills) in an instance, or not "
+              f"one line per instance ({frame_lines[k]})")
+        line(f"{k}_build", ptxas=frame_lines[k])
     line("build", seconds=build_s, compiled=sorted(logs))
     for k, (source, instances) in wgmma.items():
         sass = hopper_sass(_build, source, k, instances)
@@ -2627,6 +2703,8 @@ def main() -> None:
                     "counterpart_of": "the jitted lax.scan _singleton_scan "
                     "(not a Pallas kernel)",
                     "launches": fleet_launches["fleet_scan"],
+                    "launches_by_route": fleet_launches[
+                        "fleet_scan_by_route"],
                     "library_ms": None, "timing": "eager",
                     **scan})
     kernels += serving_kernels(dev, serve_launches)

@@ -23,23 +23,58 @@
 // 0.040 ms at 3.35 TB/s); but no step can start before the one before has
 // written h, so the time is S times one step's latency.
 //
-// The design is the simple one.  One block per head, 4 du threads: thread
-// (k, v) owns gate k of unit v.  Each step it reads column v of R[k, hd]
-// (neighbouring threads read neighbouring v: coalesced; the whole R, 2 MB
-// in bf16 at xlstm-350m's width, stays in L2 across steps) once for every
-// 4 batch rows, and h of those rows from shared memory (one address a warp:
-// a broadcast).  A barrier; then threads (b, v) apply the cell to the
+// Two routes, chosen by shape (kernels/slstm_scan/kernel.py:choose_route).
+//
+// Route "cluster": one thread-block cluster of CS = 8 CTAs per head (the
+// portable size), launched with cudaLaunchKernelEx.  CTA c of a head
+// owns units [c U, (c+1) U), U = du / CS, for all four gates, so the cell of
+// every unit it owns is local to it.
+//  - R stays in shared memory for the whole sequence: at start each CTA
+//    copies its slice, R[k, hd, u, v] for its U units v, in R's own dtype,
+//    as rs[v][u][k] (a unit's row padded to 64 bytes past a multiple of
+//    128, so two lane groups of one warp read disjoint banks).  At du 256
+//    that is 64 KiB in bf16 and 128 KiB in f32 at CS 8.
+//  - Each CTA keeps the whole head's h, [du][4 nb] f32 (nb = ceil(B/4)
+//    blocks of four rows, the missing rows zero), twice: step t reads slot
+//    t % 2 and writes the new h of each unit it owns into slot (t+1) % 2
+//    of every CTA of the cluster (mapa + st.shared::cluster), then meets
+//    one cluster barrier (arrive.release / wait.acquire).  With the double
+//    buffer that one barrier is all the step needs: a CTA writes a slot
+//    only after every CTA has passed the barrier that ended its reads of
+//    it.  There is no other barrier on the chain.
+//  - A lane group of LG = 8 lanes owns (unit v, row block): its lanes split
+//    u (lane q takes u = q, q + LG, ...), each summing the 16 products of
+//    its four rows and four gates in a fixed order; a butterfly over the
+//    group (two halving exchanges, then one full one) leaves both lanes of
+//    the group's row q / 2 with that row's four gate sums, the same bits on
+//    each.  Those lanes add pre and apply the cell; c, n, m and h stay in
+//    their registers, and the two of them share the CS remote stores.  So
+//    the sums are deterministic: two calls give the same bits.
+//  - pre leaves the chain: a lane's four pre values of step t + 1 are
+//    loaded while step t runs.  h goes to h_out between the arrive and the
+//    wait, and c, n, h, m to their outputs once, at the end.
+// CS 8 and 8 lanes a unit's sums (du threads a CTA up to B 4), the one
+// plan the route has: at xlstm-350m's prefill on an H100 a step takes
+// ~2.3 us (4.71 ms a call in bf16, 5.02 in f32) against 5.02 ms at 8 CTAs
+// x 16 lanes, 5.39 at 8 x 4, 6.65 at 4 x 8 and 6.99 at 4 x 4 (PERF.md):
+// half the products a CTA outweighs twice the remote stores, and 8 lanes
+// balance a lane's sums against the cells and shuffles of more warps.
+// Every served shape takes it; the block route takes 50.8 ms at that
+// shape in the same run.
+//
+// Route "block", the first design, for the shapes the cluster route does
+// not take: one block per head, 4 du threads: thread (k, v) owns gate k of
+// unit v.  Each step it reads column v of R[k, hd] (neighbouring threads
+// read neighbouring v: coalesced; the whole R, 2 MB in bf16 at
+// xlstm-350m's width, stays in L2 across steps) once for every 4 batch
+// rows, and h of those rows from shared memory (one address a warp: a
+// broadcast).  A barrier; then threads (b, v) apply the cell to the
 // head's B du units, keeping c, n and m in shared memory, and write h to
 // shared memory and to the output.  A second barrier ends the step.  So
-// every step streams the head's 4 du^2 R entries from L2 into one SM.
-// On an H100 at xlstm-350m's shape that takes ~25 us a step in bf16 and in
-// f32 alike (chip_smoke.py), and variants that read h as 16-byte loads,
-// keep 16 R loads in flight a thread, or give each thread four columns
-// with one 8- or 16-byte R load a row ran no faster: the step waits on
-// its R reads from L2, not on their bytes or on the instructions around
-// them.  The faster design (ROADMAP.md) splits a head over a thread-block
-// cluster whose CTAs keep their slices of R in shared memory and pass h
-// through distributed shared memory.
+// every step streams the head's 4 du^2 R entries from L2 into one SM: ~25
+// us a step on an H100 at xlstm-350m's shape in bf16 and in f32 alike
+// (chip_smoke.py), however its loads are shaped; the step waits on its R
+// reads from L2.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +84,11 @@ namespace {
 constexpr int MAX_UNITS = 256;        // 4 du threads a block, at most 1024
 constexpr int BATCH_GROUP = 4;        // batch rows a gate thread sums at once
 constexpr size_t SMEM_MAX = 232448;   // dynamic shared memory a block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int CLUSTER_THREADS = 512;  // a CTA of the cluster route, at most
+constexpr int CS = 8;                 // CTAs a cluster: the portable size
+constexpr int LG = 8;                 // lanes that split a unit's sums
+constexpr int ROWS = 4;               // batch rows a lane group holds
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -157,6 +197,218 @@ int launch(const float* pre, const void* r, void* h_out, float* c_out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// route "cluster"
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+// the address of this CTA's shared-memory word `addr` in CTA `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, unsigned rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void store_cluster(uint32_t addr, float x) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(x)
+               : "memory");
+}
+
+// the four gates of one unit at one u, widened to f32
+__device__ __forceinline__ void gates4(const float* p, float* w) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+}
+__device__ __forceinline__ void gates4(const __nv_bfloat16* p, float* w) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  w[0] = __uint_as_float(x.x << 16);
+  w[1] = __uint_as_float(x.x & 0xffff0000u);
+  w[2] = __uint_as_float(x.y << 16);
+  w[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+// elements of a unit's row of the R slice: du u's of 4 gates, padded so the
+// row is 64 bytes past a multiple of 128
+__host__ __device__ __forceinline__ int r_stride(int du, int el) {
+  const int bytes = 4 * du * el;
+  return (bytes + (64 - bytes % 128 + 128) % 128) / el;
+}
+
+// shared memory of the cluster route: h twice, then the R slice
+__host__ __device__ __forceinline__ size_t cluster_smem(int B, int du,
+                                                        int units, int el) {
+  const int nb = (B + ROWS - 1) / ROWS;
+  return sizeof(float) * 2 * (size_t)du * ROWS * nb
+         + (size_t)units * r_stride(du, el) * el;
+}
+
+// pre [4, B, S, d] f32; r [4, H, du, du]; h_out [B, S, d]; the final c, n,
+// h, m [B, d] f32.  Grid H CS CTAs in clusters of CS, `units` = du / CS
+// units a CTA, units nb LG threads a CTA.
+template <typename TR, typename TO>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_scan_cluster(
+    const float* __restrict__ pre, const TR* __restrict__ r,
+    TO* __restrict__ h_out, float* __restrict__ c_out,
+    float* __restrict__ n_out, float* __restrict__ hl_out,
+    float* __restrict__ m_out, int B, int S, int H, int du, int units) {
+  constexpr int SUBS = LG / 4;        // lanes that share a row's cell
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = (B + ROWS - 1) / ROWS, hrow = ROWS * nb, d = H * du;
+  const int slot = du * hrow;                     // floats of one h slot
+  float* hbuf = reinterpret_cast<float*>(smem_raw);   // [2][du][hrow]
+  TR* rs = reinterpret_cast<TR*>(hbuf + 2 * slot);    // [units][rstride]
+  const int rstride = r_stride(du, (int)sizeof(TR));
+  const unsigned rank = cluster_rank();
+  const int head = blockIdx.x / CS, tid = threadIdx.x, nt = blockDim.x;
+  const int task = tid / LG, q = tid % LG;
+  const int unit = task % units, rb = task / units;
+  const int v = (int)rank * units + unit;         // the unit in the head
+  const int row = q / SUBS, sub = q % SUBS;
+  const int b = rb * ROWS + row;
+  const bool live = b < B;
+
+  for (int i = tid; i < 2 * slot; i += nt) hbuf[i] = 0.f;
+  for (int i = tid; i < 4 * du * units; i += nt) {
+    const int w = i % units, gu = i / units, u = gu % du, k = gu / du;
+    rs[w * rstride + u * 4 + k] =
+        r[((size_t)(k * H + head) * du + u) * du + rank * units + w];
+  }
+  cluster_arrive();          // every CTA's h zeroed before any remote store
+  cluster_wait();
+
+  // pre[k, b, t, head du + v] at pcol[k gstride + t d]
+  const size_t gstride = (size_t)B * S * d;
+  const float* pcol = pre + (size_t)(live ? b : 0) * S * d + head * du + v;
+  const TR* rrow = rs + unit * rstride;
+  const uint32_t hbase = (uint32_t)__cvta_generic_to_shared(hbuf)
+                         + (uint32_t)(sizeof(float) * (v * hrow + b));
+  float c = 0.f, n = 0.f, m = 0.f, h = 0.f, p_next[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    p_next[k] = live ? __ldg(pcol + k * gstride) : 0.f;
+  for (int t = 0; t < S; ++t) {
+    float p[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      p[k] = p_next[k];
+      // issued now, used a step later: pre is off the chain
+      if (live && t + 1 < S)
+        p_next[k] = __ldg(pcol + k * gstride + (size_t)(t + 1) * d);
+    }
+    // acc[4 j + k]: gate k of row j of the block, over this lane's u
+    float acc[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+    const float* hs = hbuf + (t & 1) * slot + rb * ROWS;
+#pragma unroll 4
+    for (int u = q; u < du; u += LG) {
+      const float4 hv = *reinterpret_cast<const float4*>(hs + u * hrow);
+      float w[4];
+      gates4(rrow + u * 4, w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        acc[k] = fmaf(hv.x, w[k], acc[k]);
+        acc[4 + k] = fmaf(hv.y, w[k], acc[4 + k]);
+        acc[8 + k] = fmaf(hv.z, w[k], acc[8 + k]);
+        acc[12 + k] = fmaf(hv.w, w[k], acc[12 + k]);
+      }
+    }
+    // halve twice: rows 0-1 | 2-3, then one row of each pair
+    {
+      const bool up = q & (LG / 2);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float send = up ? acc[i] : acc[i + 8];
+        const float keep = up ? acc[i + 8] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(FULL, send, LG / 2);
+      }
+    }
+    {
+      const bool up = q & (LG / 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float send = up ? acc[i] : acc[i + 4];
+        const float keep = up ? acc[i + 4] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(FULL, send, LG / 4);
+      }
+    }
+    // then sum over the SUBS lanes of the row: the same bits on each
+#pragma unroll
+    for (int o = SUBS / 2; o >= 1; o >>= 1)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[i] += __shfl_xor_sync(FULL, acc[i], o);
+    const float zt = tanhf(p[0] + acc[0]);
+    const float it = p[1] + acc[1];
+    const float lf = log_sigmoid(p[2] + acc[2]);
+    const float ot = 1.f / (1.f + expf(-(p[3] + acc[3])));
+    const float mn = fmaxf(lf + m, it);
+    const float ip = expf(it - mn);
+    const float fp = expf(lf + m - mn);
+    c = fp * c + ip * zt;
+    n = fp * n + ip;
+    h = ot * c / fmaxf(n, 1e-6f);
+    m = mn;
+    if (live) {
+      const uint32_t dst = hbase + (uint32_t)(sizeof(float) * ((t + 1) & 1)
+                                              * slot);
+#pragma unroll
+      for (int k = sub; k < CS; k += SUBS)
+        store_cluster(map_rank(dst, (unsigned)k), h);
+    }
+    cluster_arrive();
+    if (live && sub == 0)
+      put(h_out + ((size_t)b * S + t) * d + head * du + v, h);
+    cluster_wait();        // also keeps every CTA alive past the last store
+  }
+  if (live && sub == 0) {
+    const size_t o = (size_t)b * d + head * du + v;
+    c_out[o] = c;
+    n_out[o] = n;
+    hl_out[o] = h;
+    m_out[o] = m;
+  }
+}
+
+template <typename TR, typename TO>
+int launch_cluster(const float* pre, const void* r, void* h_out,
+                   float* c_out, float* n_out, float* hl_out, float* m_out,
+                   int B, int S, int H, int du, size_t smem,
+                   cudaStream_t stream) {
+  auto kernel = slstm_scan_cluster<TR, TO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int units = du / CS, nb = (B + ROWS - 1) / ROWS;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H * CS, 1, 1);
+  cfg.blockDim = dim3(units * nb * LG, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, pre, static_cast<const TR*>(r),
+                         static_cast<TO*>(h_out), c_out, n_out, hl_out,
+                         m_out, B, S, H, du, units);
+  if (e != cudaSuccess) return (int)e;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -193,6 +445,42 @@ int slstm_scan(const void* pre, const void* r, int r_bf16, void* h_out,
       ? launch<float, __nv_bfloat16>(p, r, h_out, c, n, hl, m, B, S, H, du,
                                      smem, s)
       : launch<float, float>(p, r, h_out, c, n, hl, m, B, S, H, du, smem, s);
+}
+
+// The cluster route: as slstm_scan, in one launch of H clusters of 8 CTAs
+// (8 dividing du) of du / 8 * ceil(B / 4) * 8 threads (a multiple of 32 and
+// at most 512), each CTA with its R slice, the head's h twice and nothing
+// else in shared memory (at most 232,448 bytes).  Returns
+// cudaGetLastError() after the launch.
+int slstm_scan_cluster(const void* pre, const void* r, int r_bf16,
+                       void* h_out, int out_bf16, void* c_out, void* n_out,
+                       void* hl_out, void* m_out, int B, int S, int H, int du,
+                       void* stream) {
+  if (B < 1 || S < 1 || H < 1 || du < 1 || du % CS)
+    return (int)cudaErrorInvalidValue;
+  const long long threads =
+      (long long)(du / CS) * ((B + ROWS - 1) / ROWS) * LG;
+  if (threads % 32 || threads > CLUSTER_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = cluster_smem(B, du, du / CS, r_bf16 ? 2 : 4);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(pre);
+  float* c = static_cast<float*>(c_out);
+  float* n = static_cast<float*>(n_out);
+  float* hl = static_cast<float*>(hl_out);
+  float* m = static_cast<float*>(m_out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (r_bf16)
+    return out_bf16
+        ? launch_cluster<__nv_bfloat16, __nv_bfloat16>(
+              p, r, h_out, c, n, hl, m, B, S, H, du, smem, s)
+        : launch_cluster<__nv_bfloat16, float>(
+              p, r, h_out, c, n, hl, m, B, S, H, du, smem, s);
+  return out_bf16
+      ? launch_cluster<float, __nv_bfloat16>(
+            p, r, h_out, c, n, hl, m, B, S, H, du, smem, s)
+      : launch_cluster<float, float>(p, r, h_out, c, n, hl, m, B, S, H, du,
+                                     smem, s);
 }
 
 }  // extern "C"

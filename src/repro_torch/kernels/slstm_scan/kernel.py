@@ -1,4 +1,5 @@
-"""Wrapper of the CUDA sLSTM recurrence kernel (``csrc/slstm_scan.cu``)."""
+"""Wrapper of the CUDA sLSTM recurrence kernels (``csrc/slstm_scan.cu``),
+and the rule by which a call picks one of them."""
 from __future__ import annotations
 
 import ctypes
@@ -7,11 +8,56 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: units a head (4 du threads a block, at most 1024)
+#: the two kernels behind ``slstm_scan``: a thread-block cluster per head
+#: with its R slice in shared memory and h passed through distributed
+#: shared memory; one block per head reading R from L2 (the first design)
+ROUTES = ("cluster", "block")
+#: units a head on the block route (4 du threads a block, at most 1024)
 MAX_UNITS = 256
-#: dynamic shared memory a block may use: 32 B du bytes
+#: dynamic shared memory a block may use (the block route: 32 B du bytes)
 SMEM_MAX = 232448
+#: CTAs a cluster and lanes that split a unit's sums: the cluster route's
+#: one plan.  At xlstm-350m's prefill on an H100, 8 × 8 ran a step in
+#: ~2.3 µs; 8 × 16, 8 × 4, 4 × 8 and 4 × 4 ran slower (PERF.md)
+CLUSTER, LANES = 8, 8
+CLUSTER_THREADS = 512
+#: batch rows a lane group holds (B is padded up to a multiple)
+ROWS = 4
 _OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _r_stride(du: int, el: int) -> int:
+    """Elements of a unit's row of a CTA's R slice: du u's of four gates,
+    padded to 64 bytes past a multiple of 128 (``csrc`` ``r_stride``)."""
+    nbytes = 4 * du * el
+    return (nbytes + (64 - nbytes % 128) % 128) // el
+
+
+def cluster_smem(b: int, du: int, el: int) -> int:
+    """Shared memory of a CTA of the cluster route: the head's h, [du] ×
+    ``b`` rows padded to a multiple of 4, twice, then its R slice of
+    du / :data:`CLUSTER` units in R's dtype (``el`` bytes an entry)."""
+    rows = ROWS * -(-b // ROWS)
+    return 4 * 2 * du * rows + (du // CLUSTER) * _r_stride(du, el) * el
+
+
+def cluster_fits(b: int, du: int, r_dtype: torch.dtype) -> bool:
+    """Whether the cluster route takes B rows at du units a head with R in
+    ``r_dtype``: :data:`CLUSTER` divides du, a CTA's du / 8 · ceil(B / 4) ·
+    8 threads are a multiple of 32 and at most :data:`CLUSTER_THREADS`, and
+    its R slice and h buffers fit in :data:`SMEM_MAX` bytes."""
+    el = torch.empty((), dtype=r_dtype).element_size()
+    threads = du // CLUSTER * -(-b // ROWS) * LANES
+    return (b >= 1 and du >= 1 and du % CLUSTER == 0 and threads % 32 == 0
+            and threads <= CLUSTER_THREADS
+            and cluster_smem(b, du, el) <= SMEM_MAX)
+
+
+def choose_route(b: int, du: int, r_dtype: torch.dtype) -> str:
+    """The kernel a call of B rows at du units a head takes, by shape and
+    R's dtype alone: ``"cluster"`` where :func:`cluster_fits`, else
+    ``"block"``."""
+    return "cluster" if cluster_fits(b, du, r_dtype) else "block"
 
 
 def _lib() -> ctypes.CDLL:
@@ -19,19 +65,42 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.slstm_scan.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, p]
     lib.slstm_scan.restype = ctypes.c_int
+    lib.slstm_scan_cluster.argtypes = lib.slstm_scan.argtypes
+    lib.slstm_scan_cluster.restype = ctypes.c_int
     return lib
 
 
+def _route_checked(route: str | None, b: int, du: int,
+                   r_dtype: torch.dtype) -> str:
+    """The route a call takes; raises ``ValueError`` for an unknown route or one that cannot take the
+    shape."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    route = route or choose_route(b, du, r_dtype)
+    if route == "block" and (not 1 <= du <= MAX_UNITS
+                             or 32 * b * du > SMEM_MAX):
+        raise ValueError(
+            f"the block route takes du 1..{MAX_UNITS} and 32 B du <= "
+            f"{SMEM_MAX} bytes of shared memory, not B {b} at du {du}")
+    if route == "cluster" and not cluster_fits(b, du, r_dtype):
+        raise ValueError(f"the cluster route does not take B {b} at du "
+                         f"{du} with R in {r_dtype}")
+    return route
+
+
 def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
-                      out_dtype: torch.dtype = torch.float32):
+                      out_dtype: torch.dtype = torch.float32,
+                      route: str | None = None):
     """pre [4, B, S, d] contiguous float32, r [4, H, du, du] contiguous
-    float32 or bfloat16 (H du = d, du <= 256), on one CUDA device →
-    (h [B, S, d] in ``out_dtype``, final (c, n, h, m), each [B, d]
-    float32): :func:`~repro_torch.kernels.slstm_scan.ref.slstm_scan_ref`
-    in one launch of H blocks.  ``launches`` counts launches."""
-    if pre.device.type != "cuda" or r.device != pre.device:
-        raise ValueError("slstm_scan_kernel needs pre and r on one CUDA "
-                         f"device, got {pre.device} and {r.device}")
+    float32 or bfloat16 (H du = d), on one CUDA device → (h [B, S, d] in
+    ``out_dtype``, final (c, n, h, m), each [B, d] float32):
+    :func:`~repro_torch.kernels.slstm_scan.ref.slstm_scan_ref` in one
+    launch.
+
+    ``route`` (one of :data:`ROUTES`; default :func:`choose_route`) names
+    the kernel; one that cannot take the call raises ``ValueError`` before
+    anything is built.  ``launches``
+    counts launches, ``by_route`` launches per route."""
     if pre.dtype != torch.float32 or r.dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise TypeError("pre must be float32 and r float32 or bfloat16, "
@@ -49,11 +118,10 @@ def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
                          f"H du = d = {d}")
     if not pre.is_contiguous() or not r.is_contiguous():
         raise ValueError("slstm_scan_kernel inputs must be contiguous")
-    if not 1 <= du <= MAX_UNITS:
-        raise ValueError(f"du {du} outside 1..{MAX_UNITS}")
-    if 32 * b * du > SMEM_MAX:
-        raise ValueError(f"batch {b} at du {du} needs {32 * b * du} bytes "
-                         f"of shared memory, more than {SMEM_MAX}")
+    route = _route_checked(route, b, du, r.dtype)
+    if pre.device.type != "cuda" or r.device != pre.device:
+        raise ValueError("slstm_scan_kernel needs pre and r on one CUDA "
+                         f"device, got {pre.device} and {r.device}")
     hs = torch.empty((b, s, d), dtype=out_dtype, device=pre.device)
     state = tuple(torch.empty((b, d), dtype=torch.float32,
                               device=pre.device) for _ in range(4))
@@ -62,16 +130,25 @@ def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
             t.zero_()
         return hs, state
     lib = _lib()
-    with torch.cuda.device(pre.device):
-        rc = lib.slstm_scan(
-            _build.ptr(pre), _build.ptr(r), int(r.dtype == torch.bfloat16),
+    args = (_build.ptr(pre), _build.ptr(r), int(r.dtype == torch.bfloat16),
             _build.ptr(hs), int(out_dtype == torch.bfloat16),
-            *(_build.ptr(t) for t in state), b, s, h, du,
-            _build.stream_of(pre))
-    _build.check(lib, rc, "slstm_scan")
+            *(_build.ptr(t) for t in state), b, s, h, du)
+    with torch.cuda.device(pre.device):
+        entry = (lib.slstm_scan_cluster if route == "cluster"
+                 else lib.slstm_scan)
+        rc = entry(*args, _build.stream_of(pre))
+    _build.check(lib, rc, f"slstm_scan ({route})")
     slstm_scan_kernel.launches += 1
+    slstm_scan_kernel.by_route[route] += 1
     return hs, state
 
 
-#: launches of the CUDA kernel since the count was last set to 0
-slstm_scan_kernel.launches = 0
+def reset_counts() -> None:
+    """Set the launch counts (all, and per route) to 0."""
+    slstm_scan_kernel.launches = 0
+    slstm_scan_kernel.by_route = dict.fromkeys(ROUTES, 0)
+
+
+#: launches of the CUDA kernels since the counts were last set to 0, in all
+#: (``launches``) and per route (``by_route``)
+reset_counts()

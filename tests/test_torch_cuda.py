@@ -1182,26 +1182,52 @@ def _scan_case(n_nodes, n, k, seed, ties):
                                          segs)]
 
 
-@pytest.mark.parametrize("n_nodes", [1, 2, 31, 32, 33, 256, 300, 1000,
-                                     9684])
+# (nodes, route): both routes up to 256 nodes (1 to 8 a lane on the
+# registers route, each count of slots, full and not), the shared route past
+# it, up to MAX_NODES
+FLEET_SCAN_CASES = [(n, route) for n in (1, 2, 31, 32, 33, 65, 96, 100, 128,
+                                         160, 200, 224, 255, 256)
+                    for route in ("registers", "shared")] + [
+    (n, "shared") for n in (257, 300, 1000, 9684)]
+
+
+@pytest.mark.parametrize("n_nodes,route", FLEET_SCAN_CASES)
 @pytest.mark.parametrize("ties", [False, True])
-def test_fleet_scan_kernel_matches_plain_bit_for_bit(cuda, n_nodes, ties):
+def test_fleet_scan_kernel_matches_plain_bit_for_bit(cuda, n_nodes, route,
+                                                     ties):
     """One block places every task, its etc rows a chunk ahead (up to 64
     steps a chunk, one at MAX_NODES): j, start, finish, etc and
     the final avail equal to the plain version on a CPU copy, bit for bit
-    (IEEE f64 divisions and additions, first index on ties)."""
+    (IEEE f64 divisions and additions, first index on ties), on the route
+    named, which ``choose_route`` gives where it takes the shape."""
     from repro_torch.kernels.fleet_scan import kernel as fs_kernel
     from repro_torch.kernels.fleet_scan import ref as fs_ref
     cpu = _scan_case(n_nodes, 900, 7, n_nodes, ties)
     gpu = [x.to(cuda) for x in cpu]
     want = fs_ref.place_singletons_ref(*cpu)
-    got = fs_kernel.place_singletons_kernel(*gpu)
+    fs_kernel.reset_counts()
+    got = fs_kernel.place_singletons_kernel(*gpu, route=route)
     torch.cuda.synchronize()
+    assert fs_kernel.place_singletons_kernel.by_route == {
+        r: int(r == route) for r in fs_kernel.ROUTES}
+    assert fs_kernel.choose_route(n_nodes) == (
+        "registers" if n_nodes <= 256 else "shared")
     for w, g in zip(want, got):
         assert torch.equal(w, g.cpu())
     assert torch.equal(cpu[0], gpu[0].cpu())
     if ties:
         assert int(got[0][0]) == 0
+
+
+def test_fleet_scan_refuses_a_route_that_cannot_take_the_shape(cuda):
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    gpu = [x.to(cuda) for x in _scan_case(300, 10, 2, 0, False)]
+    fs_kernel.reset_counts()
+    with pytest.raises(ValueError, match="at most 256"):
+        fs_kernel.place_singletons_kernel(*gpu, route="registers")
+    with pytest.raises(ValueError, match="route"):
+        fs_kernel.place_singletons_kernel(*gpu, route="warp")
+    assert fs_kernel.place_singletons_kernel.launches == 0
 
 
 def test_fleet_engine_on_the_card_equals_the_cpu(cuda):
@@ -1275,15 +1301,30 @@ def test_decide_split_with_live_pool_wait_and_rtt_tail_is_near_optimal(
 # --------------------------------------------------------------------------
 # The sLSTM recurrence and whisper's attention shapes
 # --------------------------------------------------------------------------
-# (B, S, H, du, dtype of R and h): B 1-4, S 1, 7 and 2048 (xlstm-350m's
-# prefill at its width, H 4 and du 256), head counts other than 4, B past
-# one group of 4 rows, and unit counts that are not powers of two
-SLSTM_GPU_CASES = [
-    (b, s, 4, 256, dtype) for b in (1, 4) for s in (1, 7, 2048)
+# (B, S, H, du, dtype of R and h): B 1, 2 and 4, S 1, 7 and 2048
+# (xlstm-350m's prefill at its width, H 4 and du 256), head counts other
+# than 4, B past one group of 4 rows, and unit counts that are not powers
+# of two; each on every route that takes it (the block route up to du 256,
+# the cluster route where ``cluster_fits``)
+SLSTM_SHAPES = [
+    (b, s, 4, 256, dtype) for b in (1, 2, 4) for s in (1, 7, 2048)
     for dtype in (torch.float32, torch.bfloat16)] + [
     (2, 300, 8, 32, torch.float32), (3, 65, 2, 128, torch.bfloat16),
     (5, 33, 3, 24, torch.float32), (2, 40, 2, 30, torch.float32),
-    (1, 9, 3, 6, torch.bfloat16)]
+    (1, 9, 3, 6, torch.bfloat16), (8, 50, 2, 256, torch.float32),
+    (6, 20, 2, 64, torch.bfloat16), (9, 20, 2, 256, torch.bfloat16)]
+
+
+def _slstm_routes(b, du, dtype):
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    routes = ["block"] if du <= sl_kernel.MAX_UNITS else []
+    if sl_kernel.cluster_fits(b, du, dtype):
+        routes.insert(0, "cluster")
+    return routes
+
+
+SLSTM_GPU_CASES = [(*shape, route) for shape in SLSTM_SHAPES
+                   for route in _slstm_routes(shape[0], shape[3], shape[4])]
 
 
 def _slstm_inputs(cuda, b, s, h, du, dtype, seed=0):
@@ -1295,20 +1336,22 @@ def _slstm_inputs(cuda, b, s, h, du, dtype, seed=0):
     return pre, r.to(dtype)
 
 
-@pytest.mark.parametrize("b,s,h,du,dtype", SLSTM_GPU_CASES)
-def test_slstm_scan_kernel_matches_plain(cuda, b, s, h, du, dtype):
+@pytest.mark.parametrize("b,s,h,du,dtype,route", SLSTM_GPU_CASES)
+def test_slstm_scan_kernel_matches_plain(cuda, b, s, h, du, dtype, route):
     """f32: h and the final (c, n, h, m) within 1e-4 absolute of the plain
     step loop (|h| <= 1, since |c| <= n); bf16 (R and h): the f32 state as
     in f32, and h within one bf16 ulp of |h| (2^-7 |h| bounds it) plus
-    1e-4, as both round the same f32 h to bf16."""
+    1e-4, as both round the same f32 h to bf16.  On the route named; the
+    same bits in a second call."""
     from repro_torch.kernels.slstm_scan import kernel as sl_kernel
-    from repro_torch.kernels.slstm_scan import ops as sl_ops
     from repro_torch.kernels.slstm_scan import ref as sl_ref
     pre, r = _slstm_inputs(cuda, b, s, h, du, dtype)
-    sl_kernel.slstm_scan_kernel.launches = 0
-    got, st = sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    sl_kernel.reset_counts()
+    got, st = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                          route=route)
     torch.cuda.synchronize()
     assert sl_kernel.slstm_scan_kernel.launches == 1
+    assert sl_kernel.slstm_scan_kernel.by_route[route] == 1
     want, st_want = sl_ref.slstm_scan_ref(pre, r, out_dtype=dtype)
     assert got.dtype == dtype and got.shape == (b, s, h * du)
     tol = 1e-4 + (want.float().abs() * 2.0 ** -7 if dtype == torch.bfloat16
@@ -1320,9 +1363,84 @@ def test_slstm_scan_kernel_matches_plain(cuda, b, s, h, du, dtype):
         err = (g - w).abs().max().item()
         assert err <= 1e-4, (name, err)
     # the same bits in a second call
-    again, st2 = sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    again, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                             route=route)
     assert torch.equal(got, again)
     assert all(torch.equal(a, c) for a, c in zip(st, st2))
+
+
+def _slstm_held_to_plain(pre, r, dtype, got, st):
+    """The tolerances of ``test_slstm_scan_kernel_matches_plain``."""
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
+    want, st_want = sl_ref.slstm_scan_ref(pre, r, out_dtype=dtype)
+    tol = 1e-4 + (want.float().abs() * 2.0 ** -7 if dtype == torch.bfloat16
+                  else 0.0)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    for g, w in zip(st, st_want):
+        assert (g - w).abs().max().item() <= 1e-4
+
+
+# (B, H, du) the cluster route takes off xlstm-350m's shape: one to two
+# blocks of four rows, 32 to 512 threads a CTA, du from 32 to 256 with
+# 4 to 32 units a CTA
+SLSTM_CLUSTER_SHAPES = [(3, 2, 128), (1, 1, 32), (4, 2, 64), (5, 2, 64),
+                        (7, 1, 256), (8, 1, 128), (2, 3, 96), (1, 2, 160),
+                        (6, 2, 192)]
+
+
+@pytest.mark.parametrize("b,h,du", SLSTM_CLUSTER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_scan_cluster_route_matches_plain(cuda, b, h, du, dtype):
+    """The cluster route's one plan (8 CTAs a head, 8 lanes a unit's sums)
+    at shapes other than the served one, within the tolerances of
+    ``test_slstm_scan_kernel_matches_plain``, and the same bits twice."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    pre, r = _slstm_inputs(cuda, b, 37, h, du, dtype)
+    assert sl_kernel.choose_route(b, du, dtype) == "cluster"
+    got, st = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                          route="cluster")
+    again, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                             route="cluster")
+    torch.cuda.synchronize()
+    _slstm_held_to_plain(pre, r, dtype, got, st)
+    assert torch.equal(got, again)
+    assert all(torch.equal(a, c) for a, c in zip(st, st2))
+
+
+@pytest.mark.parametrize("b,s,h,du,dtype,route", [
+    (5, 33, 3, 24, torch.float32, "block"),
+    (2, 40, 2, 30, torch.float32, "block"),
+    (9, 20, 2, 256, torch.bfloat16, "block"),
+    (3, 65, 2, 128, torch.bfloat16, "cluster"),
+    (2, 300, 8, 32, torch.float32, "cluster")])
+def test_slstm_scan_ops_takes_the_route_by_shape(cuda, b, s, h, du, dtype,
+                                                 route):
+    """``ops.slstm_scan`` at edge shapes: one launch, on the route
+    ``choose_route`` gives, held to the plain step loop."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
+    pre, r = _slstm_inputs(cuda, b, s, h, du, dtype)
+    sl_kernel.reset_counts()
+    got, st = sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert sl_kernel.slstm_scan_kernel.by_route == {
+        k: int(k == route) for k in sl_kernel.ROUTES}
+    _slstm_held_to_plain(pre, r, dtype, got, st)
+
+
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slstm_scan_served_shape_takes_the_cluster_route(cuda, b, dtype):
+    """xlstm-350m's width (H 4, du 256) through ``ops``: one launch, on
+    the cluster route, at every batch the engine serves."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ops as sl_ops
+    pre, r = _slstm_inputs(cuda, b, 16, 4, 256, dtype)
+    sl_kernel.reset_counts()
+    sl_ops.slstm_scan(pre, r, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert sl_kernel.slstm_scan_kernel.by_route == {"cluster": 1,
+                                                    "block": 0}
 
 
 def test_slstm_scan_kernel_refuses_what_it_does_not_take(cuda):
@@ -1344,6 +1462,12 @@ def test_slstm_scan_kernel_refuses_what_it_does_not_take(cuda):
         sl_kernel.slstm_scan_kernel(torch.zeros(4, 1, 2, 512, device=cuda),
                                     torch.zeros(4, 1, 512, 512,
                                                 device=cuda))
+    with pytest.raises(ValueError, match="cluster route"):
+        sl_kernel.slstm_scan_kernel(torch.zeros(4, 1, 2, 30, device=cuda),
+                                    torch.zeros(4, 1, 30, 30, device=cuda),
+                                    route="cluster")
+    with pytest.raises(ValueError, match="route"):
+        sl_kernel.slstm_scan_kernel(pre, r, route="grid")
     assert sl_kernel.slstm_scan_kernel.launches == 0
 
 
@@ -1401,7 +1525,7 @@ def test_xlstm_and_whisper_run_their_kernels(cuda, arch):
             device=cuda)
     params = build_model(cfg).init_params(0, cuda)
     fa_kernel.reset_counts()
-    sl_kernel.slstm_scan_kernel.launches = 0
+    sl_kernel.reset_counts()
     got, _ = build_model(cfg).prefill(params, batch, 160)
     n_flash = (cfg.enc_layers + 2 * cfg.num_layers
                if cfg.family == "audio" else 0)
@@ -1413,7 +1537,7 @@ def test_xlstm_and_whisper_run_their_kernels(cuda, arch):
     torch.testing.assert_close(got, want, rtol=1e-4,
                                atol=1e-4 * want.abs().max().item())
     fa_kernel.reset_counts()
-    sl_kernel.slstm_scan_kernel.launches = 0
+    sl_kernel.reset_counts()
     engine = ServeEngine(cfg.replace(dtype="bfloat16"), batch_size=2,
                          max_len=64, device=cuda)
     done = engine.serve([Request(rid=i, prompt=np.arange(20 + i) % 97,
@@ -1422,3 +1546,4 @@ def test_xlstm_and_whisper_run_their_kernels(cuda, arch):
     assert fa_kernel.flash_attention_kernel.by_kernel == {
         "flash_fwd": 0, "flash_fwd_wgmma": 2 * n_flash}
     assert sl_kernel.slstm_scan_kernel.launches == 2 * n_slstm
+    assert sl_kernel.slstm_scan_kernel.by_route["block"] == 0

@@ -541,3 +541,33 @@ def test_fleet_scan_dispatch_and_kernel_checks():
     empty = scan_ops.place_singletons(args[0].clone(), args[1], args[2],
                                       *(a[:0] for a in args[3:]))
     assert all(t.numel() == 0 for t in empty)
+
+
+@pytest.mark.parametrize("n_nodes,route", [
+    (1, "registers"), (31, "registers"), (32, "registers"),
+    (33, "registers"), (256, "registers"), (257, "shared"),
+    (scan_kernel.MAX_NODES, "shared")])
+def test_fleet_scan_choose_route_by_nodes(n_nodes, route):
+    """Avail in the consumer's registers up to 8 nodes a lane (256), in
+    shared memory past it."""
+    assert scan_kernel.choose_route(n_nodes) == route
+
+
+def test_fleet_scan_kernel_refuses_routes_before_building():
+    """An unknown route, and the registers route past 256 nodes,
+    raise ValueError before the device is looked at or anything is built;
+    the CPU's plain version counts no launch."""
+    args = [torch.tensor(a) for a in scan_case(300, 10, 2, 0, False)]
+    scan_kernel.reset_counts()
+    with pytest.raises(ValueError, match="not one of"):
+        scan_kernel.place_singletons_kernel(*args, route="warp")
+    with pytest.raises(ValueError, match="at most 256"):
+        scan_kernel.place_singletons_kernel(*args, route="registers")
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_kernel.place_singletons_kernel(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        scan_kernel.place_singletons_kernel(*args, route="shared")
+    scan_ops.place_singletons(args[0].clone(), *args[1:])
+    assert scan_kernel.place_singletons_kernel.launches == 0
+    assert scan_kernel.place_singletons_kernel.by_route == {
+        "registers": 0, "shared": 0}

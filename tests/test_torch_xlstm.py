@@ -200,6 +200,82 @@ def test_slstm_kernel_wrapper_refuses_what_it_does_not_take():
     assert sl_kernel.slstm_scan_kernel.launches == 0
 
 
+
+# (B, du, R's dtype) → the route: xlstm-350m's width (du 256) at the
+# served batches and both dtypes, B 5-8 as two row blocks (512 threads a
+# CTA), B 9 and 12 as three (768 threads: the block route), the reduced
+# xlstm-350m (du 32), du 24 (24 threads a CTA, not whole warps), du 30 and
+# 6 (8 does not divide them), du 512 (its R slice fits no CTA; past the
+# block route's 256 too)
+SLSTM_ROUTE_CASES = [
+    (4, 256, torch.bfloat16, "cluster"),
+    (4, 256, torch.float32, "cluster"),
+    (1, 256, torch.bfloat16, "cluster"),
+    (2, 256, torch.float32, "cluster"),
+    (3, 256, torch.bfloat16, "cluster"),
+    (8, 256, torch.float32, "cluster"),
+    (9, 256, torch.bfloat16, "block"),
+    (12, 256, torch.float32, "block"),
+    (17, 256, torch.float32, "block"),
+    (4, 32, torch.float32, "cluster"),
+    (1, 128, torch.bfloat16, "cluster"),
+    (1, 24, torch.float32, "block"),
+    (2, 30, torch.float32, "block"),
+    (1, 6, torch.bfloat16, "block"),
+    (1, 512, torch.float32, "block")]
+
+
+@pytest.mark.parametrize("b,du,dtype,route", SLSTM_ROUTE_CASES)
+def test_slstm_scan_choose_route_by_shape(b, du, dtype, route):
+    assert sl_kernel.choose_route(b, du, dtype) == route
+    assert sl_kernel.cluster_fits(b, du, dtype) == (route == "cluster")
+
+
+def test_slstm_cluster_route_shared_memory():
+    """A CTA's R slice at xlstm-350m's du 256 (each unit's row padded by 64
+    bytes) and the head's h twice: 64 KiB + 2 KiB of R in bf16 and twice
+    that in f32 at a cluster of 8; at B 8 the h buffers double and f32
+    still fits; du 512's slice does not."""
+    h = 2 * 256 * 4 * 4
+    assert sl_kernel.cluster_smem(4, 256, 2) == h + 32 * 2112
+    assert sl_kernel.cluster_smem(4, 256, 4) == h + 32 * 4160
+    assert sl_kernel.cluster_smem(8, 256, 4) == 2 * h + 32 * 4160
+    assert sl_kernel.cluster_smem(8, 256, 4) <= sl_kernel.SMEM_MAX
+    assert sl_kernel.cluster_smem(1, 512, 2) > sl_kernel.SMEM_MAX
+
+
+def test_slstm_kernel_wrapper_refuses_routes_before_building():
+    """An unknown route, and a route that cannot take the shape, raise
+    ValueError before the device is looked at or anything is built; the
+    CPU's plain version counts no launch."""
+    sl_kernel.reset_counts()
+    pre, r = torch.zeros(4, 1, 3, 60), torch.zeros(4, 2, 30, 30)
+    with pytest.raises(ValueError, match="not one of"):
+        sl_kernel.slstm_scan_kernel(pre, r, route="grid")
+    with pytest.raises(ValueError, match="cluster route does not take"):
+        sl_kernel.slstm_scan_kernel(pre, r, route="cluster")
+    with pytest.raises(ValueError, match="block route takes du"):
+        sl_kernel.slstm_scan_kernel(torch.zeros(4, 1, 2, 512),
+                                    torch.zeros(4, 1, 512, 512),
+                                    route="block")
+    with pytest.raises(ValueError, match="cluster route does not take"):
+        # three row blocks of 32 units × 8 lanes: 768 threads a CTA
+        sl_kernel.slstm_scan_kernel(torch.zeros(4, 12, 2, 1024),
+                                    torch.zeros(4, 4, 256, 256),
+                                    route="cluster")
+    with pytest.raises(ValueError, match="block route takes du"):
+        # 32 B du bytes of shared memory: 237,568
+        sl_kernel.slstm_scan_kernel(torch.zeros(4, 29, 2, 256),
+                                    torch.zeros(4, 1, 256, 256),
+                                    route="block")
+    pre, r = torch.zeros(4, 4, 3, 1024), torch.zeros(4, 4, 256, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        sl_kernel.slstm_scan_kernel(pre, r, route="cluster")
+    sl_ops.slstm_scan(pre, r)
+    assert sl_kernel.slstm_scan_kernel.launches == 0
+    assert sl_kernel.slstm_scan_kernel.by_route == {"cluster": 0,
+                                                    "block": 0}
+
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------
