@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
 path, the online oracle riding the streaming simulator, the queueing, Pareto
-and fleet slice of the simulator, the serving path and the kernel bench.
+and fleet slice of the simulator, the serving path, the kernel bench and
+training (the LM loop, its flash backward, federated profiling).
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 1. Environment: the card's name and power limit (nvidia-smi), then the
    eight CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register, spill and shared-memory
-   lines; the SASS of each of ``flash_fwd_wgmma``'s five instances (D, Dv
-   = 64, 96, 128, 192/128, 256) and of ``w8a16_wgmma`` must hold HGMMA
+   lines; the SASS of each of ``flash_fwd_wgmma``'s ten instances (D, Dv
+   = 64, 96, 128, 192/128, 256, each without and with the lse store) and of ``w8a16_wgmma`` must hold HGMMA
    and UTMALDG, none may write an A register of a ``wgmma`` still in
    flight (every instance's count is printed), and no
    ``flash_fwd_wgmma`` instance may spill; no instance of ``fleet_scan``'s
@@ -216,6 +217,39 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``int8_matmul.ref.pack_fragments`` byte for byte.  The decode
    B 4 up projection is ``int8_matmul``'s record on the kernels line, with
    the prefill row's times and bound beside it.
+11. Training, one model at a time, each freed before the next: (a)
+   flash's log-sum-exp (``return_lse``) at every served
+   ``flash_fwd_wgmma`` instance and at the training shapes (qwen3's at
+   B 8, S 128; whisper-tiny's encoder, decoder and cross-attention at
+   B 8) held against the plain version's within ``LSE_TOL`` (1 + |lse|),
+   the output equal bit for bit to a call without it and within
+   ``flash_attention.ref.bf16_tolerance`` of the plain version; qwen3's
+   training shape
+   timed with its lse beside SDPA, its bound counting the lse's bytes;
+   (b) the backward in f32 (``FlashAttention``: ``flash_fwd`` with its
+   lse, the plain flash backward) at qwen3's and whisper's shapes against
+   autograd through ``naive_attention`` within ``BWD_TOL``, and the plain
+   backward in bf16 at B 8, S 128 and B 4, S 2048 timed beside SDPA's
+   backward; (c) qwen3-1.7b at full width and depth in bf16 through
+   ``train()``: 30 steps at the ``TrainConfig`` defaults, then 5 at B 4,
+   S 2048, every loss finite and the last 5 of the first run below its
+   first 5, every flash call (the forward and its recompute: 2 a layer
+   a step) on ``flash_fwd_wgmma`` (counts set to 0 before, read after);
+   steps/s, tokens/s, peak memory; (d) the same model in f32 cut to 2
+   layers: one ``train_loss`` and its gradients on the card (``flash_fwd``
+   and the backward) against the CPU, TF32 off, within
+   ``TRAIN_F32_TOL``; (e) whisper-tiny at full width in bf16 through
+   ``train()`` (6 steps, 1,500 frames), every flash call on the tensor
+   cores; (g) ``ckpt.save`` / ``latest`` / ``restore`` of whisper's
+   trained parameters, equal on the card; (f) ``python -m
+   repro_torch.launch.train --arch qwen3-1.7b --steps 5`` (f32, naive,
+   as the reference's launcher runs) in a child process; (h) FedAvg at the
+   ``FedAvgConfig`` defaults, without and with ``DPConfig()``, on phase
+   3's profiling dataset, five non-IID clients by hardware, each round's
+   federated RMSE card against CPU within ``FEDAVG_CARD_TOL``
+   (``repro_torch.bench.mlp_spread --fedavg``), the DP run the noisier.
+   The flash record on the kernels line carries the training launches,
+   the training shape's times and the backward's.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -273,6 +307,49 @@ FLEET_TASKS, FLEET_NODES, FLEET_DAY_S = 100_000, 256, 3600.0
 COMPARE_TASKS, COMPARE_NODES = 20_000, 16
 # benchmarks/bench_contention.py's tail-vs-mean scenario at full horizon
 CONTENTION_HORIZON_S, CONTENTION_DEADLINE_S = 240.0, 0.35
+# the training phase (11): qwen3-1.7b at full width and depth in bf16, 30
+# steps at the TrainConfig defaults (B 8, S 128), then 5 at B 4, S 2048
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_RUNS = ((30, 8, 128), (5, 4, 2048))
+CHECK_TRAIN_LAYERS = 2               # the f32 card-vs-CPU check's depth
+# (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the lse check: every served
+# flash_fwd_wgmma instance at its served shape, and the training shapes:
+# qwen3's, and whisper-tiny's encoder, decoder and cross-attention at the
+# TrainConfig defaults (B 8, S 128 against 1,500 frames)
+LSE_SHAPES = (
+    ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
+    ("phi3v_d96", 4, 2048, 2048, 32, 32, 96, 96, True),
+    ("qwen3", 4, 2048, 2048, 16, 8, 128, 128, True),
+    ("mla_dsv2lite", 4, 2048, 2048, 16, 16, 192, 128, True),
+    ("gemma_d256", 1, 2048, 2048, 8, 1, 256, 256, True),
+    ("qwen3_train", 8, 128, 128, 16, 8, 128, 128, True),
+    ("whisper_encoder_train", 8, 1500, 1500, 6, 6, 64, 64, False),
+    ("whisper_dec_train", 8, 128, 128, 6, 6, 64, 64, True),
+    ("whisper_cross_train", 8, 128, 1500, 6, 6, 64, 64, False))
+# f32 sums in another order and exp2 for exp: |lse - want| within
+# LSE_TOL (1 + |want|)
+LSE_TOL = 2e-5
+# (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the f32 backward check
+BWD_SHAPES = (
+    ("qwen3_train", 8, 128, 128, 16, 8, 128, 128, True),
+    ("qwen3_prefill", 4, 2048, 2048, 16, 8, 128, 128, True),
+    ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
+    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False))
+# f32 sums in other orders over up to 2,048 keys: each of dq, dk, dv within
+# BWD_TOL of its largest magnitude
+BWD_TOL = 5e-5
+# f32 train_loss and gradients, card against CPU, TF32 off: the loss
+# relative, each gradient leaf against its largest magnitude
+TRAIN_F32_TOL = 1e-4
+# FedAvg's federated RMSE, card against CPU, the largest relative gap of a
+# round: repro_torch.bench.mlp_spread --fedavg over 16 seeds, with and
+# without DP, measured at most 7.1e-5 card against CPU and 5.6e-4 between
+# two CPU runs whose lr differs by 1e-6 or 1e-5 relative (a change of
+# rounding size; Adam over ReLU units makes its effect vary by orders of
+# magnitude from seed to seed), and this script 3.2e-4 on its own
+# profiling records.  As for MLP_CARD_TOL: above 6x the card's largest
+# gap and 2.6x the largest under an lr change
+FEDAVG_CARD_TOL = 2e-3
 
 
 def fail(msg: str) -> None:
@@ -697,7 +774,8 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
     """The paper's offline loop at full width on the card: profile the
     Table-I grid, fit the fig3 predictors on the profiling dataset, then
     decide with ridge and an MLP fitted on phase 2's per-layer rows.
-    Returns the three decision kernels' launch counts of this phase."""
+    Returns the three decision kernels' launch counts of this phase and
+    the profiling dataset (phase 11's FedAvg trains on it)."""
     import collections
 
     import numpy as np
@@ -869,7 +947,7 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
           flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the profiling path")
-    return launches
+    return launches, data
 
 
 def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
@@ -2133,6 +2211,369 @@ def serving_kernels(dev, launches: dict) -> list:
     return out
 
 
+def training_slice(dev, smi: str, profiling_data) -> dict:
+    """The training slice (phase 11): (a) flash's log-sum-exp at every
+    served ``flash_fwd_wgmma`` instance and qwen3's training shape; (b) the
+    attention backward against autograd through ``naive_attention``; (c)
+    qwen3-1.7b at full width and depth in bf16 through ``train()``; (d)
+    its f32 loss and gradients card against CPU at 2 layers; (e)
+    whisper-tiny through ``train()``; (f) the launcher; (g) a checkpoint
+    round trip; (h) FedAvg on phase 3's profiling dataset, card against
+    CPU.  Returns the flash launches of (c) and (e) and the timing rows."""
+    import copy
+    import os
+    import subprocess
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import ckpt
+    from repro_torch.bench.common import BF16_OPS_PER_S, bound, timed_ms
+    from repro_torch.bench.kernels import flash_work
+    from repro_torch.bench.mlp_spread import fedavg_clients
+    from repro_torch.configs import get_config
+    from repro_torch.core import fl
+    from repro_torch.data.synthetic import train_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import (chunked_attention,
+                                              flash_attention_bwd,
+                                              naive_attention)
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.train import TrainConfig, train
+
+    out = {"phase_s": {}}
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    # -- (a) the log-sum-exp ------------------------------------------------
+    t_part = synced()
+    for case, b, s, sk, hq, hkv, d, dv, causal in LSE_SHAPES:
+        q = randn(b, s, hq, d, dtype=bf16)
+        k, v = randn(b, sk, hkv, d, dtype=bf16), randn(b, sk, hkv, dv,
+                                                        dtype=bf16)
+        fa_kernel.reset_counts()
+        got, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
+                                                    return_lse=True)
+        alone = fa_kernel.flash_attention_kernel(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(fa_kernel.flash_attention_kernel.by_kernel == {
+            "flash_fwd": 0, "flash_fwd_wgmma": 2}, f"lse {case}: ran "
+            f"{fa_kernel.flash_attention_kernel.by_kernel}")
+        check(torch.equal(got, alone), f"lse {case}: the output with lse "
+              "differs from the output without it")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        _, want = attention_ref(qt, kt, vt, causal=causal, return_lse=True)
+        err = (lse - want).abs()
+        over = (err / (LSE_TOL * (1 + want.abs()))).max().item()
+        want_o, tol_o = fa_ref.bf16_tolerance(qt, kt, vt, causal=causal)
+        over_o = ((got.transpose(1, 2).float() - want_o).abs()
+                  / tol_o).max().item()
+        line("lse_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
+             causal=causal, max_abs_err=err.max().item(), err_over_tol=over,
+             tolerance=f"{LSE_TOL} (1 + |lse|)", output_same_bits=True,
+             output_err_over_tol=over_o,
+             output_tolerance="flash_attention.ref.bf16_tolerance")
+        check(over <= 1.0, f"lse {case}: off by {over} of its tolerance")
+        check(over_o <= 1.0, f"lse {case}: the output is off the plain "
+              f"version by {over_o} of bf16_tolerance")
+        if case == "qwen3_train":
+            args = (q, k, v)
+        del q, k, v, qt, kt, vt, got, alone, lse, want, err, want_o, tol_o
+    # the training shape: the kernel with its lse, SDPA, the plain version
+    q, k, v = args
+    b, s, hq, d = q.shape
+    nbytes, ops = flash_work(b, s, hq, k.shape[2], d, 2)
+    fa_row = dict(
+        ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
+            q, k, v, return_lse=True), 20, graph=True),
+        eager_ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
+            q, k, v, return_lse=True), 20),
+        plain_ms=timed_ms(lambda: attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            return_lse=True), 5),
+        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True), 20, graph=True),
+        timing="graph", shape=[b, s, hq, k.shape[2], d], with_lse=True)
+        # the lse's f32 [B, Hq, S] written besides
+    fa_row["bound_ms"], fa_row["bound_by"] = bound(nbytes + 4 * b * hq * s,
+                                                   ops, BF16_OPS_PER_S)
+    line("timing_extra", kernel="flash_attention", case="qwen3_train_lse",
+         dtype="bfloat16", **fa_row, device=smi)
+    out["train_shape"] = fa_row
+    out["phase_s"]["a_lse"] = synced() - t_part
+
+    # -- (b) the backward ---------------------------------------------------
+    t_part = synced()
+    bwd_rows = {}
+    for case, b, s, sk, hq, hkv, d, dv, causal in BWD_SHAPES:
+        q = randn(b, s, hq, d)
+        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, dv)
+        do = randn(b, s, hq, dv)
+        grads = []
+        for fn in (chunked_attention, naive_attention):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, causal=causal)
+            o.backward(do)
+            grads.append([t.grad for t in leaves])
+        worst = max(((g - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(*grads))
+        line("backward_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
+             causal=causal, dtype="float32", max_rel_err=worst,
+             tolerance=f"{BWD_TOL} of each gradient's max |value|")
+        check(worst <= BWD_TOL, f"backward {case}: dq/dk/dv off by {worst} "
+              f"of their largest magnitude (tolerance {BWD_TOL})")
+        del q, k, v, do, grads
+    # the plain backward in bf16 at the training shape and at B 4, S 2048,
+    # beside SDPA's backward under autograd
+    for case, b, s in (("qwen3_train", 8, 128), ("qwen3_prefill", 4, 2048)):
+        q = randn(b, s, 16, 128, dtype=bf16)
+        k, v = randn(b, s, 8, 128, dtype=bf16), randn(b, s, 8, 128,
+                                                       dtype=bf16)
+        do = randn(b, s, 16, 128, dtype=bf16)
+        o, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        nbytes, ops = flash_work(b, s, 16, 8, 128, 2)
+        # dq, dk, dv written, do and lse read besides; five products where
+        # the forward has two
+        bwd_rows[case] = dict(
+            plain_ms=timed_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do), 3),
+            library_ms=timed_ms(lambda: torch.autograd.grad(
+                so, (qt, kt, vt), dot, retain_graph=True), 10),
+            bound=bound(2 * nbytes + 4 * b * 16 * s, 2.5 * ops,
+                        BF16_OPS_PER_S),
+            shape=[b, s, 16, 8, 128], dtype="bfloat16")
+        line("timing_extra", kernel="flash_attention_backward", case=case,
+             **bwd_rows[case], device=smi)
+        del q, k, v, do, o, lse, qt, kt, vt, so
+    out["backward"] = bwd_rows
+    out["phase_s"]["b_backward"] = synced() - t_part
+    torch.cuda.empty_cache()
+
+    # -- (c) qwen3-1.7b at full width and depth in bf16 --------------------
+    t_part = synced()
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.num_layers == 28
+          and cfg.d_model == 2048, f"{TRAIN_ARCH} is not at its published "
+          "shape in bf16")
+    fa_kernel.reset_counts()
+    runs = []
+    params = None
+    for steps, bsz, seq in TRAIN_RUNS:
+        torch.cuda.reset_peak_memory_stats(dev)
+        # what earlier phases (and the previous run) still hold
+        held = torch.cuda.memory_allocated(dev)
+        before = dict(fa_kernel.flash_attention_kernel.by_kernel)
+        tcfg = TrainConfig(steps=steps, batch_size=bsz, seq_len=seq,
+                           log_every=0, seed=SEED)
+        t0 = synced()
+        res = train(cfg, tcfg, params=params, device=dev,
+                    log_fn=lambda m: None)
+        wall = synced() - t0
+        params = res.final_params
+        losses = res.losses
+        by_kernel = {k_: n - before[k_] for k_, n in
+                     fa_kernel.flash_attention_kernel.by_kernel.items()}
+        # each layer's flash forward, and again in its backward (remat)
+        want_calls = steps * cfg.num_layers * 2
+        row = dict(model=TRAIN_ARCH, dtype="bfloat16",
+                   layers=cfg.num_layers, d_model=cfg.d_model, steps=steps,
+                   batch=bsz, seq_len=seq, lr=tcfg.lr,
+                   warmup_steps=tcfg.warmup_steps, losses=losses,
+                   steps_per_s=res.steps_per_s,
+                   tokens_per_s=res.steps_per_s * bsz * seq, wall_s=wall,
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                       dev), held_before_bytes=held,
+                   flash_by_kernel=by_kernel, device=smi)
+        # one more pair of steps, the second timed in two synchronised
+        # parts: train_loss + backward, then AdamW's update
+        api = build_model(cfg)
+        opt = AdamW(params.parameters(), warmup_cosine(tcfg.lr, 1, 2))
+        batch = train_batch(cfg, bsz, seq, seed=SEED + steps, device=dev)
+        for _ in range(2):
+            t0 = synced()
+            loss, _ = api.train_loss(params, batch)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            t1 = synced()
+            opt.step()
+            t2 = synced()
+        row.update(loss_backward_s=t1 - t0, adamw_step_s=t2 - t1)
+        del opt, loss, batch
+        line("train", **row)
+        runs.append(row)
+        check(all(np.isfinite(losses)), f"{TRAIN_ARCH} B {bsz} S {seq}: a "
+              f"non-finite loss ({losses})")
+        check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
+              f"{TRAIN_ARCH} training: flash {by_kernel}, expected "
+              f"{want_calls} calls on flash_fwd_wgmma")
+    first = runs[0]["losses"]
+    check(np.mean(first[-5:]) < np.mean(first[:5]), f"{TRAIN_ARCH}: the "
+          f"loss did not fall ({first})")
+    out["train"] = runs
+    out["launches"] = sum(r["flash_by_kernel"]["flash_fwd_wgmma"]
+                          for r in runs)
+    del params, res
+    torch.cuda.empty_cache()
+    out["phase_s"]["c_qwen3"] = synced() - t_part
+
+    # -- (d) f32 at full width, 2 layers: the card against the CPU ---------
+    t_part = synced()
+    cfg32 = cfg.replace(dtype="float32", num_layers=CHECK_TRAIN_LAYERS)
+    api = build_model(cfg32)
+    cpu_params = api.init_params(SEED, "cpu", trainable=True)
+    card_params = copy.deepcopy(cpu_params).to(dev)
+    batch = train_batch(cfg32, 2, 64, seed=SEED, device="cpu")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fa_kernel.reset_counts()
+    card_loss, _ = api.train_loss(card_params,
+                                  {k_: t.to(dev) for k_, t in batch.items()})
+    card_loss.backward()
+    check(fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 2 * cfg32.num_layers, "flash_fwd_wgmma": 0},
+        f"f32 check: flash {fa_kernel.flash_attention_kernel.by_kernel}")
+    cpu_loss, _ = api.train_loss(cpu_params, batch)
+    cpu_loss.backward()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        flags
+    worst, worst_name = 0.0, None
+    for (name, pc), pk in zip(cpu_params.named_parameters(),
+                              card_params.parameters()):
+        e = ((pk.grad.cpu() - pc.grad).abs().max()
+             / pc.grad.abs().max().clamp_min(1e-30)).item()
+        if e > worst:
+            worst, worst_name = e, name
+    loss_err = abs(card_loss.item() - cpu_loss.item()) / cpu_loss.item()
+    line("train_check", model=TRAIN_ARCH, dtype="float32",
+         layers=cfg32.num_layers,
+         reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers}",
+         batch=2, seq_len=64, loss_card=card_loss.item(),
+         loss_cpu=cpu_loss.item(), loss_rel_err=loss_err,
+         max_grad_rel_err=worst, worst_leaf=worst_name,
+         tolerance=f"loss {TRAIN_F32_TOL} relative, each gradient "
+         f"{TRAIN_F32_TOL} of its leaf's max |value|", tf32=False)
+    check(loss_err <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL,
+          f"f32 train_loss: card against CPU off by {loss_err} (loss), "
+          f"{worst} ({worst_name}); tolerance {TRAIN_F32_TOL}")
+    del cpu_params, card_params, card_loss, cpu_loss
+    torch.cuda.empty_cache()
+    out["phase_s"]["d_f32"] = synced() - t_part
+
+    # -- (e) whisper-tiny at full width in bf16 ----------------------------
+    t_part = synced()
+    wcfg = get_config("whisper-tiny")
+    steps = 6
+    fa_kernel.reset_counts()
+    res = train(wcfg, TrainConfig(steps=steps, log_every=0, seed=SEED),
+                device=dev, log_fn=lambda m: None)
+    wby = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    want_calls = steps * 2 * (wcfg.enc_layers + 2 * wcfg.num_layers)
+    line("train", model="whisper-tiny", dtype="bfloat16",
+         layers=wcfg.num_layers, enc_layers=wcfg.enc_layers,
+         encoder_frames=wcfg.enc_seq, steps=steps, batch=8, seq_len=128,
+         losses=res.losses, steps_per_s=res.steps_per_s,
+         flash_by_kernel=wby, device=smi)
+    check(all(np.isfinite(res.losses)), f"whisper-tiny: a non-finite loss "
+          f"({res.losses})")
+    check(wby == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
+          f"whisper-tiny training: flash {wby}, expected {want_calls} on "
+          "flash_fwd_wgmma")
+    out["launches"] += fa_kernel.flash_attention_kernel.launches
+    out["phase_s"]["e_whisper"] = synced() - t_part
+
+    # -- (g) a checkpoint round trip on the card ---------------------------
+    t_part = synced()
+    results = ROOT / "results"
+    results.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=results) as tmp:
+        for step in (3, 12):
+            ckpt.save(os.path.join(tmp, f"ckpt_{step}.npz"),
+                      res.final_params, step=step)
+        path = ckpt.latest(tmp)
+        tree, meta = ckpt.restore(path, res.final_params)
+        same = all(a.device == b.device and a.dtype == b.dtype
+                   and torch.equal(a, b) for a, b in
+                   zip(tree.parameters(), res.final_params.parameters()))
+        line("checkpoint", latest=os.path.basename(path), meta=meta,
+             leaves=len(list(tree.parameters())), equal_on_card=same)
+        check(path.endswith("ckpt_12.npz") and meta == {"step": 12}
+              and same, "checkpoint: the restored tree differs from the "
+              "saved one, or latest/meta are wrong")
+    del res, tree
+    torch.cuda.empty_cache()
+    out["phase_s"]["g_checkpoint"] = synced() - t_part
+
+    # -- (f) the launcher, f32 naive, as the reference's runs it -----------
+    t_part = synced()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--steps", "5"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    m = re.search(r"loss ([-\d.naif]+) -> ([-\d.naif]+) at ([\d.]+) steps/s",
+                  tail[0])
+    line("launcher", returncode=proc.returncode, last_line=tail[0],
+         seconds=time.perf_counter() - t_part)
+    check(proc.returncode == 0 and m and all(
+        np.isfinite(float(g)) for g in m.groups()),
+        f"launch.train failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    out["phase_s"]["f_launcher"] = synced() - t_part
+
+    # -- (h) FedAvg on the profiling dataset, card against CPU -------------
+    t_part = synced()
+    clients, test = fedavg_clients(profiling_data)
+    fed = {}
+    for name, dp in (("plain", None), ("dp", fl.DPConfig())):
+        cfg_fl = fl.FedAvgConfig(dp=dp)
+        timing = {}
+        for where in ("card", "cpu"):
+            t0 = synced()
+            fed[name, where] = fl.run_fedavg(
+                clients, cfg_fl, central_test=test,
+                device=dev if where == "card" else "cpu")
+            timing[where] = synced() - t0
+        hk, hc = (np.array([h["federated_rmse"] for h in
+                            fed[name, w].round_history])
+                  for w in ("card", "cpu"))
+        gap = float(np.max(np.abs(hk - hc) / hc))
+        line("fedavg", run=name, clients=[len(c.x) for c in clients],
+             rounds=cfg_fl.rounds, federated_rmse_card=float(hk[-1]),
+             federated_rmse_cpu=float(hc[-1]),
+             centralised_rmse_card=fed[name, "card"].centralised_rmse,
+             max_round_rel_gap=gap, tolerance=FEDAVG_CARD_TOL,
+             card_s=timing["card"], cpu_s=timing["cpu"], device=smi)
+        check(np.isfinite(hk).all() and gap <= FEDAVG_CARD_TOL,
+              f"FedAvg {name}: card and CPU round histories differ by {gap} "
+              f"(relative; tolerance {FEDAVG_CARD_TOL})")
+    check(fed["dp", "card"].federated_rmse
+          > fed["plain", "card"].federated_rmse,
+          "FedAvg: the DP run is not the noisier one")
+    out["phase_s"]["h_fedavg"] = synced() - t_part
+    line("training_phase", phase_s=out["phase_s"],
+         total_s=sum(out["phase_s"].values()))
+    return out
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -2248,8 +2689,8 @@ def main() -> None:
     logs = _build.build()
     build_s = time.perf_counter() - t0
     # flash_fwd_wgmma at (D, Dv) = (64, 64), (96, 96), (128, 128),
-    # (192, 128) and (256, 256)
-    wgmma = {"flash_fwd_wgmma": ("flash_attention", 5),
+    # (192, 128) and (256, 256), each without and with the lse store
+    wgmma = {"flash_fwd_wgmma": ("flash_attention", 10),
              "w8a16_wgmma": ("int8_matmul", 1)}
     wgmma_ptxas = {k: [] for k in wgmma}
     # the scans' instances that keep their state in registers: fleet_scan's
@@ -2418,8 +2859,8 @@ def main() -> None:
         del exact
 
     # -- 3. the profiling loop at full width ------------------------------
-    profiling_launches = profiling_slice(dev, wrappers, recorder, x, y,
-                                         layers, envs, pi5, a100)
+    profiling_launches, profiling_data = profiling_slice(
+        dev, wrappers, recorder, x, y, layers, envs, pi5, a100)
 
     # -- 4. the oracle loop and the streaming simulator -------------------
     oracle_launches, oracle_shapes = oracle_slice(dev, wrappers, recorder,
@@ -2711,6 +3152,13 @@ def main() -> None:
 
     # -- 10. the kernel bench: int8_matmul's entry point --------------------
     kernels += kernel_bench()
+
+    # -- 11. training -------------------------------------------------------
+    trained = training_slice(dev, smi, profiling_data)
+    flash = next(r for r in kernels if r["name"] == "flash_attention")
+    flash.update(training_launches=trained["launches"],
+                 training_shape=trained["train_shape"],
+                 backward=trained["backward"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

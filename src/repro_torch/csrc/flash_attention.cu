@@ -21,7 +21,7 @@
 // alignment only.  bf16 with (D, Dv) in {(64, 64), (96, 96), (128, 128),
 // (192, 128), (256, 256)} whose bases are 16-byte aligned and whose strides
 // are multiples of 8 elements (every prefill of the served models) takes
-// flash_fwd_wgmma<D, Dv>, warp-specialised wgmma fed by TMA, described
+// flash_fwd_wgmma<D, Dv, LSE>, warp-specialised wgmma fed by TMA, described
 // above it.  Everything else (f32, other head dims, unaligned rows) takes
 // flash_fwd, all in f32 on the CUDA cores, built for head dims up to 64,
 // 128 and 256 (256 needs 138 KB of shared memory), v at Dv <= D:
@@ -43,7 +43,9 @@
 // the first live column gives corr = exp(-inf) = 0, so no exp(-inf - -inf)
 // is formed; a row with no live column ends with l = 0 and writes 0
 // (kernel.py:71-74).  Softmax statistics and accumulators are f32; stores
-// round to the input's type.
+// round to the input's type.  On request both kernels also store each
+// row's log-sum-exp in f32 (what the plain-torch backward in
+// models/attention.py needs); without the request the store is skipped.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +73,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The log-sum-exp of a row's scaled scores, m + log(l) with m the row max
+// and l the sum of exp(s - m); a row with no live key (l = 0) gives the
+// reference's -1e30 (repro/models/attention.py:136, where every score of
+// such a row is -1e30).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : -1e30f;
+}
+
 template <int DMAX>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
@@ -81,7 +91,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(NT)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int group, int sq,
+              const T* __restrict__ v, T* __restrict__ o,
+              float* __restrict__ lse, int group, int sq,
               int sk, int d, int dv, int valid_len, long long q_sb,
               long long q_ss, long long q_sh, long long k_sb, long long k_ss,
               long long k_sh, long long v_sb, long long v_ss, long long v_sh,
@@ -215,6 +226,9 @@ __global__ void __launch_bounds__(NT)
     const int row = q0 + ty * RPT + i;
     if (row >= sq) continue;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    // m and l are the same on the row's 16 lanes: one stores the row's lse
+    if (lse != nullptr && tx == 0)
+      lse[((long long)bb * gridDim.y + h) * sq + row] = row_lse(m[i], l[i]);
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int c = tx + 16 * j;
@@ -224,10 +238,10 @@ __global__ void __launch_bounds__(NT)
 }
 
 template <typename T, int DMAX>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int hq, int hkv, int sq, int sk, int d, int dv, int valid_len,
-           const long long* st, float scale, int causal, int window,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int hq, int hkv, int sq, int sk, int d, int dv,
+           int valid_len, const long long* st, float scale, int causal,
+           int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -236,35 +250,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   dim3 grid((sq + BQ - 1) / BQ, hq, b);
   flash_fwd<T, DMAX><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq / hkv, sq, sk, d, dv,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq / hkv, sq, sk, d,
+      dv,
       valid_len, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], st[9], st[10], st[11], scale, causal, window);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int hq, int hkv, int sq, int sk, int d, int dv, int valid_len,
-             const long long* st, float scale, int causal, int window,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+             int dv, int valid_len, const long long* st, float scale,
+             int causal, int window, cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 64>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
-                         st, scale, causal, window, stream);
+    return launch<T, 64>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv,
+                         valid_len, st, scale, causal, window, stream);
   if (d <= 128)
-    return launch<T, 128>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
-                          st, scale, causal, window, stream);
-  return launch<T, 256>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
-                        st, scale, causal, window, stream);
+    return launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv,
+                          valid_len, st, scale, causal, window, stream);
+  return launch<T, 256>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv,
+                        valid_len, st, scale, causal, window, stream);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 with (D, Dv) = (64, 64), (96, 96), (128, 128), (192, 128) or
-// (256, 256): flash_fwd_wgmma<D, Dv>, warpgroup MMA fed by TMA.
+// (256, 256): flash_fwd_wgmma<D, Dv, LSE>, warpgroup MMA fed by TMA; LSE
+// (a template flag, so the served instance's registers are untouched)
+// adds the store of each row's log-sum-exp.
 //
 // One CTA per (TQ query rows, q head, batch), of one producer warpgroup and
 // NC consumer warpgroups of 64 query rows each: NC = 3 at D 64 (TQ 192; the
 // products are half as long there for the same softmax, so a third
-// warpgroup keeps more of them in flight), NC = 2 (TQ 128) at the others.
+// warpgroup keeps more of them in flight), NC = 2 (TQ 128) at the others
+// and at D 64 with the lse store (WgSmem).
 // A key tile is TK = 128 keys, 64 at D 256 (key_tile).
 // - The producer gives up registers (setmaxnreg 24) and one thread starts
 //   every TMA load: the q tile once, then each live key tile's K and V into
@@ -351,9 +369,11 @@ constexpr int ROW_BYTES = 128; // one row of a box in shared memory
 constexpr int consumer_groups(int d) { return d == 64 ? 3 : 2; }
 constexpr int key_tile(int d) { return d == 256 ? 64 : 128; }
 
-template <int D, int DV>
+template <int D, int DV, bool LSE>
 struct WgSmem {
-  static constexpr int NC = consumer_groups(D);
+  // with the lse store, D 64 takes two consumer warpgroups: at three the
+  // 128 registers a thread may hold overflow (ptxas spilled 232 bytes)
+  static constexpr int NC = LSE && D == 64 ? 2 : consumer_groups(D);
   static constexpr int TQ = 64 * NC;               // query rows per CTA
   static constexpr int TK = key_tile(D);           // keys per tile
   static constexpr int QB = (D + BOX - 1) / BOX;   // boxes of a q or K row
@@ -445,6 +465,12 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+__device__ __forceinline__ float log2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The live key tiles of a query tile [q0, q_last]: `count` tiles of TK
 // from `first`.  Producer and consumers walk the same list.
 struct KeyTiles {
@@ -517,15 +543,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
     }
 }
 
-template <int D, int DV>
-__global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
+template <int D, int DV, bool LSE>
+__global__ void __launch_bounds__((WgSmem<D, DV, LSE>::NC + 1) * WG_THREADS,
+                                  1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
-                    const __grid_constant__ CUtensorMap o_map, int hq,
+                    const __grid_constant__ CUtensorMap o_map,
+                    float* __restrict__ lse, int hq,
                     int group, int batch, int sq, int kv_lim,
                     float scale_log2, int causal, int window, int chunk) {
-  using L = WgSmem<D, DV>;
+  using L = WgSmem<D, DV, LSE>;
   constexpr int NC = L::NC, TQ = L::TQ, TK = L::TK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem =
@@ -765,6 +793,18 @@ __global__ void __launch_bounds__((consumer_groups(D) + 1) * WG_THREADS, 1)
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
     asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
+  // the row's lse in natural-log units of the scaled scores: m is kept in
+  // exp2 units (scores times scale log2 e), so (m + log2 l) ln 2; m and l
+  // are the same on the row's 4 lanes, and lane t = 0 stores; a row with
+  // no live key (l = 0) gives -1e30
+  if constexpr (LSE)
+    if (t == 0)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row0 + 8 * i < sq)
+          lse[((long long)bb * hq + h) * sq + row0 + 8 * i] =
+              l[i] > 0.f ? (m[i] + log2_approx(l[i])) * 0.6931471805599453f
+                         : -1e30f;
 }
 
 // A 4-D bf16 map [D, H, S, B] over the caller's strides (elements), boxes
@@ -791,19 +831,20 @@ int encode_map(EncodeTiled encode, CUtensorMap* map, const void* base, int d,
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
 
-template <int D, int DV>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
-                 int hq, int hkv, int sq, int sk, int valid_len,
+template <int D, int DV, bool LSE>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int b, int hq, int hkv, int sq, int sk,
+                 int valid_len,
                  const long long* st, float scale, int causal, int window,
                  cudaStream_t stream) {
-  using L = WgSmem<D, DV>;
+  using L = WgSmem<D, DV, LSE>;
   // the shared-memory limit is raised once per device, not per launch
   static unsigned raised = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= 32 || !(raised >> dev & 1u)) {
-    err = cudaFuncSetAttribute(flash_fwd_wgmma<D, DV>,
+    err = cudaFuncSetAttribute(flash_fwd_wgmma<D, DV, LSE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -831,26 +872,28 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int b,
   const long long pair_bytes = 2LL * std::max(sk, 1) * (D + DV);
   const int chunk = (int)std::min<long long>(
       (long long)b * hkv, std::max(1LL, (16LL << 20) / pair_bytes));
-  flash_fwd_wgmma<D, DV><<<(unsigned)blocks, (L::NC + 1) * WG_THREADS,
-                           L::BYTES, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], hq, hq / hkv, b, sq,
+  flash_fwd_wgmma<D, DV, LSE><<<(unsigned)blocks, (L::NC + 1) * WG_THREADS,
+                                L::BYTES, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, hq, hq / hkv, b, sq,
       std::min(sk, valid_len), scale * 1.4426950408889634f, causal, window,
       chunk);
   return (int)cudaGetLastError();
 }
 
-using WgmmaLaunch = int (*)(const void*, const void*, const void*, void*, int,
-                            int, int, int, int, int, const long long*, float,
-                            int, int, cudaStream_t);
+using WgmmaLaunch = int (*)(const void*, const void*, const void*, void*,
+                            float*, int, int, int, int, int, int,
+                            const long long*, float, int, int, cudaStream_t);
 
-// The instance of flash_fwd_wgmma for q/k head dim d and v head dim dv, or
-// null where there is none.
+// The instance of flash_fwd_wgmma for q/k head dim d and v head dim dv,
+// with the lse store or without (a separate instance, so the served one
+// keeps its registers), or null where there is none.
+template <bool LSE>
 WgmmaLaunch wgmma_instance(int d, int dv) {
-  if (d == 64 && dv == 64) return launch_wgmma<64, 64>;
-  if (d == 96 && dv == 96) return launch_wgmma<96, 96>;
-  if (d == 128 && dv == 128) return launch_wgmma<128, 128>;
-  if (d == 192 && dv == 128) return launch_wgmma<192, 128>;
-  if (d == 256 && dv == 256) return launch_wgmma<256, 256>;
+  if (d == 64 && dv == 64) return launch_wgmma<64, 64, LSE>;
+  if (d == 96 && dv == 96) return launch_wgmma<96, 96, LSE>;
+  if (d == 128 && dv == 128) return launch_wgmma<128, 128, LSE>;
+  if (d == 192 && dv == 128) return launch_wgmma<192, 128, LSE>;
+  if (d == 256 && dv == 256) return launch_wgmma<256, 256, LSE>;
   return nullptr;
 }
 
@@ -879,12 +922,15 @@ const char* error_string(int code) {
 
 // q [B,Sq,Hq,D], k [B,Sk,Hkv,D], v [B,Sk,Hkv,Dv], o [B,Sq,Hq,Dv], each
 // addressed by its (batch, seq, head) element strides with the head dim
-// contiguous; dtype 0 = f32, 1 = bf16; Dv <= D <= 256.  *kernel is set to
+// contiguous; dtype 0 = f32, 1 = bf16; Dv <= D <= 256.  lse, when not
+// null, is a contiguous f32 [B,Hq,Sq] that takes each row's log-sum-exp of
+// its scaled scores (-1e30 for a row with no live key); null stores
+// nothing more than the output.  *kernel is set to
 // the kernel launched: 0 = flash_fwd (CUDA cores), 1 = flash_fwd_wgmma
 // (tensor cores).  Returns the launch's cudaError_t, or kEncodeFailed + a
 // CUresult.
 int flash_attention(const void* q, const void* k, const void* v, void* o,
-                    int dtype, int b, int hq, int hkv, int sq, int sk, int d,
+                    float* lse, int dtype, int b, int hq, int hkv, int sq, int sk, int d,
                     int dv, int valid_len, long long q_sb, long long q_ss,
                     long long q_sh, long long k_sb, long long k_ss,
                     long long k_sh, long long v_sb, long long v_ss,
@@ -897,19 +943,23 @@ int flash_attention(const void* q, const void* k, const void* v, void* o,
   *kernel = -1;
   if (d < 1 || d > 256 || dv < 1 || dv > d || hkv < 1 || hq % hkv != 0)
     return (int)cudaErrorInvalidValue;
-  const WgmmaLaunch wgmma = dtype == 1 ? wgmma_instance(d, dv) : nullptr;
+  const WgmmaLaunch wgmma =
+      dtype != 1 ? nullptr
+      : lse != nullptr ? wgmma_instance<true>(d, dv)
+                       : wgmma_instance<false>(d, dv);
   if (wgmma && tma_ready(q, k, v, o, st)) {
     *kernel = 1;
-    return wgmma(q, k, v, o, b, hq, hkv, sq, sk, valid_len, st, scale,
+    return wgmma(q, k, v, o, lse, b, hq, hkv, sq, sk, valid_len, st, scale,
                  causal, window, s);
   }
   *kernel = 0;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, b, hq, hkv, sq, sk, d, dv, valid_len,
-                           st, scale, causal, window, s);
+    return dispatch<float>(q, k, v, o, lse, b, hq, hkv, sq, sk, d, dv,
+                           valid_len, st, scale, causal, window, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, sk, d, dv,
-                                   valid_len, st, scale, causal, window, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, b, hq, hkv, sq, sk, d,
+                                   dv, valid_len, st, scale, causal, window,
+                                   s);
   *kernel = -1;
   return (int)cudaErrorInvalidValue;
 }

@@ -20,7 +20,8 @@ MAX_HEAD_DIM = 256
 KERNELS = ("flash_fwd", "flash_fwd_wgmma")
 #: the instances of ``flash_fwd_wgmma`` by (q/k head dim, v head dim): query
 #: rows per CTA (64 per consumer warpgroup: ``consumer_groups`` in the
-#: source) and keys per tile (``key_tile``)
+#: source; with the lse store (``return_lse``) D 64 takes 128) and keys per
+#: tile (``key_tile``)
 BLOCK_Q = {(64, 64): 192, (96, 96): 128, (128, 128): 128, (192, 128): 128,
            (256, 256): 128}
 BLOCK_K = {(64, 64): 128, (96, 96): 128, (128, 128): 128, (192, 128): 128,
@@ -80,7 +81,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention.argtypes = (
-        [p, p, p, p] + [i] * 9 + [ll] * 12
+        [p, p, p, p, p] + [i] * 9 + [ll] * 12
         + [ctypes.c_float, i, i, p, ctypes.POINTER(i)])
     lib.flash_attention.restype = ctypes.c_int
     return lib
@@ -88,14 +89,18 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
-                           window: int = 0, scale=None, valid_len: int = 0
-                           ) -> torch.Tensor:
+                           window: int = 0, scale=None, valid_len: int = 0,
+                           return_lse: bool = False):
     """q [B,Sq,Hq,D], k [B,Sk,Hkv,D] and v [B,Sk,Hkv,Dv] (Dv <= D) on one
     CUDA device, all float32 or all bfloat16, each with a unit stride on its
     head dim → [B,Sq,Hq,Dv] in q's dtype.
 
     Masks as :func:`~repro_torch.kernels.flash_attention.ref.attention_ref`
-    (``valid_len`` 0 means Sk); f32 softmax statistics and accumulators."""
+    (``valid_len`` 0 means Sk); f32 softmax statistics and accumulators.
+    With ``return_lse`` the kernel also stores each row's log-sum-exp of
+    its scaled scores, f32 [B,Hq,Sq] (``ref.attention_ref``'s convention),
+    and the call returns ``(out, lse)``; the output's bits do not depend on
+    it."""
     if q.device.type != "cuda" or not (k.device == v.device == q.device):
         raise ValueError("flash_attention_kernel needs q, k and v on one "
                          f"CUDA device, got {q.device}, {k.device}, "
@@ -120,8 +125,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("q, k and v need a unit stride on the head dim")
     out = torch.empty((b, sq, hq, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     scale = float(scale if scale is not None else d ** -0.5)
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     lib = _lib()
@@ -129,14 +136,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
-            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
+            None if lse is None else _build.ptr(lse), _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv,
             int(valid_len or sk),
             *strides, scale, int(causal), int(window),
             _build.stream_of(q), ctypes.byref(taken))
     _build.check(lib, rc, "flash_attention")
     flash_attention_kernel.launches += 1
     flash_attention_kernel.by_kernel[KERNELS[taken.value]] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def reset_counts() -> None:

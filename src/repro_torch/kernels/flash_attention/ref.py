@@ -9,9 +9,9 @@ NEG_INF = -1e30
 BF16_U = 2.0 ** -8
 
 
-def _probs(q, k, *, causal, window, scale, valid_len):
-    """Normalised f32 probabilities [B,Hkv,G,Sq,Sk] and the [Sq] rows that
-    have at least one unmasked column."""
+def _scores(q, k, *, causal, window, scale, valid_len):
+    """Scaled f32 scores [B,Hkv,G,Sq,Sk], masked to -1e30, and the [Sq]
+    rows that have at least one unmasked column."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -25,8 +25,15 @@ def _probs(q, k, *, causal, window, scale, valid_len):
         ok = ok & (col <= row)
     if window:
         ok = ok & ((row - col) < window)
-    p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1)
-    return p, ok.any(dim=-1)[:, None]
+    return torch.where(ok, s, NEG_INF), ok.any(dim=-1)[:, None]
+
+
+def _probs(q, k, *, causal, window, scale, valid_len):
+    """Normalised f32 probabilities [B,Hkv,G,Sq,Sk] and the [Sq] rows that
+    have at least one unmasked column."""
+    s, live = _scores(q, k, causal=causal, window=window, scale=scale,
+                      valid_len=valid_len)
+    return torch.softmax(s, dim=-1), live
 
 
 def _apply(p, v, live, hq):
@@ -37,16 +44,26 @@ def _apply(p, v, live, hq):
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, scale=None,
-                  valid_len: int = 0) -> torch.Tensor:
+                  valid_len: int = 0, return_lse: bool = False):
     """q [B,Hq,Sq,D], k/v [B,Hkv,Sk,D] → [B,Hq,Sq,D] in q's dtype.
 
     Masks ``col < valid_len`` (0 means Sk), ``col <= row`` when causal and
     ``row - col < window`` when ``window > 0``; a row with no unmasked
     column gives 0.  Kv head of query head h is ``h // (Hq // Hkv)``.
+
+    With ``return_lse`` also each row's log-sum-exp of its scaled scores,
+    f32 [B,Hq,Sq], in natural-log units: ``m + log(l)``, the reference's
+    ``lse`` (``repro/models/attention.py:136``); a row with no unmasked
+    column gives -1e30, as there (all its scores are -1e30).
     """
-    p, live = _probs(q, k, causal=causal, window=window, scale=scale,
-                     valid_len=valid_len)
-    return _apply(p, v.float(), live, q.shape[1]).to(q.dtype)
+    s, live = _scores(q, k, causal=causal, window=window, scale=scale,
+                      valid_len=valid_len)
+    out = _apply(torch.softmax(s, dim=-1), v.float(), live,
+                 q.shape[1]).to(q.dtype)
+    if not return_lse:
+        return out
+    b, hq, sq, _ = q.shape
+    return out, torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
 
 
 def bf16_tolerance(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

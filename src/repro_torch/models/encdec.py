@@ -16,19 +16,22 @@ prefill.
 
     encode(params, frames, cfg)                    -> enc_out [B,enc_seq,d]
     decode_full(params, tokens, enc_out, cfg)      -> (logits, kvs)
+    train_loss(params, batch, cfg)                 -> (loss, metrics)
     prefill(params, batch, cfg, max_len)           -> (logits [B,1,V], cache)
     decode_step(params, batch, cache, cfg)         -> (logits [B,1,V], cache)
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
                                        layer_norm, matmul, mlp_param_shapes,
                                        sinusoidal_positions)
-from repro_torch.models.transformer import dtype_of
+from repro_torch.models.transformer import (chunked_lm_loss, dtype_of,
+                                            lm_loss)
 
 
 def _ln_shapes(d):
@@ -93,18 +96,24 @@ def _mha(params, x, cfg, *, kv=None, causal, impl):
     return matmul(out.reshape(b, s, h * hd), params["wo"]), (k, v)
 
 
-def encode(params, frames, cfg, *, impl="chunked"):
+def _enc_layer(lp, x, cfg, impl):
+    a, _ = _mha(lp["attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
+                causal=False, impl=impl)
+    x = x + a
+    return x + gated_mlp(_ln(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
+                         "gelu_plain")
+
+
+def encode(params, frames, cfg, *, impl="chunked", remat=False):
     """frames [B, enc_seq, d] (the stubbed frontend's output) → encoder
-    output [B, enc_seq, d]: non-causal self-attention layers."""
+    output [B, enc_seq, d]: non-causal self-attention layers, each run
+    again in the backward with ``remat``."""
     x = frames.to(dtype_of(cfg))
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device).to(x.dtype)[None]
     for lp in params["enc_layers"]:
-        a, _ = _mha(lp["attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
-                    causal=False, impl=impl)
-        x = x + a
-        x = x + gated_mlp(_ln(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
-                          "gelu_plain")
+        x = (checkpoint(_enc_layer, lp, x, cfg, impl, use_reentrant=False)
+             if remat else _enc_layer(lp, x, cfg, impl))
     return _ln(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -127,22 +136,41 @@ def _dec_embed_at(params, token, cfg, pos: int):
     return x + pe[None, None, :]
 
 
-def decode_full(params, tokens, enc_out, cfg, *, impl="chunked"):
+def _dec_layer(lp, x, enc_out, cfg, impl):
+    """One decoder layer: (x, ((self k, v), (cross k, v)))."""
+    a, skv = _mha(lp["self_attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
+                  causal=True, impl=impl)
+    x = x + a
+    c, ckv = _mha(lp["cross_attn"], _ln(x, lp["ln2"], cfg.norm_eps), cfg,
+                  kv=enc_out, causal=False, impl=impl)
+    x = x + c
+    x = x + gated_mlp(_ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
+                      "gelu_plain")
+    return x, (skv, ckv)
+
+
+def _dec_layer_train(lp, x, enc_out, cfg, impl):
+    return _dec_layer(lp, x, enc_out, cfg, impl)[0]
+
+
+def decode_full(params, tokens, enc_out, cfg, *, impl="chunked",
+                remat=False, return_hidden=False):
     """Teacher-forced decoder pass.  Returns (logits [B,S,V], kvs): per
-    layer ((self k, v), (cross k, v))."""
+    layer ((self k, v), (cross k, v)).  With ``remat`` (training) each
+    layer runs again in the backward and no K/V are kept (``kvs`` empty);
+    ``return_hidden`` gives the final-norm hidden [B,S,d] for the logits."""
     x = _dec_embed(params, tokens, cfg)
     kvs = []
     for lp in params["dec_layers"]:
-        a, skv = _mha(lp["self_attn"], _ln(x, lp["ln1"], cfg.norm_eps), cfg,
-                      causal=True, impl=impl)
-        x = x + a
-        c, ckv = _mha(lp["cross_attn"], _ln(x, lp["ln2"], cfg.norm_eps), cfg,
-                      kv=enc_out, causal=False, impl=impl)
-        x = x + c
-        x = x + gated_mlp(_ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
-                          "gelu_plain")
-        kvs.append((skv, ckv))
+        if remat:
+            x = checkpoint(_dec_layer_train, lp, x, enc_out, cfg, impl,
+                           use_reentrant=False)
+        else:
+            x, kv = _dec_layer(lp, x, enc_out, cfg, impl)
+            kvs.append(kv)
     x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
+    if return_hidden:
+        return x, kvs
     return matmul(x, params["embed"].T), kvs
 
 
@@ -150,6 +178,22 @@ def forward(params, batch, cfg, *, impl="chunked"):
     """batch {"frames", "tokens"} → logits [B,S,V]."""
     enc_out = encode(params, batch["frames"], cfg, impl=impl)
     return decode_full(params, batch["tokens"], enc_out, cfg, impl=impl)[0]
+
+
+def train_loss(params, batch, cfg, *, impl="chunked"):
+    """batch: frames [B,enc_seq,d], tokens [B,S+1] (optional ``mask``).
+    Returns (xent, {"xent", "aux"}); whisper has no auxiliary loss."""
+    enc_out = encode(params, batch["frames"], cfg, impl=impl, remat=True)
+    tokens = batch["tokens"]
+    if cfg.loss_chunk:
+        x, _ = decode_full(params, tokens[:, :-1], enc_out, cfg, impl=impl,
+                           remat=True, return_hidden=True)
+        loss = chunked_lm_loss(x, params["embed"].T, tokens[:, 1:], cfg)
+    else:
+        logits, _ = decode_full(params, tokens[:, :-1], enc_out, cfg,
+                                impl=impl, remat=True)
+        loss = lm_loss(logits, tokens[:, 1:], batch.get("mask"))
+    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,9 @@ softmax and rope angles in f32; matmuls in the activation's dtype (the
 card's bf16 products accumulate in f32).
 
 Parameters are :class:`ParamTree` modules: nested ``nn.Module``s whose
-leaves are ``nn.Parameter``s (``requires_grad=False``: this slice serves),
-indexed like the reference's parameter dicts (``p["layers"][i]["attn"]``).
+leaves are ``nn.Parameter``s, frozen for serving (``requires_grad=False``;
+training turns them on with ``requires_grad_()``), indexed like the
+reference's parameter dicts (``p["layers"][i]["attn"]``).
 """
 from __future__ import annotations
 

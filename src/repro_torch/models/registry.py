@@ -3,6 +3,11 @@
 
 ``build_model(cfg)`` returns a :class:`ModelAPI` whose callables are
 functions of (params, batch[, cache]) on the params' device.
+``init_params(seed, device, trainable=True)`` gives parameters that need
+gradients, for training; serving keeps them frozen (the default).
+``train_loss`` covers the dense, MoE, MLA, VLM and audio families; the
+hybrid and xLSTM losses wait for the backward of their scan kernels
+(ROADMAP.md §1 item 9 step 2a) and raise.
 """
 from __future__ import annotations
 
@@ -16,7 +21,9 @@ from repro_torch.models import encdec, hybrid, transformer, xlstm_model
 @dataclasses.dataclass(frozen=True)
 class ModelAPI:
     cfg: Any
-    init_params: Callable[..., Any]          # (seed, device=None) -> params
+    # (seed, device=None, trainable=False) -> params
+    init_params: Callable[..., Any]
+    train_loss: Callable[[Any, dict], tuple]  # -> (loss, metrics)
     forward: Callable[[Any, dict], Any]
     prefill: Callable[[Any, dict, int], tuple]
     decode_step: Callable[[Any, dict, dict], tuple]
@@ -39,10 +46,23 @@ def build_model(cfg, *, impl: str = "chunked") -> ModelAPI:
            "audio": encdec}.get(cfg.family)
     if mod is None:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if mod in (transformer, encdec):
+        def train_loss(p, b):
+            return mod.train_loss(p, b, cfg, impl=impl)
+    else:
+        def train_loss(p, b):
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.family} family's train_loss waits for "
+                "the backward of its scan kernels (ROADMAP.md §1 item 9 "
+                "step 2a)")
+
+    def init_params(seed=0, device=None, trainable=False):
+        return mod.init_params(cfg, seed, device).requires_grad_(trainable)
+
     return ModelAPI(
         cfg=cfg,
-        init_params=lambda seed=0, device=None: mod.init_params(cfg, seed,
-                                                                device),
+        init_params=init_params,
+        train_loss=train_loss,
         forward=lambda p, b: mod.forward(p, b, cfg, impl=impl),
         prefill=lambda p, b, m: mod.prefill(p, b, cfg, m, impl=impl),
         decode_step=lambda p, b, c: mod.decode_step(p, b, c, cfg),

@@ -1,5 +1,5 @@
-"""Decoder-only transformer: the dense, MoE, MLA and VLM families; prefill
-and decode.
+"""Decoder-only transformer: the dense, MoE, MLA and VLM families;
+training losses, prefill and decode.
 
 Parameters are a :class:`~repro_torch.models.layers.ParamTree` with one
 entry per layer (``params["layers"][l]``) where the reference stacks a
@@ -8,21 +8,26 @@ leading ``[L, ...]`` axis and scans; weights keep the reference's
 latent ``ckv``/``kr`` for MLA.
 
     init_params(cfg, seed, device)              -> params
+    train_loss(params, batch, cfg)              -> (loss, metrics)
     forward(params, batch, cfg)                 -> logits [B,S,V]
     prefill(params, batch, cfg, max_len)        -> (logits [B,1,V], cache)
     decode_step(params, batch, cache, cfg)      -> (logits [B,1,V], cache)
     init_cache(cfg, batch_size, max_len, device) -> cache (zeros, pos 0)
 
 A VLM prompt may come as ``batch["embeds"]`` [B,S,d] (no sqrt(d) scale on
-that path, as in the reference); decode always takes tokens.  The MoE
-layers' auxiliary loss is dropped here: :func:`repro_torch.models.moe.
-route` returns it, and the loss functions wait for ROADMAP.md §1 item 9.
+that path, as in the reference); decode always takes tokens.
+``backbone`` also returns the MoE layers' summed load-balance loss (0 for
+dense models), which ``train_loss`` adds to the cross-entropy as the
+reference does.  Training
+recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
@@ -70,14 +75,15 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 # Blocks
 # --------------------------------------------------------------------------
 def _ffn(lp, x, cfg):
+    """The layer's MLP or MoE: (y, aux), aux 0.0 without experts."""
     if cfg.num_experts:
-        return moe_mod.moe_mlp(lp["moe"], x, cfg)[0]
-    return gated_mlp(x, lp["mlp"], cfg.mlp_act)
+        return moe_mod.moe_mlp(lp["moe"], x, cfg)
+    return gated_mlp(x, lp["mlp"], cfg.mlp_act), 0.0
 
 
 def block_full(lp, x, cfg, positions, impl):
-    """One pre-norm layer over a full segment.  Returns (x, kv): (k, v), or
-    (c_kv, k_rope) for MLA."""
+    """One pre-norm layer over a full segment.  Returns (x, aux, kv): kv
+    is (k, v), or (c_kv, k_rope) for MLA."""
     xn = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
     if cfg.attn_kind == "mla":
         h, kv = mla_mod.mla_self_attention(lp["attn"], xn, cfg,
@@ -86,7 +92,14 @@ def block_full(lp, x, cfg, positions, impl):
         h, kv = attn_mod.gqa_self_attention(lp["attn"], xn, cfg,
                                             positions=positions, impl=impl)
     x = x + h
-    return x + _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg), kv
+    f, aux = _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg)
+    return x + f, aux, kv
+
+
+def _block_train(lp, x, cfg, positions, impl):
+    """:func:`block_full` without its K/V: (x, aux)."""
+    x, aux, _ = block_full(lp, x, cfg, positions, impl)
+    return x, aux
 
 
 def block_decode(lp, x, cfg, cache_l, pos):
@@ -102,7 +115,7 @@ def block_decode(lp, x, cfg, cache_l, pos):
             lp["attn"], xn, cfg, k_cache=cache_l["k"], v_cache=cache_l["v"],
             pos=pos)
     x = x + h
-    return x + _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg)
+    return x + _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg)[0]
 
 
 # --------------------------------------------------------------------------
@@ -119,23 +132,92 @@ def _embed_in(params, batch, cfg):
 
 
 def _lm_head(params, x, cfg):
-    if cfg.tie_embeddings and "lm_head" not in params:
-        return matmul(x, params["embed"].T)
-    return matmul(x, params["lm_head"])
+    return matmul(x, _head_weight(params, cfg))
 
 
-def backbone(params, batch, cfg, *, impl="chunked"):
-    """All layers + final norm; returns hidden [B,S,d]."""
+def backbone(params, batch, cfg, *, impl="chunked", remat=False):
+    """All layers + final norm; returns (hidden [B,S,d], aux_loss).  With
+    ``remat`` each layer keeps only its input for the backward and runs
+    again there."""
     x = _embed_in(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, _ = block_full(lp, x, cfg, positions, impl)
-    return rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+        if remat:
+            x, a = checkpoint(_block_train, lp, x, cfg, positions, impl,
+                              use_reentrant=False)
+        else:
+            x, a = _block_train(lp, x, cfg, positions, impl)
+        aux = aux + a
+    return rms_norm(x, params["final_norm_scale"], cfg.norm_eps), aux
 
 
 def forward(params, batch, cfg, *, impl="chunked"):
     """Full-segment forward.  Returns logits [B,S,V]."""
-    return _lm_head(params, backbone(params, batch, cfg, impl=impl), cfg)
+    x, _ = backbone(params, batch, cfg, impl=impl)
+    return _lm_head(params, x, cfg)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+def lm_loss(logits, labels, mask=None):
+    """Mean token cross-entropy in f32.  logits [B,S,V]; labels [B,S]."""
+    logits32 = logits.float()
+    ll = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits32, dim=-1) - ll
+    if mask is None:
+        return nll.mean()
+    m = mask.float()
+    return (nll * m).sum() / m.sum().clamp_min(1.0)
+
+
+def _chunk_nll(xi, head_w, li):
+    """Summed cross-entropy of one sequence chunk; labels < 0 count 0."""
+    logits32 = matmul(xi, head_w).float()
+    ll = torch.gather(logits32, -1, li.clamp_min(0)[..., None].long())[..., 0]
+    nll = torch.logsumexp(logits32, dim=-1) - ll
+    return (nll * (li >= 0).float()).sum()
+
+
+def chunked_lm_loss(x, head_w, labels, cfg):
+    """Sequence-chunked cross-entropy: the f32 [B,S,V] logits never exist
+    at once; each chunk's logits are recomputed in the backward (the
+    reference's ``jax.checkpoint`` of its scan body).  x [B,S,d]."""
+    b, s, _ = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s + pad, chunk):
+        total = total + checkpoint(_chunk_nll, x[:, c0:c0 + chunk], head_w,
+                                   labels[:, c0:c0 + chunk],
+                                   use_reentrant=False)
+    return total / (b * s)
+
+
+def _head_weight(params, cfg):
+    if cfg.tie_embeddings and "lm_head" not in params:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def train_loss(params, batch, cfg, *, impl="chunked"):
+    """batch: tokens [B,S+1] (or a VLM's embeds [B,S,d] + labels [B,S]),
+    an optional ``mask`` [B,S].  Returns (xent + aux, {"xent", "aux"})."""
+    if cfg.takes_embeddings and "embeds" in batch:
+        inputs, labels = {"embeds": batch["embeds"]}, batch["labels"]
+    else:
+        tokens = batch["tokens"]
+        inputs, labels = {"tokens": tokens[:, :-1]}, tokens[:, 1:]
+    x, aux = backbone(params, inputs, cfg, impl=impl, remat=True)
+    if cfg.loss_chunk:
+        loss = chunked_lm_loss(x, _head_weight(params, cfg), labels, cfg)
+    else:
+        loss = lm_loss(_lm_head(params, x, cfg), labels, batch.get("mask"))
+    return loss + aux, {"xent": loss, "aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -173,7 +255,7 @@ def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     names = list(cache["layers"])
     cache_len = cache["layers"][names[0]].shape[2]
     for l, lp in enumerate(params["layers"]):
-        x, kv = block_full(lp, x, cfg, positions, impl)
+        x, _, kv = block_full(lp, x, cfg, positions, impl)
         for name, val in zip(names, kv):
             if cfg.window and s >= cache_len:
                 # ring-buffer invariant: token p lives at slot p % window

@@ -1547,3 +1547,162 @@ def test_xlstm_and_whisper_run_their_kernels(cuda, arch):
         "flash_fwd": 0, "flash_fwd_wgmma": 2 * n_flash}
     assert sl_kernel.slstm_scan_kernel.launches == 2 * n_slstm
     assert sl_kernel.slstm_scan_kernel.by_route["block"] == 0
+
+
+# the log-sum-exp the training forward stores, per (B, Sq, Sk, Hq, Hkv, D,
+# Dv, causal, window, valid_len): every served flash_fwd_wgmma instance
+# (bf16) and flash_fwd (f32) at ragged S, GQA and MQA, a window, a ragged
+# valid_len, Sq != Sk, and rows with no live key (valid_len 100, window
+# 16: rows from 116 on see none)
+LSE_CASES = [(2, 300, 300, 8, 2, 128, 128, True, 0, 0),
+             (2, 257, 257, 4, 4, 64, 64, True, 0, 0),
+             (1, 300, 300, 8, 8, 96, 96, True, 0, 0),
+             (1, 200, 200, 4, 4, 192, 128, True, 0, 0),
+             (1, 200, 200, 8, 1, 256, 256, True, 0, 0),
+             (2, 224, 1500, 6, 6, 64, 64, False, 0, 0),
+             (1, 257, 257, 4, 2, 128, 128, True, 40, 0),
+             (2, 255, 255, 4, 4, 128, 128, False, 0, 129),
+             (1, 200, 200, 4, 2, 128, 128, True, 16, 100)]
+# f32 sums in another order and exp2 in place of exp: the lse of rows of
+# |lse| <= ~10 within 2e-5 absolute plus relative
+LSE_TOL = 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,dv,causal,window,valid_len",
+                         LSE_CASES)
+def test_flash_attention_lse_matches_plain(cuda, b, sq, sk, hq, hkv, d, dv,
+                                           causal, window, valid_len, dtype):
+    """Both kernels store each row's log-sum-exp as ``ref.attention_ref``
+    forms it (-1e30 where no key is live), and their output keeps the
+    bits of a call without it."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, sk, hkv, dv), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, valid_len=valid_len)
+    fa_kernel.reset_counts()
+    out, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True,
+                                                **kw)
+    plain_out = fa_kernel.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    wgmma = dtype == torch.bfloat16
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 2 * int(not wgmma), "flash_fwd_wgmma": 2 * int(wgmma)}
+    assert torch.equal(out, plain_out)
+    _, want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), return_lse=True, **kw)
+    assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+    dead = want == -1e30
+    assert torch.equal(lse == -1e30, dead)
+    torch.testing.assert_close(lse[~dead], want[~dead], rtol=LSE_TOL,
+                               atol=LSE_TOL)
+
+
+# (B, Sq, Sk, Hq, Hkv, D, Dv, causal, window) of the attention backward:
+# qwen3's GQA, whisper's non-causal cross-attention, MLA's narrower v, a
+# window, a ragged tail
+BWD_CASES = [(2, 256, 256, 8, 4, 128, 128, True, 0),
+             (2, 100, 300, 6, 6, 64, 64, False, 0),
+             (1, 200, 200, 4, 4, 192, 128, True, 0),
+             (1, 300, 300, 4, 2, 64, 64, True, 40),
+             (2, 77, 77, 4, 1, 96, 96, True, 0)]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,dv,causal,window", BWD_CASES)
+def test_flash_attention_backward_matches_autograd_of_naive(
+        cuda, b, sq, sk, hq, hkv, d, dv, causal, window):
+    """f32: ``chunked_attention`` under autograd (``flash_fwd`` with its
+    lse, then the plain flash backward) against autograd through
+    ``naive_attention``: the output and dq, dk, dv within 1e-5 of each
+    one's largest magnitude (TF32 off, f32 sums in other orders)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.attention import (chunked_attention,
+                                              naive_attention)
+    gen = torch.Generator(device=cuda).manual_seed(sq + d)
+    q = torch.randn((b, sq, hq, d), generator=gen, device=cuda)
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=cuda)
+    v = torch.randn((b, sk, hkv, dv), generator=gen, device=cuda)
+    do = torch.randn((b, sq, hq, dv), generator=gen, device=cuda)
+    grads = []
+    for fn in (chunked_attention, naive_attention):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa_kernel.reset_counts()
+        out = fn(*leaves, causal=causal, window=window)
+        out.backward(do)
+        grads.append([out.detach()] + [t.grad for t in leaves])
+        if fn is chunked_attention:
+            assert fa_kernel.flash_attention_kernel.by_kernel == {
+                "flash_fwd": 1, "flash_fwd_wgmma": 0}
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+def test_bf16_train_step_on_the_card(cuda):
+    """One bf16 ``train_loss`` backward and AdamW step of reduced qwen3 at
+    its published head dim 128: every flash call (the forward and its
+    recompute in the backward) on flash_fwd_wgmma, a finite loss near the
+    f32 loss of the same weights, finite gradients on every parameter,
+    and a step that lowers the loss on the same batch."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import train_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW
+    cfg = reduced_config("qwen3-1.7b").replace(dtype="bfloat16",
+                                               head_dim=128)
+    api = build_model(cfg)
+    params = api.init_params(0, cuda, trainable=True)
+    batch = train_batch(cfg, 4, 128, seed=0, device=cuda)
+    fa_kernel.reset_counts()
+    loss, _ = api.train_loss(params, batch)
+    loss.backward()
+    assert fa_kernel.flash_attention_kernel.by_kernel == {
+        "flash_fwd": 0, "flash_fwd_wgmma": 2 * cfg.num_layers}
+    assert torch.isfinite(loss)
+    for name, p in params.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    f32 = build_model(cfg.replace(dtype="float32"))
+    p32 = f32.init_params(0, cuda)
+    for a, b in zip(p32.parameters(), params.parameters()):
+        a.data.copy_(b.detach().float())
+    with torch.no_grad():
+        loss32, _ = f32.train_loss(p32, batch)
+    assert abs(loss.item() - loss32.item()) < 2e-2 * loss32.item()
+    opt = AdamW(params.parameters(), 1e-3)
+    opt.step()
+    with torch.no_grad():
+        after, _ = api.train_loss(params, batch)
+    assert after.item() < loss.item()
+
+
+def test_scan_kernels_refuse_to_run_under_autograd(cuda):
+    """``ssd_chunked_kernel`` and ``slstm_scan`` have no backward: with
+    grad mode on and an input needing a gradient they raise, naming the
+    ROADMAP step that brings it; without, they run."""
+    from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.ssm_scan.ops import ssd_chunked_kernel
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    b, s, h, p, n = 1, 64, 2, 16, 16
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda)
+    dt = torch.rand((b, s, h), generator=gen, device=cuda) * 0.1
+    a_log = torch.zeros(h, device=cuda)
+    bm, cm = (torch.randn((b, s, n), generator=gen, device=cuda)
+              for _ in range(2))
+    d_skip = torch.ones(h, device=cuda)
+    pre = torch.randn((4, b, s, 2 * 32), generator=gen, device=cuda)
+    r = torch.randn((4, 2, 32, 32), generator=gen, device=cuda) * 0.1
+    for args, fn, kw in (((x, dt, a_log, bm, cm, d_skip),
+                          ssd_chunked_kernel, dict(chunk=16)),
+                         ((pre, r), slstm_scan, {})):
+        for i in range(len(args)):
+            grad_args = [a.clone().requires_grad_(j == i)
+                         for j, a in enumerate(args)]
+            with pytest.raises(RuntimeError, match="item 9 step 2a"):
+                fn(*grad_args, **kw)
+            with torch.no_grad():
+                fn(*grad_args, **kw)
+        fn(*args, **kw)

@@ -128,7 +128,12 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                         lambda *a, **kw: called.append(kw) or "kernel")
     fake = torch.empty(0, device="meta")
     assert ops.flash_attention(fake, fake, fake, window=3) == "kernel"
-    assert called == [{"causal": True, "window": 3, "scale": None}]
+    assert ops.flash_attention(fake, fake, fake, valid_len=5,
+                               return_lse=True) == "kernel"
+    assert called == [{"causal": True, "window": 3, "scale": None,
+                       "valid_len": 0, "return_lse": False},
+                      {"causal": True, "window": 0, "scale": None,
+                       "valid_len": 5, "return_lse": True}]
 
 
 def test_cuda_mla_call_hands_the_kernel_v_at_its_own_width(monkeypatch):
@@ -273,7 +278,7 @@ def test_tile_sizes_match_the_source():
     tile = re.search(r"int key_tile\(int d\) \{ return d == 256 \? "
                      r"(\d+) : (\d+); \}", src)
     instances = {(int(a), int(b)) for a, b in re.findall(
-        r"return launch_wgmma<(\d+), (\d+)>;", src)}
+        r"return launch_wgmma<(\d+), (\d+), LSE>;", src)}
     assert instances == set(BLOCK_Q) == set(BLOCK_K) == set(
         WGMMA_DIMS.values())
     for d, dv in instances:

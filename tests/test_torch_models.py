@@ -1,6 +1,7 @@
 """The ported serving path end to end at small size: reduced qwen3-1.7b
-(with and without a sliding window), deepseek-moe-16b (MoE),
-deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b (VLM), zamba2-1.2b and
+(with and without a sliding window), starcoder2-7b (``gelu_plain``),
+minitron-4b (``relu2``), deepseek-moe-16b (MoE), deepseek-v2-lite-16b
+(MLA + MoE), phi-3-vision-4.2b (VLM), zamba2-1.2b and
 gemma-2b at its real head dim 256 with one kv head in f32, with the JAX
 package's initial weights carried over by ``params_from_jax``.  Prefill
 logits and caches match, then 8 teacher-forced decode steps on the JAX
@@ -28,6 +29,7 @@ CPU = torch.device("cpu")
 TOL = 1e-5
 MAX_LEN, PROMPT, STEPS = 48, 21, 8
 CASES = {"qwen3": ("qwen3-1.7b", 0), "qwen3-swa": ("qwen3-1.7b", 16),
+         "starcoder2": ("starcoder2-7b", 0), "minitron": ("minitron-4b", 0),
          "zamba2": ("zamba2-1.2b", 0), "moe": ("deepseek-moe-16b", 0),
          "mla": ("deepseek-v2-lite-16b", 0), "vlm": ("phi-3-vision-4.2b", 0),
          "gemma-d256": ("gemma-2b", 0)}
