@@ -249,7 +249,32 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    federated RMSE card against CPU within ``FEDAVG_CARD_TOL``
    (``repro_torch.bench.mlp_spread --fedavg``), the DP run the noisier.
    The flash record on the kernels line carries the training launches,
-   the training shape's times and the backward's.
+   the training shape's times and the backward's.  Then the recurrent
+   families (``scan_training_slice``): (i) the SSD backward kernels
+   (``ssd_bwd_chain``, ``ssd_bwd_chunk``) against
+   ``ssd_scan_chunked_bwd_ref`` and (j) ``slstm_scan_bwd`` against
+   ``slstm_scan_bwd_ref`` (R in bf16 and f32) at the training shapes (B 8,
+   S 128 and B 4, S 2048; zamba2's H 64, P = N = 64, Q 128 and
+   xlstm-350m's H 4, du 256), random cotangents on every output, each
+   within ``SCAN_BWD_TOL`` of each gradient's largest magnitude and the
+   same bits twice, the forward that saves its states the same bits as the
+   served one, each timed beside its bound (``bench.kernels``'
+   ``ssm_bwd_work`` / ``slstm_bwd_work``), the plain backward beside; (k)
+   zamba2-1.2b and xlstm-350m at full width and depth in bf16 through
+   ``train()``: 10 steps at B 8, S 128, then 3 at B 4, S 2048, every loss
+   finite, the last 3 of the first run below its first 3, the counts set
+   to 0 before each run and read after it: every ``ssm_scan`` call (the
+   forward and its recompute, 2 a Mamba layer a step) one ``ssd_cb`` and
+   one ``ssd_chunk``, one backward call a layer a step, each on
+   ``ssd_bwd_chain`` and ``ssd_bwd_chunk``; every sLSTM forward (2 a block
+   a step) and backward (1) on the cluster route; zamba2's shared-block
+   flash (2 a group a step) all on ``flash_fwd_wgmma``; steps/s,
+   tokens/s, peak memory; (l) one f32 ``train_loss`` and its gradients of
+   each, cut to 2 groups, ``impl="chunked"`` (the kernels on the card, the
+   plain versions on the CPU), TF32 off, within ``TRAIN_F32_TOL``
+   (xLSTM's leaves against their block's largest gradient).  The
+   ``ssm_scan`` and ``slstm_scan`` records gain ``training_launches``,
+   ``training_backward_launches`` and ``backward`` timings.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -341,6 +366,19 @@ BWD_TOL = 5e-5
 # f32 train_loss and gradients, card against CPU, TF32 off: the loss
 # relative, each gradient leaf against its largest magnitude
 TRAIN_F32_TOL = 1e-4
+# the recurrent families' training (phase 11 i-l): zamba2-1.2b and
+# xlstm-350m at full width and depth in bf16, 10 steps at B 8, S 128 (the
+# TrainConfig defaults, warm-up cut to 3 steps so that 10 steps show the
+# loss falling), then 3 at B 4, S 2048
+SCAN_TRAIN_RUNS = ((10, 8, 128), (3, 4, 2048))
+SCAN_TRAIN_WARMUP = 3
+# (case, B, S) of the scans' backward kernel checks: the training shapes
+SCAN_BWD_SHAPES = (("train", 8, 128), ("prefill", 4, 2048))
+# f32 sums in other orders (dB and dC summed over 64 heads; the sLSTM's
+# reverse chain): each gradient of either backward kernel within
+# SCAN_BWD_TOL of its largest magnitude (tests/test_torch_cuda.py measured
+# <= 6.3e-6 and <= 5.2e-7 on the card)
+SCAN_BWD_TOL = 1e-4
 # FedAvg's federated RMSE, card against CPU, the largest relative gap of a
 # round: repro_torch.bench.mlp_spread --fedavg over 16 seeds, with and
 # without DP, measured at most 7.1e-5 card against CPU and 5.6e-4 between
@@ -2569,8 +2607,324 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
           > fed["plain", "card"].federated_rmse,
           "FedAvg: the DP run is not the noisier one")
     out["phase_s"]["h_fedavg"] = synced() - t_part
+    out["scans"] = scan_training_slice(dev, smi)
+    out["phase_s"].update(out["scans"].pop("phase_s"))
     line("training_phase", phase_s=out["phase_s"],
          total_s=sum(out["phase_s"].values()))
+    return out
+
+
+def scan_training_slice(dev, smi: str) -> dict:
+    """The recurrent families' training (phase 11 i-l): (i) the SSD
+    backward kernels against ``ssd_scan_chunked_bwd_ref`` and (j)
+    ``slstm_scan_bwd`` against ``slstm_scan_bwd_ref`` at the training
+    shapes, each the same bits twice and timed beside its bound; (k)
+    zamba2-1.2b and xlstm-350m at full width and depth in bf16 through
+    ``train()``, every scan and flash call counted on its kernel; (l) one
+    f32 ``train_loss`` and its gradients of each, cut to 2 groups, card
+    against CPU.  Returns the ``ssm_scan`` and ``slstm_scan`` records'
+    training entries and the phase's seconds."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench.common import F32_OPS_PER_S, bound, timed_ms
+    from repro_torch.bench.kernels import slstm_bwd_work, ssm_bwd_work
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import train_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan import ref as ss_ref
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, train
+
+    out = {"phase_s": {}, "ssm_scan": {}, "slstm_scan": {}}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def rel_errs(names, got, want):
+        return {k: ((g - w).abs().max() / w.abs().max()).item()
+                for k, g, w in zip(names, got, want)}
+
+    def all_counts():
+        return dict(
+            ssm_scan=dict(ss_kernel.ssd_scan_kernel.by_kernel,
+                          calls=ss_kernel.ssd_scan_kernel.launches),
+            ssm_scan_bwd=dict(ss_kernel.ssd_scan_bwd_kernel.by_kernel,
+                              calls=ss_kernel.ssd_scan_bwd_kernel.launches),
+            slstm_scan=dict(sl_kernel.slstm_scan_kernel.by_route),
+            slstm_scan_bwd=dict(sl_kernel.slstm_scan_bwd_kernel.by_route),
+            flash=dict(fa_kernel.flash_attention_kernel.by_kernel))
+
+    def reset_all():
+        ss_kernel.reset_counts()
+        sl_kernel.reset_counts()
+        fa_kernel.reset_counts()
+
+    zcfg, xcfg = get_config("zamba2-1.2b"), get_config("xlstm-350m")
+
+    # -- (i) the SSD backward kernels at zamba2's training shapes ----------
+    t_part = synced()
+    h, p, n, chunk = (zcfg.n_ssm_heads, zcfg.d_inner // zcfg.n_ssm_heads,
+                      zcfg.ssm_state, zcfg.ssm_chunk)
+    check((h, p, n, chunk) == (64, 64, 64, 128), "zamba2-1.2b's Mamba2 is "
+          f"not at its published shape: H {h}, P {p}, N {n}, Q {chunk}")
+    rows = {}
+    for case, b, s in SCAN_BWD_SHAPES:
+        x = randn(b, s, h, p)
+        dt = F.softplus(randn(b, s, h) - 4.0)         # the dt_bias of init
+        a_log = torch.log(torch.linspace(1.0, 16.0, h, device=dev))
+        bm, cm = randn(b, s, n), randn(b, s, n)
+        xdt, loga = ss_ref.ssd_inputs(x, dt, a_log)
+        dy, dst = randn(b, s, h, p), randn(b, h, p, n)
+        fwd = (xdt, loga, bm, cm, chunk)
+        y, st, saved = ss_kernel.ssd_scan_kernel(*fwd, save_states=True)
+        y2, st2 = ss_kernel.ssd_scan_kernel(*fwd)
+        check(torch.equal(y, y2) and torch.equal(st, st2), f"ssm_scan "
+              f"{case}: the forward that saves its states changes the bits")
+        args = (xdt, loga, bm, cm, *saved, chunk, dy, dst)
+        got = ss_kernel.ssd_scan_bwd_kernel(*args)
+        again = ss_kernel.ssd_scan_bwd_kernel(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        want = ss_ref.ssd_scan_chunked_bwd_ref(xdt, loga, bm, cm, chunk, dy,
+                                               dst)
+        errs = rel_errs(("dxdt", "dloga", "db", "dc"), got, want)
+        line("backward_check", kernel="ssm_scan", case=case,
+             shape=[b, s, h, p, n, chunk], dtype="float32",
+             max_rel_err=errs, same_bits_in_two_calls=same,
+             tolerance=f"{SCAN_BWD_TOL} of each gradient's max |value|")
+        check(same, f"ssm_scan backward {case}: two calls differ")
+        check(max(errs.values()) <= SCAN_BWD_TOL, f"ssm_scan backward "
+              f"{case}: off the plain backward by {errs} (tolerance "
+              f"{SCAN_BWD_TOL})")
+        del got, again, want, y, y2, st, st2
+        b_ms, b_by = bound(*ssm_bwd_work(b, s, h, p, n, chunk),
+                           F32_OPS_PER_S)
+        rows[case] = dict(
+            ms=timed_ms(lambda: ss_kernel.ssd_scan_bwd_kernel(*args), 5),
+            plain_ms=timed_ms(lambda: ss_ref.ssd_scan_chunked_bwd_ref(
+                xdt, loga, bm, cm, chunk, dy, dst), 1, groups=2),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            forward_saving_ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(
+                *fwd, save_states=True), 5),
+            forward_ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(*fwd), 5),
+            max_rel_err=errs, shape=[b, s, h, p, n, chunk])
+        line("timing_extra", kernel="ssm_scan_backward", case=case,
+             **rows[case], device=smi)
+        del x, dt, bm, cm, xdt, loga, dy, dst, saved, args
+    out["ssm_scan"]["backward"] = rows
+    torch.cuda.empty_cache()
+    out["phase_s"]["i_ssm_backward"] = synced() - t_part
+
+    # -- (j) slstm_scan_bwd at xlstm-350m's training shapes ----------------
+    t_part = synced()
+    xh, du = xcfg.num_heads, xcfg.d_model // xcfg.num_heads
+    rows = {}
+    for case, b, s in SCAN_BWD_SHAPES:
+        pre = randn(4, b, s, xh * du)
+        r32 = randn(4, xh, du, du, scale=du ** -0.5)
+        h_cot = randn(b, s, xh * du)
+        st_cot = tuple(randn(b, xh * du) for _ in range(4))
+        for dtype in (torch.bfloat16, torch.float32):
+            r = r32.to(dtype)
+            name = str(dtype).split(".")[-1]
+            route = sl_kernel.bwd_routes(b, du, dtype)[0]
+            check(route == "cluster", f"slstm_scan backward {case} {name}: "
+                  f"xlstm-350m's shape is not on the cluster route")
+            hs, st, saved = sl_kernel.slstm_scan_kernel(
+                pre, r, out_dtype=dtype, save_states=True)
+            hs2, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
+            check(torch.equal(hs, hs2) and all(
+                torch.equal(a, c) for a, c in zip(st, st2)),
+                f"slstm_scan {case} {name}: the forward that saves its "
+                "steps changes the bits")
+            got = sl_kernel.slstm_scan_bwd_kernel(saved, r, h_cot, st_cot)
+            again = sl_kernel.slstm_scan_bwd_kernel(saved, r, h_cot, st_cot)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(got, again))
+            t0 = synced()
+            want = sl_ref.slstm_scan_bwd_ref(pre, r, h_cot, st_cot)
+            plain_host_s = synced() - t0
+            errs = rel_errs(("dpre", "dR"), got, want)
+            line("backward_check", kernel="slstm_scan", case=case,
+                 dtype=name, route=route, shape=[b, s, xh, du],
+                 max_rel_err=errs, same_bits_in_two_calls=same,
+                 tolerance=f"{SCAN_BWD_TOL} of each gradient's max |value|")
+            check(same, f"slstm_scan backward {case} {name}: two calls "
+                  "differ")
+            check(max(errs.values()) <= SCAN_BWD_TOL, f"slstm_scan "
+                  f"backward {case} {name}: off the plain backward by "
+                  f"{errs} (tolerance {SCAN_BWD_TOL})")
+            del got, again, want, hs, hs2, st, st2
+            ms = timed_ms(lambda: sl_kernel.slstm_scan_bwd_kernel(
+                saved, r, h_cot, st_cot), 3, groups=3)
+            b_ms, b_by = bound(*slstm_bwd_work(b, s, xh, du,
+                                               r.element_size()),
+                               F32_OPS_PER_S)
+            # the plain backward: its one call above by the host clock,
+            # synchronised (two step loops, host-bound: seconds at S 2048)
+            rows[case, name] = dict(
+                ms=ms, us_per_step=ms * 1e3 / s, plain_ms=plain_host_s * 1e3,
+                plain_timing="host clock, one call", library_ms=None,
+                bound_ms=b_ms, bound_by=b_by,
+                forward_saving_ms=timed_ms(lambda: sl_kernel.slstm_scan_kernel(
+                    pre, r, out_dtype=dtype, save_states=True), 3, groups=3),
+                forward_ms=timed_ms(lambda: sl_kernel.slstm_scan_kernel(
+                    pre, r, out_dtype=dtype), 3, groups=3),
+                max_rel_err=errs, route=route, shape=[b, s, xh, du])
+            if case == "prefill":     # the block route's backward beside
+                rows[case, name]["block_ms"] = timed_ms(
+                    lambda: sl_kernel.slstm_scan_bwd_kernel(
+                        saved, r, h_cot, st_cot, route="block"), 1, groups=1)
+            line("timing_extra", kernel="slstm_scan_backward", case=case,
+                 dtype=name, **rows[case, name], device=smi)
+            del saved
+        del pre, r32, r, h_cot, st_cot
+    out["slstm_scan"]["backward"] = {f"{c}_{d}": v for (c, d), v in
+                                     rows.items()}
+    torch.cuda.empty_cache()
+    out["phase_s"]["j_slstm_backward"] = synced() - t_part
+
+    # -- (k) zamba2-1.2b and xlstm-350m through train() in bf16 ------------
+    launches = {"ssm_scan": 0, "ssm_scan_bwd": 0, "slstm_scan": 0,
+                "slstm_scan_bwd": 0}
+    for arch, cfg in (("zamba2-1.2b", zcfg), ("xlstm-350m", xcfg)):
+        t_part = synced()
+        check(cfg.dtype == "bfloat16" and (cfg.num_layers, cfg.d_model) in (
+            (38, 2048), (24, 1024)), f"{arch} is not at its published "
+            "shape in bf16")
+        mamba = cfg.num_layers if cfg.family == "hybrid" else 0
+        groups = -(-cfg.num_layers // cfg.shared_attn_every) if mamba else 0
+        slstm = cfg.num_layers // cfg.slstm_every if cfg.slstm_every else 0
+        runs, params = [], None
+        for steps, bsz, seq in SCAN_TRAIN_RUNS:
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            reset_all()
+            tcfg = TrainConfig(steps=steps, batch_size=bsz, seq_len=seq,
+                               warmup_steps=SCAN_TRAIN_WARMUP, log_every=0,
+                               seed=SEED)
+            t0 = synced()
+            res = train(cfg, tcfg, params=params, device=dev,
+                        log_fn=lambda m: None)
+            wall = synced() - t0
+            params = res.final_params
+            got = all_counts()
+            # per layer and step: the forward and its recompute (2), one
+            # backward; the shared block's flash likewise 2 a group
+            want = dict(
+                ssm_scan=dict(ssd_cb=2 * steps * mamba,
+                              ssd_chunk=2 * steps * mamba,
+                              calls=2 * steps * mamba),
+                ssm_scan_bwd=dict(ssd_bwd_chain=steps * mamba,
+                                  ssd_bwd_chunk=steps * mamba,
+                                  calls=steps * mamba),
+                slstm_scan=dict(cluster=2 * steps * slstm, block=0),
+                slstm_scan_bwd=dict(cluster=steps * slstm, block=0),
+                flash=dict(flash_fwd=0, flash_fwd_wgmma=2 * steps * groups))
+            row = dict(model=arch, dtype="bfloat16", layers=cfg.num_layers,
+                       d_model=cfg.d_model, steps=steps, batch=bsz,
+                       seq_len=seq, lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
+                       losses=res.losses, steps_per_s=res.steps_per_s,
+                       tokens_per_s=res.steps_per_s * bsz * seq, wall_s=wall,
+                       max_memory_allocated_bytes=torch.cuda
+                       .max_memory_allocated(dev), held_before_bytes=held,
+                       launches=got, device=smi)
+            line("train", **row)
+            runs.append(row)
+            check(all(np.isfinite(res.losses)), f"{arch} B {bsz} S {seq}: a "
+                  f"non-finite loss ({res.losses})")
+            check(got == want, f"{arch} B {bsz} S {seq}: launches {got}, "
+                  f"expected {want}")
+            for k in launches:
+                launches[k] += got[k]["calls"] if "calls" in got[k] else sum(
+                    got[k].values())
+        first = runs[0]["losses"]
+        check(np.mean(first[-3:]) < np.mean(first[:3]), f"{arch}: the loss "
+              f"did not fall ({first})")
+        out[arch] = runs
+        del params, res
+        torch.cuda.empty_cache()
+        out["phase_s"][f"k_{arch}"] = synced() - t_part
+    out["ssm_scan"]["training_launches"] = launches["ssm_scan"]
+    out["ssm_scan"]["training_backward_launches"] = launches["ssm_scan_bwd"]
+    out["slstm_scan"]["training_launches"] = launches["slstm_scan"]
+    out["slstm_scan"]["training_backward_launches"] = launches[
+        "slstm_scan_bwd"]
+
+    # -- (l) f32 at full width, 2 groups: the card against the CPU ---------
+    for arch, cfg, seq in (("zamba2-1.2b", zcfg, 160),
+                           ("xlstm-350m", xcfg, 64)):
+        t_part = synced()
+        every = cfg.shared_attn_every if cfg.family == "hybrid" else \
+            cfg.slstm_every
+        cfg32 = cfg.replace(dtype="float32", num_layers=2 * every)
+        api = build_model(cfg32, impl="chunked")
+        cpu_params = api.init_params(SEED, "cpu", trainable=True)
+        card_params = copy.deepcopy(cpu_params).to(dev)
+        batch = train_batch(cfg32, 2, seq, seed=SEED, device="cpu")
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        reset_all()
+        card_loss, _ = api.train_loss(card_params, {
+            k_: t.to(dev) for k_, t in batch.items()})
+        card_loss.backward()
+        got = all_counts()
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = flags
+        mamba = cfg32.num_layers if cfg.family == "hybrid" else 0
+        slstm = 2 if cfg.family == "ssm" else 0
+        check(got["ssm_scan"]["calls"] == 2 * mamba
+              and got["ssm_scan_bwd"]["calls"] == mamba
+              and got["slstm_scan"]["cluster"] == 2 * slstm
+              and got["slstm_scan_bwd"]["cluster"] == slstm,
+              f"{arch} f32 check: launches {got}")
+        cpu_loss, _ = api.train_loss(cpu_params, batch)
+        cpu_loss.backward()
+        grads = {name: (pc.grad, pk.grad.cpu()) for (name, pc), pk in zip(
+            cpu_params.named_parameters(), card_params.parameters())}
+        # xLSTM's gate biases: held against their block's largest gradient,
+        # as tests/test_torch_train.py's BLOCK_SCALED (their gradients
+        # cancel to a small difference of large terms)
+        scale = {}
+        for name, (w, _) in grads.items():
+            key = name.rsplit(".", 1)[0] if cfg.family == "ssm" else name
+            scale[key] = max(scale.get(key, 0.0), w.abs().max().item())
+        worst, worst_name = 0.0, None
+        for name, (w, g) in grads.items():
+            key = name.rsplit(".", 1)[0] if cfg.family == "ssm" else name
+            e = (g - w).abs().max().item() / max(scale[key], 1e-30)
+            if e > worst:
+                worst, worst_name = e, name
+        loss_err = abs(card_loss.item() - cpu_loss.item()) / cpu_loss.item()
+        line("train_check", model=arch, dtype="float32",
+             layers=cfg32.num_layers, impl="chunked",
+             reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers} (2 "
+             "groups)", batch=2, seq_len=seq, loss_card=card_loss.item(),
+             loss_cpu=cpu_loss.item(), loss_rel_err=loss_err,
+             max_grad_rel_err=worst, worst_leaf=worst_name, launches=got,
+             tolerance=f"loss {TRAIN_F32_TOL} relative, each gradient "
+             f"{TRAIN_F32_TOL} of its leaf's max |value|"
+             + (" (of its block's for xLSTM)" if cfg.family == "ssm"
+                else ""), tf32=False)
+        check(loss_err <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL,
+              f"{arch} f32 train_loss: card against CPU off by {loss_err} "
+              f"(loss), {worst} ({worst_name}); tolerance {TRAIN_F32_TOL}")
+        del cpu_params, card_params, card_loss, cpu_loss, grads
+        torch.cuda.empty_cache()
+        out["phase_s"][f"l_{arch}_f32"] = synced() - t_part
     return out
 
 
@@ -2695,9 +3049,15 @@ def main() -> None:
     wgmma_ptxas = {k: [] for k in wgmma}
     # the scans' instances that keep their state in registers: fleet_scan's
     # registers route at 1-8 nodes a lane, slstm_scan's cluster route at
-    # 2 R dtypes × 2 h dtypes; none may touch local memory
+    # 2 R dtypes × 2 h dtypes; and the scans' backward kernels: the SSD's
+    # chain and chunks, the sLSTM's two routes at 2 R dtypes; none may
+    # touch local memory
     frames = {"singleton_scan_registers": ("fleet_scan", 8),
-              "slstm_scan_cluster": ("slstm_scan", 4)}
+              "slstm_scan_cluster": ("slstm_scan", 4),
+              "ssd_bwd_chain": ("ssm_scan", 1),
+              "ssd_bwd_chunk": ("ssm_scan", 1),
+              "slstm_bwd_cluster": ("slstm_scan", 2),
+              "slstm_bwd_block": ("slstm_scan", 2)}
     frame_lines = {k: [] for k in frames}
     for name, log in logs.items():
         entry = name          # a source may hold several kernels
@@ -3159,6 +3519,9 @@ def main() -> None:
     flash.update(training_launches=trained["launches"],
                  training_shape=trained["train_shape"],
                  backward=trained["backward"])
+    for name in ("ssm_scan", "slstm_scan"):
+        next(r for r in kernels if r["name"] == name).update(
+            trained["scans"][name])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -96,6 +96,35 @@ def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int
                 + b * h * p * n), ops
 
 
+def ssm_bwd_work(b: int, s: int, h: int, p: int, n: int, chunk: int
+                 ) -> tuple[int, int]:
+    """(bytes, operations) of the chunked scan's backward: xdt, dy, loga,
+    B, C and the final state's cotangent read, dxdt, dloga, dB and dC
+    written; C·Bᵀ on the causal triangle once per batch row and chunk, and
+    per head and chunk dy·xdtᵀ, the gate's products with dy, B and C on the
+    triangle, and four [Q, P] × [P, N] products (the chain's
+    Σ exp(csum) dy ⊗ C, dC's and dB's state terms, dxdt's)."""
+    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
+    ops = (b * h * nc * (2 * tri * (2 * p + 2 * n) + 4 * 2 * chunk * p * n)
+           + b * nc * 2 * tri * n)
+    return 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
+                + b * h * p * n), ops
+
+
+def slstm_bwd_work(b: int, s: int, h: int, du: int, r_el: int
+                   ) -> tuple[int, int]:
+    """(bytes, operations) of the sLSTM backward: the forward's eight saved
+    [B, S, d] f32 planes, h's cotangent, R and the final state's four
+    [B, d] cotangents read, dpre [4, B, S, d] and dR [4, H, du, du] f32
+    written; per step and row the four gates' transposed block-diagonal
+    products for the chain and their products into dR, 2 · 2 · 4 H du²
+    operations (twice the forward's; the cell's ~40 a unit are left
+    out)."""
+    d = h * du
+    return (4 * (8 + 1 + 4) * b * s * d + 4 * h * du * du * (r_el + 4)
+            + 16 * b * d, 2 * 2 * b * s * 4 * h * du * du)
+
+
 def ssm_cb_work(b: int, s: int, n: int, chunk: int) -> tuple[int, int]:
     """(bytes, operations) of ``ssd_cb`` alone: B and C read, the [Q, Q]
     tile of each batch row and chunk written, C·Bᵀ on the causal

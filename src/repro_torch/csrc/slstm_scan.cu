@@ -103,6 +103,18 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
+// what the forward keeps for the backward when asked: save [8][B][S][d],
+// planes c, n, m, h (the state after the step), z, i, f, o (the gates: z
+// and o activated, i and f as they entered the cell)
+__device__ __forceinline__ void save_step(float* save, size_t plane,
+                                          size_t at, float c, float n,
+                                          float m, float h, float z, float i,
+                                          float f, float o) {
+  const float v[8] = {c, n, m, h, z, i, f, o};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) save[k * plane + at] = v[k];
+}
+
 // pre [4, B, S, d] f32; r [4, H, du, du]; h_out [B, S, d]; the final
 // c, n, h, m [B, d] f32.  Grid H blocks of 4 du threads; shared memory
 // 8 B du floats: h [B][du], the gates [4][B][du], c, n, m [B][du].
@@ -111,7 +123,8 @@ __global__ void __launch_bounds__(4 * MAX_UNITS) slstm_scan_kernel(
     const float* __restrict__ pre, const TR* __restrict__ r,
     TO* __restrict__ h_out, float* __restrict__ c_out,
     float* __restrict__ n_out, float* __restrict__ hl_out,
-    float* __restrict__ m_out, int B, int S, int H, int du) {
+    float* __restrict__ m_out, float* __restrict__ save, int B, int S,
+    int H, int du) {
   extern __shared__ float smem[];
   const int d = H * du, bu = B * du;
   float* hs = smem;
@@ -167,7 +180,10 @@ __global__ void __launch_bounds__(4 * MAX_UNITS) slstm_scan_kernel(
       ns[i] = n;
       ms[i] = mn;
       hs[i] = h;
-      put(h_out + ((size_t)b * S + t) * d + head * du + u, h);
+      const size_t at = ((size_t)b * S + t) * d + head * du + u;
+      put(h_out + at, h);
+      if (save) save_step(save, (size_t)B * S * d, at, c, n, mn, h, zt, it,
+                          gs[2 * bu + i], ot);
     }
     __syncthreads();
   }
@@ -183,8 +199,8 @@ __global__ void __launch_bounds__(4 * MAX_UNITS) slstm_scan_kernel(
 
 template <typename TR, typename TO>
 int launch(const float* pre, const void* r, void* h_out, float* c_out,
-           float* n_out, float* hl_out, float* m_out, int B, int S, int H,
-           int du, size_t smem, cudaStream_t stream) {
+           float* n_out, float* hl_out, float* m_out, float* save, int B,
+           int S, int H, int du, size_t smem, cudaStream_t stream) {
   auto kernel = slstm_scan_kernel<TR, TO>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -193,7 +209,7 @@ int launch(const float* pre, const void* r, void* h_out, float* c_out,
   }
   kernel<<<H, 4 * du, smem, stream>>>(
       pre, static_cast<const TR*>(r), static_cast<TO*>(h_out), c_out, n_out,
-      hl_out, m_out, B, S, H, du);
+      hl_out, m_out, save, B, S, H, du);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -260,7 +276,8 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_scan_cluster(
     const float* __restrict__ pre, const TR* __restrict__ r,
     TO* __restrict__ h_out, float* __restrict__ c_out,
     float* __restrict__ n_out, float* __restrict__ hl_out,
-    float* __restrict__ m_out, int B, int S, int H, int du, int units) {
+    float* __restrict__ m_out, float* __restrict__ save, int B, int S,
+    int H, int du, int units) {
   constexpr int SUBS = LG / 4;        // lanes that share a row's cell
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = (B + ROWS - 1) / ROWS, hrow = ROWS * nb, d = H * du;
@@ -367,8 +384,12 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_scan_cluster(
         store_cluster(map_rank(dst, (unsigned)k), h);
     }
     cluster_arrive();
-    if (live && sub == 0)
-      put(h_out + ((size_t)b * S + t) * d + head * du + v, h);
+    if (live && sub == 0) {
+      const size_t at = ((size_t)b * S + t) * d + head * du + v;
+      put(h_out + at, h);
+      if (save) save_step(save, gstride, at, c, n, m, h, zt, it,
+                          p[2] + acc[2], ot);
+    }
     cluster_wait();        // also keeps every CTA alive past the last store
   }
   if (live && sub == 0) {
@@ -383,7 +404,7 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_scan_cluster(
 template <typename TR, typename TO>
 int launch_cluster(const float* pre, const void* r, void* h_out,
                    float* c_out, float* n_out, float* hl_out, float* m_out,
-                   int B, int S, int H, int du, size_t smem,
+                   float* save, int B, int S, int H, int du, size_t smem,
                    cudaStream_t stream) {
   auto kernel = slstm_scan_cluster<TR, TO>;
   cudaError_t e = cudaFuncSetAttribute(
@@ -404,7 +425,332 @@ int launch_cluster(const float* pre, const void* r, void* h_out,
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, kernel, pre, static_cast<const TR*>(r),
                          static_cast<TO*>(h_out), c_out, n_out, hl_out,
-                         m_out, B, S, H, du, units);
+                         m_out, save, B, S, H, du, units);
+  if (e != cudaSuccess) return (int)e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The backward: the reverse chain, from the forward's saved steps.  Per
+// unit and row, step t from S - 1 down, with dh_t = h's cotangent plus
+// sum_k sum_v R[k, hd, u, v] dg_{t+1}[k, v] (and the final h's cotangent
+// at S - 1), and dc, dn, dm carried (seeded by the final state's):
+//   d(o c) = dh / max(n, 1e-6): do = d(oc) c, dc += d(oc) o,
+//            dn -= d(oc) o c / max(n, 1e-6) (1 above 1e-6, 0.5 at it)
+//   dfp = dc c_{t-1} + dn n_{t-1}, dip = dc z + dn, dz = dc ip
+//   dm -= dip ip + dfp fp; m = max(a, i), a = log_sigmoid(f) + m_{t-1}:
+//   da = dfp fp + dm [a > i] (0.5 at a tie), di = dip ip + dm [i > a]
+//   dg = (dz (1 - z^2), di, da sigmoid(-f), do o (1 - o)) -> dpre
+//   then dc *= fp, dn *= fp, dm = da for step t - 1.
+// The same operations as the forward recompute lf, ip and fp from the
+// saved gates and state, so they are the forward's bits.  dR = sum over b
+// and t of h_{t-1}^T dg_t is one batched product after the chain, outside
+// (kernels/slstm_scan/kernel.py).
+//
+// What bounds it: the chain again, one dependent step after another, with
+// 2 B S 4 H du^2 operations for the R^T dg products (the forward's count)
+// and the saved steps' 8 B S d f32 read.
+
+struct StepIn {       // what step t's cell backward reads
+  float c, n, m, z, i, f, o, hc;
+};
+
+__device__ __forceinline__ StepIn load_step(const float* save, size_t plane,
+                                            const float* h_cot, size_t at) {
+  StepIn s;
+  s.c = __ldg(save + at);
+  s.n = __ldg(save + plane + at);
+  s.m = __ldg(save + 2 * plane + at);
+  s.z = __ldg(save + 4 * plane + at);
+  s.i = __ldg(save + 5 * plane + at);
+  s.f = __ldg(save + 6 * plane + at);
+  s.o = __ldg(save + 7 * plane + at);
+  s.hc = __ldg(h_cot + at);
+  return s;
+}
+
+// the cell backward of one step: updates dc, dn, dm to step t - 1's and
+// writes the four gates' dg; (c0, n0, m0) is the state before the step
+__device__ __forceinline__ void cell_bwd(const StepIn& s, float c0, float n0,
+                                         float m0, float dh, float& dc,
+                                         float& dn, float& dm, float* dg) {
+  const float lf = log_sigmoid(s.f);
+  const float a = lf + m0;
+  const float ip = expf(s.i - s.m);
+  const float fp = expf(a - s.m);
+  const float den = fmaxf(s.n, 1e-6f);
+  const float doc = dh / den;
+  dc += doc * s.o;
+  const float wn = s.n > 1e-6f ? 1.f : (s.n == 1e-6f ? 0.5f : 0.f);
+  dn -= doc * (s.o * s.c / den) * wn;
+  const float dfp = dc * c0 + dn * n0;
+  const float dip = dc * s.z + dn;
+  dm -= dip * ip + dfp * fp;
+  const float wa = a > s.i ? 1.f : (a == s.i ? 0.5f : 0.f);
+  const float da = dfp * fp + dm * wa;
+  dg[0] = dc * ip * (1.f - s.z * s.z);
+  dg[1] = dip * ip + dm * (1.f - wa);
+  dg[2] = da / (1.f + expf(s.f));
+  dg[3] = doc * s.c * s.o * (1.f - s.o);
+  dc *= fp;
+  dn *= fp;
+  dm = da;
+}
+
+// Route "block": one block per head, 4 du threads.  Each step thread
+// (k, u) forms sum_v R[k, hd, u, v] dg_{t+1}[k, b, v] for every row (row
+// u of R[k, hd], from L2; dg from shared memory), a barrier, then threads
+// (b, u) add the four gates' sums in a fixed order and apply the cell
+// backward, keeping dc, dn, dm in shared memory; a second barrier ends the
+// step.  Shared memory 11 B du floats: dg [4][B][du], the sums [4][B][du],
+// dc, dn, dm [B][du].
+template <typename TR>
+__global__ void __launch_bounds__(4 * MAX_UNITS) slstm_bwd_block(
+    const float* __restrict__ save, const TR* __restrict__ r,
+    const float* __restrict__ h_cot, const float* __restrict__ dc_last,
+    const float* __restrict__ dn_last, const float* __restrict__ dh_last,
+    const float* __restrict__ dm_last, float* __restrict__ dpre, int B,
+    int S, int H, int du) {
+  extern __shared__ float smem[];
+  const int d = H * du, bu = B * du;
+  float* dgs = smem;           // [4][B][du]
+  float* part = dgs + 4 * bu;  // [4][B][du]
+  float* dcs = part + 4 * bu;  // [B][du]
+  float* dns = dcs + bu;
+  float* dms = dns + bu;
+  const int head = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int gate = tid / du, u = tid - gate * du;
+  const size_t plane = (size_t)B * S * d;
+  for (int i = tid; i < 4 * bu; i += nt) dgs[i] = 0.f;
+  for (int i = tid; i < bu; i += nt) {
+    const size_t o = (size_t)(i / du) * d + head * du + i % du;
+    dcs[i] = dc_last[o];
+    dns[i] = dn_last[o];
+    dms[i] = dm_last[o];
+  }
+  __syncthreads();
+  const TR* rrow = r + (((size_t)gate * H + head) * du + u) * du;
+  for (int t = S - 1; t >= 0; --t) {
+    for (int b0 = 0; b0 < B; b0 += BATCH_GROUP) {
+      const int nb = min(BATCH_GROUP, B - b0);
+      float acc[BATCH_GROUP];
+#pragma unroll
+      for (int j = 0; j < BATCH_GROUP; ++j) acc[j] = 0.f;
+      const float* g = dgs + (gate * B + b0) * du;
+#pragma unroll 8
+      for (int v = 0; v < du; ++v) {
+        const float w = widen(rrow[v]);
+#pragma unroll
+        for (int j = 0; j < BATCH_GROUP; ++j)
+          if (j < nb) acc[j] = fmaf(g[j * du + v], w, acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < BATCH_GROUP; ++j)
+        if (j < nb) part[(gate * B + b0 + j) * du + u] = acc[j];
+    }
+    __syncthreads();
+    for (int i = tid; i < bu; i += nt) {
+      const int b = i / du, uu = i - b * du;
+      const size_t at = ((size_t)b * S + t) * d + head * du + uu;
+      float dh = part[i] + part[bu + i] + part[2 * bu + i] + part[3 * bu + i];
+      const StepIn s = load_step(save, plane, h_cot, at);
+      dh += s.hc;
+      if (t == S - 1) dh += dh_last[(size_t)b * d + head * du + uu];
+      const bool first = t == 0;
+      const float c0 = first ? 0.f : __ldg(save + at - d);
+      const float n0 = first ? 0.f : __ldg(save + plane + at - d);
+      const float m0 = first ? 0.f : __ldg(save + 2 * plane + at - d);
+      float dg[4];
+      cell_bwd(s, c0, n0, m0, dh, dcs[i], dns[i], dms[i], dg);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        dgs[k * bu + i] = dg[k];
+        dpre[k * plane + at] = dg[k];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// shared memory of the cluster route's backward: dg twice, then the R slice
+__host__ __device__ __forceinline__ size_t cluster_bwd_smem(int B, int du,
+                                                            int units,
+                                                            int el) {
+  const int nb = (B + ROWS - 1) / ROWS;
+  return sizeof(float) * 2 * 4 * (size_t)du * ROWS * nb
+         + (size_t)units * r_stride(du, el) * el;
+}
+
+// Route "cluster": the forward's layout read the other way.  A cluster of
+// CS CTAs per head; CTA c owns units u in [c U, (c+1) U) as the rows of R:
+// its slice R[k, hd, u, v] for all v and k, as rs[u][v][k] (the forward's
+// padding), stays in shared memory.  Each CTA keeps the head's dg of the
+// step after, [4 gates][du][4 nb] f32, twice: step t reads slot (t+1) % 2,
+// and writes the four gates of each unit and row it owns into slot t % 2
+// of every CTA (four remote stores per CTA), then meets one cluster
+// barrier.  A lane group of LG lanes owns (unit u, row block) and splits
+// v; the butterfly (two halving exchanges, one full) leaves both lanes of
+// row q / 2 with sum_v sum_k R[k, u, v] dg[k, v] in the same bits; both
+// apply the cell backward, and they share the CS remote stores.  A step's
+// saved values are loaded two steps ahead, off the chain.
+// Gate-major dg: for one gate a lane group's 8 lanes read 8 consecutive
+// units' four rows (one 128-byte line a float4 load at B <= 4, as the
+// forward reads h).  Laid out [du][rows][4 gates] they were 64 bytes apart
+// (4-way bank conflicts at B <= 4, 8-way at B 8): 20.9 against 8.5 ms at
+// xlstm-350m's B 4, S 2048 in bf16, 4.7 against 1.7 ms at B 8, S 128, the
+// same bits (chip_smoke.py phase 11(j) on an H100, PERF.md).
+template <typename TR>
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_bwd_cluster(
+    const float* __restrict__ save, const TR* __restrict__ r,
+    const float* __restrict__ h_cot, const float* __restrict__ dc_last,
+    const float* __restrict__ dn_last, const float* __restrict__ dh_last,
+    const float* __restrict__ dm_last, float* __restrict__ dpre, int B,
+    int S, int H, int du, int units) {
+  constexpr int SUBS = LG / 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nb = (B + ROWS - 1) / ROWS, hrow = ROWS * nb, d = H * du;
+  const int slot = 4 * du * hrow;                      // floats of a slot
+  float* gbuf = reinterpret_cast<float*>(smem_raw);    // [2][4][du][hrow]
+  TR* rs = reinterpret_cast<TR*>(gbuf + 2 * slot);     // [units][rstride]
+  const int rstride = r_stride(du, (int)sizeof(TR));
+  const unsigned rank = cluster_rank();
+  const int head = blockIdx.x / CS, tid = threadIdx.x, nt = blockDim.x;
+  const int task = tid / LG, q = tid % LG;
+  const int unit = task % units, rb = task / units;
+  const int u = (int)rank * units + unit;         // R's row: the unit here
+  const int row = q / SUBS, sub = q % SUBS;
+  const int b = rb * ROWS + row;
+  const bool live = b < B;
+
+  for (int i = tid; i < 2 * slot; i += nt) gbuf[i] = 0.f;
+  for (int i = tid; i < 4 * du * units; i += nt) {
+    const int vv = i % du, wk = i / du, w = wk % units, k = wk / units;
+    rs[w * rstride + vv * 4 + k] =
+        r[((size_t)(k * H + head) * du + rank * units + w) * du + vv];
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  const size_t plane = (size_t)B * S * d;
+  const size_t col = (size_t)(live ? b : 0) * S * d + head * du + u;
+  const size_t fin = (size_t)(live ? b : 0) * d + head * du + u;
+  float dc = live ? dc_last[fin] : 0.f, dn = live ? dn_last[fin] : 0.f;
+  float dm = live ? dm_last[fin] : 0.f;
+  const float dh_end = live ? dh_last[fin] : 0.f;
+  const TR* rrow = rs + unit * rstride;
+  const uint32_t gbase = (uint32_t)__cvta_generic_to_shared(gbuf)
+                         + (uint32_t)(sizeof(float) * (u * hrow + b));
+  const uint32_t gate_bytes = (uint32_t)(sizeof(float) * du * hrow);
+  StepIn cur = {}, nxt = {};
+  if (live) {
+    cur = load_step(save, plane, h_cot, col + (size_t)(S - 1) * d);
+    if (S > 1) nxt = load_step(save, plane, h_cot, col + (size_t)(S - 2) * d);
+  }
+  for (int t = S - 1; t >= 0; --t) {
+    StepIn after = {};
+    // issued now, used two steps later: the saved steps are off the chain
+    if (live && t >= 2)
+      after = load_step(save, plane, h_cot, col + (size_t)(t - 2) * d);
+    // acc[j]: row j of the block, over this lane's v
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* gs = gbuf + ((t + 1) & 1) * slot + rb * ROWS;
+#pragma unroll 4
+    for (int v = q; v < du; v += LG) {
+      float w[4], g[4][4];
+      gates4(rrow + v * 4, w);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            gs + (k * du + v) * hrow);
+        g[k][0] = x.x, g[k][1] = x.y, g[k][2] = x.z, g[k][3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j] = fmaf(g[k][j], w[k], acc[j]);
+    }
+    {
+      const bool up = q & (LG / 2);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float send = up ? acc[i] : acc[i + 2];
+        const float keep = up ? acc[i + 2] : acc[i];
+        acc[i] = keep + __shfl_xor_sync(FULL, send, LG / 2);
+      }
+    }
+    {
+      const bool up = q & (LG / 4);
+      const float send = up ? acc[0] : acc[1];
+      const float keep = up ? acc[1] : acc[0];
+      acc[0] = keep + __shfl_xor_sync(FULL, send, LG / 4);
+    }
+#pragma unroll
+    for (int o = SUBS / 2; o >= 1; o >>= 1)
+      acc[0] += __shfl_xor_sync(FULL, acc[0], o);
+    float dh = acc[0] + cur.hc;
+    if (t == S - 1) dh += dh_end;
+    float dg[4];
+    cell_bwd(cur, t ? nxt.c : 0.f, t ? nxt.n : 0.f, t ? nxt.m : 0.f, dh, dc,
+             dn, dm, dg);
+    if (live) {
+      const uint32_t dst =
+          gbase + (uint32_t)(sizeof(float) * (t & 1) * slot);
+#pragma unroll
+      for (int rk = sub; rk < CS; rk += SUBS)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          store_cluster(map_rank(dst + k * gate_bytes, (unsigned)rk), dg[k]);
+    }
+    cluster_arrive();
+    if (live && sub == 0) {
+      const size_t at = col + (size_t)t * d;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) dpre[k * plane + at] = dg[k];
+    }
+    cur = nxt;
+    nxt = after;
+    cluster_wait();
+  }
+}
+
+template <typename TR>
+int launch_bwd(const float* save, const void* r, const float* h_cot,
+               const float* const* dlast, float* dpre, int B, int S, int H,
+               int du, bool cluster, cudaStream_t stream) {
+  const TR* rr = static_cast<const TR*>(r);
+  if (!cluster) {
+    const size_t smem = sizeof(float) * 11 * (size_t)B * du;
+    auto kernel = slstm_bwd_block<TR>;
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<H, 4 * du, smem, stream>>>(save, rr, h_cot, dlast[0], dlast[1],
+                                        dlast[2], dlast[3], dpre, B, S, H,
+                                        du);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int units = du / CS, nb = (B + ROWS - 1) / ROWS;
+  const size_t smem = cluster_bwd_smem(B, du, units, (int)sizeof(TR));
+  auto kernel = slstm_bwd_cluster<TR>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H * CS, 1, 1);
+  cfg.blockDim = dim3(units * nb * LG, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, save, rr, h_cot, dlast[0], dlast[1],
+                         dlast[2], dlast[3], dpre, B, S, H, du, units);
   if (e != cudaSuccess) return (int)e;
   return static_cast<int>(cudaGetLastError());
 }
@@ -419,12 +765,14 @@ const char* error_string(int code) {
 
 // pre [4, B, S, H du] f32, r [4, H, du, du] (r_bf16: bf16, else f32) ->
 // h_out [B, S, H du] (out_bf16: bf16, else f32) and the final c, n, h, m
-// [B, H du] f32.  1 <= du <= 256, B, S, H >= 1, and 32 B du bytes of
-// shared memory at most 232,448.  Returns cudaGetLastError() after the
-// launch.
+// [B, H du] f32; unless save is null, also save [8, B, S, H du] f32 (c, n,
+// m, h, z, i, f, o each step, for the backward).  1 <= du <= 256, B, S,
+// H >= 1, and 32 B du bytes of shared memory at most 232,448.  Returns
+// cudaGetLastError() after the launch.
 int slstm_scan(const void* pre, const void* r, int r_bf16, void* h_out,
                int out_bf16, void* c_out, void* n_out, void* hl_out,
-               void* m_out, int B, int S, int H, int du, void* stream) {
+               void* m_out, void* save, int B, int S, int H, int du,
+               void* stream) {
   if (B < 1 || S < 1 || H < 1 || du < 1 || du > MAX_UNITS)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * 8 * (size_t)B * du;
@@ -434,17 +782,17 @@ int slstm_scan(const void* pre, const void* r, int r_bf16, void* h_out,
   float* n = static_cast<float*>(n_out);
   float* hl = static_cast<float*>(hl_out);
   float* m = static_cast<float*>(m_out);
+  float* sv = static_cast<float*>(save);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r_bf16)
-    return out_bf16
-        ? launch<__nv_bfloat16, __nv_bfloat16>(p, r, h_out, c, n, hl, m, B,
-                                               S, H, du, smem, s)
-        : launch<__nv_bfloat16, float>(p, r, h_out, c, n, hl, m, B, S, H,
-                                       du, smem, s);
-  return out_bf16
-      ? launch<float, __nv_bfloat16>(p, r, h_out, c, n, hl, m, B, S, H, du,
-                                     smem, s)
-      : launch<float, float>(p, r, h_out, c, n, hl, m, B, S, H, du, smem, s);
+    return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(
+                          p, r, h_out, c, n, hl, m, sv, B, S, H, du, smem, s)
+                    : launch<__nv_bfloat16, float>(p, r, h_out, c, n, hl, m,
+                                                   sv, B, S, H, du, smem, s);
+  return out_bf16 ? launch<float, __nv_bfloat16>(p, r, h_out, c, n, hl, m,
+                                                 sv, B, S, H, du, smem, s)
+                  : launch<float, float>(p, r, h_out, c, n, hl, m, sv, B, S,
+                                         H, du, smem, s);
 }
 
 // The cluster route: as slstm_scan, in one launch of H clusters of 8 CTAs
@@ -454,8 +802,8 @@ int slstm_scan(const void* pre, const void* r, int r_bf16, void* h_out,
 // cudaGetLastError() after the launch.
 int slstm_scan_cluster(const void* pre, const void* r, int r_bf16,
                        void* h_out, int out_bf16, void* c_out, void* n_out,
-                       void* hl_out, void* m_out, int B, int S, int H, int du,
-                       void* stream) {
+                       void* hl_out, void* m_out, void* save, int B, int S,
+                       int H, int du, void* stream) {
   if (B < 1 || S < 1 || H < 1 || du < 1 || du % CS)
     return (int)cudaErrorInvalidValue;
   const long long threads =
@@ -469,18 +817,55 @@ int slstm_scan_cluster(const void* pre, const void* r, int r_bf16,
   float* n = static_cast<float*>(n_out);
   float* hl = static_cast<float*>(hl_out);
   float* m = static_cast<float*>(m_out);
+  float* sv = static_cast<float*>(save);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (r_bf16)
     return out_bf16
         ? launch_cluster<__nv_bfloat16, __nv_bfloat16>(
-              p, r, h_out, c, n, hl, m, B, S, H, du, smem, s)
+              p, r, h_out, c, n, hl, m, sv, B, S, H, du, smem, s)
         : launch_cluster<__nv_bfloat16, float>(
-              p, r, h_out, c, n, hl, m, B, S, H, du, smem, s);
+              p, r, h_out, c, n, hl, m, sv, B, S, H, du, smem, s);
   return out_bf16
       ? launch_cluster<float, __nv_bfloat16>(
-            p, r, h_out, c, n, hl, m, B, S, H, du, smem, s)
-      : launch_cluster<float, float>(p, r, h_out, c, n, hl, m, B, S, H, du,
-                                     smem, s);
+            p, r, h_out, c, n, hl, m, sv, B, S, H, du, smem, s)
+      : launch_cluster<float, float>(p, r, h_out, c, n, hl, m, sv, B, S,
+                                     H, du, smem, s);
+}
+
+// The backward of slstm_scan from what it saved: save [8, B, S, H du] and
+// r [4, H, du, du] (r_bf16: bf16, else f32), h_cot [B, S, H du] f32 (h's
+// cotangent) and dc, dn, dh, dm [B, H du] f32 (the final state's) -> dpre
+// [4, B, S, H du] f32.  cluster: the cluster route (the forward cluster
+// route's bounds on du and threads, and cluster_bwd_smem bytes at most
+// 232,448), else the block route (du <= 256, 44 B du bytes at most
+// 232,448).  Returns cudaGetLastError() after the launch.
+int slstm_scan_bwd(const void* save, const void* r, int r_bf16,
+                   const void* h_cot, const void* dc, const void* dn,
+                   const void* dh, const void* dm, void* dpre, int cluster,
+                   int B, int S, int H, int du, void* stream) {
+  if (B < 1 || S < 1 || H < 1 || du < 1) return (int)cudaErrorInvalidValue;
+  if (cluster) {
+    const long long threads =
+        (long long)(du / CS) * ((B + ROWS - 1) / ROWS) * LG;
+    if (du % CS || threads % 32 || threads > CLUSTER_THREADS ||
+        cluster_bwd_smem(B, du, du / CS, r_bf16 ? 2 : 4) > SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
+  } else if (du > MAX_UNITS || sizeof(float) * 11 * (size_t)B * du >
+                                   SMEM_MAX) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float* dlast[4] = {static_cast<const float*>(dc),
+                           static_cast<const float*>(dn),
+                           static_cast<const float*>(dh),
+                           static_cast<const float*>(dm)};
+  const float* sv = static_cast<const float*>(save);
+  const float* hc = static_cast<const float*>(h_cot);
+  float* out = static_cast<float*>(dpre);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return r_bf16 ? launch_bwd<__nv_bfloat16>(sv, r, hc, dlast, out, B, S, H,
+                                            du, cluster, s)
+                : launch_bwd<float>(sv, r, hc, dlast, out, B, S, H, du,
+                                    cluster, s);
 }
 
 }  // extern "C"

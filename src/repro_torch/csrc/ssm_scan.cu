@@ -310,13 +310,16 @@ __device__ __forceinline__ void store_y(float* __restrict__ y, long long step0,
 }
 
 // VEC: P = N = 64 and 16-byte aligned rows, read and written as float4.
-template <bool VEC>
+// SAVE: also write the state each chunk starts from to hsave
+// [B*H][nc][PC][NC] (for the backward); off, nothing else changes.
+template <bool VEC, bool SAVE>
 __global__ void __launch_bounds__(NT, 2)
     ssd_chunk(const float* __restrict__ xdt, const float* __restrict__ loga,
               const float* __restrict__ bmat, const float* __restrict__ cmat,
               const float* __restrict__ cb, float* __restrict__ y,
-              float* __restrict__ state, float* hbuf, int* ticket, int* done, int bsz, int seq, int nh, int p, int n,
-              int q, int nc) {
+              float* __restrict__ state, float* hbuf, int* ticket, int* done,
+              float* __restrict__ hsave, int bsz, int seq, int nh, int p,
+              int n, int q, int nc) {
   extern __shared__ float smem[];
   float* X = smem;               // [QC][PC]  xdt; later H^T [NC][PC] (ht_at)
   float* W = X + QC * PC;        // G^T [QC][TP]; later Bd and Ct below
@@ -474,6 +477,13 @@ __global__ void __launch_bounds__(NT, 2)
 #pragma unroll
       for (int j = 0; j < 4; ++j) hprev[i][j] = 0.f;
   }
+  if (SAVE) {
+    float* hs = hsave + ((long long)bh * nc + c) * PC * NC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(hs + (4 * ty + i) * NC + 4 * tx) =
+          make_float4(hprev[i][0], hprev[i][1], hprev[i][2], hprev[i][3]);
+  }
   const float decay = expf(total);
   float hnew[4][4];
 #pragma unroll
@@ -504,6 +514,410 @@ __global__ void __launch_bounds__(NT, 2)
   __syncthreads();
   inter_product(X, Ct, n, ra, rb, ya, yb);
   store_y<VEC>(y, step0, row_stride, hh, p, valid, ra, rb, ya, yb);
+}
+
+// ---------------------------------------------------------------------------
+// The backward.  Per chunk, with dy the cotangent of y, dH that of the state
+// after the chunk, L[t][s] = exp(csum[t] - csum[s]) for s <= t (else 0),
+// DX[t][s] = dy_t . xdt_s and W = L o DX:
+//   dH_prev  = exp(total) dH + sum_t exp(csum[t]) dy_t (x) C_t
+//   dxdt_s   = sum_t (C_t . B_s) L[t][s] dy_t + exp(total - csum[s]) dH B_s
+//   dC_t     = sum_s W[t][s] B_s + exp(csum[t]) dy_t H_prev
+//   dB_s     = sum_t W[t][s] C_t + exp(total - csum[s]) xdt_s dH
+//   dcsum[t] = sum_s (C.B)[t][s] W[t][s] - sum_u (C.B)[u][t] W[u][t]
+//            + C_t . (exp(csum[t]) dy_t H_prev)
+//            - B_t . (exp(total - csum[t]) xdt_t dH)
+//            + [t = Q-1] sum(dH o H_new)
+//   dloga    = the reverse cumsum of dcsum within the chunk
+// dB and dC are summed over the heads of a batch row by the caller, from
+// one share a head (no atomics: the same bits on every run).
+//
+// ssd_bwd_chain  the reverse chain: one block per (batch, head, chunk),
+//                tickets handed out from the last chunk down (so every
+//                chunk's successor started first).  A block forms its
+//                chunk's sum_t exp(csum[t]) dy_t (x) C_t on its own, waits
+//                for the chunk after it to publish dH, writes dH_prev for
+//                the chunk before it and releases the row's counter.  dh
+//                [B*H][nc][64][64] ends holding every chunk's dH, the last
+//                one the final state's cotangent.
+// ssd_bwd_chunk  one block per (batch, head, chunk), no order among them:
+//                the chunk's tiles in shared memory (xdt, dy, B, C at pitch
+//                68, one [Q][Q] tile at pitch 132, H_prev then dH), 256
+//                threads each owning rows r = ty + 16 i and columns
+//                c = tx + 16 j of a product, so a warp's reads of a row
+//                tile are broadcasts and of a column tile consecutive.  The
+//                tile holds W, then G = (C.B) o L.  Plain f32 on the CUDA
+//                cores, as the forward; exp(csum[t] - csum[s]) for s <= t
+//                only.
+
+constexpr int PP = PC + 4;    // pitch of the [.][P or N] tiles
+constexpr size_t BWD_CHAIN_SMEM = sizeof(float) * (2 * QC * PC + QC);
+constexpr size_t BWD_CHUNK_SMEM =
+    sizeof(float) * (4 * (size_t)QC * PP + (size_t)QC * TP + PC * PP +
+                     6 * QC);
+
+__device__ __forceinline__ float warp_sum16(float v) {
+#pragma unroll
+  for (int o = 8; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [0, QC) x columns [0, cols) of a [QC][pitch] tile from a [.][stride]
+// array at row step0 (rows past valid, columns past width: 0)
+template <int COLS>
+__device__ __forceinline__ void load_rows(const float* __restrict__ src,
+                                          long long step0, long long stride,
+                                          int width, int valid, float* dst,
+                                          int pitch) {
+  const int tid = threadIdx.x;
+  staged<QC * COLS / NT>(
+      [&](int k) {
+        const int i = tid + k * NT, t = i / COLS, j = i % COLS;
+        return t < valid && j < width ? __ldg(src + (step0 + t) * stride + j)
+                                      : 0.f;
+      },
+      [&](int k, float v) {
+        const int i = tid + k * NT;
+        dst[(i / COLS) * pitch + i % COLS] = v;
+      });
+}
+
+__global__ void __launch_bounds__(NT, 2)
+    ssd_bwd_chain(const float* __restrict__ loga,
+                  const float* __restrict__ cmat,
+                  const float* __restrict__ dy,
+                  const float* __restrict__ state_cot, float* dh,
+                  int* ticket, int* done, int bsz, int seq, int nh, int p,
+                  int n, int q, int nc) {
+  extern __shared__ float smem[];
+  float* DY = smem;              // [QC][PC]
+  float* CE = DY + QC * PC;      // [QC][NC]  C * exp(csum)
+  float* csum = CE + QC * NC;    // [QC]
+  __shared__ int s_ticket;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  if (tid == 0) s_ticket = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int rows = bsz * nh;
+  const int c = nc - 1 - s_ticket / rows, bh = s_ticket % rows;
+  const int bb = bh / nh, hh = bh % nh;
+  const int c0 = c * q, valid = min(q, seq - c0);
+  const long long step0 = (long long)bb * seq + c0;
+  load_rows<PC>(dy + (long long)hh * p, step0, (long long)nh * p, p, valid,
+                DY, PC);
+  load_rows<NC>(cmat, step0, n, n, valid, CE, NC);
+  chunk_csum(loga, step0, nh, hh, valid, csum);
+  const float total = csum[QC - 1];
+  for (int i = tid; i < QC * NC; i += NT) CE[i] *= expf(csum[i / NC]);
+  __syncthreads();
+  // sb[p][n] = sum_t dy_t[p] C_t[n] exp(csum[t]), p = 4ty.., n = 4tx..
+  float sb[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sb[i][j] = 0.f;
+  for (int t = 0; t < valid; ++t) {
+    const float4 a = ld4(DY + t * PC + 4 * ty), b4 = ld4(CE + t * NC + 4 * tx);
+    const float as[4] = {a.x, a.y, a.z, a.w}, bs[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sb[i][j] = fmaf(as[i], bs[j], sb[i][j]);
+  }
+  // dH of this chunk: the final state's cotangent, or the next chunk's
+  float g[4][4];
+  float* mine = dh + ((long long)bh * nc + c) * PC * NC;
+  if (c == nc - 1) {
+    const float* sc = state_cot + (long long)bh * p * n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pp = 4 * ty + i, nn = 4 * tx + j;
+        g[i][j] = pp < p && nn < n ? __ldg(sc + pp * n + nn) : 0.f;
+      }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      __stcg(reinterpret_cast<float4*>(mine + (4 * ty + i) * NC + 4 * tx),
+             make_float4(g[i][0], g[i][1], g[i][2], g[i][3]));
+  } else {
+    if (tid == 0) {
+      while (load_acquire(done + bh) < nc - 1 - c) __nanosleep(64);
+      __threadfence();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = __ldcg(
+          reinterpret_cast<const float4*>(mine + (4 * ty + i) * NC + 4 * tx));
+      g[i][0] = v.x, g[i][1] = v.y, g[i][2] = v.z, g[i][3] = v.w;
+    }
+  }
+  if (c > 0) {
+    const float decay = expf(total);
+    float* prev = mine - PC * NC;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      __stcg(reinterpret_cast<float4*>(prev + (4 * ty + i) * NC + 4 * tx),
+             make_float4(fmaf(decay, g[i][0], sb[i][0]),
+                         fmaf(decay, g[i][1], sb[i][1]),
+                         fmaf(decay, g[i][2], sb[i][2]),
+                         fmaf(decay, g[i][3], sb[i][3])));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) store_release(done + bh, nc - c);
+  }
+}
+
+// dcs[t] <- sum_{u >= t} dcs[u] over the chunk: warp 0, 4 steps a lane
+__device__ __forceinline__ void reverse_cumsum(float* dcs) {
+  const int tid = threadIdx.x;
+  if (tid < 32) {
+    float v[4], run = 0.f;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      run += dcs[tid * 4 + j];
+      v[j] = run;
+    }
+    float suf = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_down_sync(0xffffffffu, suf, off);
+      if (tid + off < 32) suf += o;
+    }
+    const float after = suf - run;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dcs[tid * 4 + j] = v[j] + after;
+  }
+  __syncthreads();
+}
+
+// out[r][c] (r = ty + 16 i, i < 8; c = tx + 16 j, j < J) += sum_k a(r, k)
+// b(k, c) over k < kn
+template <int J, class A, class B>
+__device__ __forceinline__ void product(float (&acc)[8][J], int kn, A a,
+                                        B b) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  for (int k = 0; k < kn; ++k) {
+    float av[8], bv[J];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = a(ty + 16 * i, k);
+#pragma unroll
+    for (int j = 0; j < J; ++j) bv[j] = b(k, tx + 16 * j);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+template <int J>
+__device__ __forceinline__ void zero(float (&acc)[8][J]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
+}
+
+__global__ void __launch_bounds__(NT, 1)
+    ssd_bwd_chunk(const float* __restrict__ xdt,
+                  const float* __restrict__ loga,
+                  const float* __restrict__ bmat,
+                  const float* __restrict__ cmat,
+                  const float* __restrict__ cb,
+                  const float* __restrict__ hprev,
+                  const float* __restrict__ dh,
+                  const float* __restrict__ dy, float* __restrict__ dxdt,
+                  float* __restrict__ dloga, float* __restrict__ db_part,
+                  float* __restrict__ dc_part, int bsz, int seq, int nh,
+                  int p, int n, int q, int nc) {
+  extern __shared__ float smem[];
+  float* X = smem;               // [QC][PP]  xdt
+  float* DY = X + QC * PP;       // [QC][PP]  dy
+  float* Bm = DY + QC * PP;      // [QC][PP]  B
+  float* Cm = Bm + QC * PP;      // [QC][PP]  C
+  float* T = Cm + QC * PP;       // [QC][TP]  W, later G, at [t][s]
+  float* HM = T + QC * TP;       // [PC][PP]  H_prev, later dH
+  float* csum = HM + PC * PP;    // [QC]
+  float* ecs = csum + QC;        // [QC]  exp(csum)
+  float* dout = ecs + QC;        // [QC]  exp(total - csum)
+  float* lcs = dout + QC;        // [QC]  csum log2(e)
+  float* dcs = lcs + QC;         // [QC]  dcsum, then dloga
+  float* es = dcs + QC;          // [QC]  B_s . dB_state_s
+  __shared__ float red[NT / 32];
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
+  const int bb = bh / nh, hh = bh % nh;
+  const int c0 = c * q, valid = min(q, seq - c0);
+  const long long step0 = (long long)bb * seq + c0;
+  const long long row_stride = (long long)nh * p;
+  const float* hp_g = hprev + ((long long)bh * nc + c) * PC * NC;
+  const float* dh_g = dh + ((long long)bh * nc + c) * PC * NC;
+  const float* cbc = cb + ((long long)bb * nc + c) * QC * QC;  // [s][t]
+
+  load_rows<PC>(xdt + (long long)hh * p, step0, row_stride, p, valid, X, PP);
+  load_rows<PC>(dy + (long long)hh * p, step0, row_stride, p, valid, DY, PP);
+  load_rows<NC>(bmat, step0, n, n, valid, Bm, PP);
+  load_rows<NC>(cmat, step0, n, n, valid, Cm, PP);
+  for (int i = tid; i < PC * NC; i += NT)
+    HM[(i / NC) * PP + i % NC] = __ldcg(hp_g + i);
+  // <dH, H_prev>, for dtotal
+  float hd = 0.f;
+  for (int i = tid; i < PC * NC; i += NT)
+    hd = fmaf(__ldcg(dh_g + i), __ldcg(hp_g + i), hd);
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
+  if (tid % 32 == 0) red[tid / 32] = hd;
+  chunk_csum(loga, step0, nh, hh, valid, csum);   // syncs
+  const float total = csum[QC - 1];
+  if (tid < QC) {
+    ecs[tid] = expf(csum[tid]);
+    dout[tid] = expf(total - csum[tid]);
+    lcs[tid] = csum[tid] * 1.4426950408889634f;
+    dcs[tid] = 0.f;
+  }
+  __syncthreads();
+
+  // W[t][s] = L[t][s] dy_t . xdt_s
+  {
+    float acc[8][8];
+    zero(acc);
+    product(acc, p, [&](int t, int k) { return DY[t * PP + k]; },
+            [&](int k, int s) { return X[s * PP + k]; });
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int t = ty + 16 * i, s = tx + 16 * j;
+        T[t * TP + s] = s <= t ? acc[i][j] * fast_exp2(lcs[t] - lcs[s]) : 0.f;
+      }
+  }
+  __syncthreads();
+  // the intra gate's share of dcsum: row sums minus column sums of
+  // (C.B) o W, each in one thread's fixed order
+  float colsum = 0.f;
+  if (tid < QC) {
+    float row = 0.f;
+    for (int s = 0; s <= tid; ++s)
+      row = fmaf(__ldg(cbc + s * QC + tid), T[tid * TP + s], row);
+    dcs[tid] = row;
+  } else {
+    const int s = tid - QC;
+    for (int t = s; t < QC; ++t)
+      colsum = fmaf(__ldg(cbc + s * QC + t), T[t * TP + s], colsum);
+  }
+  __syncthreads();
+  if (tid >= QC) dcs[tid - QC] -= colsum;
+
+  // dC = W B + exp(csum) dy H_prev; dcsum += C . (the second term)
+  {
+    float acc[8][4], inter[8][4];
+    zero(acc);
+    zero(inter);
+    product(acc, valid, [&](int t, int s) { return T[t * TP + s]; },
+            [&](int s, int nn) { return Bm[s * PP + nn]; });
+    product(inter, p, [&](int t, int k) { return DY[t * PP + k]; },
+            [&](int k, int nn) { return HM[k * PP + nn]; });
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = ty + 16 * i;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nn = tx + 16 * j;
+        inter[i][j] *= ecs[t];
+        part = fmaf(Cm[t * PP + nn], inter[i][j], part);
+        if (t < valid && nn < n)
+          dc_part[(((long long)hh * bsz + bb) * seq + c0 + t) * n + nn] =
+              acc[i][j] + inter[i][j];
+      }
+      part = warp_sum16(part);
+      __syncwarp();
+      if (tx == 0) dcs[t] += part;
+    }
+  }
+  __syncthreads();   // H_prev is read: HM takes dH
+  for (int i = tid; i < PC * NC; i += NT)
+    HM[(i / NC) * PP + i % NC] = __ldcg(dh_g + i);
+  __syncthreads();
+
+  // dB = W^T C + exp(total - csum) xdt dH; dcsum -= B . (the second term)
+  {
+    float acc[8][4], st[8][4];
+    zero(acc);
+    zero(st);
+    product(acc, valid, [&](int s, int t) { return T[t * TP + s]; },
+            [&](int t, int nn) { return Cm[t * PP + nn]; });
+    product(st, p, [&](int s, int k) { return X[s * PP + k]; },
+            [&](int k, int nn) { return HM[k * PP + nn]; });
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int s = ty + 16 * i;
+      float part = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int nn = tx + 16 * j;
+        st[i][j] *= dout[s];
+        part = fmaf(Bm[s * PP + nn], st[i][j], part);
+        if (s < valid && nn < n)
+          db_part[(((long long)hh * bsz + bb) * seq + c0 + s) * n + nn] =
+              acc[i][j] + st[i][j];
+      }
+      part = warp_sum16(part);
+      __syncwarp();
+      if (tx == 0) {
+        dcs[s] -= part;
+        es[s] = part;
+      }
+    }
+  }
+  __syncthreads();   // W is read: T takes G
+
+  // G[t][s] = (C_t . B_s) L[t][s]
+  staged<QC * QC / NT>(
+      [&](int k) {
+        const int i = tid + k * NT, s = i / QC, t = i % QC;
+        return s <= t ? __ldg(cbc + i) : 0.f;
+      },
+      [&](int k, float v) {
+        const int i = tid + k * NT, s = i / QC, t = i % QC;
+        T[t * TP + s] = s <= t ? v * fast_exp2(lcs[t] - lcs[s]) : 0.f;
+      });
+  __syncthreads();
+
+  // dxdt = G^T dy + exp(total - csum) B dH^T
+  {
+    float acc[8][4], st[8][4];
+    zero(acc);
+    zero(st);
+    product(acc, valid, [&](int s, int t) { return T[t * TP + s]; },
+            [&](int t, int pp) { return DY[t * PP + pp]; });
+    product(st, n, [&](int s, int k) { return Bm[s * PP + k]; },
+            [&](int k, int pp) { return HM[pp * PP + k]; });
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int s = ty + 16 * i;
+      if (s >= valid) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pp = tx + 16 * j;
+        if (pp < p)
+          dxdt[(step0 + s) * row_stride + (long long)hh * p + pp] =
+              fmaf(dout[s], st[i][j], acc[i][j]);
+      }
+    }
+  }
+
+  // dtotal = exp(total) <dH, H_prev> + sum_s B_s . dB_state_s, at Q - 1
+  if (tid == 0) {
+    float hsum = 0.f, esum = 0.f;
+    for (int w = 0; w < NT / 32; ++w) hsum += red[w];
+    for (int s = 0; s < valid; ++s) esum += es[s];
+    dcs[QC - 1] += fmaf(expf(total), hsum, esum);
+  }
+  __syncthreads();
+  reverse_cumsum(dcs);
+  if (tid < valid) dloga[(step0 + tid) * nh + hh] = dcs[tid];
 }
 
 bool shapes_ok(int chunk, int p, int n) {
@@ -549,17 +963,20 @@ int ssm_scan_cb(const void* b, const void* c, void* cb, int bsz, int seq,
 // xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], cb from ssm_scan_cb, all f32
 // and contiguous -> y [B,S,H,P] and the final state [B,H,P,N], f32.
 // Scratch: hbuf [2, B*H, 64, 64] f32 and counters [B*H + 1] int32 (set to 0
-// here, on the stream).  chunk <= 128, P <= 64, N <= 64, S >= 1.  Returns
-// the first cudaError_t of the memset and the launch.
+// here, on the stream).  hsave, unless null: [B*H, nc, 64, 64] f32, each
+// chunk's incoming state.  chunk <= 128, P <= 64, N <= 64, S >= 1.
+// Returns the first cudaError_t of the memset and the launch.
 int ssm_scan_chunks(const void* xdt, const void* loga, const void* b,
                     const void* c, const void* cb, void* y, void* state,
-                    void* hbuf, void* counters, int bsz, int seq, int nh,
-                    int p, int n, int chunk, void* stream) {
+                    void* hbuf, void* counters, void* hsave, int bsz,
+                    int seq, int nh, int p, int n, int chunk, void* stream) {
   if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = vec_ok(xdt, b, c, y, p, n);
-  const auto kernel = vec ? ssd_chunk<true> : ssd_chunk<false>;
+  const auto kernel =
+      vec ? (hsave ? ssd_chunk<true, true> : ssd_chunk<true, false>)
+          : (hsave ? ssd_chunk<false, true> : ssd_chunk<false, false>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CHUNK_SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -573,7 +990,64 @@ int ssm_scan_chunks(const void* xdt, const void* loga, const void* b,
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<const float*>(cb), static_cast<float*>(y),
       static_cast<float*>(state), static_cast<float*>(hbuf), cnt, cnt + 1,
-      bsz, seq, nh, p, n, chunk, nc);
+      static_cast<float*>(hsave), bsz, seq, nh, p, n, chunk, nc);
+  return (int)cudaGetLastError();
+}
+
+// The backward's reverse chain.  loga [B,S,H], c [B,S,N], dy [B,S,H,P],
+// state_cot [B,H,P,N], f32, contiguous -> dh [B*H, nc, 64, 64] f32: the
+// cotangent of the state after each chunk.  Scratch: counters [B*H + 1]
+// int32 (set to 0 here).  Returns the first cudaError_t of the memset and
+// the launch.
+int ssm_scan_bwd_chain(const void* loga, const void* c, const void* dy,
+                       const void* state_cot, void* dh, void* counters,
+                       int bsz, int seq, int nh, int p, int n, int chunk,
+                       void* stream) {
+  if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BWD_CHAIN_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = bsz * nh, nc = (seq + chunk - 1) / chunk;
+  int* cnt = static_cast<int*>(counters);
+  err = cudaMemsetAsync(cnt, 0, sizeof(int) * (rows + 1), st);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chain<<<rows * nc, NT, BWD_CHAIN_SMEM, st>>>(
+      static_cast<const float*>(loga), static_cast<const float*>(c),
+      static_cast<const float*>(dy), static_cast<const float*>(state_cot),
+      static_cast<float*>(dh), cnt, cnt + 1, bsz, seq, nh, p, n, chunk, nc);
+  return (int)cudaGetLastError();
+}
+
+// The backward's chunks.  xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], cb from
+// ssm_scan_cb, hprev (ssm_scan_chunks' hsave) and dh (ssm_scan_bwd_chain)
+// [B*H, nc, 64, 64], dy [B,S,H,P], all f32 and contiguous -> dxdt
+// [B,S,H,P], dloga [B,S,H], and each head's share of db and dc
+// [H,B,S,N].  Returns the launch's cudaError_t.
+int ssm_scan_bwd_chunks(const void* xdt, const void* loga, const void* b,
+                        const void* c, const void* cb, const void* hprev,
+                        const void* dh, const void* dy, void* dxdt,
+                        void* dloga, void* db_part, void* dc_part, int bsz,
+                        int seq, int nh, int p, int n, int chunk,
+                        void* stream) {
+  if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)BWD_CHUNK_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = bsz * nh, nc = (seq + chunk - 1) / chunk;
+  ssd_bwd_chunk<<<rows * nc, NT, BWD_CHUNK_SMEM,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(xdt), static_cast<const float*>(loga),
+      static_cast<const float*>(b), static_cast<const float*>(c),
+      static_cast<const float*>(cb), static_cast<const float*>(hprev),
+      static_cast<const float*>(dh), static_cast<const float*>(dy),
+      static_cast<float*>(dxdt), static_cast<float*>(dloga),
+      static_cast<float*>(db_part), static_cast<float*>(dc_part), bsz, seq,
+      nh, p, n, chunk, nc);
   return (int)cudaGetLastError();
 }
 

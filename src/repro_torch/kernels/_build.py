@@ -145,16 +145,3 @@ def ptr(t) -> ctypes.c_void_p:
 def stream_of(t) -> ctypes.c_void_p:
     """PyTorch's current stream on the tensor's device."""
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def refuse_grad(what: str, *inputs: torch.Tensor) -> None:
-    """Raise when autograd would record a call of kernel ``what``, which
-    has no backward: grad mode on and an input needing a gradient.  Its
-    output would carry no ``grad_fn``, so every layer beneath it would
-    silently get no gradient."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
-        raise RuntimeError(
-            f"{what} has no backward yet: on the card it runs only without "
-            "gradients (torch.no_grad(), or inputs that need none); the "
-            "backward comes with the hybrid and xLSTM losses in ROADMAP.md "
-            "§1 item 9 step 2a")

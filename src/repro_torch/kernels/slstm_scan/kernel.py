@@ -6,7 +6,9 @@ import ctypes
 
 import torch
 
+from repro_torch._device import true_f32
 from repro_torch.kernels import _build
+from repro_torch.kernels.slstm_scan.ref import SAVED
 
 #: the two kernels behind ``slstm_scan``: a thread-block cluster per head
 #: with its R slice in shared memory and h passed through distributed
@@ -60,13 +62,36 @@ def choose_route(b: int, du: int, r_dtype: torch.dtype) -> str:
     return "cluster" if cluster_fits(b, du, r_dtype) else "block"
 
 
+def cluster_bwd_smem(b: int, du: int, el: int) -> int:
+    """Shared memory of a CTA of the backward's cluster route: the head's
+    four gates' dg, [du] × ``b`` rows padded to a multiple of 4 × 4,
+    twice, then its R slice as the forward's."""
+    rows = ROWS * -(-b // ROWS)
+    return 4 * 2 * 4 * du * rows + (du // CLUSTER) * _r_stride(du, el) * el
+
+
+def bwd_routes(b: int, du: int, r_dtype: torch.dtype) -> tuple[str, ...]:
+    """The backward kernels that take B rows at du units a head with R in
+    ``r_dtype``: ``"cluster"`` where the forward's cluster plan takes the
+    shape and :func:`cluster_bwd_smem` fits in :data:`SMEM_MAX`;
+    ``"block"`` where du <= :data:`MAX_UNITS` and its 44 B du bytes fit.
+    A call takes the first (``"cluster"`` before ``"block"``)."""
+    el = torch.empty((), dtype=r_dtype).element_size()
+    fits = {"cluster": cluster_fits(b, du, r_dtype)
+            and cluster_bwd_smem(b, du, el) <= SMEM_MAX,
+            "block": 1 <= du <= MAX_UNITS and 44 * b * du <= SMEM_MAX}
+    return tuple(r for r in ROUTES if fits[r])
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("slstm_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.slstm_scan.argtypes = [p, p, i, p, i, p, p, p, p, i, i, i, i, p]
+    lib.slstm_scan.argtypes = [p, p, i, p, i, p, p, p, p, p, i, i, i, i, p]
     lib.slstm_scan.restype = ctypes.c_int
     lib.slstm_scan_cluster.argtypes = lib.slstm_scan.argtypes
     lib.slstm_scan_cluster.restype = ctypes.c_int
+    lib.slstm_scan_bwd.argtypes = [p, p, i] + [p] * 6 + [i] * 5 + [p]
+    lib.slstm_scan_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -90,7 +115,7 @@ def _route_checked(route: str | None, b: int, du: int,
 
 def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
                       out_dtype: torch.dtype = torch.float32,
-                      route: str | None = None):
+                      route: str | None = None, save_states: bool = False):
     """pre [4, B, S, d] contiguous float32, r [4, H, du, du] contiguous
     float32 or bfloat16 (H du = d), on one CUDA device → (h [B, S, d] in
     ``out_dtype``, final (c, n, h, m), each [B, d] float32):
@@ -99,8 +124,10 @@ def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
 
     ``route`` (one of :data:`ROUTES`; default :func:`choose_route`) names
     the kernel; one that cannot take the call raises ``ValueError`` before
-    anything is built.  ``launches``
-    counts launches, ``by_route`` launches per route."""
+    anything is built.  With ``save_states`` it returns a third item, what
+    :func:`slstm_scan_bwd_kernel` reads: [8, B, S, d] f32, each step's
+    state and gates (``ref.SAVED``).  ``launches`` counts launches,
+    ``by_route`` launches per route."""
     if pre.dtype != torch.float32 or r.dtype not in (torch.float32,
                                                      torch.bfloat16):
         raise TypeError("pre must be float32 and r float32 or bfloat16, "
@@ -125,14 +152,17 @@ def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
     hs = torch.empty((b, s, d), dtype=out_dtype, device=pre.device)
     state = tuple(torch.empty((b, d), dtype=torch.float32,
                               device=pre.device) for _ in range(4))
+    saved = (torch.empty((len(SAVED), b, s, d), dtype=torch.float32,
+                         device=pre.device) if save_states else None)
     if b * s * d == 0:
         for t in state:
             t.zero_()
-        return hs, state
+        return (hs, state, saved) if save_states else (hs, state)
     lib = _lib()
     args = (_build.ptr(pre), _build.ptr(r), int(r.dtype == torch.bfloat16),
             _build.ptr(hs), int(out_dtype == torch.bfloat16),
-            *(_build.ptr(t) for t in state), b, s, h, du)
+            *(_build.ptr(t) for t in state),
+            None if saved is None else _build.ptr(saved), b, s, h, du)
     with torch.cuda.device(pre.device):
         entry = (lib.slstm_scan_cluster if route == "cluster"
                  else lib.slstm_scan)
@@ -140,15 +170,80 @@ def slstm_scan_kernel(pre: torch.Tensor, r: torch.Tensor, *,
     _build.check(lib, rc, f"slstm_scan ({route})")
     slstm_scan_kernel.launches += 1
     slstm_scan_kernel.by_route[route] += 1
-    return hs, state
+    return (hs, state, saved) if save_states else (hs, state)
+
+
+def slstm_scan_bwd_kernel(saved: torch.Tensor, r: torch.Tensor,
+                          h_cot: torch.Tensor | None, state_cot, *,
+                          route: str | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The backward of :func:`slstm_scan_kernel` from what it saved
+    ([8, B, S, d]), R, and the cotangents of h [B, S, d] and of the final
+    (c, n, h, m) [B, d] (any of them None: zero) → (dpre [4, B, S, d],
+    dR [4, H, du, du]), f32: :func:`~repro_torch.kernels.slstm_scan.ref.
+    slstm_scan_bwd_ref`.
+
+    One launch, ``slstm_scan_bwd`` on ``route`` (default the first of
+    :func:`bwd_routes`; ``by_route`` counts them), runs the reverse chain
+    and writes dpre; dR = sum over b and t of h_{t-1}ᵀ dg_t is then one
+    true-f32 batched product (a plain product outside the chain, as the
+    reference leaves it to XLA).  ``launches`` counts calls."""
+    if saved.ndim != 4 or saved.shape[0] != len(SAVED):
+        raise ValueError(f"saved must be [{len(SAVED)}, B, S, d], got "
+                         f"{tuple(saved.shape)}")
+    _, b, s, d = saved.shape
+    _, h, du, _ = r.shape
+    if h * du != d or not (saved.is_contiguous() and r.is_contiguous()):
+        raise ValueError(f"r {tuple(r.shape)} does not fit d = {d}, or an "
+                         "input is not contiguous")
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {ROUTES}")
+    takes = bwd_routes(b, du, r.dtype)
+    route = route or (takes[0] if takes else "block")
+    if route not in takes:
+        raise ValueError(f"the backward's {route} route does not take B {b} "
+                         f"at du {du} with R in {r.dtype}")
+    dev = saved.device
+    if dev.type != "cuda" or r.device != dev:
+        raise ValueError("slstm_scan_bwd_kernel needs its inputs on one CUDA "
+                         f"device, got {dev} and {r.device}")
+    zeros = torch.zeros((b, d), dtype=torch.float32, device=dev)
+    h_cot = (torch.zeros((b, s, d), dtype=torch.float32, device=dev)
+             if h_cot is None else h_cot.float().contiguous())
+    finals = [zeros if g is None else g.float().contiguous()
+              for g in (state_cot or (None,) * 4)]
+    dpre = torch.empty((4, b, s, d), dtype=torch.float32, device=dev)
+    if b * s * d == 0:
+        return dpre.zero_(), torch.zeros(r.shape, dtype=torch.float32,
+                                         device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.slstm_scan_bwd(
+            _build.ptr(saved), _build.ptr(r), int(r.dtype == torch.bfloat16),
+            *(_build.ptr(t) for t in (h_cot, *finals, dpre)),
+            int(route == "cluster"), b, s, h, du, _build.stream_of(saved))
+    _build.check(lib, rc, f"slstm_scan_bwd ({route})")
+    slstm_scan_bwd_kernel.launches += 1
+    slstm_scan_bwd_kernel.by_route[route] += 1
+    # h_{t-1}: the saved h one step later, 0 before the first
+    h_prev = torch.nn.functional.pad(saved[SAVED.index("h"), :, :-1],
+                                     (0, 0, 1, 0))
+    with true_f32():
+        dr = torch.einsum("xhu,gxhv->ghuv", h_prev.reshape(b * s, h, du),
+                          dpre.reshape(4, b * s, h, du))
+    return dpre, dr
 
 
 def reset_counts() -> None:
-    """Set the launch counts (all, and per route) to 0."""
+    """Set the launch counts (all, and per route) of the forward and the
+    backward to 0."""
     slstm_scan_kernel.launches = 0
     slstm_scan_kernel.by_route = dict.fromkeys(ROUTES, 0)
+    slstm_scan_bwd_kernel.launches = 0
+    slstm_scan_bwd_kernel.by_route = dict.fromkeys(ROUTES, 0)
 
 
 #: launches of the CUDA kernels since the counts were last set to 0, in all
-#: (``launches``) and per route (``by_route``)
+#: (``launches``) and per route (``by_route``), of the forward
+#: (``slstm_scan_kernel``) and of the backward (``slstm_scan_bwd_kernel``)
 reset_counts()

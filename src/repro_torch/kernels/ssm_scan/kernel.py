@@ -11,6 +11,9 @@ from repro_torch.kernels import _build
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 64
 #: the two CUDA kernels each call launches, in order
 KERNELS = ("ssd_cb", "ssd_chunk")
+#: the two CUDA kernels each backward call launches, in order: the reverse
+#: chain over chunks, then one block per (batch, head, chunk)
+BWD_KERNELS = ("ssd_bwd_chain", "ssd_bwd_chunk")
 
 
 def _lib() -> ctypes.CDLL:
@@ -18,8 +21,12 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ssm_scan_cb.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.ssm_scan_cb.restype = ctypes.c_int
-    lib.ssm_scan_chunks.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.ssm_scan_chunks.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.ssm_scan_chunks.restype = ctypes.c_int
+    lib.ssm_scan_bwd_chain.argtypes = [p] * 6 + [i] * 6 + [p]
+    lib.ssm_scan_bwd_chain.restype = ctypes.c_int
+    lib.ssm_scan_bwd_chunks.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.ssm_scan_bwd_chunks.restype = ctypes.c_int
     return lib
 
 
@@ -71,12 +78,22 @@ def cb_kernel(b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
     return cb
 
 
+def _states(bsz: int, h: int, s: int, chunk: int, device) -> torch.Tensor:
+    """[B·H, nc, 64, 64] f32: one [P, N] state a (batch, head, chunk), at
+    the kernels' capacities."""
+    return torch.empty((bsz * h, -(-s // chunk), MAX_HEAD_DIM, MAX_STATE),
+                       dtype=torch.float32, device=device)
+
+
 def chunk_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
-                 c: torch.Tensor, cb: torch.Tensor, chunk: int
+                 c: torch.Tensor, cb: torch.Tensor, chunk: int,
+                 h_prev: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """The scan from ``cb_kernel``'s C·Bᵀ (``ssd_chunk``, one launch,
     counted in ``ssd_scan_kernel.by_kernel``): every (batch, head, chunk) a
-    block, the state handed from chunk to chunk → (y, final state)."""
+    block, the state handed from chunk to chunk → (y, final state).  Given
+    ``h_prev`` (:func:`_states`), each block also writes the state its
+    chunk starts from there."""
     bsz, s, h, p = xdt.shape
     n = b.shape[-1]
     y = torch.empty_like(xdt)
@@ -87,10 +104,11 @@ def chunk_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
     counters = torch.empty(bsz * h + 1, dtype=torch.int32,
                            device=xdt.device)
     lib = _lib()
+    save = None if h_prev is None else _build.ptr(h_prev)
     with torch.cuda.device(xdt.device):
         rc = lib.ssm_scan_chunks(
             *(_build.ptr(t) for t in (xdt, loga, b, c, cb, y, state, hbuf,
-                                      counters)),
+                                      counters)), save,
             bsz, s, h, p, n, chunk, _build.stream_of(xdt))
     _build.check(lib, rc, "ssm_scan (ssd_chunk)")
     ssd_scan_kernel.by_kernel["ssd_chunk"] += 1
@@ -98,32 +116,104 @@ def chunk_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
 
 
 def ssd_scan_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
-                    c: torch.Tensor, chunk: int
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    c: torch.Tensor, chunk: int, *,
+                    save_states: bool = False):
     """xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], all contiguous float32 on
     one CUDA device → (y [B,S,H,P], final state [B,H,P,N]), float32.
 
     The scan without the D skip term (the caller adds it), in chunks of
     ``chunk`` steps; a ragged last chunk acts as if padded with dt = 0.
     Two launches: C·Bᵀ once per batch row and chunk (``cb_kernel``), then
-    the chunks (``chunk_kernel``); ``launches`` counts calls."""
+    the chunks (``chunk_kernel``); ``launches`` counts calls.  With
+    ``save_states`` it returns a third item, what
+    :func:`ssd_scan_bwd_kernel` reads: (C·Bᵀ, each chunk's incoming state
+    [B·H, nc, 64, 64])."""
     chunk = _check_inputs(xdt, loga, b, c, chunk)
     bsz, s, h, p = xdt.shape
     if bsz * h == 0 or s == 0 or p == 0 or b.shape[-1] == 0:
-        return (torch.zeros_like(xdt),
-                torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float32,
-                            device=xdt.device))
-    out = chunk_kernel(xdt, loga, b, c, cb_kernel(b, c, chunk), chunk)
+        out = (torch.zeros_like(xdt),
+               torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float32,
+                           device=xdt.device))
+        return (*out, None) if save_states else out
+    cb = cb_kernel(b, c, chunk)
+    h_prev = _states(bsz, h, s, chunk, xdt.device) if save_states else None
+    out = chunk_kernel(xdt, loga, b, c, cb, chunk, h_prev)
     ssd_scan_kernel.launches += 1
-    return out
+    return (*out, (cb, h_prev)) if save_states else out
+
+
+def ssd_scan_bwd_kernel(xdt: torch.Tensor, loga: torch.Tensor,
+                        b: torch.Tensor, c: torch.Tensor,
+                        cb: torch.Tensor, h_prev: torch.Tensor, chunk: int,
+                        y_cot: torch.Tensor | None,
+                        state_cot: torch.Tensor | None
+                        ) -> tuple[torch.Tensor, ...]:
+    """The backward of :func:`ssd_scan_kernel` from what it saved (``cb``,
+    ``h_prev``) and the cotangents of y [B,S,H,P] and of the final state
+    [B,H,P,N] (either None: zero) → (dxdt, dloga, db, dc), f32:
+    :func:`~repro_torch.kernels.ssm_scan.ref.ssd_scan_chunked_bwd_ref`.
+
+    Two launches (``by_kernel``): ``ssd_bwd_chain`` runs the chunks from
+    the last down, each forming the cotangent of the state after it, dH;
+    ``ssd_bwd_chunk`` then gives every (batch, head, chunk) a block that
+    forms dxdt, dloga and the head's share of dB and dC.  The shares are
+    summed over heads here, in a fixed order: two calls give the same
+    bits.  ``launches`` counts calls."""
+    chunk = _check_inputs(xdt, loga, b, c, chunk)
+    bsz, s, h, p = xdt.shape
+    n = b.shape[-1]
+    dev = xdt.device
+    y_cot = (torch.zeros_like(xdt) if y_cot is None
+             else y_cot.float().contiguous())
+    state_cot = (torch.zeros((bsz, h, p, n), dtype=torch.float32,
+                             device=dev) if state_cot is None
+                 else state_cot.float().contiguous())
+    if y_cot.shape != xdt.shape or state_cot.shape != (bsz, h, p, n):
+        raise ValueError(f"cotangents {tuple(y_cot.shape)} and "
+                         f"{tuple(state_cot.shape)} do not fit y "
+                         f"{tuple(xdt.shape)} and the state "
+                         f"{(bsz, h, p, n)}")
+    nc = -(-s // chunk)
+    if (cb.shape != (bsz, nc, MAX_CHUNK, MAX_CHUNK)
+            or h_prev.shape != (bsz * h, nc, MAX_HEAD_DIM, MAX_STATE)):
+        raise ValueError(f"saved cb {tuple(cb.shape)} and h_prev "
+                         f"{tuple(h_prev.shape)} are not the forward's at "
+                         f"this shape and chunk {chunk}")
+    d_h = _states(bsz, h, s, chunk, dev)
+    counters = torch.empty(bsz * h + 1, dtype=torch.int32, device=dev)
+    dxdt = torch.empty_like(xdt)
+    dloga = torch.empty_like(loga)
+    db = torch.empty((h, bsz, s, n), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(db)
+    lib = _lib()
+    stream = _build.stream_of(xdt)
+    with torch.cuda.device(dev):
+        rc = lib.ssm_scan_bwd_chain(
+            *(_build.ptr(t) for t in (loga, c, y_cot, state_cot, d_h,
+                                      counters)),
+            bsz, s, h, p, n, chunk, stream)
+        _build.check(lib, rc, "ssm_scan (ssd_bwd_chain)")
+        ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chain"] += 1
+        rc = lib.ssm_scan_bwd_chunks(
+            *(_build.ptr(t) for t in (xdt, loga, b, c, cb, h_prev, d_h,
+                                      y_cot, dxdt, dloga, db, dc)),
+            bsz, s, h, p, n, chunk, stream)
+        _build.check(lib, rc, "ssm_scan (ssd_bwd_chunk)")
+        ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chunk"] += 1
+    ssd_scan_bwd_kernel.launches += 1
+    return dxdt, dloga, db.sum(0), dc.sum(0)
 
 
 def reset_counts() -> None:
-    """Set the launch counts (calls, and per CUDA kernel) to 0."""
+    """Set the launch counts (calls, and per CUDA kernel) of the forward
+    and the backward to 0."""
     ssd_scan_kernel.launches = 0
     ssd_scan_kernel.by_kernel = dict.fromkeys(KERNELS, 0)
+    ssd_scan_bwd_kernel.launches = 0
+    ssd_scan_bwd_kernel.by_kernel = dict.fromkeys(BWD_KERNELS, 0)
 
 
 #: calls that launched the CUDA kernels since the counts were last set to
-#: 0 (``launches``), and launches per kernel (``by_kernel``)
+#: 0 (``launches``), and launches per kernel (``by_kernel``), of the forward
+#: (``ssd_scan_kernel``) and of the backward (``ssd_scan_bwd_kernel``)
 reset_counts()

@@ -22,13 +22,14 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
                                        mlp_param_shapes, rms_norm)
-from repro_torch.models.transformer import _lm_head, dtype_of
+from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
 
 
 def _grouping(cfg) -> tuple[int, int]:
@@ -118,6 +119,36 @@ def _hidden(params, tokens, cfg, impl, cache=None):
 def forward(params, batch, cfg, *, impl="chunked"):
     """Full segment.  Returns logits [B,S,V]."""
     return _lm_head(params, _hidden(params, batch["tokens"], cfg, impl), cfg)
+
+
+def _shared_train(shared, x, cfg, positions, impl):
+    return _shared_block_full(shared, x, cfg, positions, impl)[0]
+
+
+def _mamba_train(lp, x, cfg, impl):
+    y, _ = m2.mamba2_block(lp, rms_norm(x, lp["pre_norm_scale"],
+                                        cfg.norm_eps), cfg, impl=impl)
+    return x + y
+
+
+def train_loss(params, batch, cfg, *, impl="chunked"):
+    """batch: tokens [B,S+1] (optional ``mask`` [B,S]) → (xent, {"xent",
+    "aux"}), the reference's ``train_loss``: the shared block and each
+    Mamba layer under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of ``group`` and ``layer``), no cache collected."""
+    tokens = batch["tokens"]
+    x = _embed(params, tokens[:, :-1], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    g, _ = _grouping(cfg)
+    for gi in range(g):
+        x = checkpoint(_shared_train, params["shared_attn"], x, cfg,
+                       positions, impl, use_reentrant=False)
+        for li in _group_layers(cfg, gi):
+            x = checkpoint(_mamba_train, params["mamba"][li], x, cfg, impl,
+                           use_reentrant=False)
+    x = rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    loss = head_loss(params, x, tokens[:, 1:], cfg, batch.get("mask"))
+    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 # --------------------------------------------------------------------------

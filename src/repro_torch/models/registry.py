@@ -5,9 +5,7 @@
 functions of (params, batch[, cache]) on the params' device.
 ``init_params(seed, device, trainable=True)`` gives parameters that need
 gradients, for training; serving keeps them frozen (the default).
-``train_loss`` covers the dense, MoE, MLA, VLM and audio families; the
-hybrid and xLSTM losses wait for the backward of their scan kernels
-(ROADMAP.md §1 item 9 step 2a) and raise.
+``train_loss`` covers every family.
 """
 from __future__ import annotations
 
@@ -46,15 +44,8 @@ def build_model(cfg, *, impl: str = "chunked") -> ModelAPI:
            "audio": encdec}.get(cfg.family)
     if mod is None:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
-    if mod in (transformer, encdec):
-        def train_loss(p, b):
-            return mod.train_loss(p, b, cfg, impl=impl)
-    else:
-        def train_loss(p, b):
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.family} family's train_loss waits for "
-                "the backward of its scan kernels (ROADMAP.md §1 item 9 "
-                "step 2a)")
+    def train_loss(p, b):
+        return mod.train_loss(p, b, cfg, impl=impl)
 
     def init_params(seed=0, device=None, trainable=False):
         return mod.init_params(cfg, seed, device).requires_grad_(trainable)

@@ -204,6 +204,15 @@ def _head_weight(params, cfg):
     return params["lm_head"]
 
 
+def head_loss(params, x, labels, cfg, mask=None):
+    """The LM head's cross-entropy of hidden ``x`` [B,S,d] against
+    ``labels`` [B,S]: sequence-chunked when ``cfg.loss_chunk``, else over
+    the whole logits (with the optional ``mask``)."""
+    if cfg.loss_chunk:
+        return chunked_lm_loss(x, _head_weight(params, cfg), labels, cfg)
+    return lm_loss(_lm_head(params, x, cfg), labels, mask)
+
+
 def train_loss(params, batch, cfg, *, impl="chunked"):
     """batch: tokens [B,S+1] (or a VLM's embeds [B,S,d] + labels [B,S]),
     an optional ``mask`` [B,S].  Returns (xent + aux, {"xent", "aux"})."""
@@ -213,10 +222,7 @@ def train_loss(params, batch, cfg, *, impl="chunked"):
         tokens = batch["tokens"]
         inputs, labels = {"tokens": tokens[:, :-1]}, tokens[:, 1:]
     x, aux = backbone(params, inputs, cfg, impl=impl, remat=True)
-    if cfg.loss_chunk:
-        loss = chunked_lm_loss(x, _head_weight(params, cfg), labels, cfg)
-    else:
-        loss = lm_loss(_lm_head(params, x, cfg), labels, batch.get("mask"))
+    loss = head_loss(params, x, labels, cfg, batch.get("mask"))
     return loss + aux, {"xent": loss, "aux": aux}
 
 

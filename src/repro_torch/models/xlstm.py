@@ -161,16 +161,13 @@ def slstm_scan(x, params, n_heads: int, *, impl: str = "chunked"):
 
     The gates' input products for the whole sequence are four true-f32
     matmuls (``pre`` [4, B, S, d], bias added); the recurrence is
-    ``kernels.slstm_scan``: its kernel on the card, or with
-    ``impl="naive"`` its plain step loop."""
-    bsz, s, d = x.shape
+    ``kernels.slstm_scan``: its kernel on the card (under autograd with
+    its backward kernel), or with ``impl="naive"`` its plain step loop."""
     assert params["r_z"].shape[0] == n_heads, (params["r_z"].shape, n_heads)
     x32 = x.float()
-    pre = torch.empty((4, bsz, s, d), dtype=torch.float32, device=x.device)
     with true_f32():
-        for gi, g in enumerate(GATES):
-            torch.matmul(x32, params[f"w_{g}"].float(), out=pre[gi])
-            pre[gi] += params[f"b_{g}"].float()
+        pre = torch.stack([x32 @ params[f"w_{g}"].float()
+                           + params[f"b_{g}"].float() for g in GATES])
     scan = slstm_scan_ref if impl == "naive" else slstm_scan_op
     return scan(pre, _stacked_r(params), out_dtype=x.dtype)
 

@@ -11,6 +11,7 @@ the reference's keys and stacked shapes (``m_C`` [G, M, B, H, D, D] …);
 decode updates it in place.  The state is O(1) in sequence length.
 
     init_params(cfg, seed, device)               -> params
+    train_loss(params, batch, cfg)               -> (loss, metrics)
     forward(params, batch, cfg)                  -> logits [B,S,V]
     prefill(params, batch, cfg, max_len)         -> (logits [B,1,V], cache)
     decode_step(params, batch, cache, cfg)       -> (logits [B,1,V], cache)
@@ -20,11 +21,12 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import ParamTree, init_tree, rms_norm
-from repro_torch.models.transformer import _lm_head, dtype_of
+from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
 
 
 def _grouping(cfg) -> tuple[int, int]:
@@ -85,6 +87,34 @@ def _hidden(params, tokens, cfg, impl, cache=None):
 def forward(params, batch, cfg, *, impl="chunked"):
     """Full segment.  Returns logits [B,S,V] (tied head)."""
     return _lm_head(params, _hidden(params, batch["tokens"], cfg, impl), cfg)
+
+
+def _mlstm_train(lp, x, cfg):
+    return xl.mlstm_block(lp, x, cfg)[0]
+
+
+def _slstm_train(lp, x, cfg, impl):
+    return xl.slstm_block(lp, x, cfg, impl=impl)[0]
+
+
+def train_loss(params, batch, cfg, *, impl="chunked"):
+    """batch: tokens [B,S+1] (optional ``mask`` [B,S]) → (xent, {"xent",
+    "aux"}), the reference's ``train_loss``: every block under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of each
+    mLSTM layer and of the sLSTM block), no state collected."""
+    tokens = batch["tokens"]
+    x = _embed(params, tokens[:, :-1], cfg)
+    g, m = _grouping(cfg)
+    for gi in range(g):
+        for mi in range(m):
+            x = checkpoint(_mlstm_train, params["mlstm"][gi * m + mi], x,
+                           cfg, use_reentrant=False)
+        if cfg.slstm_every:
+            x = checkpoint(_slstm_train, params["slstm"][gi], x, cfg, impl,
+                           use_reentrant=False)
+    x = rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    loss = head_loss(params, x, tokens[:, 1:], cfg, batch.get("mask"))
+    return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 # --------------------------------------------------------------------------

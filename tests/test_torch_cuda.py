@@ -1679,14 +1679,154 @@ def test_bf16_train_step_on_the_card(cuda):
     assert after.item() < loss.item()
 
 
-def test_scan_kernels_refuse_to_run_under_autograd(cuda):
-    """``ssd_chunked_kernel`` and ``slstm_scan`` have no backward: with
-    grad mode on and an input needing a gradient they raise, naming the
-    ROADMAP step that brings it; without, they run."""
+# --------------------------------------------------------------------------
+# The scans' backward kernels
+# --------------------------------------------------------------------------
+# (B, S, H, P, N, chunk) of the SSD backward: one step, a ragged last chunk
+# (N != P), B 3 over several chunks at P = N = 64 (the float4 forward), H 1
+# over a ragged tail, zamba2's chunk of 128 at B 1 and two chunks at B 5
+SSD_BWD_GPU_CASES = [(1, 1, 2, 8, 8, 16), (2, 100, 3, 16, 4, 32),
+                     (3, 200, 4, 64, 64, 64), (1, 33, 1, 4, 32, 8),
+                     (1, 128, 8, 64, 64, 128), (5, 256, 2, 64, 16, 128)]
+# f32 sums in other orders (the head sums of dB and dC over up to 64
+# heads): each gradient within SSD_BWD_GPU_TOL of its largest magnitude
+SSD_BWD_GPU_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_GPU_CASES)
+def test_ssm_scan_backward_matches_plain(cuda, b, s, h, p, n, chunk):
+    """The forward with its states saved keeps the served call's bits; the
+    backward kernels (``ssd_bwd_chain``, ``ssd_bwd_chunk``) against
+    ``ssd_scan_chunked_bwd_ref`` with random cotangents on y and the final
+    state, and the same bits in a second call."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_bwd_ref
+    xdt, loga, bb, cc = _ssd_case(cuda, b, s, h, p, n)
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    dy = torch.randn(xdt.shape, generator=gen, device=cuda)
+    dst = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    ss_kernel.reset_counts()
+    y, st, saved = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, chunk,
+                                             save_states=True)
+    served = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, chunk)
+    assert torch.equal(y, served[0]) and torch.equal(st, served[1])
+    got = ss_kernel.ssd_scan_bwd_kernel(xdt, loga, bb, cc, *saved, chunk, dy,
+                                        dst)
+    again = ss_kernel.ssd_scan_bwd_kernel(xdt, loga, bb, cc, *saved, chunk,
+                                          dy, dst)
+    torch.cuda.synchronize()
+    assert ss_kernel.ssd_scan_bwd_kernel.launches == 2
+    assert ss_kernel.ssd_scan_bwd_kernel.by_kernel == {"ssd_bwd_chain": 2,
+                                                       "ssd_bwd_chunk": 2}
+    want = ssd_scan_chunked_bwd_ref(xdt, loga, bb, cc, chunk, dy, dst)
+    for name, g, g2, w in zip(("dxdt", "dloga", "db", "dc"), got, again,
+                              want):
+        assert torch.equal(g, g2), name
+        err = (g - w).abs().max().item() / _ssd_bwd_scale(name, w, xdt, want)
+        print(f"ssd backward {(b, s, h, p, n, chunk)} {name}: {err:.3g}")
+        assert err <= SSD_BWD_GPU_TOL, (name, err)
+
+
+def _ssd_bwd_scale(name, w, xdt, want):
+    """The scale a gradient's gap is held against: its largest magnitude;
+    for dloga at least 1e-2 of max |xdt| · max |dxdt|, the size of the
+    terms it sums (both in the loss's units), since at one step they cancel
+    to 0 exactly (y and the state do not depend on loga) and what is left
+    on either side is rounding."""
+    scale = w.abs().max().item()
+    if name == "dloga":
+        scale = max(scale, 1e-2 * xdt.abs().max().item()
+                    * want[0].abs().max().item())
+    return scale
+
+
+def test_ssm_scan_backward_takes_absent_cotangents(cuda):
+    """A cotangent on y alone (training: the final state unused) and on the
+    state alone, each against the plain backward."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_bwd_ref
+    xdt, loga, bb, cc = _ssd_case(cuda, 2, 90, 3, 16, 8)
+    _, _, saved = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, 32,
+                                            save_states=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dy = torch.randn(xdt.shape, generator=gen, device=cuda)
+    dst = torch.randn((2, 3, 16, 8), generator=gen, device=cuda)
+    for cots in ((dy, None), (None, dst)):
+        got = ss_kernel.ssd_scan_bwd_kernel(xdt, loga, bb, cc, *saved, 32,
+                                            *cots)
+        want = ssd_scan_chunked_bwd_ref(xdt, loga, bb, cc, 32, *cots)
+        for name, g, w in zip(("dxdt", "dloga", "db", "dc"), got, want):
+            assert ((g - w).abs().max().item() <= SSD_BWD_GPU_TOL
+                    * _ssd_bwd_scale(name, w, xdt, want)), name
+
+
+# (B, S, H, du, dtype of R and h, route) of the sLSTM backward: one step,
+# B not a multiple of 4, xlstm-350m's width (H 4, du 256) on both routes
+# and both dtypes, B 8 (two row blocks), and shapes only the block route
+# takes (du 24, B 9 at du 256)
+SLSTM_BWD_GPU_CASES = [
+    (1, 1, 4, 256, torch.float32, "cluster"),
+    (3, 40, 4, 256, torch.bfloat16, "cluster"),
+    (3, 40, 4, 256, torch.float32, "block"),
+    (4, 300, 4, 256, torch.bfloat16, "cluster"),
+    (4, 300, 4, 256, torch.float32, "cluster"),
+    (8, 60, 2, 256, torch.float32, "cluster"),
+    (5, 33, 2, 64, torch.bfloat16, "cluster"),
+    (2, 1, 3, 24, torch.float32, "block"),
+    (5, 33, 3, 24, torch.float32, "block"),
+    (9, 20, 2, 256, torch.bfloat16, "block")]
+# f32 sums in other orders along the reverse chain: dpre and dR each within
+# SLSTM_BWD_GPU_TOL of its largest magnitude
+SLSTM_BWD_GPU_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,s,h,du,dtype,route", SLSTM_BWD_GPU_CASES)
+def test_slstm_scan_backward_matches_plain(cuda, b, s, h, du, dtype, route):
+    """The forward with its steps saved keeps the served call's bits (on
+    the route that takes the shape); ``slstm_scan_bwd`` on ``route``
+    against ``slstm_scan_bwd_ref``, with cotangents on h and on the final
+    (c, n, h, m), and the same bits in a second call."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
+    pre, r = _slstm_inputs(cuda, b, s, h, du, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(b + s)
+    h_cot = torch.randn((b, s, h * du), generator=gen, device=cuda)
+    st_cot = tuple(torch.randn((b, h * du), generator=gen, device=cuda)
+                   for _ in range(4))
+    sl_kernel.reset_counts()
+    hs, st, saved = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype,
+                                                save_states=True)
+    served, st2 = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=dtype)
+    assert torch.equal(hs, served)
+    assert all(torch.equal(a, c) for a, c in zip(st, st2))
+    got = sl_kernel.slstm_scan_bwd_kernel(saved, r, h_cot, st_cot,
+                                          route=route)
+    again = sl_kernel.slstm_scan_bwd_kernel(saved, r, h_cot, st_cot,
+                                            route=route)
+    torch.cuda.synchronize()
+    assert sl_kernel.slstm_scan_bwd_kernel.by_route[route] == 2
+    want = sl_ref.slstm_scan_bwd_ref(pre, r, h_cot, st_cot)
+    for name, g, g2, w in zip(("dpre", "dR"), got, again, want):
+        assert torch.equal(g, g2), name
+        # dR is 0 at one step (h before the first is 0)
+        err = (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        print(f"slstm backward {(b, s, h, du, dtype, route)} {name}: "
+              f"{err:.3g}")
+        assert err <= SLSTM_BWD_GPU_TOL, (name, err)
+
+
+def test_scan_ops_take_the_backward_kernels_under_autograd(cuda):
+    """Under autograd ``ssd_chunked_kernel`` and ``slstm_scan`` run the
+    forward kernels saving their states and, in the backward, one call of
+    each backward kernel; their gradients match autograd on CPU copies (the
+    plain versions).  Without grad mode nothing is saved: one forward call,
+    no backward."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
     from repro_torch.kernels.slstm_scan.ops import slstm_scan
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.kernels.ssm_scan.ops import ssd_chunked_kernel
     gen = torch.Generator(device=cuda).manual_seed(0)
-    b, s, h, p, n = 1, 64, 2, 16, 16
+    b, s, h, p, n = 2, 70, 2, 16, 16
     x = torch.randn((b, s, h, p), generator=gen, device=cuda)
     dt = torch.rand((b, s, h), generator=gen, device=cuda) * 0.1
     a_log = torch.zeros(h, device=cuda)
@@ -1695,14 +1835,27 @@ def test_scan_kernels_refuse_to_run_under_autograd(cuda):
     d_skip = torch.ones(h, device=cuda)
     pre = torch.randn((4, b, s, 2 * 32), generator=gen, device=cuda)
     r = torch.randn((4, 2, 32, 32), generator=gen, device=cuda) * 0.1
-    for args, fn, kw in (((x, dt, a_log, bm, cm, d_skip),
-                          ssd_chunked_kernel, dict(chunk=16)),
-                         ((pre, r), slstm_scan, {})):
-        for i in range(len(args)):
-            grad_args = [a.clone().requires_grad_(j == i)
-                         for j, a in enumerate(args)]
-            with pytest.raises(RuntimeError, match="item 9 step 2a"):
-                fn(*grad_args, **kw)
-            with torch.no_grad():
-                fn(*grad_args, **kw)
-        fn(*args, **kw)
+    for args, fn, kw, kern in (((x, dt, a_log, bm, cm, d_skip),
+                                ssd_chunked_kernel, dict(chunk=32),
+                                ss_kernel.ssd_scan_bwd_kernel),
+                               ((pre, r), slstm_scan, {},
+                                sl_kernel.slstm_scan_bwd_kernel)):
+        grads = []
+        for dev in (cuda, "cpu"):
+            leaves = [a.detach().to(dev).requires_grad_() for a in args]
+            ss_kernel.reset_counts()
+            sl_kernel.reset_counts()
+            out = fn(*leaves, **kw)
+            out[0].float().square().sum().backward()
+            grads.append([t.grad.cpu() for t in leaves])
+            if dev == cuda:
+                assert kern.launches == 1
+        for g, w in zip(*grads):
+            assert ((g - w).abs().max() <= 1e-4 * w.abs().max()).item()
+        ss_kernel.reset_counts()
+        sl_kernel.reset_counts()
+        with torch.no_grad():
+            fn(*(a.clone().requires_grad_() for a in args), **kw)
+        assert kern.launches == 0
+        assert (ss_kernel.ssd_scan_kernel.launches
+                + sl_kernel.slstm_scan_kernel.launches) == 1

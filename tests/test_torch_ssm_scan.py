@@ -1,6 +1,8 @@
 """The port's SSD scan (plain versions on the CPU) against the JAX package:
 the Pallas kernel in interpret mode, ``mamba2.ssd_chunked`` and the
-sequential oracle.  Inputs come from numpy."""
+sequential oracle; its backward (the plain ``ssd_scan_chunked_bwd_ref`` and
+``SSDScan``) against ``jax.vjp`` of ``mamba2.ssd_chunked``.  Inputs come
+from numpy."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,7 @@ from repro.models import mamba2 as r_m2
 
 from repro_torch.kernels.ssm_scan.ops import ssd_chunked_kernel
 from repro_torch.kernels.ssm_scan.ref import (ssd_inputs,
+                                              ssd_scan_chunked_bwd_ref,
                                               ssd_scan_chunked_ref,
                                               ssd_scan_ref)
 from repro_torch.models import mamba2 as p_m2
@@ -160,3 +163,114 @@ def test_ssd_inputs_are_the_references_decay_and_weighted_input():
     xdt, loga = ssd_inputs(*map(torch.as_tensor, (x, dt, a_log)))
     np.testing.assert_allclose(xdt.numpy(), x * dt[..., None], rtol=1e-6)
     np.testing.assert_allclose(loga.numpy(), -np.exp(a_log) * dt, rtol=1e-6)
+
+
+# (B, S, H, P, N, chunk) of the backward: one chunk (H 1, N != P), several
+# chunks, ragged tails (N != P; H 1), zamba2-reduced's P 64 and N 16 over a
+# ragged third chunk, a chunk longer than the sequence, and a short ragged
+# run of several heads
+SSD_BWD_CASES = [(1, 16, 1, 4, 8, 16), (2, 64, 2, 8, 8, 16),
+                 (2, 100, 3, 16, 4, 32), (1, 33, 1, 4, 32, 8),
+                 (2, 20, 4, 64, 16, 8), (1, 40, 2, 8, 8, 128),
+                 (3, 7, 2, 4, 4, 3)]
+# f32 sums in other orders, each gradient within SSD_BWD_TOL of its largest
+# magnitude (measured <= 7.1e-6, on dA_log, which sums every step's decay
+# term; <= 7.6e-7 elsewhere)
+SSD_BWD_TOL = 5e-5
+
+
+def ssd_bwd_inputs(seed, b, s, h, p, n, *, rate=0.25):
+    """ssd_inputs_np with dt scaled by ``rate``: a chunk's decay stays
+    below e^88, where the reference's gradient is finite (see
+    test_ssd_backward_stays_finite_where_the_reference_overflows)."""
+    x, dt, a_log, bb, cc, d_skip = ssd_inputs_np(seed, b, s, h, p, n)
+    rng = np.random.default_rng(seed + 1)
+    dy = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    dst = rng.normal(size=(b, h, p, n)).astype(np.float32)
+    return (x, (dt * rate).astype(np.float32), a_log, bb, cc, d_skip), (dy,
+                                                                        dst)
+
+
+def reference_vjp(args, cots, chunk):
+    """jax.vjp of the reference's ssd_chunked: the gradients of x, dt,
+    A_log, b, c and D."""
+    _, vjp = jax.vjp(lambda *a: r_m2.ssd_chunked(*a, chunk=chunk),
+                     *map(jnp.asarray, args))
+    return [np.asarray(g) for g in vjp(tuple(map(jnp.asarray, cots)))]
+
+
+def port_grads(args, cots, chunk, how):
+    """The port's gradients of x, dt, A_log, b, c and D: through
+    ``SSDScan`` under autograd (``ssd_chunked_kernel``), or the plain
+    backward's (dxdt, dloga, db, dc) carried through ``ssd_inputs`` and
+    the D term by autograd."""
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    dy, dst = map(torch.as_tensor, cots)
+    if how == "function":
+        y, st = ssd_chunked_kernel(*leaves, chunk=chunk)
+        assert type(y.grad_fn).__name__ != "NoneType"
+        torch.autograd.backward([y, st], [dy, dst])
+    else:
+        x, dt, a_log, b, c, d_skip = leaves
+        xdt, loga = ssd_inputs(x, dt, a_log)
+        grads = ssd_scan_chunked_bwd_ref(xdt.detach(), loga.detach(),
+                                         b.detach(), c.detach(), chunk, dy,
+                                         dst)
+        skip = d_skip[None, None, :, None] * x
+        torch.autograd.backward([xdt, loga, b, c, skip], [*grads, dy])
+    return [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("how", ["plain", "function"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_BWD_CASES)
+def test_ssd_backward_matches_jax_vjp(b, s, h, p, n, chunk, how):
+    """``ssd_scan_chunked_bwd_ref`` and ``SSDScan`` (the CPU runs its plain
+    versions) against jax.vjp of ``repro.models.mamba2.ssd_chunked``, with
+    random cotangents on y and on the final state."""
+    args, cots = ssd_bwd_inputs(b + s + h, b, s, h, p, n)
+    want = reference_vjp(args, cots, chunk)
+    for name, got, w in zip(("x", "dt", "A_log", "b", "c", "D"),
+                            port_grads(args, cots, chunk, how), want):
+        assert np.isfinite(w).all()
+        np.testing.assert_allclose(got, w, rtol=0,
+                                   atol=SSD_BWD_TOL * np.abs(w).max(),
+                                   err_msg=name)
+
+
+def test_ssd_backward_stays_finite_where_the_reference_overflows():
+    """At dt ~ 0.7 and A up to 8 a 32-step chunk decays by more than e^88:
+    the reference's masked ``exp(csum_t - csum_s)`` (s > t) overflows and
+    its gradient through ``where`` is 0 · inf = NaN.  The port's backward,
+    written out, forms the decay for s <= t only: finite, and equal to the
+    reference's at chunk 4 (the gradients do not depend on the chunking)."""
+    args, cots = ssd_bwd_inputs(11, 2, 64, 2, 8, 8, rate=1.0)
+    assert not all(np.isfinite(g).all() for g in reference_vjp(args, cots,
+                                                               32))
+    want = reference_vjp(args, cots, 4)
+    # chunks of 32 and of 4 group the decay terms differently: measured
+    # 1.2e-4 of dA_log's largest magnitude, <= 4.3e-7 elsewhere
+    for how in ("plain", "function"):
+        for got, w in zip(port_grads(args, cots, 32, how), want):
+            np.testing.assert_allclose(got, w, rtol=0,
+                                       atol=1e-3 * np.abs(w).max())
+
+
+def test_ssd_scan_saves_nothing_without_grad():
+    """Frozen inputs, or no_grad, take the plain scan with no graph; an
+    input that needs a gradient goes through ``SSDScan``, whose backward
+    takes a cotangent on y alone (the final state unused) or on the state
+    alone."""
+    args, (dy, dst) = ssd_bwd_inputs(3, 1, 12, 2, 4, 4)
+    t = list(map(torch.as_tensor, args))
+    y, st = ssd_chunked_kernel(*t, chunk=4)
+    assert y.grad_fn is None and st.grad_fn is None
+    t[0].requires_grad_()
+    with torch.no_grad():
+        assert ssd_chunked_kernel(*t, chunk=4)[0].grad_fn is None
+    for cot in ("y", "state"):
+        x = t[0].detach().requires_grad_()
+        y, st = ssd_chunked_kernel(x, *t[1:], chunk=4)
+        assert type(st.grad_fn).__name__ == "SSDScanBackward"
+        (y if cot == "y" else st).backward(torch.as_tensor(
+            dy if cot == "y" else dst))
+        assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0

@@ -2,9 +2,11 @@
 numpy-seeded inputs and weights on both sides: the mLSTM cell (sequential,
 chunked with and without a padded tail, one step), the sLSTM recurrence
 (``kernels.slstm_scan``'s plain version, which the CPU runs, and one
-step), each block and block step, and reduced xlstm-350m in f32 end to end
-(forward, prefill, teacher-forced decode, caches); prefill(S) then one
-decode step against prefill(S+1); the sLSTM kernel wrapper's refusals."""
+step) and its backward (the plain ``slstm_scan_bwd_ref`` and
+``SLSTMScan`` against ``jax.vjp``), each block and block step, and reduced
+xlstm-350m in f32 end to end (forward, prefill, teacher-forced decode,
+caches); prefill(S) then one decode step against prefill(S+1); the sLSTM
+kernel wrappers' refusals."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -192,6 +194,86 @@ def test_slstm_step_matches_reference():
         close(got, want)
 
 
+# (B, S, d, H, weight scale) of the sLSTM backward: one step, H 1, several
+# heads, B 1 and 4, and weights (input and recurrent) scaled ×5, where the
+# stabiliser's max switches between its branches from step to step
+SLSTM_BWD_CASES = [(2, 13, 24, 3, 1.0), (1, 1, 8, 2, 1.0),
+                   (3, 37, 16, 1, 1.0), (2, 20, 32, 4, 1.0),
+                   (4, 9, 24, 3, 5.0), (1, 25, 16, 2, 5.0),
+                   (2, 30, 24, 3, 5.0)]
+# f32 in other orders: each gradient within SLSTM_BWD_TOL of its largest
+# magnitude (measured <= 1.8e-6 at weights ×1; at ×5 the recurrence grows
+# the rounding with the steps, to 1.6e-5 over 30)
+SLSTM_BWD_TOL = 1e-4
+
+
+def slstm_bwd_inputs(b, s, d, h, scale):
+    p = {k: v * scale if k[0] in "wr" else v
+         for k, v in slstm_params(d, h, seed=b + s + d).items()}
+    rng = np.random.default_rng(b * s + d)
+    x = rng.normal(size=(b, s, d)).astype(np.float32)
+    h_cot = rng.normal(size=(b, s, d)).astype(np.float32)
+    st_cot = tuple(rng.normal(size=(b, d)).astype(np.float32)
+                   for _ in range(4))
+    return p, x, h_cot, st_cot
+
+
+def slstm_port_grads(p, x, h_cot, st_cot, h, how):
+    """The port's gradients of x and of every weight: through
+    ``SLSTMScan`` under autograd (``models.xlstm.slstm_scan``), or the
+    plain backward's (dpre, dR) carried into x, W and b by autograd."""
+    tp = {k: v.requires_grad_() for k, v in tensors(p).items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    cots = [torch.from_numpy(h_cot), *map(torch.from_numpy, st_cot)]
+    if how == "function":
+        hs, st = xl.slstm_scan(tx, tp, h, impl="chunked")
+        assert type(hs.grad_fn).__name__ == "SLSTMScanBackward"
+        torch.autograd.backward([hs, *st], cots)
+    else:
+        pre = torch.stack([tx @ tp[f"w_{g}"] + tp[f"b_{g}"]
+                           for g in sl_ref.GATES])
+        r = torch.stack([tp[f"r_{g}"] for g in sl_ref.GATES])
+        dpre, dr = sl_ref.slstm_scan_bwd_ref(pre.detach(), r.detach(),
+                                             cots[0], tuple(cots[1:]))
+        torch.autograd.backward([pre, r], [dpre, dr])
+    return tx.grad, {k: v.grad for k, v in tp.items()}
+
+
+@pytest.mark.parametrize("how", ["plain", "function"])
+@pytest.mark.parametrize("b,s,d,h,scale", SLSTM_BWD_CASES)
+def test_slstm_backward_matches_jax_vjp(b, s, d, h, scale, how):
+    """``slstm_scan_bwd_ref`` and ``SLSTMScan`` (the CPU runs its plain
+    versions) against jax.vjp of ``repro.models.xlstm.slstm_scan``, with
+    cotangents on h and on the final (c, n, h, m)."""
+    p, x, h_cot, st_cot = slstm_bwd_inputs(b, s, d, h, scale)
+    _, vjp = jax.vjp(lambda x, p: r_xl.slstm_scan(x, p, h), jnp.asarray(x),
+                     jax.tree_util.tree_map(jnp.asarray, p))
+    want_x, want_p = vjp((jnp.asarray(h_cot),
+                          tuple(map(jnp.asarray, st_cot))))
+    got_x, got_p = slstm_port_grads(p, x, h_cot, st_cot, h, how)
+    close(got_x, want_x, SLSTM_BWD_TOL)
+    for k in p:
+        assert np.isfinite(np.asarray(want_p[k])).all()
+        close(got_p[k], want_p[k], SLSTM_BWD_TOL)
+
+
+def test_slstm_scan_saves_nothing_without_grad():
+    """Frozen inputs, or no_grad, take the plain loop with no graph; under
+    autograd ``SLSTMScan`` takes a cotangent on h alone (the final state
+    unused, as in training) or on one state entry alone."""
+    p, x, h_cot, st_cot = slstm_bwd_inputs(2, 6, 16, 2, 1.0)
+    hs, st = xl.slstm_scan(torch.from_numpy(x), tensors(p), 2)
+    assert hs.grad_fn is None and st[0].grad_fn is None
+    for which in ("h", "m"):
+        tx = torch.from_numpy(x).requires_grad_()
+        with torch.no_grad():
+            assert xl.slstm_scan(tx, tensors(p), 2)[0].grad_fn is None
+        hs, st = xl.slstm_scan(tx, tensors(p), 2)
+        out = hs if which == "h" else st[3]
+        out.backward(torch.ones_like(out))
+        assert torch.isfinite(tx.grad).all() and tx.grad.abs().sum() > 0
+
+
 def test_slstm_kernel_wrapper_refuses_what_it_does_not_take():
     """Checked before anything is built: a CPU tensor, a wrong shape."""
     pre, r = torch.zeros(4, 1, 3, 8), torch.zeros(4, 2, 4, 4)
@@ -242,6 +324,54 @@ def test_slstm_cluster_route_shared_memory():
     assert sl_kernel.cluster_smem(8, 256, 4) == 2 * h + 32 * 4160
     assert sl_kernel.cluster_smem(8, 256, 4) <= sl_kernel.SMEM_MAX
     assert sl_kernel.cluster_smem(1, 512, 2) > sl_kernel.SMEM_MAX
+
+
+# (B, du, R's dtype) → the backward's routes: the cluster route where the
+# forward's plan fits and the head's dg (four gates, twice) beside the R
+# slice fits a CTA (xlstm-350m's du 256 up to B 8 in f32), the block route
+# while 44 B du bytes fit (B 20 at du 256), neither past both
+SLSTM_BWD_ROUTE_CASES = [
+    (4, 256, torch.bfloat16, ("cluster", "block")),
+    (8, 256, torch.float32, ("cluster", "block")),
+    (9, 256, torch.bfloat16, ("block",)),
+    (20, 256, torch.float32, ("block",)),
+    (21, 256, torch.float32, ()),
+    (4, 32, torch.float32, ("cluster", "block")),
+    (2, 30, torch.float32, ("block",)),
+    (1, 512, torch.float32, ())]
+
+
+@pytest.mark.parametrize("b,du,dtype,routes", SLSTM_BWD_ROUTE_CASES)
+def test_slstm_backward_routes_by_shape(b, du, dtype, routes):
+    assert sl_kernel.bwd_routes(b, du, dtype) == routes
+    el = torch.empty((), dtype=dtype).element_size()
+    assert (sl_kernel.cluster_bwd_smem(b, du, el)
+            == 2 * 4 * 4 * du * 4 * -(-b // 4)
+            + du // 8 * sl_kernel._r_stride(du, el) * el)
+
+
+def test_slstm_backward_wrapper_refuses_before_building():
+    """A CPU tensor, an unknown route and a route that cannot take the
+    shape raise ValueError before anything is built; nothing is counted."""
+    sl_kernel.reset_counts()
+    saved, r = torch.zeros(8, 1, 3, 60), torch.zeros(4, 2, 30, 30)
+    with pytest.raises(ValueError, match="CUDA"):
+        sl_kernel.slstm_scan_bwd_kernel(saved, r, None, None)
+    meta = saved.to("meta"), r.to("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        sl_kernel.slstm_scan_bwd_kernel(*meta, None, None)
+    with pytest.raises(ValueError, match="saved must be"):
+        sl_kernel.slstm_scan_bwd_kernel(saved[:4], r, None, None)
+    with pytest.raises(ValueError, match="not one of"):
+        sl_kernel.slstm_scan_bwd_kernel(saved, r, None, None, route="grid")
+    with pytest.raises(ValueError, match="cluster route does not take"):
+        sl_kernel.slstm_scan_bwd_kernel(saved, r, None, None,
+                                        route="cluster")
+    with pytest.raises(ValueError, match="block route does not take"):
+        sl_kernel.slstm_scan_bwd_kernel(torch.zeros(8, 1, 2, 512),
+                                        torch.zeros(4, 1, 512, 512), None,
+                                        None, route="block")
+    assert sl_kernel.slstm_scan_bwd_kernel.launches == 0
 
 
 def test_slstm_kernel_wrapper_refuses_routes_before_building():
