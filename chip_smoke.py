@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
 path, the online oracle riding the streaming simulator, the queueing, Pareto
-and fleet slice of the simulator, the serving path, the kernel bench and
-training (the LM loop, its flash backward, federated profiling).
+and fleet slice of the simulator, the serving path, the kernel bench,
+training (the LM loop, its flash backward, federated profiling) and the
+main paths traced by ``repro_torch.obs``.
 
     python3 chip_smoke.py
 
@@ -276,6 +277,32 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``ssm_scan`` and ``slstm_scan`` records gain ``training_launches``,
    ``training_backward_launches`` and ``backward`` timings.
 
+12. The main paths traced (``trace_slice``): each again with a
+   ``repro_torch.obs.Tracer``, held equal to its untraced run. (a) Phase
+   4's 300-task, 32-node stream with the oracle riding it, on the card and
+   on the CPU: the card's records equal phase 4's untraced card run field
+   for field, ``attribute(tracer).summary()`` equals the CPU's traced run
+   (virtual time), ``attribute(telemetry)`` equals ``attribute(tracer)``
+   on the phase totals, ``Telemetry.to_prometheus()`` and
+   ``registry().to_rows()`` equal the CPU's; phase 4's decide-at-admission
+   run traced, its records and ``decide_split`` launches phase 4's. (b)
+   ``bench_fleet.py``'s 20k × 16 cell on the fleet engine with
+   ``WeibullRTT`` draws (transfer spans), untraced and traced on the card
+   and traced on the CPU: equal records, and the card's spans and
+   instants (``span_arrays`` / ``instant_arrays`` columns) equal the
+   CPU's; the host seconds of each run and of the first read that builds
+   the spans. (c) TRACE_ARCH through ``ServeEngine`` at phase 6's shape
+   with a ``MetricsRegistry``: phase 6's tokens, one ``prefill`` and one
+   ``decode`` span and one ``first_token`` instant per batch, the spans'
+   sums equal to ``stats.prefill_s`` / ``decode_s``; CONT_ARCH through
+   ``ContinuousBatchEngine`` at phase 6b's: its tokens, an ``admit`` and a
+   ``replan`` instant and a lifecycle per request.  Both models are built
+   again from the seed (their ``init_s`` is on the line).  Every Chrome
+   trace is written to ``results/trace_*.json`` and validated from the
+   file; the kernels' launches per traced path (counts set to 0 just
+   before, read just after) join the kernels line as ``trace_launches``;
+   the ``trace`` line has the rest.
+
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
 directory that holds this file and nothing else of the repository, it
@@ -299,6 +326,8 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
 # whisper's decoder prompt: its previous-text cap, n_text_ctx // 2 = 224
 # (the encoder takes its 1,500 frames)
 PROMPT_OF = {"whisper-tiny": 224}
+# the served model phase 12 serves again, traced (phase 6's shape)
+TRACE_ARCH = "qwen3-1.7b"
 # continuous batching (phase 6b): prompts drawn from 1024-2048 tokens,
 # arriving 50 ms apart on the engine's virtual clock
 CONT_ARCH, CONT_PROMPT, CONT_GAP_S = "deepseek-moe-16b", (1024, 2048), 0.05
@@ -461,14 +490,14 @@ def hopper_sass(build, source: str, entry: str, instances: int) -> dict:
 
 def serve_slice(dev, smi: str) -> dict:
     """The serving path at full width: ``ServeEngine`` on each model in
-    bf16.  Returns the serving kernels' launch counts of this run."""
-    import numpy as np
+    bf16.  Returns the serving kernels' launch counts of this run, and
+    TRACE_ARCH's tokens and host seconds for phase 12."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.slstm_scan import kernel as sl_kernel
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
-    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import ServeEngine
 
     wrappers = {"flash_attention": fa_kernel.flash_attention_kernel,
                 "ssm_scan": ss_kernel.ssd_scan_kernel,
@@ -481,6 +510,7 @@ def serve_slice(dev, smi: str) -> dict:
     fa_kernel.reset_counts()
     ss_kernel.reset_counts()
     sl_kernel.reset_counts()
+    untraced = {}                   # phase 12 serves TRACE_ARCH again
     for arch in SERVE_ARCHS:
         cfg = get_config(arch)
         prompt = PROMPT_OF.get(arch, SERVE_PROMPT)
@@ -516,15 +546,12 @@ def serve_slice(dev, smi: str) -> dict:
             return sample(logits, temperature, gen)
 
         eng._sample = checked
-        rng = np.random.default_rng(0)
-        reqs = [Request(rid=i, prompt=rng.integers(
-                    0, cfg.vocab_size, size=prompt, dtype=np.int32),
-                        max_new_tokens=SERVE_NEW, temperature=0.0,
-                        arrived_at=i * 1e-3)
-                for i in range(SERVE_REQUESTS)]
         t0 = time.perf_counter()
-        done = eng.serve(reqs)
+        done = eng.serve(serve_requests(cfg, prompt))
         serve_s = time.perf_counter() - t0
+        if arch == TRACE_ARCH:
+            untraced = dict(tokens={r.rid: r.output.tolist() for r in done},
+                            init_s=init_s, serve_s=serve_s)
         check(sorted(r.rid for r in done) == list(range(SERVE_REQUESTS)),
               f"{arch}: not every request was answered")
         for r in done:
@@ -579,7 +606,38 @@ def serve_slice(dev, smi: str) -> dict:
           f"flash_attention: {by_kernel} on the serving path, expected "
           f"{flash_expected}")
     return dict(launches, ssm_scan_by_kernel=ssm_by_kernel,
-                slstm_scan_by_route=slstm_by_route)
+                slstm_scan_by_route=slstm_by_route, untraced=untraced)
+
+
+def serve_requests(cfg, prompt: int) -> list:
+    """Phase 6's requests: SERVE_REQUESTS greedy prompts of ``prompt``
+    tokens drawn from seed 0, 1 ms apart."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    return [Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, size=prompt, dtype=np.int32),
+                    max_new_tokens=SERVE_NEW, temperature=0.0,
+                    arrived_at=i * 1e-3)
+            for i in range(SERVE_REQUESTS)]
+
+
+def continuous_requests(cfg) -> tuple:
+    """Phase 6b's requests: prompt lengths, the requests (CONT_GAP_S
+    apart) and the link observed at each admission (100 kB/s to 3 GB/s,
+    log-uniform), all from SEED."""
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(CONT_PROMPT[0], CONT_PROMPT[1] + 1,
+                        size=SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in lens]
+    bws = 10.0 ** rng.uniform(5.0, 9.5, size=SERVE_REQUESTS)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW,
+                    arrived_at=i * CONT_GAP_S)
+            for i, p in enumerate(prompts)]
+    return lens, reqs, bws
 
 
 class LifecycleRecorder:
@@ -605,10 +663,10 @@ def continuous_slice(dev, smi: str) -> dict:
     admitted request's split with the ``decide_split`` kernel.  Returns
     the phase's launch counts, its per-admission times, and the
     ``decide_split`` row of its last admission's E = 1 sweep (timed after
-    the counts are read)."""
+    the counts are read), and the tokens and host seconds phase 12
+    compares its traced run with."""
     import dataclasses as dc
 
-    import numpy as np
     import torch
     from repro_torch.bench.kernels import decide_split_row
     from repro_torch.configs import get_config
@@ -619,19 +677,13 @@ def continuous_slice(dev, smi: str) -> dict:
     from repro_torch.kernels.decide_split import kernel as ds_kernel
     from repro_torch.kernels.decide_split import ops as ds_ops
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.serve import ContinuousBatchEngine, Request
+    from repro_torch.serve import ContinuousBatchEngine
 
     cfg = get_config(CONT_ARCH)
     check(cfg.dtype == "bfloat16" and cfg.num_layers == 28
           and cfg.d_model == 2048 and cfg.num_experts == 64,
           f"{CONT_ARCH} is not at its published shape")
-    rng = np.random.default_rng(SEED)
-    lens = rng.integers(CONT_PROMPT[0], CONT_PROMPT[1] + 1,
-                        size=SERVE_REQUESTS)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
-               for n in lens]
-    # the link observed at each admission: 100 kB/s to 3 GB/s, log-uniform
-    bws = 10.0 ** rng.uniform(5.0, 9.5, size=SERVE_REQUESTS)
+    lens, reqs, bws = continuous_requests(cfg)
     link = iter(bws.tolist())
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -661,9 +713,6 @@ def continuous_slice(dev, smi: str) -> dict:
     eng._plan_offload = timed(eng._plan_offload, "replan")
     eng.api = dc.replace(eng.api, decode_step=timed(
         eng.api.decode_step, "decode", 0))
-    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW,
-                    arrived_at=i * CONT_GAP_S)
-            for i, p in enumerate(prompts)]
     fa_kernel.reset_counts()
     ds_kernel.decide_split_kernel.launches = 0
     t0 = time.perf_counter()
@@ -739,6 +788,7 @@ def continuous_slice(dev, smi: str) -> dict:
          queue_wait_s={rid: s - a
                        for rid, (a, s, _) in recorder.spans.items()},
          max_memory_allocated_bytes=peak, launches=launches, device=smi)
+    tokens = {r.rid: r.output.tolist() for r in done}
     del eng, done, finite
     torch.cuda.empty_cache()
     # the last admission's sweep as the engine packs it, timed beside its
@@ -749,7 +799,9 @@ def continuous_slice(dev, smi: str) -> dict:
           f"off by {row['err_over_tol']} of its tolerance")
     line("timing_extra", **row)
     return dict(launches, prefill_s=times["prefill"],
-                replan_s=times["replan"], decide_split_row=row)
+                replan_s=times["replan"], decide_split_row=row,
+                untraced=dict(tokens=tokens, init_s=init_s,
+                              serve_s=serve_s))
 
 
 def continuous_f32_check(dev) -> None:
@@ -989,12 +1041,13 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
 
 
 def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
-                 a100) -> tuple[dict, dict]:
+                 a100) -> tuple[dict, dict, dict]:
     """The online oracle riding the streaming simulator, at the reference's
     own scale (``examples/oracle_serving.py``, ``benchmarks/
     bench_stream.py``), on the card and again on the CPU in the same
-    process.  Returns the three decision kernels' launch counts of this
-    phase, the shapes the timing takes, and the ``oracle`` line's record.
+    process.  Writes the ``oracle`` line; returns the three decision
+    kernels' launch counts of this phase, the shapes the timing takes, and
+    the streams, models and untraced card records phase 12 traces again.
     """
     import numpy as np
     import torch
@@ -1181,6 +1234,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
               f"refits, gain {riding.gain}")
         static.append(records(tel))
         if d is dev:
+            oracle_records = [dataclasses.astuple(r) for r in tel.records]
             streams.update(static_predictor=dict(
                 stream_s=plain_s, us_per_arrival=1e6 * plain_s / 300),
                 static_oracle=dict(stream_s=oracle_s,
@@ -1244,6 +1298,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
                               device=dev)
     admit_s = synced() - t0
     fleet._split_decide = decide
+    admit_records = [dataclasses.astuple(r) for r in tel.records]
     check(records(tel) == static[0], "oracle (f): deciding splits moved a "
           "placement")
     worst = 0.0
@@ -1274,7 +1329,16 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
                   [off.LayerCost(tasks[0].name, flops=tasks[0].flops,
                                  act_bytes=0.0)], n.spec) for n in nodes]),
               "admission_envs": seen[0][0], "layers": layers}
-    return launches, shapes
+    # what phase 12 traces again: (d)'s stream and its card run's records,
+    # (f)'s decide-at-admission run
+    traced = dict(gbt=gbt, gbt_host=gbt_host, tasks=tasks,
+                  arrivals=arrivals, nodes=nodes, pi5=pi5, a100=a100,
+                  layers=layers, oracle_records=oracle_records,
+                  oracle_s=streams["static_oracle"]["stream_s"],
+                  admit_records=admit_records, admit_s=admit_s,
+                  admit_launches=streams["decide_at_admission"][
+                      "decide_split_launches"])
+    return launches, shapes, traced
 
 
 def oracle_timing(dev, shapes: dict) -> dict:
@@ -1315,6 +1379,32 @@ def oracle_timing(dev, shapes: dict) -> dict:
     return rows
 
 
+def fleet_day(n_tasks: int, n_nodes: int) -> tuple:
+    """benchmarks/bench_fleet.py's cell: one diurnal day of 3,600 s,
+    per-node diurnal links stepped every second, make_tasks(seed 0).
+    Returns (tasks, arrivals, nodes, a factory of fresh links)."""
+    import numpy as np
+    from repro_torch import sim
+    from repro_torch.core import scheduler as sch
+    from repro_torch.hw import EDGE_DEVICES
+
+    specs = list(EDGE_DEVICES.values())
+    arr = sim.diurnal_arrivals(n_tasks / FLEET_DAY_S * 1.2,
+                               horizon=FLEET_DAY_S, amplitude=0.6,
+                               period_s=FLEET_DAY_S / 2, seed=1)[:n_tasks]
+    rng = np.random.default_rng(0)
+    tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
+                      input_bytes=float(rng.uniform(1e4, 1e7)))
+             for i in range(len(arr))]
+    nodes = [sch.Node(specs[j % len(specs)]) for j in range(n_nodes)]
+
+    def links():
+        return sim.ClusterLinks([sim.DiurnalLink(
+            4e7, amplitude=0.5, period_s=FLEET_DAY_S / 2, noise_sigma=0.1,
+            seed=2 + j) for j in range(n_nodes)])
+    return tasks, arr, nodes, links
+
+
 def fleet_slice(dev) -> tuple[dict, dict]:
     """The queueing, Pareto and fleet slice (phase 5) through
     ``simulate_stream`` and ``decide_all``, on the card and, where it says
@@ -1345,25 +1435,6 @@ def fleet_slice(dev) -> tuple[dict, dict]:
             torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    def day(n_tasks, n_nodes):
-        """benchmarks/bench_fleet.py's cell: one diurnal day of 3,600 s,
-        per-node diurnal links stepped every second, make_tasks(seed 0)."""
-        arr = sim.diurnal_arrivals(n_tasks / FLEET_DAY_S * 1.2,
-                                   horizon=FLEET_DAY_S, amplitude=0.6,
-                                   period_s=FLEET_DAY_S / 2,
-                                   seed=1)[:n_tasks]
-        rng = np.random.default_rng(0)
-        tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
-                          input_bytes=float(rng.uniform(1e4, 1e7)))
-                 for i in range(len(arr))]
-        nodes = [sch.Node(specs[j % len(specs)]) for j in range(n_nodes)]
-
-        def links():
-            return sim.ClusterLinks([sim.DiurnalLink(
-                4e7, amplitude=0.5, period_s=FLEET_DAY_S / 2,
-                noise_sigma=0.1, seed=2 + j) for j in range(n_nodes)])
-        return tasks, arr, nodes, links
-
     def rows_of(tel):
         return ([dataclasses.astuple(r) for r in tel.records], tel.summary(),
                 dict(tel.counters))
@@ -1379,7 +1450,7 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     t_phase = time.perf_counter()
 
     # -- (a) the fleet engine at bench_fleet.py's largest cell ------------
-    tasks, arr, nodes, links = day(FLEET_TASKS, FLEET_NODES)
+    tasks, arr, nodes, links = fleet_day(FLEET_TASKS, FLEET_NODES)
     runs, real = {}, fs_ops.place_singletons
     for d in (dev, "cpu"):
         calls = []
@@ -1441,7 +1512,7 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     del runs, calls, host_calls, card, cpu
 
     # -- (b) event loop against fleet engine on the card ------------------
-    tasks, arr, nodes, links = day(COMPARE_TASKS, COMPARE_NODES)
+    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES)
     layers = off.workload_layer_costs(WorkloadConfig(
         "cnn", 2, epochs=5, optimiser="adam", lr=1e-3, batch_size=32))
 
@@ -2928,6 +2999,295 @@ def scan_training_slice(dev, smi: str) -> dict:
     return out
 
 
+def trace_slice(dev, smi: str, oracle_runs: dict, serve_untraced: dict,
+                continuous_untraced: dict) -> dict:
+    """The main paths traced (phase 12): each again with a
+    :class:`repro_torch.obs.Tracer`, held equal to its untraced run.  (a)
+    Phase 4's 300-task stream with the oracle riding it, on the card and
+    the CPU, and its decide-at-admission run; (b) ``bench_fleet.py``'s
+    20k × 16 cell on the fleet engine with an RTT, untraced and traced on
+    the card and traced on the CPU; (c) TRACE_ARCH through ``ServeEngine``
+    and CONT_ARCH through ``ContinuousBatchEngine`` at phases 6's and 6b's
+    shapes, with a ``MetricsRegistry``.  Each Chrome trace is written to
+    ``results/trace_*.json`` and validated from the file.  Writes the
+    ``trace`` line; returns each kernel's launches per traced path (counts
+    set to 0 just before the path, read just after)."""
+    import dataclasses as dc
+
+    import torch
+    from repro_torch import sim
+    from repro_torch.configs import get_config
+    from repro_torch.core import costs as co
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    from repro_torch.obs import (MetricsRegistry, Tracer, export_chrome,
+                                 validate_chrome)
+    from repro_torch.obs.analyze import attribute
+    from repro_torch.oracle import OnlineOracle
+    from repro_torch.serve import ContinuousBatchEngine, ServeEngine
+
+    out_dir = ROOT / "results"
+    out_dir.mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    out = {}
+    launches = {"tree_predict": {}, "decide_split": {}, "fleet_scan": {},
+                "flash_attention": {}}
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def records(tel):
+        return [dc.astuple(r) for r in tel.records]
+
+    def first_read(tracer) -> float:
+        """Host seconds of the first read: every deferred column batch
+        brought home and built into events."""
+        t0 = time.perf_counter()
+        tracer.all_spans()
+        tracer.all_instants()
+        return time.perf_counter() - t0
+
+    def exported(tracer, name: str) -> dict:
+        """The Chrome export, written and validated from the file."""
+        path = out_dir / f"trace_{name}.json"
+        t0 = time.perf_counter()
+        export_chrome(tracer, str(path))
+        export_s = time.perf_counter() - t0
+        return dict(validate_chrome(str(path)), export_s=export_s,
+                    file_bytes=path.stat().st_size)
+
+    # -- (a) phase 4's stream with the oracle, card and CPU ----------------
+    o = oracle_runs
+    runs = {}
+    for where, d, model in (("card", dev, o["gbt"]),
+                            ("cpu", "cpu", o["gbt_host"])):
+        tracer = Tracer()
+        riding = OnlineOracle(model, o["pi5"], o["a100"], torch_device=d)
+        tp_kernel.reset_counts()
+        ds_kernel.decide_split_kernel.launches = 0
+        t0 = synced()
+        tel = sim.simulate_stream(o["tasks"], o["arrivals"], o["nodes"],
+                                  oracle=riding, obs=tracer, device=d)
+        run_s = synced() - t0
+        if where == "card":
+            launches["tree_predict"]["oracle_stream"] = \
+                tp_kernel.tree_predict_kernel.launches
+            launches["decide_split"]["oracle_stream"] = \
+                ds_kernel.decide_split_kernel.launches
+        runs[where] = (tel, tracer, run_s, first_read(tracer))
+    (tel, tracer, run_s, read_s), (h_tel, h_tracer, h_run_s, h_read_s) = \
+        runs["card"], runs["cpu"]
+    check(records(tel) == o["oracle_records"], "trace (a): the traced "
+          "card run's records differ from phase 4's untraced card run "
+          "(tolerance: exact)")
+    check(launches["tree_predict"]["oracle_stream"] > 0,
+          "trace (a): tree_predict was not launched on the traced stream")
+    stats = exported(tracer, "oracle_stream")
+    check(stats["n_spans"] >= 2 * len(tel) and stats["n_instants"] >= 1,
+          f"trace (a): {stats} for {len(tel)} tasks")
+    att, h_att = attribute(tracer), attribute(h_tracer)
+    check(att.summary() == h_att.summary(), "trace (a): attribute(tracer) "
+          "on the card differs from the CPU's traced run (exact)")
+    via_rows = attribute(tel)
+    check(via_rows.phase_totals() == att.phase_totals(), "trace (a): "
+          "attribute(telemetry) and attribute(tracer) differ on the phase "
+          f"totals ({via_rows.phase_totals()} vs {att.phase_totals()})")
+    prom, reg = tel.to_prometheus(), tel.registry()
+    check(prom == h_tel.to_prometheus() and reg.to_rows()
+          == h_tel.registry().to_rows(), "trace (a): Telemetry's "
+          "Prometheus text or registry rows differ between card and CPU")
+    (out_dir / "trace_oracle_stream.prom").write_text(prom)
+    out["oracle_stream"] = dict(
+        tasks=len(tel), spans=stats["n_spans"],
+        instants=stats["n_instants"], tracks=stats["n_tracks"],
+        traced_s=run_s, untraced_s=o["oracle_s"], first_read_s=read_s,
+        export_s=stats["export_s"], trace_bytes=stats["file_bytes"],
+        cpu_traced_s=h_run_s, cpu_first_read_s=h_read_s,
+        phase_totals=att.phase_totals(), prometheus_lines=len(
+            prom.splitlines()), metrics=len(reg))
+
+    # phase 4's decide-at-admission run, traced on the card
+    env = sim.DriftingEnv(o["pi5"], o["a100"], sim.RandomWalkLink(
+        1.25e8, sigma=1.5, seed=SEED + 2), torch_device=dev)
+    tracer = Tracer()
+    ds_kernel.decide_split_kernel.launches = 0
+    t0 = synced()
+    tel = sim.simulate_stream(o["tasks"], o["arrivals"], o["nodes"],
+                              cost=co.PredictorCost(o["gbt"], o["pi5"],
+                                                    o["a100"]),
+                              split_env=env, split_layers=o["layers"],
+                              split_backend="kernel", link_update_dt=0.05,
+                              obs=tracer, device=dev)
+    run_s = synced() - t0
+    launches["decide_split"]["admission"] = \
+        ds_kernel.decide_split_kernel.launches
+    check(records(tel) == o["admit_records"], "trace (a): the traced "
+          "decide-at-admission run's records differ from phase 4's")
+    check(launches["decide_split"]["admission"] == o["admit_launches"],
+          f"trace (a): {launches['decide_split']['admission']} decide_split "
+          f"launches at admission, phase 4 made {o['admit_launches']}")
+    read_s = first_read(tracer)
+    stats = exported(tracer, "admission")
+    out["admission"] = dict(tasks=len(tel), spans=stats["n_spans"],
+                            instants=stats["n_instants"], traced_s=run_s,
+                            untraced_s=o["admit_s"], first_read_s=read_s,
+                            export_s=stats["export_s"])
+
+    # -- (b) the fleet engine's slab path: 20k × 16 with an RTT ------------
+    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES)
+    runs = {}
+    for name, d, traced in (("untraced", dev, False), ("traced", dev, True),
+                            ("cpu", "cpu", True)):
+        tracer = Tracer() if traced else None
+        fs_kernel.reset_counts()
+        t0 = synced()
+        tel = sim.simulate_stream(
+            tasks, arr, nodes, policy="min_min", links=links(),
+            link_update_dt=1.0, rtt=sim.WeibullRTT(shape=0.6, scale=0.02,
+                                                   seed=SEED + 5),
+            engine="fleet", obs=tracer, device=d)
+        run_s = synced() - t0
+        if name == "traced":
+            launches["fleet_scan"]["fleet"] = \
+                fs_kernel.place_singletons_kernel.launches
+        runs[name] = dict(records=records(tel), run_s=run_s, tracer=tracer,
+                          read_s=None if tracer is None
+                          else first_read(tracer))
+    card, cpu = runs["traced"], runs["cpu"]
+    check(card["records"] == runs["untraced"]["records"], "trace (b): the "
+          "traced fleet run's records differ from the untraced run's")
+    check(card["records"] == cpu["records"], "trace (b): the card's "
+          "records differ from the CPU run's")
+    spans = [dc.astuple(s) for s in card["tracer"].all_spans()]
+    instants = [dc.astuple(i) for i in card["tracer"].all_instants()]
+    check(spans == [dc.astuple(s) for s in cpu["tracer"].all_spans()]
+          and instants == [dc.astuple(i)
+                           for i in cpu["tracer"].all_instants()],
+          "trace (b): the card run's spans or instants differ from the CPU "
+          "run's (tolerance: exact)")
+    n_transfer = sum(s[2] == "transfer" for s in spans)
+    check(n_transfer > 0, "trace (b): no transfer span (rtt= draws none)")
+    check(launches["fleet_scan"]["fleet"] > 0, "trace (b): fleet_scan was "
+          "not launched on the traced fleet run")
+    stats = exported(card["tracer"], "fleet")
+    out["fleet"] = dict(
+        tasks=COMPARE_TASKS, nodes=COMPARE_NODES, spans=stats["n_spans"],
+        instants=stats["n_instants"], transfer_spans=n_transfer,
+        untraced_s=runs["untraced"]["run_s"], traced_s=card["run_s"],
+        first_read_s=card["read_s"], export_s=stats["export_s"],
+        trace_bytes=stats["file_bytes"], cpu_traced_s=cpu["run_s"],
+        cpu_first_read_s=cpu["read_s"])
+    del runs, card, cpu, spans, instants
+
+    # -- (c) serving, traced, at phases 6's and 6b's shapes ----------------
+    cfg = get_config(TRACE_ARCH)
+    prompt = PROMPT_OF.get(TRACE_ARCH, SERVE_PROMPT)
+    n_batches = -(-SERVE_REQUESTS // SERVE_BATCH)
+    tracer, reg = Tracer(), MetricsRegistry()
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, batch_size=SERVE_BATCH,
+                      max_len=prompt + SERVE_NEW + 8, seed=SEED, obs=tracer,
+                      metrics=reg, device=dev)
+    init_s = synced() - t0
+    fa_kernel.reset_counts()
+    t0 = time.perf_counter()
+    done = eng.serve(serve_requests(cfg, prompt))
+    serve_s = time.perf_counter() - t0
+    launches["flash_attention"]["serve"] = \
+        fa_kernel.flash_attention_kernel.launches
+    by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    check({r.rid: r.output.tolist() for r in done}
+          == serve_untraced["tokens"], f"trace (c): {TRACE_ARCH}'s traced "
+          "tokens differ from phase 6's")
+    check(by_kernel["flash_fwd_wgmma"] == n_batches * cfg.num_layers
+          == launches["flash_attention"]["serve"], f"trace (c): flash "
+          f"{by_kernel}, expected {n_batches * cfg.num_layers} on wgmma")
+    spans, instants = tracer.all_spans(), tracer.all_instants()
+    check([s.name for s in spans] == ["prefill", "decode"] * n_batches
+          and [i.name for i in instants] == ["first_token"] * n_batches,
+          f"trace (c): {[s.name for s in spans]}, "
+          f"{[i.name for i in instants]} for {n_batches} batches")
+    st = eng.stats
+    sums = {p: sum(s.duration for s in spans if s.name == p)
+            for p in ("prefill", "decode")}
+    check(sums == {"prefill": st.prefill_s, "decode": st.decode_s},
+          f"trace (c): span sums {sums}, stats {st.prefill_s}, "
+          f"{st.decode_s}")
+    check(reg.counter("serve_requests_completed").value == SERVE_REQUESTS
+          and reg.quantile("serve_first_token_seconds").count == n_batches
+          and reg.quantile("serve_request_total_seconds").count
+          == SERVE_REQUESTS, "trace (c): the serving registry missed a "
+          "batch or a request")
+    stats = exported(tracer, "serve")
+    (out_dir / "trace_serve.prom").write_text(reg.to_prometheus())
+    out["serve"] = dict(
+        model=TRACE_ARCH, batches=n_batches, spans=stats["n_spans"],
+        instants=stats["n_instants"], init_s=init_s,
+        untraced_init_s=serve_untraced["init_s"], traced_serve_s=serve_s,
+        untraced_serve_s=serve_untraced["serve_s"], prefill_s=sums[
+            "prefill"], decode_s=sums["decode"],
+        first_token_p50_s=reg.quantile("serve_first_token_seconds")
+        .quantile(0.5), export_s=stats["export_s"])
+    del eng, done
+    torch.cuda.empty_cache()
+
+    ccfg = get_config(CONT_ARCH)
+    lens, reqs, bws = continuous_requests(ccfg)
+    link = iter(bws.tolist())
+    tracer, reg = Tracer(), MetricsRegistry()
+    t0 = time.perf_counter()
+    eng = ContinuousBatchEngine(
+        ccfg, slots=SERVE_BATCH, max_len=SERVE_PROMPT + SERVE_NEW + 8,
+        seed=SEED, cost=co.AnalyticCost(), link_bw=lambda: next(link),
+        decision_backend="kernel", obs=tracer, metrics=reg, device=dev)
+    init_s = synced() - t0
+    fa_kernel.reset_counts()
+    ds_kernel.decide_split_kernel.launches = 0
+    t0 = time.perf_counter()
+    done = eng.serve(reqs)
+    serve_s = time.perf_counter() - t0
+    launches["flash_attention"]["continuous"] = \
+        fa_kernel.flash_attention_kernel.launches
+    launches["decide_split"]["continuous"] = \
+        ds_kernel.decide_split_kernel.launches
+    check({r.rid: r.output.tolist() for r in done}
+          == continuous_untraced["tokens"], f"trace (c): {CONT_ARCH}'s "
+          "traced tokens differ from phase 6b's")
+    check(launches["flash_attention"]["continuous"]
+          == SERVE_REQUESTS * ccfg.num_layers
+          and launches["decide_split"]["continuous"] == SERVE_REQUESTS,
+          f"trace (c): continuous launches {launches}")
+    names = [i.name for i in tracer.all_instants()]
+    lifecycles = {s.tid: s for s in tracer.all_spans()
+                  if s.name == "sojourn"}
+    check(names.count("admit") == names.count("replan") == SERVE_REQUESTS,
+          f"trace (c): {names.count('admit')} admit and "
+          f"{names.count('replan')} replan instants for {SERVE_REQUESTS} "
+          "requests")
+    check(sorted(lifecycles) == list(range(SERVE_REQUESTS)) and all(
+        lifecycles[r.rid].t0 == r.arrived_at for r in done),
+        "trace (c): a request's sojourn span is missing or misplaced")
+    check(reg.quantile("serve_sojourn_seconds").count == SERVE_REQUESTS,
+          "trace (c): the continuous registry missed a request")
+    att = attribute(tracer)
+    stats = exported(tracer, "continuous")
+    out["continuous"] = dict(
+        model=CONT_ARCH, requests=SERVE_REQUESTS, spans=stats["n_spans"],
+        instants=stats["n_instants"], init_s=init_s,
+        untraced_init_s=continuous_untraced["init_s"],
+        traced_serve_s=serve_s,
+        untraced_serve_s=continuous_untraced["serve_s"],
+        phase_totals=att.phase_totals(), export_s=stats["export_s"])
+    del eng, done
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    line("trace", **out, launches=launches, device=smi)
+    return launches
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -3223,8 +3583,8 @@ def main() -> None:
         dev, wrappers, recorder, x, y, layers, envs, pi5, a100)
 
     # -- 4. the oracle loop and the streaming simulator -------------------
-    oracle_launches, oracle_shapes = oracle_slice(dev, wrappers, recorder,
-                                                  bw, pi5, a100)
+    oracle_launches, oracle_shapes, oracle_traced = oracle_slice(
+        dev, wrappers, recorder, bw, pi5, a100)
 
     # -- 5. the queueing, Pareto and fleet slice --------------------------
     fleet_launches, fleet_shapes = fleet_slice(dev)
@@ -3522,6 +3882,13 @@ def main() -> None:
     for name in ("ssm_scan", "slstm_scan"):
         next(r for r in kernels if r["name"] == name).update(
             trained["scans"][name])
+
+    # -- 12. the main paths traced ------------------------------------------
+    traced = trace_slice(dev, smi, oracle_traced, serve_launches["untraced"],
+                         serve_launches["continuous"]["untraced"])
+    for name, per_path in traced.items():
+        next(r for r in kernels if r["name"] == name)["trace_launches"] = \
+            per_path
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

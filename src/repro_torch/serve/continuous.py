@@ -51,9 +51,11 @@ class ContinuousBatchEngine:
     :class:`repro_torch.sim.events.Clock`) advances ``step_latency_s`` per
     decode step and jumps over idle gaps, and a request is admitted only
     once ``request.arrived_at`` has passed; ``request.admitted_at`` records
-    the instant.  ``obs`` needs ``.enabled``, ``.instant(...)`` and
-    ``.task_spans(...)`` (a ``repro.obs`` tracer fits); ``metrics`` needs
-    ``.quantile(name, help=)`` and ``.counter(name)``.
+    the instant.  ``obs`` is a :class:`repro_torch.obs.Tracer` (``admit``
+    and ``replan`` instants, each request's lifecycle spans, on the
+    virtual clock); ``metrics`` a :class:`repro_torch.obs.MetricsRegistry`
+    (quantile sketches of sojourn and queue wait, a count of completed
+    requests).
     """
 
     def __init__(self, cfg, *, slots: int = 4, max_len: int = 256,

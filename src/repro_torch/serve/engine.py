@@ -72,10 +72,12 @@ class ServeEngine:
     ``device=None`` is the card (and raises without one).  ``cost`` is an
     optional :mod:`repro_torch.core.costs` model, the default of
     :meth:`offload_plan`; ``decision_backend`` is ``"kernel"`` (the fused
-    ``decide_split`` sweep) or ``"torch"`` (exact f64).  ``obs`` needs
-    ``.enabled``, ``.span(...)`` and ``.instant(...)`` (a ``repro.obs``
-    tracer fits); ``metrics`` needs ``.quantile(name, help=)`` and
-    ``.counter(name)``.
+    ``decide_split`` sweep) or ``"torch"`` (exact f64).  ``obs`` is a
+    :class:`repro_torch.obs.Tracer` (a ``prefill`` and a ``decode`` span
+    and a ``first_token`` instant per batch, on the host's wall clock);
+    ``metrics`` a :class:`repro_torch.obs.MetricsRegistry` (quantile
+    sketches of the first token and of each request's latency, a count of
+    completed requests).
     """
 
     def __init__(self, cfg, *, batch_size: int = 4, max_len: int = 256,

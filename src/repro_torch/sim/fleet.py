@@ -605,7 +605,9 @@ def simulate_fleet(tasks: Sequence[sch.Task], arrivals,
         if obs.enabled:
             # lifecycle spans as one deferred column batch, in the same
             # completion order the host engine emits them; deadline and
-            # split ride as sojourn args (None entries drop per row)
+            # split ride as sojourn args (None entries drop per row).  Every
+            # column is a fresh array or list (fancy-indexed here), which
+            # the tracer holds unread until its first read
             args_cols = {
                 "deadline_s": [tasks[r].deadline_s for r in rid_o],
                 "split": None if split_by_rid is None

@@ -365,9 +365,9 @@ def simulate_stream(tasks: Sequence[sch.Task], arrivals,
     fires ``split_planner.on_saturation`` whenever any pool's utilisation
     crosses the threshold from below.
 
-    ``obs=`` takes a duck-typed tracer (``enabled``, ``instant``,
-    ``task_spans``, ``last``; a ``repro.obs`` tracer fits) that records
-    the run in *virtual time*; the default no-op tracer costs nothing.
+    ``obs=`` takes a :class:`repro_torch.obs.Tracer`, which records the
+    run in *virtual time* (lifecycle spans per task; replan, link-drift,
+    pool and oracle instants); the default no-op tracer costs nothing.
     On an exception the loop writes a flight-recorder post-mortem
     (:func:`repro_torch.obs.trace.postmortem_dump`, tracing on only) and
     re-raises.

@@ -9,11 +9,8 @@ that to the run-level numbers the paper's evaluation reports (p50/p99
 completion, misses, joules, utilisation), and ``to_rows()`` / ``save()``
 export the same flat ``[{"name": ..., metric: ...}]`` record schema the
 ``results/`` benchmark JSONs use.  Host numpy code, the reference's
-reductions in its order.
-
-The ``repro.obs`` exports (``registry``, ``to_prometheus``,
-``attribution``) wait for the port of ``obs`` (ROADMAP.md §1 item 11) and
-raise ``NotImplementedError``.
+reductions in its order.  ``registry()``, ``to_prometheus()`` and
+``attribution()`` lift a run into :mod:`repro_torch.obs`.
 """
 from __future__ import annotations
 
@@ -25,8 +22,7 @@ from typing import Optional
 
 import numpy as np
 
-_OBS_PENDING = ("Telemetry.{} needs the port of repro.obs, which is not "
-                "done yet (ROADMAP.md §1 item 11)")
+from repro_torch.obs.metrics import MetricsRegistry
 
 
 @dataclasses.dataclass
@@ -275,17 +271,50 @@ class Telemetry:
                  for node, u in util.items()]
         return rows
 
-    # -- export (the repro.obs metrics surface) ---------------------------
-    def registry(self, prefix: str = "sim"):
-        """The reference lifts a run into a ``repro.obs.MetricsRegistry``;
-        the port has no ``obs`` metrics yet."""
-        raise NotImplementedError(_OBS_PENDING.format("registry"))
+    # -- export (the obs metrics surface) ---------------------------------
+    def registry(self, prefix: str = "sim") -> MetricsRegistry:
+        """Lift this run into a :class:`repro_torch.obs.MetricsRegistry`:
+        every scheduler counter becomes a Prometheus counter, every gauge a
+        gauge, and the sojourn/wait/transfer distributions land in
+        fixed-boundary histograms (``to_prometheus`` dumps the text
+        exposition format)."""
+        reg = MetricsRegistry()
+        reg.counter(f"{prefix}_tasks_completed_total",
+                    help="completed tasks").inc(len(self.records))
+        reg.counter(f"{prefix}_deadline_misses_total",
+                    help="tasks finishing past their deadline") \
+            .inc(self.deadline_misses)
+        reg.gauge(f"{prefix}_energy_joules",
+                  help="total energy over the run").set(self.energy_j)
+        reg.gauge(f"{prefix}_makespan_seconds").set(self.makespan_s)
+        for key in sorted(self.counters):
+            reg.counter(f"{prefix}_{key}_total").inc(self.counters[key])
+        for key in sorted(self.gauges):
+            reg.gauge(f"{prefix}_{key}").set(self.gauges[key])
+        hists = {
+            "sojourn_seconds": [r.sojourn_s for r in self.records],
+            "wait_seconds": [r.wait_s for r in self.records],
+            "transfer_seconds": [r.transfer_s for r in self.records],
+        }
+        for key, vals in hists.items():
+            h = reg.histogram(f"{prefix}_task_{key}",
+                              help=f"per-task {key.split('_')[0]} time")
+            h.observe_many(vals)
+        return reg
 
     def to_prometheus(self, prefix: str = "sim") -> str:
-        raise NotImplementedError(_OBS_PENDING.format("to_prometheus"))
+        """Prometheus text exposition of :meth:`registry`."""
+        return self.registry(prefix).to_prometheus()
 
     def attribution(self):
-        raise NotImplementedError(_OBS_PENDING.format("attribution"))
+        """Lift this run's task records into a
+        :class:`repro_torch.obs.analyze.RunAttribution` (phase attribution,
+        critical paths, miss classification) without having traced it: the
+        lifecycle spans are rebuilt from the records.  A traced run's
+        ``attribute(tracer)`` also carries the control-plane instants the
+        miss classifier corroborates against."""
+        from repro_torch.obs.analyze import attribute
+        return attribute(self)
 
     def save(self, path: str, name: str = "sim_stream") -> None:
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

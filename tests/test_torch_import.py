@@ -93,6 +93,20 @@ def test_oracle_and_sim_modules_load_no_jax_and_no_reference(module):
     assert_loads_no_jax_and_no_reference(module)
 
 
+@pytest.mark.parametrize("module", ["repro_torch.obs.trace",
+                                    "repro_torch.obs.chrome",
+                                    "repro_torch.obs.metrics",
+                                    "repro_torch.obs.analyze",
+                                    "repro_torch.obs.analyze.sketch",
+                                    "repro_torch.obs.analyze.tables",
+                                    "repro_torch.obs.analyze.attribution",
+                                    "repro_torch.obs.analyze.diff",
+                                    "repro_torch.obs.analyze.regress",
+                                    "repro_torch.obs.analyze.cli"])
+def test_obs_modules_load_no_jax_and_no_reference(module):
+    assert_loads_no_jax_and_no_reference(module)
+
+
 @pytest.mark.parametrize("module", ["repro_torch.sim.queueing",
                                     "repro_torch.sim.pareto",
                                     "repro_torch.sim.fleet",

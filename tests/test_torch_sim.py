@@ -10,7 +10,9 @@ rebalancing, a predictor cost, decide-at-admission with
 ``split_backend="torch"`` against the reference's ``"numpy"``), and each
 option that came with the queueing, Pareto and fleet modules (pools, RTTs,
 the split planner, its saturation hook, the fleet engine, the sharded
-split backend) against the reference's run of it.
+split backend) against the reference's run of it; ``Telemetry``'s obs
+exports (registry rows, Prometheus text, attribution) against the
+reference's on the same stream.
 """
 import dataclasses
 import json
@@ -251,11 +253,34 @@ def test_utilisation_keeps_same_spec_nodes_apart():
     assert all(0.0 <= u <= 1.0 for u in tel2.utilisation().values())
 
 
-@pytest.mark.parametrize("method", ["registry", "to_prometheus",
-                                    "attribution"])
-def test_telemetry_obs_exports_are_deferred(method):
-    with pytest.raises(NotImplementedError, match="§1 item 11"):
-        getattr(psim.Telemetry(), method)()
+#: each of Telemetry's obs exports, as the reference's test reads it
+OBS_EXPORTS = {
+    "registry": lambda tel: tel.registry("edge").to_rows("run"),
+    "to_prometheus": lambda tel: tel.to_prometheus(),
+    "attribution": lambda tel: (tel.attribution().summary(),
+                                tel.attribution().miss_attribution()),
+}
+
+
+@pytest.mark.parametrize("method", sorted(OBS_EXPORTS))
+def test_telemetry_obs_exports_match_reference(method):
+    """``registry()``, ``to_prometheus()`` and ``attribution()`` of a port
+    run equal the reference's on the same stream (pools, an RTT and
+    deadlines, so every histogram and the miss classifier have data)."""
+    tels = []
+    for sim, sch, specs, kw in ((rsim, rsch, R_SPECS, {}),
+                                (psim, psch, P_SPECS, {"device": CPU})):
+        tels.append(sim.simulate_stream(
+            make_tasks(sch, 40, deadlines=True),
+            sim.poisson_arrivals(15.0, n=40, seed=5),
+            make_nodes(sch, specs, 3), policy="min_min",
+            pools=sim.NodePools.uniform(3, 1),
+            rtt=sim.WeibullRTT(shape=0.7, scale=0.01, seed=14), **kw))
+    want, got = (OBS_EXPORTS[method](t) for t in tels)
+    assert got == want and got
+    # the small filled run too
+    assert OBS_EXPORTS[method](filled(psim)) == \
+        OBS_EXPORTS[method](filled(rsim))
 
 
 # --------------------------------------------------------------------------
