@@ -2,8 +2,9 @@
 """Drive the PyTorch port on one CUDA card: the profile -> predict -> decide
 path, the online oracle riding the streaming simulator, the queueing, Pareto
 and fleet slice of the simulator, the serving path, the kernel bench,
-training (the LM loop, its flash backward, federated profiling) and the
-main paths traced by ``repro_torch.obs``.
+training (the LM loop, its flash backward, federated profiling), the
+main paths traced by ``repro_torch.obs``, and the mesh path with the
+dry-run's predictions held against the card.
 
     python3 chip_smoke.py
 
@@ -302,6 +303,24 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    file; the kernels' launches per traced path (counts set to 0 just
    before, read just after) join the kernels line as ``trace_launches``;
    the ``trace`` line has the rest.
+13. The mesh and the dry-run (``mesh_slice``), on a one-rank ``nccl``
+   (1, 1) mesh (``launch.mesh.make_card_mesh``): (a) qwen3-1.7b at full
+   width and depth in bf16 through ``launch.steps.assemble``, 5 steps at B
+   8, S 128 under ``train()``, its losses the same bits as ``train()``'s on
+   the same batches, init and knobs (flash 2 a layer a step, all on
+   ``flash_fwd_wgmma``); (b) deepseek-moe-16b's prefill through
+   ``assemble`` at phase 6b's admission shape (B 1, S 2048), its logits the
+   same bits as ``api.prefill``'s; (c) zamba2-1.2b's decode step through
+   ``assemble`` after a 2048-token prefill at B 4, the same bits as
+   ``decode_step``; (d) ``decide_all_sharded(mesh=)`` over phase 2's 2^20
+   envs, bit for bit with ``backend="torch"``.  For (a)-(c) the dry-run at
+   chips = 1 (``launch.dryrun.step_costs``) against the card: its static
+   bytes at most ``max_memory_allocated()`` (the ratio printed), its FLOPs
+   (ATen's and the kernels' custom ops by their ``kernels.work`` formulas)
+   within ``MESH_FLOP_TOL`` of ``FlopCounterMode`` of the card's step,
+   and its roofline bound at most the measured step time (a bound
+   above it is an impossible reading); the ``mesh_check`` and ``mesh``
+   lines, flash's ``mesh_launches`` on the kernels line.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -417,6 +436,17 @@ SCAN_BWD_TOL = 1e-4
 # profiling records.  As for MLP_CARD_TOL: above 6x the card's largest
 # gap and 2.6x the largest under an lr change
 FEDAVG_CARD_TOL = 2e-3
+# the mesh phase (13), on a one-rank nccl (1, 1) mesh: qwen3-1.7b trained
+# through assemble (steps, B, S), deepseek-moe-16b's prefill at phase 6b's
+# admission shape (B, S), zamba2-1.2b's decode after a prefill (B, S)
+MESH_TRAIN = (5, 8, 128)
+MESH_PREFILL = (1, 2048)
+MESH_DECODE = (4, 2048)
+# the card's step under FlopCounterMode against the dry-run's count: the
+# same ops (ATen's and the kernels' custom ops) at the same shapes, so
+# equal; 1% leaves room for an op whose formula reads a stride the fake
+# tensor does not have
+MESH_FLOP_TOL = 0.01
 
 
 def fail(msg: str) -> None:
@@ -3288,6 +3318,211 @@ def trace_slice(dev, smi: str, oracle_runs: dict, serve_untraced: dict,
     return launches
 
 
+def mesh_slice(dev, smi: str, layers, envs) -> dict:
+    """The mesh and the dry-run on the card (phase 13), on a one-rank
+    ``nccl`` (1, 1) mesh: (a) qwen3-1.7b through ``assemble`` against
+    ``train()`` on the same batches, init and knobs; (b) deepseek-moe-16b's
+    prefill through ``assemble`` against ``api.prefill``; (c) zamba2-1.2b's
+    decode step through ``assemble`` after a prefill, against
+    ``decode_step``; (d) ``decide_all_sharded(mesh=)`` over phase 2's
+    envs against ``backend="torch"``.  For (a)-(c) the dry-run at chips = 1
+    (``launch.dryrun.step_costs`` on an abstract (1, 1) mesh) against the
+    card: its static bytes within ``max_memory_allocated()``, its ATen
+    FLOPs against ``FlopCounterMode`` of the card's step, its roofline
+    bound at most the measured step time.  Returns flash's launches per
+    part."""
+    import tempfile
+    from functools import partial
+
+    import torch
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core import decisions as dec
+    from repro_torch.data.synthetic import prefill_batch, train_batch
+    from repro_torch.distributed.context import AbstractMesh
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.launch.dryrun import step_costs
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.launch.steps import assemble
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.roofline import analyze, model_flops_estimate
+    from repro_torch.sim.fleet import decide_all_sharded
+    from repro_torch.train import TrainConfig, train
+
+    t_phase = time.perf_counter()
+    store = tempfile.mkdtemp()
+    mesh = make_card_mesh(f"{store}/store")
+    one = AbstractMesh((1, 1), ("data", "model"))
+    out, parts = {"flash": {}}, {}
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def predicted(cfg, shape, **kw):
+        """The dry-run at chips = 1 of the same step."""
+        step = assemble(cfg, shape, one, **kw)
+        costs = step_costs(step, shape)
+        roof = analyze(step.name, costs, chips=1,
+                       model_flops=model_flops_estimate(step.cfg, shape))
+        return costs, roof
+
+    def against(name, costs, roof, peak, card_flops, step_s, **extra):
+        flop_gap = abs(card_flops - costs["flops"]) / costs["flops"]
+        row = dict(static_bytes=costs["static"]["total"],
+                   max_memory_allocated=peak,
+                   static_over_peak=costs["static"]["total"] / peak,
+                   temp_peak_bytes=costs["temp_peak_bytes"],
+                   predicted_flops=costs["flops"],
+                   predicted_aten_flops=costs["aten_flops"],
+                   kernel_flops=costs["kernel_flops"],
+                   card_flop_counter=card_flops, flop_gap=flop_gap,
+                   flop_tolerance=MESH_FLOP_TOL,
+                   bound_s=roof.bound_s, bound_by=roof.dominant,
+                   compute_s=roof.compute_s, memory_s=roof.memory_s,
+                   step_s=step_s, bound_over_step=roof.bound_s / step_s,
+                   device=smi, **extra)
+        line("mesh_check", part=name, **row)
+        check(costs["static"]["total"] <= peak, f"mesh {name}: the dry-run's "
+              f"static bytes {costs['static']['total']} exceed the card's "
+              f"max_memory_allocated {peak}")
+        check(flop_gap <= MESH_FLOP_TOL, f"mesh {name}: FlopCounterMode on "
+              f"the card counts {card_flops}, the dry-run {costs['flops']}"
+              f" (gap {flop_gap}, tolerance {MESH_FLOP_TOL})")
+        check(roof.bound_s <= step_s, f"mesh {name}: the roofline bound "
+              f"{roof.bound_s} s exceeds the measured step {step_s} s")
+        parts[name] = row
+
+    # -- (a) qwen3-1.7b trained through assemble -----------------------------
+    steps, bsz, seq = MESH_TRAIN
+    cfg = get_config("qwen3-1.7b")
+    shape = InputShape("mesh_train", seq, bsz, "train")
+    tcfg = TrainConfig(steps=steps, batch_size=bsz, seq_len=seq,
+                       log_every=0, seed=SEED)
+    opt = partial(AdamW, lr=warmup_cosine(tcfg.lr, tcfg.warmup_steps,
+                                          tcfg.steps))
+    step = assemble(cfg, shape, mesh, opt=opt)
+    api = build_model(step.cfg)
+    plain = train(step.cfg, tcfg, params=api.init_params(SEED, dev),
+                  device=dev, log_fn=lambda m: None)
+    plain.final_params = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa_kernel.reset_counts()
+    params = step.shard_params(api.init_params(SEED, dev, trainable=True))
+    meshed = train(step.cfg, tcfg, jit_step=step, params=params, device=dev,
+                   log_fn=lambda m: None)
+    by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = steps * step.cfg.num_layers * 2
+    check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want},
+          f"mesh train: flash {by_kernel}, expected {want} calls on "
+          "flash_fwd_wgmma")
+    out["flash"]["train"] = by_kernel["flash_fwd_wgmma"]
+    same = meshed.losses == plain.losses
+    check(same, f"mesh train: losses {meshed.losses} differ from train()'s "
+          f"{plain.losses}")
+    with FlopCounterMode(display=False) as fc:
+        step(meshed.final_params, None,
+             train_batch(step.cfg, bsz, seq, seed=SEED + steps, device=dev))
+    costs, roof = predicted(cfg, shape, opt=opt)
+    against("train", costs, roof, peak, fc.get_total_flops(),
+            1.0 / meshed.steps_per_s, model=step.cfg.name,
+            loss_chunk=step.cfg.loss_chunk, losses=meshed.losses,
+            same_bits_as_train=same, flash_by_kernel=by_kernel,
+            shape=[bsz, seq], steps=steps)
+    del meshed, params, step, api
+    torch.cuda.empty_cache()
+
+    # -- (b) deepseek-moe-16b prefill ----------------------------------------
+    bsz, seq = MESH_PREFILL
+    cfg = get_config("deepseek-moe-16b")
+    shape = InputShape("mesh_prefill", seq, bsz, "prefill")
+    step = assemble(cfg, shape, mesh)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init_params(SEED, dev)
+    batch = prefill_batch(cfg, bsz, seq, seed=SEED, device=dev)
+    with torch.no_grad():
+        want_logits, _ = api.prefill(params, batch, seq)
+        fa_kernel.reset_counts()
+        got, cache = step(params, batch)
+        by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+        out["flash"]["prefill"] = by_kernel["flash_fwd_wgmma"]
+        check(by_kernel == {"flash_fwd": 0,
+                            "flash_fwd_wgmma": cfg.num_layers},
+              f"mesh prefill: flash {by_kernel}, expected {cfg.num_layers} "
+              "calls on flash_fwd_wgmma")
+        check(torch.equal(got, want_logits), "mesh prefill: logits differ "
+              f"from api.prefill (max {(got - want_logits).abs().max()})")
+        del cache, got
+        t0 = synced()
+        step(params, batch)
+        step_s = synced() - t0
+        with FlopCounterMode(display=False) as fc:
+            step(params, batch)
+    peak = torch.cuda.max_memory_allocated(dev)
+    costs, roof = predicted(cfg, shape)
+    against("prefill", costs, roof, peak, fc.get_total_flops(), step_s,
+            model=cfg.name, shape=[bsz, seq], same_bits_as_prefill=True)
+    del params, batch, want_logits, step, api
+    torch.cuda.empty_cache()
+
+    # -- (c) zamba2-1.2b decode after a prefill ------------------------------
+    bsz, seq = MESH_DECODE
+    cfg = get_config("zamba2-1.2b")
+    shape = InputShape("mesh_decode", seq + 8, bsz, "decode")
+    step = assemble(cfg, shape, mesh)
+    api = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = api.init_params(SEED, dev)
+    token = {"token": torch.arange(1, bsz + 1, device=dev)[:, None]}
+    with torch.no_grad():
+        _, cache = api.prefill(params, prefill_batch(cfg, bsz, seq,
+                                                     seed=SEED, device=dev),
+                               seq + 8)
+        mine = {k: (v.clone() if torch.is_tensor(v) else v)
+                for k, v in cache.items()}
+        want_logits, _ = api.decode_step(params, token, cache)
+        got, mine = step(params, token, mine)
+        check(torch.equal(got, want_logits), "mesh decode: logits differ "
+              f"from decode_step (max {(got - want_logits).abs().max()})")
+        times = []
+        for _ in range(3):
+            t0 = synced()
+            step(params, token, mine)
+            times.append(synced() - t0)
+        with FlopCounterMode(display=False) as fc:
+            step(params, token, mine)
+    peak = torch.cuda.max_memory_allocated(dev)
+    costs, roof = predicted(cfg, shape)
+    against("decode", costs, roof, peak, fc.get_total_flops(),
+            sorted(times)[1], model=cfg.name, shape=[bsz, seq],
+            same_bits_as_decode_step=True)
+    del params, cache, mine, step, api
+    torch.cuda.empty_cache()
+
+    # -- (d) the sharded decision sweep --------------------------------------
+    t0 = synced()
+    plan = decide_all_sharded(layers, envs, mesh=mesh)
+    sweep_s = synced() - t0
+    exact = dec.decide_all(layers, envs, backend="torch", device=envs.device)
+    for f in ("splits", "total_time_s", "device_time_s", "transfer_time_s",
+              "edge_time_s"):
+        check(torch.equal(getattr(plan, f), getattr(exact, f)),
+              f"decide_all_sharded(mesh=): {f} differs from backend='torch'")
+    dist.destroy_process_group()
+    line("mesh", mesh="nccl (1, 1) data x model", parts=list(parts),
+         sweep_envs=len(envs), sweep_s=sweep_s, sweep_bit_for_bit=True,
+         flash_launches=out["flash"], phase_s=time.perf_counter() - t_phase,
+         device=smi)
+    return out
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -3889,6 +4124,10 @@ def main() -> None:
     for name, per_path in traced.items():
         next(r for r in kernels if r["name"] == name)["trace_launches"] = \
             per_path
+
+    # -- 13. the mesh and the dry-run ---------------------------------------
+    meshed = mesh_slice(dev, smi, layers, envs)
+    flash.update(mesh_launches=meshed["flash"])
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

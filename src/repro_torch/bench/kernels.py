@@ -46,6 +46,9 @@ import torch.nn.functional as F
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S, bound,
                                       card, emit, host_ms, timed_ms)
+from repro_torch.kernels.work import (flash_work, slstm_bwd_work,  # noqa: F401
+                                      slstm_work, ssm_bwd_work, ssm_cb_work,
+                                      ssm_work)
 
 #: qwen3-1.7b's products (configs/qwen3_1_7b.py: d_model 2048, d_ff 6144,
 #: vocab 151,936): (case, M, K, N)
@@ -55,82 +58,6 @@ INT8_SHAPES = (("decode_b1", 1, 2048, 6144),
                ("lm_head_b4", 4, 2048, 151936),
                ("prefill", 8192, 2048, 6144))
 L2_BYTES = 50e6
-
-
-def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int,
-               dv: int | None = None, *, sk: int | None = None,
-               causal: bool = True) -> tuple[int, int]:
-    """(bytes, operations) of attention of ``s`` queries over ``sk`` keys
-    (default ``s``) with q/k head dim ``d`` and v/o head dim ``dv``
-    (default ``d``): q, k, v read and o written once; q·kᵀ and p·v over
-    the live (row, col) pairs, the causal triangle or all of them."""
-    dv = d if dv is None else dv
-    sk = s if sk is None else sk
-    pairs = s * (s + 1) // 2 if causal else s * sk
-    return ((b * s * hq + b * sk * hkv) * (d + dv) * el,
-            2 * (d + dv) * pairs * b * hq)
-
-
-def slstm_work(b: int, s: int, h: int, du: int, r_el: int, out_el: int
-               ) -> tuple[int, int]:
-    """(bytes, operations) of the sLSTM recurrence: pre [4, B, S, d] f32
-    and R [4, H, du, du] read once, h [B, S, d] and the four [B, d] f32
-    states written once; per step and row the four gates' block-diagonal
-    products, 2 · 4 H du² operations (the cell's ~20 a unit are left
-    out)."""
-    d = h * du
-    return (16 * b * s * d + 4 * h * du * du * r_el + b * s * d * out_el
-            + 16 * b * d, 2 * b * s * 4 * h * du * du)
-
-
-def ssm_work(b: int, s: int, h: int, p: int, n: int, chunk: int
-             ) -> tuple[int, int]:
-    """(bytes, operations) of the f32 chunked scan: C·Bᵀ on the causal
-    triangle once per batch row and chunk (the heads share it), and per
-    head and chunk its product with dt·x, C·H and the state update's
-    (dt·x)ᵀ(B∘decay); xdt, loga, B, C read, y and the state written."""
-    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
-    ops = (b * h * nc * (2 * tri * p + 2 * 2 * chunk * p * n)
-           + b * nc * 2 * tri * n)
-    return 4 * (2 * b * s * h * p + b * s * h + 2 * b * s * n
-                + b * h * p * n), ops
-
-
-def ssm_bwd_work(b: int, s: int, h: int, p: int, n: int, chunk: int
-                 ) -> tuple[int, int]:
-    """(bytes, operations) of the chunked scan's backward: xdt, dy, loga,
-    B, C and the final state's cotangent read, dxdt, dloga, dB and dC
-    written; C·Bᵀ on the causal triangle once per batch row and chunk, and
-    per head and chunk dy·xdtᵀ, the gate's products with dy, B and C on the
-    triangle, and four [Q, P] × [P, N] products (the chain's
-    Σ exp(csum) dy ⊗ C, dC's and dB's state terms, dxdt's)."""
-    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
-    ops = (b * h * nc * (2 * tri * (2 * p + 2 * n) + 4 * 2 * chunk * p * n)
-           + b * nc * 2 * tri * n)
-    return 4 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n
-                + b * h * p * n), ops
-
-
-def slstm_bwd_work(b: int, s: int, h: int, du: int, r_el: int
-                   ) -> tuple[int, int]:
-    """(bytes, operations) of the sLSTM backward: the forward's eight saved
-    [B, S, d] f32 planes, h's cotangent, R and the final state's four
-    [B, d] cotangents read, dpre [4, B, S, d] and dR [4, H, du, du] f32
-    written; per step and row the four gates' transposed block-diagonal
-    products for the chain and their products into dR, 2 · 2 · 4 H du²
-    operations (twice the forward's; the cell's ~40 a unit are left
-    out)."""
-    d = h * du
-    return (4 * (8 + 1 + 4) * b * s * d + 4 * h * du * du * (r_el + 4)
-            + 16 * b * d, 2 * 2 * b * s * 4 * h * du * du)
-
-
-def ssm_cb_work(b: int, s: int, n: int, chunk: int) -> tuple[int, int]:
-    """(bytes, operations) of ``ssd_cb`` alone: B and C read, the [Q, Q]
-    tile of each batch row and chunk written, C·Bᵀ on the causal
-    triangle."""
-    nc, tri = -(-s // chunk), chunk * (chunk + 1) // 2
-    return 4 * (2 * b * s * n + b * nc * chunk * chunk), b * nc * 2 * tri * n
 
 
 def gbt_hist_work(n: int, f: int, n_bins: int, nodes: int = 1

@@ -1,11 +1,75 @@
 """Flash-attention dispatch in the model layout: the plain version on the
-CPU, the CUDA kernel on the card."""
+CPU, the CUDA kernel on the card.
+
+The call is a ``torch.library`` custom op, ``repro_torch::flash_attention``
+(and ``flash_attention_lse``, which also returns the rows' log-sum-exp):
+its fake implementation gives meta and fake tensors the kernel's outputs
+(the dry-run runs the model on meta tensors), and its FLOP formula,
+``kernels.work.flash_work``, lets ``FlopCounterMode`` count the kernel,
+which ATen's counters cannot see."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.work import flash_work
+
+
+def _run(q, k, v, causal, window, scale, valid_len, return_lse):
+    kw = dict(causal=causal, window=window, scale=scale,
+              valid_len=valid_len, return_lse=return_lse)
+    if q.device.type != "cpu":
+        return flash_attention_kernel(q, k, v, **kw)
+    got = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), **kw)
+    if return_lse:
+        return got[0].transpose(1, 2), got[1]
+    return got.transpose(1, 2)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: int, scale: Optional[float], valid_len: int
+           ) -> torch.Tensor:
+    return _run(q, k, v, causal, window, scale, valid_len, False)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse",
+                         mutates_args=())
+def _flash_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool, window: int, scale: Optional[float],
+               valid_len: int) -> tuple[torch.Tensor, torch.Tensor]:
+    return _run(q, k, v, causal, window, scale, valid_len, True)
+
+
+def _out(q, v):
+    b, sq, hq, _ = q.shape
+    return q.new_empty((b, sq, hq, v.shape[-1]))
+
+
+@_flash.register_fake
+def _(q, k, v, causal, window, scale, valid_len):
+    return _out(q, v)
+
+
+@_flash_lse.register_fake
+def _(q, k, v, causal, window, scale, valid_len):
+    b, sq, hq, _ = q.shape
+    return _out(q, v), q.new_empty((b, hq, sq), dtype=torch.float32)
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
+def _flops(q_shape, k_shape, v_shape, causal, window, scale, valid_len, *,
+           out_shape=None, **kwargs) -> int:
+    b, sq, hq, d = q_shape
+    return flash_work(b, sq, hq, k_shape[2], d, 1, v_shape[-1],
+                      sk=k_shape[1], causal=causal, window=window,
+                      valid_len=valid_len)[1]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -18,13 +82,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors take :func:`attention_ref`; CUDA tensors the kernel, which
     reads this layout with strides, masks the ragged tail itself and takes
-    v at its own head dim (MLA's 128 beside q/k's 192) as it is."""
-    kw = dict(causal=causal, window=window, scale=scale,
-              valid_len=valid_len, return_lse=return_lse)
-    if q.device.type != "cpu":
-        return flash_attention_kernel(q, k, v, **kw)
-    got = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), **kw)
-    if return_lse:
-        return got[0].transpose(1, 2), got[1]
-    return got.transpose(1, 2)
+    v at its own head dim (MLA's 128 beside q/k's 192) as it is; meta
+    tensors the ops' fake implementations."""
+    op = (torch.ops.repro_torch.flash_attention_lse if return_lse
+          else torch.ops.repro_torch.flash_attention)
+    return op(q, k, v, causal, window,
+              None if scale is None else float(scale), valid_len)

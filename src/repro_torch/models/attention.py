@@ -209,8 +209,11 @@ def attn_param_shapes(cfg) -> dict:
 
 
 def _project_qkv(params, x, cfg, positions):
+    """q, k, v at the heads the weights hold: all of them, or on a mesh
+    this rank's (``launch.steps``)."""
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    hq, hkv = params["wq"].shape[1] // hd, params["wk"].shape[1] // hd
     q = matmul(x, params["wq"]).reshape(b, s, hq, hd)
     k = matmul(x, params["wk"]).reshape(b, s, hkv, hd)
     v = matmul(x, params["wv"]).reshape(b, s, hkv, hd)

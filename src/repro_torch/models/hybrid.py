@@ -25,10 +25,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed.context import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
-                                       mlp_param_shapes, rms_norm)
+from repro_torch.models.layers import (ParamTree, embed_lookup, gated_mlp,
+                                       init_tree, mlp_param_shapes, rms_norm)
 from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
 
 
@@ -77,8 +78,9 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens].to(dtype_of(cfg))
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
+    return constrain(x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype),
+                     "activation")
 
 
 def _shared_block_full(shared, x, cfg, positions, impl):
@@ -88,7 +90,7 @@ def _shared_block_full(shared, x, cfg, positions, impl):
     x = x + a
     x = x + gated_mlp(rms_norm(x, shared["ln2_scale"], cfg.norm_eps),
                       shared["mlp"], cfg.mlp_act)
-    return x, kv
+    return constrain(x, "activation"), kv
 
 
 def _hidden(params, tokens, cfg, impl, cache=None):
@@ -109,7 +111,7 @@ def _hidden(params, tokens, cfg, impl, cache=None):
             y, (ssm, conv) = m2.mamba2_block(
                 lp, rms_norm(x, lp["pre_norm_scale"], cfg.norm_eps), cfg,
                 impl=impl)
-            x = x + y
+            x = constrain(x + y, "activation")
             if cache is not None:
                 cache["ssm"][li] = ssm
                 cache["conv"][li] = conv
@@ -128,7 +130,7 @@ def _shared_train(shared, x, cfg, positions, impl):
 def _mamba_train(lp, x, cfg, impl):
     y, _ = m2.mamba2_block(lp, rms_norm(x, lp["pre_norm_scale"],
                                         cfg.norm_eps), cfg, impl=impl)
-    return x + y
+    return constrain(x + y, "activation")
 
 
 def train_loss(params, batch, cfg, *, impl="chunked"):
@@ -154,35 +156,46 @@ def train_loss(params, batch, cfg, *, impl="chunked"):
 # --------------------------------------------------------------------------
 # Cache / decode
 # --------------------------------------------------------------------------
-def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+def cache_shapes(cfg, batch_size: int, max_len: int, held=None) -> dict:
     """(shape, dtype) of each cache tensor; the cache also carries
-    ``pos``, an int."""
+    ``pos``, an int.  ``held``: (key/value heads, SSM heads, d_inner) of
+    the weights when they hold fewer than the config (:func:`held_units`)."""
     g, _ = _grouping(cfg)
     dtype = dtype_of(cfg)
-    h, n = cfg.n_ssm_heads, cfg.ssm_state
-    kv = (g, batch_size, max_len, cfg.num_kv_heads, cfg.head_dim)
+    hkv, h, di = held or (cfg.num_kv_heads, cfg.n_ssm_heads, cfg.d_inner)
+    n = cfg.ssm_state
+    kv = (g, batch_size, max_len, hkv, cfg.head_dim)
     return {
         "attn_k": (kv, dtype),
         "attn_v": (kv, dtype),
-        "ssm": ((cfg.num_layers, batch_size, h, cfg.d_inner // h, n),
-                torch.float32),
-        "conv": ((cfg.num_layers, batch_size, cfg.ssm_conv - 1,
-                  cfg.d_inner + 2 * n), dtype),
+        "ssm": ((cfg.num_layers, batch_size, h, di // h, n), torch.float32),
+        "conv": ((cfg.num_layers, batch_size, cfg.ssm_conv - 1, di + 2 * n),
+                 dtype),
     }
 
 
+def held_units(params, cfg) -> tuple[int, int, int]:
+    """(key/value heads, SSM heads, d_inner) the weights hold: all of
+    them, or on a mesh this rank's (the shapes of the cache it builds)."""
+    lp = params["mamba"][0]
+    return (params["shared_attn"]["attn"]["wk"].shape[1] // cfg.head_dim,
+            lp["w_dt"].shape[1], lp["w_x"].shape[1])
+
+
 def init_cache(cfg, batch_size: int, max_len: int,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None, held=None) -> dict:
     dev = resolve_device(device)
     cache = {name: torch.zeros(shape, dtype=dt, device=dev) for name,
-             (shape, dt) in cache_shapes(cfg, batch_size, max_len).items()}
+             (shape, dt) in cache_shapes(cfg, batch_size, max_len,
+                                         held).items()}
     cache["pos"] = 0
     return cache
 
 
 def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     tokens = batch["tokens"]
-    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device,
+                       held_units(params, cfg))
     x = _hidden(params, tokens, cfg, impl, cache)
     cache["pos"] = tokens.shape[1]
     return _lm_head(params, x[:, -1:], cfg), cache

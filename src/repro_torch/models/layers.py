@@ -19,10 +19,31 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed import collectives as coll
+
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Native-dtype product ``x @ w`` with ``w`` stored ``[in, out]``."""
-    return torch.matmul(x, w.to(x.dtype))
+    """Native-dtype product ``x @ w`` with ``w`` stored ``[in, out]``.  A
+    ``w`` that holds this rank's rows (``distributed.collectives.Split``
+    on dim 0, a row-parallel product on a mesh) gives a partial product,
+    summed over the "model" group here."""
+    y = torch.matmul(x, w.to(x.dtype))
+    split = coll.split_of(w)
+    return coll.tp_sum(y) if split is not None and split.dim == 0 else y
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a table that holds this rank's vocabulary rows
+    (a ``Split`` on dim 0) looks up the tokens in its range, 0 elsewhere,
+    and sums the rows over the "model" group."""
+    split = coll.split_of(table)
+    if split is None:
+        return table[tokens]
+    rows = table.shape[0]
+    local = tokens - split.index * rows
+    ok = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)] * ok[..., None].to(table.dtype)
+    return coll.tp_sum(out)
 
 
 # --------------------------------------------------------------------------
@@ -30,10 +51,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
-    """RMS norm with f32 statistics, scaled by ``1 + scale`` (zero-init
+    """RMS norm with f32 statistics over the last dim (over the "model"
+    group's whole width when ``scale`` holds this rank's units, a
+    ``Split``), scaled by ``1 + scale`` (zero-init
     scales are the identity; this is not ``torch.nn.RMSNorm``)."""
     x32 = x.float()
-    var = x32.square().mean(dim=-1, keepdim=True)
+    split = coll.split_of(scale)
+    if split is None:
+        var = x32.square().mean(dim=-1, keepdim=True)
+    else:        # this rank's units of a norm over the whole width
+        var = coll.tp_sum(x32.square().sum(dim=-1, keepdim=True)) / (
+            x.shape[-1] * split.parts)
     normed = x32 * torch.rsqrt(var + eps)
     return (normed * (1.0 + scale.float())).to(x.dtype)
 

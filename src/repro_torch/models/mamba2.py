@@ -12,7 +12,10 @@ depthwise conv runs on separate x/B/C streams, which is exactly the fused
 conv of the original.
 
 Shapes: x [B,S,H,P]; dt [B,S,H]; B,C [B,S,N] (single group, shared across
-heads); A_log [H]; D [H].
+heads); A_log [H]; D [H].  The blocks run at the heads their weights hold
+(H = ``w_dt``'s columns, d_inner = ``w_x``'s): all of them, or on a mesh
+this rank's, with the gated norm's statistics and ``w_out``'s product
+joined over the "model" group (``layers.rms_norm``, ``layers.matmul``).
 """
 from __future__ import annotations
 
@@ -60,6 +63,11 @@ def mamba2_param_shapes(cfg) -> dict:
     }
 
 
+def _held(params, cfg) -> tuple[int, int, int]:
+    """(d_inner, N, H) at the heads the weights hold."""
+    return params["w_x"].shape[1], cfg.ssm_state, params["w_dt"].shape[1]
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv + silu over the sequence axis.  x [B,S,C]."""
     w32 = w.float()
@@ -80,7 +88,7 @@ def mamba2_block(params, x, cfg, *, impl: str = "chunked"):
     conv_tail)).  ``impl="naive"`` takes the plain chunked scan on every
     device (the oracle path); otherwise :func:`ssd_chunked`."""
     bsz, s, _ = x.shape
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    di, n, h = _held(params, cfg)
     p = di // h
     z = matmul(x, params["w_z"])
     x_pre = matmul(x, params["w_x"])
@@ -107,7 +115,7 @@ def mamba2_step(params, x, cfg, *, ssm_state, conv_state):
     """Single-token Mamba2.  x [B,1,d]; conv_state [B,W-1,di+2n].  Returns
     (y [B,1,d], (new_ssm_state, new_conv_state))."""
     bsz = x.shape[0]
-    di, n, h = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    di, n, h = _held(params, cfg)
     p = di // h
     z = matmul(x, params["w_z"])
     new_col = torch.cat([matmul(x, params["w_x"]), matmul(x, params["w_b"]),

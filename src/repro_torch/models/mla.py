@@ -38,9 +38,15 @@ def mla_param_shapes(cfg) -> dict:
             "wo": (h * dv, d)}
 
 
+def held_heads(params, cfg) -> int:
+    """The heads the weights hold: all of them, or on a mesh this rank's
+    (the latent and the shared rope key are every head's)."""
+    return params["wq"].shape[1] // (cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
 def _queries(params, x, cfg, positions):
     b, s, _ = x.shape
-    h, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    h, dn, dr = held_heads(params, cfg), cfg.qk_nope_dim, cfg.qk_rope_dim
     q = matmul(x, params["wq"]).reshape(b, s, h, dn + dr)
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -55,8 +61,8 @@ def _latent(params, x, cfg, positions):
 def mla_self_attention(params, x, cfg, *, positions, impl="chunked"):
     """Full-segment MLA (prefill).  Returns (out, (c_kv, k_rope))."""
     b, s, _ = x.shape
-    h, dn, dv, dr = (cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim,
-                     cfg.qk_rope_dim)
+    h, dn, dv, dr = (held_heads(params, cfg), cfg.qk_nope_dim,
+                     cfg.v_head_dim, cfg.qk_rope_dim)
     q_nope, q_rope = _queries(params, x, cfg, positions)
     c_kv, k_rope = _latent(params, x, cfg, positions)
     k_nope = matmul(c_kv, params["w_uk"]).reshape(b, s, h, dn)
@@ -77,8 +83,8 @@ def mla_decode_attention(params, x, cfg, *, ckv_cache, kr_cache, pos: Pos,
     ``pos`` (the reference returns updated copies).  Returns
     (out, (ckv_cache, kr_cache))."""
     b = x.shape[0]
-    h, dn, dv, dr, r = (cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim,
-                        cfg.qk_rope_dim, cfg.kv_lora_rank)
+    h, dn, dv, dr, r = (held_heads(params, cfg), cfg.qk_nope_dim,
+                        cfg.v_head_dim, cfg.qk_rope_dim, cfg.kv_lora_rank)
     pos_v = _pos_vector(pos, b, x.device)
     positions = pos_v[:, None]
     q_nope, q_rope = _queries(params, x, cfg, positions)    # [B,1,h,dn/dr]

@@ -15,15 +15,26 @@ sort, which puts the lower expert first on a tie as ``jax.lax.top_k``
 does.  The router runs in true f32 (TF32 off).  The auxiliary
 load-balance loss is returned by :func:`route` and :func:`moe_mlp`.
 
-The reference's expert-parallel ``shard_map`` branch needs a device mesh;
-it waits for ROADMAP.md §1 item 9 step 2, so this is its single-device
-branch.
+On a mesh (``repro_torch.distributed.context``) with a "model" axis of tp
+> 1 ranks that divides the expert count, :func:`moe_mlp` takes the
+reference's expert-parallel branch (its ``shard_map``): each "model" rank
+computes only its E/tp experts over the tokens it holds, and the partial
+outputs meet in one sum over the "model" group in the compute dtype.
+Tokens held whole on every dp rank are split over dp first (when they
+divide) and gathered after, as the reference's ``shard_map`` splits them;
+capacity is taken per local token count, so with drops the result is the
+reference's sharded one, not its single-device one.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch._device import true_f32
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import (axis_sizes, batch_split,
+                                             current_mesh, dp_axes, tp_axes)
 from repro_torch.models.layers import _ACTS, gated_mlp, mlp_param_shapes
 
 
@@ -57,29 +68,44 @@ def route(params, x_flat: torch.Tensor, cfg):
     f = torch.zeros(e, dtype=torch.float32, device=x_flat.device)
     f.index_add_(0, idx.reshape(-1), torch.full(
         (idx.numel(),), 1.0 / idx.numel(), device=x_flat.device))
-    aux = e * torch.sum(f * probs.mean(dim=0)) * cfg.router_aux_coef
+    p = probs.mean(dim=0)
+    mesh, dp = current_mesh(), dp_axes()
+    if mesh is not None and batch_split() and coll.group_size(mesh, dp) > 1:
+        # this rank holds its batch rows only: the means over all tokens
+        n = coll.group_size(mesh, dp)
+        f = coll.all_reduce(f, mesh, dp) / n
+        p = coll.all_reduce(p, mesh, dp) / n
+    aux = e * torch.sum(f * p) * cfg.router_aux_coef
     return weights, idx, aux
 
 
 def _expert_compute(x_flat, idx, weights, w_gate, w_up, w_down, cfg,
-                    cap: int) -> torch.Tensor:
-    """Sort-based dispatch → batched products → combine over all the
-    experts (the reference's single-device case: ``e_base`` 0, every
-    expert local).  With ``cfg.moe_bf16_combine`` the weighted combine
-    stays in the compute dtype (at most k accumulands) instead of f32."""
+                    e_base: int, n_local: int, cap: int) -> torch.Tensor:
+    """Sort-based dispatch → batched products → combine over the
+    ``n_local`` experts from ``e_base`` (all of them, from 0, on one
+    device); choices of other experts add 0.  With
+    ``cfg.moe_bf16_combine`` the weighted combine stays in the compute
+    dtype (at most k accumulands) instead of f32."""
     t, d = x_flat.shape
-    e, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
     tk = t * k
     dev = x_flat.device
     e_flat = idx.reshape(tk)
     order = torch.argsort(e_flat, stable=True)               # [Tk]
     e_sorted = e_flat[order]
     tok_sorted = order // k                                  # source token
-    counts = torch.bincount(e_flat, minlength=e)
-    starts = torch.cumsum(counts, 0) - counts                # exclusive
-    pos_in_e = torch.arange(tk, device=dev) - starts[e_sorted]  # rank
+    # counts over the local expert range only (a scatter-add, as the
+    # reference's .at[].add, so that the shapes do not depend on the data)
+    e_local = e_sorted - e_base
+    in_range = (e_local >= 0) & (e_local < n_local)
+    e_clip = e_local.clamp(0, n_local - 1)
+    counts = torch.zeros(n_local, dtype=torch.int64, device=dev).index_add_(
+        0, e_clip, in_range.long())
+    first = torch.argmax(in_range.int())                     # first local row
+    starts = first + torch.cumsum(counts, 0) - counts        # exclusive
+    pos_in_e = torch.arange(tk, device=dev) - starts[e_clip]  # rank
 
-    # gather into the expert buffer [E, C, d]
+    # gather into the expert buffer [E_local, C, d]
     slots = torch.arange(cap, device=dev)
     buf_src = starts[:, None] + slots[None, :]               # [E,C]
     buf_valid = slots[None, :] < counts[:, None]
@@ -97,9 +123,9 @@ def _expert_compute(x_flat, idx, weights, w_gate, w_up, w_down, cfg,
     # combine back (gathers only)
     inv_order = torch.empty_like(order)
     inv_order[order] = torch.arange(tk, device=dev)          # rank of (t,k)
-    kept = pos_in_e < cap
-    dest = e_sorted * cap + pos_in_e.clamp(0, cap - 1)
-    y_tk = (y_buf.reshape(e * cap, d)[dest[inv_order]]
+    kept = in_range & (pos_in_e < cap)
+    dest = e_clip * cap + pos_in_e.clamp(0, cap - 1)
+    y_tk = (y_buf.reshape(n_local * cap, d)[dest[inv_order]]
             * kept[inv_order][:, None].to(dt)).reshape(t, k, d)
     if cfg.moe_bf16_combine:
         y = (y_tk * weights[..., None].to(dt)).sum(dim=1)
@@ -109,13 +135,38 @@ def _expert_compute(x_flat, idx, weights, w_gate, w_up, w_down, cfg,
 
 
 def moe_mlp(params, x: torch.Tensor, cfg):
-    """x [B,S,d] (or [T,d]) → (y of the same shape, aux_loss)."""
+    """x [B,S,d] (or [T,d]) → (y of the same shape, aux_loss); on a mesh
+    the expert-parallel branch (module docstring).  The expert weights may
+    hold all E experts or, on a mesh, this "model" rank's E/tp."""
     shape = x.shape
     x_flat = x.reshape(-1, shape[-1])
+    t, e = x_flat.shape[0], cfg.num_experts
     weights, idx, aux = route(params, x_flat, cfg)
-    y = _expert_compute(x_flat, idx, weights, params["w_gate"],
-                        params["w_up"], params["w_down"], cfg,
-                        capacity(x_flat.shape[0], cfg))
+    w = (params["w_gate"], params["w_up"], params["w_down"])
+    mesh, tp, dp = current_mesh(), tp_axes(), dp_axes()
+    tp_size = axis_sizes(mesh).get("model", 1) if mesh is not None and tp \
+        else 1
+    if tp_size > 1 and e % tp_size == 0:
+        n_local = e // tp_size
+        e_base = mesh.get_local_rank("model") * n_local
+        if w[0].shape[0] == e:                       # all experts given
+            w = tuple(wi[e_base:e_base + n_local] for wi in w)
+        dp_size = math.prod(axis_sizes(mesh)[a] for a in dp)
+        split = not batch_split() and dp_size > 1 and t % dp_size == 0
+        xl, il, wl = x_flat, idx, weights
+        if split:                        # tokens whole here: split over dp
+            tl = t // dp_size
+            lo = coll.group_rank(mesh, dp) * tl
+            xl, il, wl = x_flat[lo:lo + tl], idx[lo:lo + tl], \
+                weights[lo:lo + tl]
+        y = _expert_compute(xl, il, wl, *w, cfg, e_base, n_local,
+                            capacity(xl.shape[0], cfg))
+        y = coll.all_reduce(y, mesh, tuple(tp))          # compute dtype
+        if split:
+            y = coll.all_gather(y, mesh, dp, 0)
+    else:
+        y = _expert_compute(x_flat, idx, weights, *w, cfg, 0, e,
+                            capacity(t, cfg))
     if cfg.num_shared_experts:
         y = y + gated_mlp(x_flat, params["shared"], cfg.mlp_act)
     return y.reshape(shape), aux

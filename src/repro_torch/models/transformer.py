@@ -30,11 +30,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
-                                       matmul, mlp_param_shapes, rms_norm)
+from repro_torch.models.layers import (ParamTree, embed_lookup, gated_mlp,
+                                       init_tree, matmul, mlp_param_shapes,
+                                       rms_norm)
 
 
 def dtype_of(cfg) -> torch.dtype:
@@ -77,7 +80,7 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 def _ffn(lp, x, cfg):
     """The layer's MLP or MoE: (y, aux), aux 0.0 without experts."""
     if cfg.num_experts:
-        return moe_mod.moe_mlp(lp["moe"], x, cfg)
+        return moe_mod.moe_mlp(lp["moe"], constrain(x, "activation"), cfg)
     return gated_mlp(x, lp["mlp"], cfg.mlp_act), 0.0
 
 
@@ -126,20 +129,26 @@ def _embed_in(params, batch, cfg):
     sqrt(d_model), in the config's dtype (the reference's convention for
     every model, Qwen included)."""
     if cfg.takes_embeddings and "embeds" in batch:
-        return batch["embeds"].to(dtype_of(cfg))
-    x = params["embed"][batch["tokens"]].to(dtype_of(cfg))
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return constrain(batch["embeds"].to(dtype_of(cfg)), "activation")
+    x = embed_lookup(params["embed"], batch["tokens"]).to(dtype_of(cfg))
+    return constrain(x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype),
+                     "activation")
 
 
 def _lm_head(params, x, cfg):
-    return matmul(x, _head_weight(params, cfg))
+    """Logits [..., V]; from a head that holds this rank's vocabulary
+    columns, gathered whole over the "model" group."""
+    head_w = _head_weight(params, cfg)
+    logits = constrain(matmul(x, head_w), "logits")
+    return coll.tp_gather(logits, -1) if coll.split_of(head_w) else logits
 
 
 def backbone(params, batch, cfg, *, impl="chunked", remat=False):
     """All layers + final norm; returns (hidden [B,S,d], aux_loss).  With
     ``remat`` each layer keeps only its input for the backward and runs
     again there."""
-    x = _embed_in(params, batch, cfg)
+    act_name = "activation_sp" if cfg.seq_parallel else "activation"
+    x = constrain(_embed_in(params, batch, cfg), act_name)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
@@ -148,6 +157,7 @@ def backbone(params, batch, cfg, *, impl="chunked", remat=False):
                               use_reentrant=False)
         else:
             x, a = _block_train(lp, x, cfg, positions, impl)
+        x = constrain(x, act_name)
         aux = aux + a
     return rms_norm(x, params["final_norm_scale"], cfg.norm_eps), aux
 
@@ -161,11 +171,27 @@ def forward(params, batch, cfg, *, impl="chunked"):
 # --------------------------------------------------------------------------
 # Losses
 # --------------------------------------------------------------------------
-def lm_loss(logits, labels, mask=None):
-    """Mean token cross-entropy in f32.  logits [B,S,V]; labels [B,S]."""
-    logits32 = logits.float()
-    ll = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
-    nll = torch.logsumexp(logits32, dim=-1) - ll
+def token_nll(logits32, labels, split=None):
+    """Per-token cross-entropy [...] of f32 logits [..., V] at ``labels``
+    (in [0, V)).  With ``split`` the logits are this rank's vocabulary
+    columns (a ``Split``): the label's logit and the log-sum-exp are
+    joined over the "model" group (vocabulary-parallel cross-entropy)."""
+    if split is None:
+        ll = torch.gather(logits32, -1, labels[..., None].long())[..., 0]
+        return torch.logsumexp(logits32, dim=-1) - ll
+    v = logits32.shape[-1]
+    local = labels.long() - split.index * v
+    ok = (local >= 0) & (local < v)
+    ll = torch.gather(logits32, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    ll = coll.tp_sum(ll * ok.float())
+    lse = coll.tp_gather(torch.logsumexp(logits32, dim=-1)[..., None], -1)
+    return torch.logsumexp(lse, dim=-1) - ll
+
+
+def lm_loss(logits, labels, mask=None, split=None):
+    """Mean token cross-entropy in f32.  logits [B,S,V] (this rank's
+    vocabulary columns with ``split``); labels [B,S]."""
+    nll = token_nll(logits.float(), labels, split)
     if mask is None:
         return nll.mean()
     m = mask.float()
@@ -174,9 +200,8 @@ def lm_loss(logits, labels, mask=None):
 
 def _chunk_nll(xi, head_w, li):
     """Summed cross-entropy of one sequence chunk; labels < 0 count 0."""
-    logits32 = matmul(xi, head_w).float()
-    ll = torch.gather(logits32, -1, li.clamp_min(0)[..., None].long())[..., 0]
-    nll = torch.logsumexp(logits32, dim=-1) - ll
+    logits32 = constrain(matmul(xi, head_w), "logits").float()
+    nll = token_nll(logits32, li.clamp_min(0), coll.split_of(head_w))
     return (nll * (li >= 0).float()).sum()
 
 
@@ -199,8 +224,12 @@ def chunked_lm_loss(x, head_w, labels, cfg):
 
 
 def _head_weight(params, cfg):
+    """[d, V] (this rank's vocabulary columns on a mesh, marked)."""
     if cfg.tie_embeddings and "lm_head" not in params:
-        return params["embed"].T
+        embed = params["embed"]
+        split = coll.split_of(embed)
+        return coll.mark(embed.T, split and coll.Split(1, split.index,
+                                                       split.parts))
     return params["lm_head"]
 
 
@@ -208,9 +237,11 @@ def head_loss(params, x, labels, cfg, mask=None):
     """The LM head's cross-entropy of hidden ``x`` [B,S,d] against
     ``labels`` [B,S]: sequence-chunked when ``cfg.loss_chunk``, else over
     the whole logits (with the optional ``mask``)."""
+    head_w = _head_weight(params, cfg)
     if cfg.loss_chunk:
-        return chunked_lm_loss(x, _head_weight(params, cfg), labels, cfg)
-    return lm_loss(_lm_head(params, x, cfg), labels, mask)
+        return chunked_lm_loss(x, head_w, labels, cfg)
+    return lm_loss(constrain(matmul(x, head_w), "logits"), labels, mask,
+                   coll.split_of(head_w))
 
 
 def train_loss(params, batch, cfg, *, impl="chunked"):
@@ -242,6 +273,15 @@ def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
     return {"layers": {"k": (kv, dt), "v": (kv, dt)}}
 
 
+def held_cfg(params, cfg):
+    """``cfg`` at the key/value heads the layer weights hold: all of them,
+    or on a mesh this rank's (the shapes of the cache it builds)."""
+    if cfg.attn_kind == "mla":
+        return cfg
+    hkv = params["layers"][0]["attn"]["wk"].shape[1] // cfg.head_dim
+    return cfg if hkv == cfg.num_kv_heads else cfg.replace(num_kv_heads=hkv)
+
+
 def init_cache(cfg, batch_size: int, max_len: int,
                device: DeviceLike = None) -> dict:
     dev = resolve_device(device)
@@ -257,7 +297,7 @@ def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     x = _embed_in(params, batch, cfg)
     b, s = x.shape[0], x.shape[1]
     positions = torch.arange(s, device=x.device)[None, :]
-    cache = init_cache(cfg, b, max_len, x.device)
+    cache = init_cache(held_cfg(params, cfg), b, max_len, x.device)
     names = list(cache["layers"])
     cache_len = cache["layers"][names[0]].shape[2]
     for l, lp in enumerate(params["layers"]):

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import true_f32
+from repro_torch.distributed.context import constrain
 from repro_torch.kernels.slstm_scan.ops import slstm_scan as slstm_scan_op
 from repro_torch.kernels.slstm_scan.ref import (GATES, recurrent_gates,
                                                 slstm_cell_ref,
@@ -271,10 +272,14 @@ def mlstm_block(params, x, cfg, chunk: int = 128):
     h = cfg.num_heads
     xn = rms_norm(x, params["norm_scale"], cfg.norm_eps)
     u = matmul(xn, params["w_up"])
+    if cfg.xlstm_pin_inner:
+        u = constrain(u, "activation")
     di = u.shape[-1] // 2
     x_in, gate = u[..., :di], u[..., di:]
     conv_tail = x_in[:, -3:]
     xc = _conv_causal(x_in, params["conv_w"], params["conv_b"])
+    if cfg.xlstm_pin_inner:
+        xc = constrain(xc, "activation")
     q = matmul(xc, params["w_q"]).reshape(bsz, s, h, di // h)
     k = matmul(xc, params["w_k"]).reshape(bsz, s, h, di // h)
     v = matmul(x_in, params["w_v"]).reshape(bsz, s, h, di // h)

@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed.context import constrain
 from repro_torch.models import xlstm as xl
 from repro_torch.models.layers import ParamTree, init_tree, rms_norm
 from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
@@ -57,7 +58,8 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 
 def _embed(params, tokens, cfg):
     x = params["embed"][tokens].to(dtype_of(cfg))
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return constrain(x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype),
+                     "activation")
 
 
 def _hidden(params, tokens, cfg, impl, cache=None):
@@ -70,6 +72,7 @@ def _hidden(params, tokens, cfg, impl, cache=None):
         for mi in range(m):
             x, (c, n, mx), conv = xl.mlstm_block(params["mlstm"][gi * m + mi],
                                                  x, cfg)
+            x = constrain(x, "activation")
             if cache is not None:
                 for name, val in (("m_C", c), ("m_n", n), ("m_m", mx),
                                   ("m_conv", conv)):
@@ -77,6 +80,7 @@ def _hidden(params, tokens, cfg, impl, cache=None):
         if cfg.slstm_every:
             x, state, conv = xl.slstm_block(params["slstm"][gi], x, cfg,
                                             impl=impl)
+            x = constrain(x, "activation")
             if cache is not None:
                 for name, val in zip(("s_c", "s_n", "s_h", "s_m", "s_conv"),
                                      (*state, conv)):
@@ -90,11 +94,11 @@ def forward(params, batch, cfg, *, impl="chunked"):
 
 
 def _mlstm_train(lp, x, cfg):
-    return xl.mlstm_block(lp, x, cfg)[0]
+    return constrain(xl.mlstm_block(lp, x, cfg)[0], "activation")
 
 
 def _slstm_train(lp, x, cfg, impl):
-    return xl.slstm_block(lp, x, cfg, impl=impl)[0]
+    return constrain(xl.slstm_block(lp, x, cfg, impl=impl)[0], "activation")
 
 
 def train_loss(params, batch, cfg, *, impl="chunked"):

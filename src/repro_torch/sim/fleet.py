@@ -49,6 +49,7 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.core import decisions as dec
 from repro_torch.core import scheduler as sch
 from repro_torch.core.offload import DEFAULT_EFFICIENCY
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.fleet_scan import ops as scan_ops
 from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.sim.state import ClusterLinks, DriftingEnv
@@ -65,20 +66,31 @@ _SCAN_MIN = 512
 def decide_all_sharded(layers, envs: dec.EnvArrays,
                        efficiency: float = DEFAULT_EFFICIENCY, *,
                        mesh=None) -> dec.DecisionPlan:
-    """``decide_all`` with the environment axis split across devices.
+    """``decide_all`` with the environment axis split across a mesh's ranks.
 
-    On one card this is the exact f64 sweep,
+    Without ``mesh`` this is the exact f64 sweep,
     ``decide_all(backend="torch")`` on the envs' device — the reference
-    also takes its plain path below two devices — so the plan is bit for
-    bit the reference's numpy ``decide_all``.  A ``mesh=`` (several cards)
-    is not ported yet: ROADMAP.md §1 item 9 step 2 (a torch
-    ``DeviceMesh``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "decide_all_sharded(mesh=...) across several cards is not "
-            "ported yet (ROADMAP.md §1 item 9 step 2: a torch DeviceMesh)")
-    return dec.decide_all(layers, envs, efficiency, backend="torch",
+    also takes its plain path below two devices.  With a ``DeviceMesh``
+    (every rank calls, with the same envs) the env axis is padded to the
+    rank count with :func:`~repro_torch.core.decisions.pad_envs`; each rank
+    runs the exact sweep on its rows (row-major over the mesh's axes), the
+    rows are all-gathered and the padding trimmed.  The maths is row-wise,
+    so either way the plan is bit for bit the reference's numpy
+    ``decide_all``."""
+    if mesh is None:
+        return dec.decide_all(layers, envs, efficiency, backend="torch",
+                              device=envs.device)
+    axes = tuple(mesh.mesh_dim_names)
+    n, rank = coll.group_size(mesh, axes), coll.group_rank(mesh, axes)
+    padded, n_orig = dec.pad_envs(envs, n)
+    rows = len(padded) // n
+    mine = dec.take_envs(padded, np.arange(rank * rows, (rank + 1) * rows))
+    plan = dec.decide_all(layers, mine, efficiency, backend="torch",
                           device=envs.device)
+    fields = [coll.all_gather(getattr(plan, f), mesh, axes, 0)[:n_orig]
+              for f in ("splits", "total_time_s", "device_time_s",
+                        "transfer_time_s", "edge_time_s")]
+    return dec.DecisionPlan(*fields)
 
 
 def _split_decide(layers, envs, cost, backend) -> dec.DecisionPlan:

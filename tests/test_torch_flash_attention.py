@@ -120,16 +120,17 @@ def test_naive_attention_positions_and_valid_keys():
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
-    """On a CUDA tensor the dispatch goes to the kernel wrapper (which
-    builds and launches or raises), never to the plain version."""
+    """On a CUDA tensor the custom op's implementation (``ops._run``, which
+    a meta tensor stands in for here: the op itself sends meta tensors to
+    its fake implementation) goes to the kernel wrapper (which builds and
+    launches or raises), never to the plain version."""
     from repro_torch.kernels.flash_attention import ops
     called = []
     monkeypatch.setattr(ops, "flash_attention_kernel",
                         lambda *a, **kw: called.append(kw) or "kernel")
     fake = torch.empty(0, device="meta")
-    assert ops.flash_attention(fake, fake, fake, window=3) == "kernel"
-    assert ops.flash_attention(fake, fake, fake, valid_len=5,
-                               return_lse=True) == "kernel"
+    assert ops._run(fake, fake, fake, True, 3, None, 0, False) == "kernel"
+    assert ops._run(fake, fake, fake, True, 0, None, 5, True) == "kernel"
     assert called == [{"causal": True, "window": 3, "scale": None,
                        "valid_len": 0, "return_lse": False},
                       {"causal": True, "window": 0, "scale": None,
@@ -138,7 +139,8 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
 
 def test_cuda_mla_call_hands_the_kernel_v_at_its_own_width(monkeypatch):
     """A (192, 128) call reaches the kernel with v at 128, not padded to
-    192, and returns the kernel's [B,S,H,128] as it is."""
+    192, and returns the kernel's [B,S,H,128] as it is (the custom op's
+    implementation, ``ops._run``, as in the test above)."""
     from repro_torch.kernels.flash_attention import ops
     handed = []
 
@@ -149,7 +151,7 @@ def test_cuda_mla_call_hands_the_kernel_v_at_its_own_width(monkeypatch):
     monkeypatch.setattr(ops, "flash_attention_kernel", kernel)
     q = k = torch.empty((2, 64, 16, 192), device="meta")
     v = torch.empty((2, 64, 16, 128), device="meta")
-    out = ops.flash_attention(q, k, v, scale=192 ** -0.5)
+    out = ops._run(q, k, v, True, 0, 192 ** -0.5, 0, False)
     assert len(handed) == 1 and handed[0] is v
     assert out.shape == (2, 64, 16, 128)
 

@@ -16,6 +16,9 @@ at least 512 single-task batches go through ``fleet_scan``'s plain version
 and must equal the reference; ``split_backend="sharded"`` equals the
 reference's numpy ``decide_all``.
 """
+import os
+import tempfile
+
 import numpy as np
 import pytest
 import torch
@@ -427,8 +430,9 @@ def test_pad_envs_and_stack_envs():
 
 
 def test_decide_all_sharded_single_device_matches_reference_numpy():
-    """On one device the sharded sweep is the exact f64 one: bit for bit
-    the reference's numpy ``decide_all``, with a ragged env count."""
+    """On one device the sharded sweep is the exact f64 one, without a
+    mesh and on a one-device mesh: bit for bit the reference's numpy
+    ``decide_all``, with a ragged env count."""
     envs = make_env(True, "walk", 5).snapshot(np.linspace(1e5, 8e6, 13))
     renvs = make_env(False, "walk", 5).snapshot(np.linspace(1e5, 8e6, 13))
     want = rdec.decide_all(LAYERS[False], renvs)
@@ -437,8 +441,22 @@ def test_decide_all_sharded_single_device_matches_reference_numpy():
               "transfer_time_s", "edge_time_s"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(want, f)))
-    with pytest.raises(NotImplementedError, match="item 9 step 2"):
-        psim.decide_all_sharded(LAYERS[True], envs, mesh=object())
+    # a one-device mesh: a gloo group of world size 1
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.mesh import start_group
+    with tempfile.TemporaryDirectory() as tmp:
+        start_group("gloo", 0, 1, os.path.join(tmp, "store"))
+        try:
+            got = psim.decide_all_sharded(
+                LAYERS[True], envs,
+                mesh=init_device_mesh("cpu", (1,), mesh_dim_names=("data",)))
+        finally:
+            torch.distributed.destroy_process_group()
+    for f in ("splits", "total_time_s", "device_time_s",
+              "transfer_time_s", "edge_time_s"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(want, f)))
     with pytest.raises(ValueError, match="analytic cost only"):
         pfleet._split_decide(LAYERS[True], envs, object(), "sharded")
 

@@ -339,8 +339,10 @@ def test_launcher_trains_the_reduced_model_on_the_cpu(capsys):
                              "--batch-size", "2", "--seq-len", "16"])
     assert len(res.losses) == 3 and all(np.isfinite(res.losses))
     assert "qwen3-1.7b: loss" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 9 step 2b"):
-        launch_train.main(["--reduced", "--device", "cpu", "--debug-mesh"])
+    # the mesh path: 4 gloo ranks on the CPU, a (2, 2) mesh
+    res = launch_train.main(["--reduced", "--debug-mesh", "--steps", "2"])
+    assert len(res.losses) == 2 and all(np.isfinite(res.losses))
+    assert "qwen3-1.7b: loss" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
