@@ -3,8 +3,8 @@
 path, the online oracle riding the streaming simulator, the queueing, Pareto
 and fleet slice of the simulator, the serving path, the kernel bench,
 training (the LM loop, its flash backward, federated profiling), the
-main paths traced by ``repro_torch.obs``, and the mesh path with the
-dry-run's predictions held against the card.
+main paths traced by ``repro_torch.obs``, the mesh path with the
+dry-run's predictions held against the card, and the ten examples.
 
     python3 chip_smoke.py
 
@@ -113,13 +113,15 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 6. The serving slice at full width: ``ServeEngine(cfg, batch_size=4,
    max_len=prompt + 40, seed=0)`` on qwen3-1.7b, zamba2-1.2b,
    deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b, gemma-2b (MQA,
-   head dim 256), xlstm-350m (24 blocks, ``[m, m, m, s] × 6``) and
+   head dim 256), xlstm-350m (24 blocks, ``[m, m, m, s] × 6``),
    whisper-tiny (4 + 4 layers over 1,500 encoder frames drawn on the host
-   from the seed) at their published shapes in bf16, one at a time (each
+   from the seed), starcoder2-7b (36 query heads on 4 kv heads,
+   ``gelu_plain``) and minitron-4b (24 on 8, ``relu2``, a 256,000-word
+   vocabulary) at their published shapes in bf16, one at a time (each
    freed before the next loads), each serving 8 greedy requests of 2048
    random tokens (whisper: 224, its previous-text prompt cap) with 32 new
    tokens (``flash_attention``, ``ssm_scan`` and ``slstm_scan`` kernels;
-   their launch counts are read right after the seven models: all 248
+   their launch counts are read right after the nine models: all 376
    flash launches must have taken ``flash_fwd_wgmma``, at head dims 128,
    64, 192 with v at 128, 96 and 256, none ``flash_fwd``, with
    whisper's 24 non-causal encoder and cross-attention calls among them;
@@ -146,7 +148,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
 7. The whole model on the card, f32: the kernel path
    (``build_model(cfg)``) and the plain path (``impl="naive"``) on one
    512-token prompt with shared weights, for qwen3-1.7b, zamba2-1.2b,
-   phi-3-vision-4.2b, gemma-2b and xlstm-350m whole (phi-3 also on a
+   phi-3-vision-4.2b, gemma-2b, xlstm-350m, starcoder2-7b (~30 GB of
+   f32 weights) and minitron-4b whole (phi-3 also on a
    seeded embeddings prompt; xlstm's plain path runs the sLSTM's step
    loop), whisper-tiny whole on a 224-token prompt over seeded frames, and
    deepseek-moe-16b and deepseek-v2-lite-16b at full width cut
@@ -191,7 +194,8 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    served shapes (``OTHER_FLASH_SHAPES``: the MLA prefill with v at 128,
    phi-3's D 96, gemma's D 256 with one kv head, one MoE admission,
    whisper's non-causal encoder over 1,500 frames and its cross-attention
-   of 224 queries over them) through ``ops`` as the models call it, each
+   of 224 queries over them, the prefills of starcoder2-7b and minitron-4b
+   at GQA groups of 9 and 3) through ``ops`` as the models call it, each
    first held against its plain version in bf16 (tensor cores) and f32
    (CUDA cores, 1e-5 of max |want|) and against a second call bit for
    bit, with SDPA beside it and, in bf16, the CUDA-core kernel at the same
@@ -321,6 +325,30 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    and its roofline bound at most the measured step time (a bound
    above it is an impossible reading); the ``mesh_check`` and ``mesh``
    lines, flash's ``mesh_launches`` on the kernels line.
+14. The examples (``examples_slice``): each ``repro_torch.examples``
+   module through its ``main`` on the card at the reference's defaults
+   (``EXAMPLE_RUNS``; ``train_tiny_lm`` also on zamba2-1.2b and xlstm-350m
+   for 30 steps), TF32 off, its output captured, the kernels' launches
+   read after each (counts set to 0 at the phase's start); each run must
+   launch the kernels of ``EXAMPLE_EXPECT`` (``decide_split``,
+   ``tree_predict``, ``gbt_hist``, f32 ``flash_fwd`` in ``serve_batched``
+   and, storing its lse, in ``train_tiny_lm``, ``ssm_scan`` and
+   ``slstm_scan`` forward and backward), and every example's own asserts
+   hold.  Child processes started at the phase's start run on the CPU
+   meanwhile: the pinned examples (``PINNED_EXAMPLES``: the policy table
+   and sweep shares, misses and percentiles, the streaming telemetry, the
+   attribution, the pod-scale schedules), whose printed lines, host
+   timing masked, must equal the card's; the three ``train_tiny_lm``
+   runs, whose every step's loss the card's must match within
+   ``EXAMPLE_LOSS_TOL`` (the same host-drawn weights and batches, the
+   plain versions on the CPU); and ``python -m repro_torch.launch.dryrun``
+   on meta tensors (xlstm-350m's shapes left out), whose records
+   ``pod_scale_scheduling`` reads.  ``serve_batched``'s prefill logits of
+   its first batch, card against CPU on the same weights, within
+   ``EXAMPLE_LOGIT_TOL`` of the largest |logit|.  The ``example`` and
+   ``example_losses`` lines, the ``examples`` line (seconds per run,
+   launches, the records the leave-one-out ran over, the loss gaps, the
+   logit error), ``examples_launches`` on the kernels line.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -340,7 +368,8 @@ ROOT = Path(__file__).resolve().parent
 N_ENVS = 1 << 20
 SEED = 0
 SERVE_ARCHS = ("qwen3-1.7b", "zamba2-1.2b", "deepseek-v2-lite-16b",
-               "phi-3-vision-4.2b", "gemma-2b", "xlstm-350m", "whisper-tiny")
+               "phi-3-vision-4.2b", "gemma-2b", "xlstm-350m", "whisper-tiny",
+               "starcoder2-7b", "minitron-4b")
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
 # whisper's decoder prompt: its previous-text cap, n_text_ctx // 2 = 224
 # (the encoder takes its 1,500 frames)
@@ -352,25 +381,29 @@ TRACE_ARCH = "qwen3-1.7b"
 CONT_ARCH, CONT_PROMPT, CONT_GAP_S = "deepseek-moe-16b", (1024, 2048), 0.05
 CHECK_PROMPT = 512                   # the whole-model f32 check
 # f32 checks at full width; the MoE models' depth cut to 4 layers (their
-# 27-28 f32 layers are ~65-68 GB)
+# 27-28 f32 layers are ~65-68 GB); starcoder2-7b at full depth (~30 GB)
 CHECK_LAYERS = 4
 MODEL_CHECKS = (("qwen3-1.7b", None), ("zamba2-1.2b", None),
                 ("deepseek-moe-16b", CHECK_LAYERS),
                 ("deepseek-v2-lite-16b", CHECK_LAYERS),
                 ("phi-3-vision-4.2b", None), ("gemma-2b", None),
-                ("xlstm-350m", None), ("whisper-tiny", None))
+                ("xlstm-350m", None), ("whisper-tiny", None),
+                ("starcoder2-7b", None), ("minitron-4b", None))
 # (case, B, Sq, Sk, Hq, Hkv, D of q/k, D of v, causal) of flash_attention
 # on the served models' paths: deepseek-v2-lite's MLA prefill,
 # phi-3-vision's prefill, gemma-2b's prefill (MQA), one deepseek-moe
 # admission, whisper-tiny's encoder over 1,500 frames and its decoder's
-# cross-attention (224 prompt tokens against the frames), both non-causal
+# cross-attention (224 prompt tokens against the frames), both non-causal,
+# and the prefills of starcoder2-7b and minitron-4b (GQA groups of 9 and 3)
 OTHER_FLASH_SHAPES = (
     ("mla_dsv2lite", 4, 2048, 2048, 16, 16, 192, 128, True),
     ("phi3v_d96", 4, 2048, 2048, 32, 32, 96, 96, True),
     ("gemma_d256", 1, 2048, 2048, 8, 1, 256, 256, True),
     ("moe_admission", 1, 2048, 2048, 16, 16, 128, 128, True),
     ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
-    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False))
+    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False),
+    ("starcoder2_7b", 4, 2048, 2048, 36, 4, 128, 128, True),
+    ("minitron_4b", 4, 2048, 2048, 24, 8, 128, 128, True))
 PROFILE_RUNS, PROFILE_STEPS = 150, 6  # benchmarks/common.py's grid
 MLP_STEP_TOL = 1e-5                  # one MLP step, card vs CPU
 MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
@@ -447,6 +480,63 @@ MESH_DECODE = (4, 2048)
 # equal; 1% leaves room for an op whose formula reads a stride the fake
 # tensor does not have
 MESH_FLOP_TOL = 0.01
+# the examples phase (14): each port example at the reference's defaults
+# on the card, train_tiny_lm also on the two recurrent families for
+# EXAMPLE_TRAIN_STEPS (past TrainConfig's 20 warm-up steps, so that the
+# example's loss falls; 200 at its default arch)
+EXAMPLE_TRAIN_STEPS = "30"
+EXAMPLE_RUNS = (
+    ("offload_simulation", ()), ("contention_tails", ()),
+    ("quickstart", ()), ("oracle_serving", ()), ("streaming_offload", ()),
+    ("trace_analytics", ()), ("serve_batched", ()), ("train_tiny_lm", ()),
+    ("train_tiny_lm", ("--arch", "zamba2-1.2b",
+                       "--steps", EXAMPLE_TRAIN_STEPS)),
+    ("train_tiny_lm", ("--arch", "xlstm-350m",
+                       "--steps", EXAMPLE_TRAIN_STEPS)),
+    ("fl_profiling", ()), ("pod_scale_scheduling", ()))
+# the flags that name a file an example reads, given to the card's run and
+# the CPU's alike (not part of a run's label)
+EXAMPLE_FLAGS = {"trace_analytics": ("--baseline",
+                                     str(ROOT / "BENCH_7.json"))}
+# train_tiny_lm's runs again with --device cpu (the plain versions, the
+# same host-drawn weights and batches), their losses held step by step:
+# each card loss within EXAMPLE_LOSS_TOL relative of the CPU's
+# (tests/test_torch_train.py's LOSS_TOL; the card measured <= 1.84e-7)
+EXAMPLE_LOSS_TOL = 1e-5
+# serve_batched's prefill logits of its first batch, card against CPU on
+# the same weights, within EXAMPLE_LOGIT_TOL of the largest |logit|
+# (tests/test_torch_serve.py's f32 tolerance; the card measured 1.65e-7)
+EXAMPLE_LOGIT_TOL = 1e-5
+# the examples whose printed results are pinned bit for bit: the card's
+# lines equal those of --device cpu, their host timing masked
+# (EXAMPLE_HOST_TIMING); pod_scale_scheduling last (it waits for the
+# dry-run)
+PINNED_EXAMPLES = ("offload_simulation", "contention_tails",
+                   "streaming_offload", "trace_analytics",
+                   "pod_scale_scheduling")
+EXAMPLE_HOST_TIMING = (r"in [0-9.]+ ms", r"[0-9,]+ decisions/s",
+                       r"scheduled in +[0-9.]+ ms")
+# the kernels each run must launch: the decision kernels, flash_fwd (f32:
+# the reduced models run in f32; in training storing its lse, counted as
+# flash_fwd_lse) and the scans forward and backward
+EXAMPLE_EXPECT = {
+    "offload_simulation": ("decide_split", "gbt_hist", "tree_predict"),
+    "contention_tails": ("decide_split",),
+    "quickstart": ("gbt_hist", "tree_predict"),
+    "oracle_serving": ("decide_split", "gbt_hist", "tree_predict"),
+    "serve_batched": ("flash_fwd", "decide_split"),
+    "train_tiny_lm": ("flash_fwd", "flash_fwd_lse"),
+    f"train_tiny_lm --arch zamba2-1.2b --steps {EXAMPLE_TRAIN_STEPS}": (
+        "ssm_scan", "ssm_scan_bwd"),
+    f"train_tiny_lm --arch xlstm-350m --steps {EXAMPLE_TRAIN_STEPS}": (
+        "slstm_scan", "slstm_scan_bwd"),
+    "pod_scale_scheduling": ("gbt_hist", "tree_predict")}
+# pod_scale_scheduling's dry-run records, written by DRYRUN_CHILDREN CPU
+# processes of `python -m repro_torch.launch.dryrun` (meta tensors; the
+# architectures dealt out among them), with xlstm-350m's shapes left out:
+# its eager mLSTM chunk loop on meta tensors takes 70-110 s a shape
+DRYRUN_SKIP = ("xlstm-350m",)
+DRYRUN_CHILDREN = 3
 
 
 def fail(msg: str) -> None:
@@ -3523,6 +3613,246 @@ def mesh_slice(dev, smi: str, layers, envs) -> dict:
     return out
 
 
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count, the flash kernels, flash's
+    launches storing the lse and the scans' forward and backward apart."""
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.gbt_hist import kernel as gh_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    return dict(decide_split=ds_kernel.decide_split_kernel.launches,
+                tree_predict=tp_kernel.tree_predict_kernel.launches,
+                gbt_hist=gh_kernel.level_histogram_kernel.launches,
+                fleet_scan=fs_kernel.place_singletons_kernel.launches,
+                **fa_kernel.flash_attention_kernel.by_kernel,
+                flash_fwd_lse=fa_kernel.flash_attention_kernel.lse_launches,
+                ssm_scan=ss_kernel.ssd_scan_kernel.launches,
+                ssm_scan_bwd=ss_kernel.ssd_scan_bwd_kernel.launches,
+                slstm_scan=sl_kernel.slstm_scan_kernel.launches,
+                slstm_scan_bwd=sl_kernel.slstm_scan_bwd_kernel.launches)
+
+
+def reset_kernel_counts() -> None:
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.gbt_hist import kernel as gh_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    for mod in (fa_kernel, fs_kernel, sl_kernel, ss_kernel, tp_kernel):
+        mod.reset_counts()
+    ds_kernel.decide_split_kernel.launches = 0
+    gh_kernel.level_histogram_kernel.launches = 0
+
+
+def masked_lines(text: str) -> list:
+    """An example's printed lines with their host timing masked."""
+    lines = text.splitlines()
+    for pat in EXAMPLE_HOST_TIMING:
+        lines = [re.sub(pat, "<host>", ln) for ln in lines]
+    return lines
+
+
+def examples_slice(dev, smi: str) -> dict:
+    """The port's examples on the card (phase 14): each of
+    ``EXAMPLE_RUNS`` through its ``main`` in this process, its standard
+    output captured, the kernels' launches read after each (counts set to
+    0 at the start), TF32 off.  Child processes started at the phase's
+    start run on the CPU meanwhile: the pinned examples
+    (``PINNED_EXAMPLES``), whose lines must equal the card's with host
+    timing masked; ``train_tiny_lm``'s runs, whose losses the card's must
+    follow step by step within ``EXAMPLE_LOSS_TOL``; and
+    ``python -m repro_torch.launch.dryrun`` over the architectures dealt
+    out to ``DRYRUN_CHILDREN`` (``DRYRUN_SKIP`` left out), whose records
+    ``pod_scale_scheduling`` reads.  Then ``serve_batched``'s prefill
+    logits of one batch, card against CPU on the same weights, within
+    ``EXAMPLE_LOGIT_TOL``.  Returns the launches per run for the kernels
+    line."""
+    import contextlib
+    import copy
+    import importlib
+    import io
+    import os
+    import subprocess
+
+    import torch
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.examples import EXAMPLES
+
+    check(sorted({name for name, _ in EXAMPLE_RUNS}) == sorted(EXAMPLES),
+          "examples: EXAMPLE_RUNS does not run every example")
+    t_phase = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_dir, cpu_dir = (ROOT / "results" / f"examples_{d}"
+                         for d in ("card", "cpu"))
+    for d in (card_dir, cpu_dir):
+        (d / "results").mkdir(parents=True, exist_ok=True)
+    dryrun = cpu_dir / "results" / "dryrun_torch.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    children = {}
+
+    def start(tag, argv, out):
+        with open(out, "w") as f:     # the child holds its own copy
+            children[tag] = (subprocess.Popen(
+                [sys.executable, *argv], cwd=cpu_dir, env=env, stdout=f,
+                stderr=subprocess.STDOUT), out)
+
+    def finish(tag, timeout):
+        proc, out = children[tag]
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"examples: the CPU child {tag} took over {timeout} s")
+        text = Path(out).read_text()
+        check(rc == 0, f"examples: the CPU child {tag} exited {rc}: "
+              f"{text[-2000:]}")
+        return text
+
+    def example(name, *argv):
+        return ["-m", f"repro_torch.examples.{name}", "--device", "cpu",
+                *argv, *EXAMPLE_FLAGS.get(name, ())]
+
+    archs = [a for a in ARCH_NAMES if a not in DRYRUN_SKIP]
+    trained = [" ".join((name, *argv)) for name, argv in EXAMPLE_RUNS
+               if name == "train_tiny_lm"]
+    card_out = {}
+    try:
+        for i in range(DRYRUN_CHILDREN):
+            start(f"dryrun{i}", ["-m", "repro_torch.launch.dryrun",
+                                 *(f for a in archs[i::DRYRUN_CHILDREN]
+                                   for f in ("--arch", a)),
+                                 "--out", str(cpu_dir / f"dry{i}.json")],
+                  cpu_dir / f"dryrun{i}.log")
+        for name in PINNED_EXAMPLES[:-1]:
+            start(name, example(name), cpu_dir / f"{name}.out")
+        for i, (name, argv) in enumerate(
+                r for r in EXAMPLE_RUNS if r[0] == "train_tiny_lm"):
+            start(trained[i], example(name, *argv, "--losses-out",
+                                      str(cpu_dir / f"losses{i}.json")),
+                  cpu_dir / f"train{i}.out")
+        reset_kernel_counts()
+        seconds, launches = {}, {}
+        before = kernel_counts()
+        cwd = os.getcwd()
+        os.chdir(card_dir)
+        try:
+            for name, argv in EXAMPLE_RUNS:
+                label = " ".join((name, *argv))
+                argv = (*argv, *EXAMPLE_FLAGS.get(name, ()))
+                if name == "train_tiny_lm":
+                    argv = (*argv, "--losses-out", str(
+                        card_dir / f"losses{trained.index(label)}.json"))
+                if name == "pod_scale_scheduling":
+                    # the dry-run's records, in ARCH_NAMES order
+                    recs = []
+                    for i in range(DRYRUN_CHILDREN):
+                        finish(f"dryrun{i}", 600)
+                        recs += json.loads(
+                            (cpu_dir / f"dry{i}.json").read_text())
+                    records = [r for a in archs for r in recs
+                               if r["arch"] == a]
+                    dryrun.write_text(json.dumps(records))
+                    start(name, example(name, "--dryrun", str(dryrun)),
+                          cpu_dir / f"{name}.out")
+                    argv = (*argv, "--dryrun", str(dryrun))
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    importlib.import_module(
+                        f"repro_torch.examples.{name}").main(list(argv))
+                torch.cuda.synchronize(dev)
+                seconds[label] = time.perf_counter() - t0
+                after = kernel_counts()
+                launches[label] = {k: after[k] - before[k] for k in after
+                                   if after[k] > before[k]}
+                before = after
+                card_out[label] = buf.getvalue()
+                line("example", run=label, seconds=seconds[label],
+                     launches=launches[label],
+                     lines=len(card_out[label].splitlines()),
+                     tail=card_out[label].splitlines()[-3:])
+        finally:
+            os.chdir(cwd)
+        # the pinned results: the card's lines are the CPU's
+        pinned = {}
+        for name in PINNED_EXAMPLES:
+            cpu, card_lines = (masked_lines(finish(name, 600)),
+                               masked_lines(card_out[name]))
+            diff = [(a, b) for a, b in zip(card_lines, cpu) if a != b]
+            check(len(card_lines) == len(cpu) and not diff,
+                  f"examples: {name} on the card differs from --device "
+                  f"cpu: {diff[:3]} ({len(card_lines)} vs {len(cpu)} "
+                  "lines)")
+            pinned[name] = len(cpu)
+        # the training runs: the card's losses follow the CPU's
+        losses = {}
+        for i, label in enumerate(trained):
+            finish(label, 600)
+            card_l, cpu_l = (json.loads((d / f"losses{i}.json").read_text())
+                             for d in (card_dir, cpu_dir))
+            check(len(card_l) == len(cpu_l), f"examples: {label}: "
+                  f"{len(card_l)} card steps, {len(cpu_l)} CPU steps")
+            gaps = [abs(c - w) / abs(w) for c, w in zip(card_l, cpu_l)]
+            worst = max(range(len(gaps)), key=gaps.__getitem__)
+            losses[label] = dict(card=card_l, cpu=cpu_l,
+                                 max_rel_gap=gaps[worst], worst_step=worst)
+            check(gaps[worst] <= EXAMPLE_LOSS_TOL, f"examples: {label}: "
+                  f"the card's loss at step {worst} is {card_l[worst]}, "
+                  f"the CPU's {cpu_l[worst]} (relative gap {gaps[worst]}, "
+                  f"tolerance {EXAMPLE_LOSS_TOL})")
+    finally:
+        for proc, _ in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    # serve_batched's first prefill, card against CPU on the same weights
+    sb = importlib.import_module("repro_torch.examples.serve_batched")
+    card_engine, cpu_engine = sb.build_engine(dev), sb.build_engine("cpu")
+    cpu_engine.load_params(copy.deepcopy(card_engine.params).to("cpu"))
+    reqs = sb.make_requests(card_engine.cfg.vocab_size)
+    got = sb.prefill_logits(card_engine, reqs).cpu()
+    want = sb.prefill_logits(cpu_engine, reqs)
+    check(got.shape == want.shape, f"examples: serve_batched prefill "
+          f"logits {tuple(got.shape)} on the card, {tuple(want.shape)} on "
+          "the CPU")
+    logit_err = ((got - want).abs().max() / want.abs().max()).item()
+    check(logit_err <= EXAMPLE_LOGIT_TOL, f"examples: serve_batched prefill "
+          f"logits off by {logit_err} of max |logit| (tolerance "
+          f"{EXAMPLE_LOGIT_TOL})")
+    del card_engine, cpu_engine
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        flags
+    total = {}
+    for per in launches.values():
+        for k, n in per.items():
+            total[k] = total.get(k, 0) + n
+    for label, kernels in EXAMPLE_EXPECT.items():
+        for k in kernels:
+            check(launches[label].get(k, 0) > 0, f"examples: {label} "
+                  f"launched no {k} ({launches[label]})")
+    n_loo = int(re.search(r"over (\d+) workloads",
+                          card_out["pod_scale_scheduling"]).group(1))
+    for label, rec in losses.items():
+        line("example_losses", run=label, **rec,
+             tolerance=f"{EXAMPLE_LOSS_TOL} relative, each step")
+    line("examples", seconds=seconds, launches=total,
+         pinned_lines=pinned, dryrun_records=len(records),
+         dryrun_skipped_archs=list(DRYRUN_SKIP), loo_workloads=n_loo,
+         loss_gaps={k: r["max_rel_gap"] for k, r in losses.items()},
+         prefill_logit_err=logit_err,
+         prefill_logit_tolerance=f"{EXAMPLE_LOGIT_TOL} of max |logit|",
+         phase_s=time.perf_counter() - t_phase, device=smi)
+    return launches
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -4128,6 +4458,18 @@ def main() -> None:
     # -- 13. the mesh and the dry-run ---------------------------------------
     meshed = mesh_slice(dev, smi, layers, envs)
     flash.update(mesh_launches=meshed["flash"])
+
+    # -- 14. the examples ---------------------------------------------------
+    by_run = examples_slice(dev, smi)
+    for rec in kernels:
+        keys = {"flash_attention": ("flash_fwd", "flash_fwd_wgmma",
+                                    "flash_fwd_lse"),
+                "ssm_scan": ("ssm_scan", "ssm_scan_bwd"),
+                "slstm_scan": ("slstm_scan", "slstm_scan_bwd")}.get(
+                    rec["name"], (rec["name"],))
+        rec["examples_launches"] = {
+            run: {k: per[k] for k in keys if k in per}
+            for run, per in by_run.items() if any(k in per for k in keys)}
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

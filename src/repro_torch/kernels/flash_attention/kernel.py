@@ -143,15 +143,18 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     _build.check(lib, rc, "flash_attention")
     flash_attention_kernel.launches += 1
     flash_attention_kernel.by_kernel[KERNELS[taken.value]] += 1
+    flash_attention_kernel.lse_launches += bool(return_lse)
     return (out, lse) if return_lse else out
 
 
 def reset_counts() -> None:
-    """Set the launch counts (all, and per kernel) to 0."""
+    """Set the launch counts (all, per kernel, with the lse) to 0."""
     flash_attention_kernel.launches = 0
     flash_attention_kernel.by_kernel = dict.fromkeys(KERNELS, 0)
+    flash_attention_kernel.lse_launches = 0
 
 
 #: launches of the CUDA kernels since the counts were last set to 0, in all
-#: (``launches``) and per kernel (``by_kernel``)
+#: (``launches``), per kernel (``by_kernel``) and storing the lse
+#: (``lse_launches``)
 reset_counts()

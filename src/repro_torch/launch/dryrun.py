@@ -241,7 +241,8 @@ def run_one(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 def main(argv=None) -> list:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--arch", choices=ARCH_NAMES, action="append",
+                    help="an architecture (repeat for more; default all)")
     ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
@@ -251,7 +252,7 @@ def main(argv=None) -> list:
     ap.add_argument("--out", default=None, help="JSON output path")
     args = ap.parse_args(argv)
 
-    archs = ARCH_NAMES if (args.all or not args.arch) else [args.arch]
+    archs = ARCH_NAMES if (args.all or not args.arch) else args.arch
     shapes = list(INPUT_SHAPES) if (args.all or not args.shape) \
         else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]

@@ -64,7 +64,7 @@ class TrainResult:
 
 def train(cfg, tcfg: TrainConfig, *, batch_fn: Optional[Callable] = None,
           jit_step=None, params=None, opt_state=None,
-          device: DeviceLike = None,
+          device: DeviceLike = None, impl: Optional[str] = None,
           log_fn: Callable[[str], None] = print) -> TrainResult:
     """Train ``cfg`` (a ModelConfig) for ``tcfg.steps`` steps on ``device``
     (None = cuda): step i on ``batch_fn(i)``, by default
@@ -74,13 +74,16 @@ def train(cfg, tcfg: TrainConfig, *, batch_fn: Optional[Callable] = None,
     opt_state, batch) -> (params, opt_state, loss, metrics)`` defaults to
     ``build_train_step`` with AdamW under
     ``warmup_cosine(lr, warmup_steps, steps)``; ``opt_state`` (None: the
-    step makes its own) is handed from step to step.
+    step makes its own) is handed from step to step.  ``impl``
+    (``build_model``'s: ``"chunked"``, the kernels' path, or ``"naive"``)
+    defaults to the dtype's rule above.
 
     ``steps_per_s`` leaves out step 0 (the first call builds kernels and
     warms the allocator) and is timed to a synchronised end."""
     dev = resolve_device(device)
-    api = build_model(cfg, impl="chunked" if cfg.dtype == "bfloat16"
-                      else "naive")
+    if impl is None:
+        impl = "chunked" if cfg.dtype == "bfloat16" else "naive"
+    api = build_model(cfg, impl=impl)
     if params is None:
         params = api.init_params(tcfg.seed, dev)
     params.requires_grad_(True)

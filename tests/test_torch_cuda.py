@@ -322,6 +322,8 @@ FLASH_GPU_CASES = [
     (1, 384, 6, 6, 64, 100, True, 0, torch.bfloat16),
     (4, 2048, 16, 8, 128, 0, True, 0, torch.bfloat16),   # qwen3-1.7b
     (4, 2048, 32, 32, 64, 0, True, 0, torch.bfloat16),   # zamba2-1.2b
+    (4, 2048, 36, 4, 128, 0, True, 0, torch.bfloat16),   # starcoder2-7b
+    (4, 2048, 24, 8, 128, 0, True, 0, torch.bfloat16),   # minitron-4b
     (4, 2048, 16, 8, 128, 512, True, 0, torch.bfloat16),
     (4, 2048, 16, 8, 128, 0, True, 1500, torch.bfloat16),
     (2, 150, 4, 1, 256, 0, True, 0, torch.float32),      # gemma-2b's D

@@ -5,6 +5,7 @@ term, and the static bytes per device equal to the sum of the local shard
 bytes under the reference's specs — plus the production records of
 ``launch.dryrun``, the kernels' custom ops on meta tensors and their
 operation counts, and the byte tracker."""
+import json
 import math
 
 import jax.numpy as jnp
@@ -137,6 +138,27 @@ def test_production_records_and_skip_policy(capsys):
                                        + rec["memory"]["temp_peak_bytes"])
     assert rec["roofline"]["bound_s"] > 0
     assert "[dryrun]" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("status,exits", [("ok", False),
+                                           ("FAILED", True)])
+def test_cli_takes_several_archs_and_exits_1_on_a_failure(
+        status, exits, monkeypatch, tmp_path):
+    seen = []
+    monkeypatch.setattr(dryrun, "run_one", lambda a, s, **kw: seen.append(
+        (a, s)) or {"arch": a, "shape": s, "status": status})
+    out = tmp_path / "records.json"
+    argv = ["--arch", "gemma-2b", "--arch", "zamba2-1.2b", "--shape",
+            "long_500k", "--out", str(out)]
+    if exits:
+        with pytest.raises(SystemExit) as e:
+            dryrun.main(argv)
+        assert e.value.code == 1
+    else:
+        dryrun.main(argv)
+    assert seen == [("gemma-2b", "long_500k"), ("zamba2-1.2b", "long_500k")]
+    assert [r["arch"] for r in json.loads(out.read_text())] == [
+        "gemma-2b", "zamba2-1.2b"]
 
 
 @pytest.mark.parametrize("sq,sk,causal,window,valid", [
