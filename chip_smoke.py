@@ -227,16 +227,19 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    flash's log-sum-exp (``return_lse``) at every served
    ``flash_fwd_wgmma`` instance and at the training shapes (qwen3's at
    B 8, S 128; whisper-tiny's encoder, decoder and cross-attention at
-   B 8) held against the plain version's within ``LSE_TOL`` (1 + |lse|),
+   B 8; the six configurations of (m) at B 8, S 128) held against the
+   plain version's within ``LSE_TOL`` (1 + |lse|),
    the output equal bit for bit to a call without it and within
    ``flash_attention.ref.bf16_tolerance`` of the plain version; qwen3's
-   training shape
-   timed with its lse beside SDPA, its bound counting the lse's bytes;
-   (b) the backward in f32 (``FlashAttention``: ``flash_fwd`` with its
-   lse, the plain flash backward) at qwen3's and whisper's shapes against
-   autograd through ``naive_attention`` within ``BWD_TOL``, and the plain
-   backward in bf16 at B 8, S 128 and B 4, S 2048 timed beside SDPA's
-   backward; (c) qwen3-1.7b at full width and depth in bf16 through
+   and the six training shapes timed with their lse beside SDPA, the
+   bound counting the lse's bytes; (b) the backward in f32
+   (``FlashAttention``: ``flash_fwd`` with its lse, the plain flash
+   backward) at qwen3's, whisper's and the six training shapes (head dims
+   96, 192 with v at 128 and 256; GQA groups of 9 and 3) and at
+   starcoder2-7b's prefill (B 4, S 2048, group 9) against autograd
+   through ``naive_attention`` within ``BWD_TOL``, and the plain backward
+   in bf16 at each of these causal shapes timed beside SDPA's backward;
+   (c) qwen3-1.7b at full width and depth in bf16 through
    ``train()``: 30 steps at the ``TrainConfig`` defaults, then 5 at B 4,
    S 2048, every loss finite and the last 5 of the first run below its
    first 5, every flash call (the forward and its recompute: 2 a layer
@@ -280,7 +283,22 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    plain versions on the CPU), TF32 off, within ``TRAIN_F32_TOL``
    (xLSTM's leaves against their block's largest gradient).  The
    ``ssm_scan`` and ``slstm_scan`` records gain ``training_launches``,
-   ``training_backward_launches`` and ``backward`` timings.
+   ``training_backward_launches`` and ``backward`` timings.  Then the six
+   configurations served but not trained above
+   (``served_training_slice``): (m) deepseek-moe-16b (MoE),
+   deepseek-v2-lite-16b (MLA + MoE), phi-3-vision-4.2b (its embeds),
+   gemma-2b (D 256, MQA, tied embeddings), starcoder2-7b (group 9,
+   ``gelu_plain``) and minitron-4b (group 3, ``relu2``) at full width in
+   bf16 through ``train()``, 10 steps at B 8, S 128 with 3 warm-up steps,
+   at full depth or at ``TRAIN_LAYERS``' cut (the MoE models to 6 layers,
+   starcoder2-7b to 20: weights, gradients and AdamW's moments), every
+   loss finite, the last 3 below the first 3, every flash call (2 a layer
+   a step) on ``flash_fwd_wgmma``; steps/s, tokens/s, peak memory; (n)
+   one f32 ``train_loss`` and its gradients of each at full width cut to
+   2 layers, card against CPU within ``TRAIN_F32_TOL`` (the VLM's token
+   embedding without a gradient on either side; the MoE lines count the
+   (token, k) router choices that differ).  The flash record gains
+   ``served_training_launches`` and ``training_shapes``.
 
 12. The main paths traced (``trace_slice``): each again with a
    ``repro_torch.obs.Tracer``, held equal to its untraced run. (a) Phase
@@ -418,10 +436,39 @@ CONTENTION_HORIZON_S, CONTENTION_DEADLINE_S = 240.0, 0.35
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_RUNS = ((30, 8, 128), (5, 4, 2048))
 CHECK_TRAIN_LAYERS = 2               # the f32 card-vs-CPU check's depth
+# the six served-only configurations trained in phase 11 (m)-(n), and the
+# flash_fwd_wgmma instance (D, Dv) each trains through
+SERVED_TRAIN_ARCHS = {"deepseek-moe-16b": (128, 128),
+                      "deepseek-v2-lite-16b": (192, 128),
+                      "phi-3-vision-4.2b": (96, 96), "gemma-2b": (256, 256),
+                      "starcoder2-7b": (128, 128), "minitron-4b": (128, 128)}
+# their bf16 depth in train(): full, except where bf16 weights and
+# gradients and AdamW's f32 moments (12 B a parameter) overfill 80 GB.
+# The ParamTree's numel, embeddings and head L1 plus L layers:
+# starcoder2-7b 0.453 + 0.217 L billion (32 layers 88.8 GB; 20 layers
+# 57.5 GB), deepseek-moe-16b 0.419 + 0.588 L (28 layers 202.6 GB; 6 layers
+# 47.4 GB), deepseek-v2-lite-16b 0.419 + 0.585 L (27 layers 194.5 GB; 6
+# layers 47.1 GB); the rest leave room for activations and the 256,000-word
+# logits at full depth (gemma-2b 30.1 GB, minitron-4b 50.3 GB, phi-3-vision
+# 45.9 GB)
+TRAIN_LAYERS = {"starcoder2-7b": 20, "deepseek-moe-16b": 6,
+                "deepseek-v2-lite-16b": 6}
+# (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the six configurations'
+# attention at the TrainConfig defaults (B 8, S 128): the MoE's, MLA's
+# (v at 128), phi-3's D 96, gemma's D 256 on one kv head, and the GQA
+# groups of 9 and 3 of starcoder2-7b and minitron-4b
+SERVED_TRAIN_SHAPES = (
+    ("moe_train", 8, 128, 128, 16, 16, 128, 128, True),
+    ("mla_train", 8, 128, 128, 16, 16, 192, 128, True),
+    ("phi3v_train", 8, 128, 128, 32, 32, 96, 96, True),
+    ("gemma_train", 8, 128, 128, 8, 1, 256, 256, True),
+    ("starcoder2_train", 8, 128, 128, 36, 4, 128, 128, True),
+    ("minitron_train", 8, 128, 128, 24, 8, 128, 128, True))
 # (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the lse check: every served
 # flash_fwd_wgmma instance at its served shape, and the training shapes:
-# qwen3's, and whisper-tiny's encoder, decoder and cross-attention at the
-# TrainConfig defaults (B 8, S 128 against 1,500 frames)
+# qwen3's, whisper-tiny's encoder, decoder and cross-attention at the
+# TrainConfig defaults (B 8, S 128 against 1,500 frames), and the six
+# above; the lse's training shapes timed beside SDPA (LSE_TIMED)
 LSE_SHAPES = (
     ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
     ("phi3v_d96", 4, 2048, 2048, 32, 32, 96, 96, True),
@@ -431,16 +478,25 @@ LSE_SHAPES = (
     ("qwen3_train", 8, 128, 128, 16, 8, 128, 128, True),
     ("whisper_encoder_train", 8, 1500, 1500, 6, 6, 64, 64, False),
     ("whisper_dec_train", 8, 128, 128, 6, 6, 64, 64, True),
-    ("whisper_cross_train", 8, 128, 1500, 6, 6, 64, 64, False))
+    ("whisper_cross_train", 8, 128, 1500, 6, 6, 64, 64, False),
+    *SERVED_TRAIN_SHAPES)
+LSE_TIMED = ("qwen3_train", *(c[0] for c in SERVED_TRAIN_SHAPES))
 # f32 sums in another order and exp2 for exp: |lse - want| within
 # LSE_TOL (1 + |want|)
 LSE_TOL = 2e-5
-# (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the f32 backward check
+# (case, B, Sq, Sk, Hq, Hkv, D, Dv, causal) of the f32 backward check:
+# qwen3's and whisper's shapes, the six training shapes above, and
+# starcoder2-7b's prefill (its group of 9, the widest)
 BWD_SHAPES = (
     ("qwen3_train", 8, 128, 128, 16, 8, 128, 128, True),
     ("qwen3_prefill", 4, 2048, 2048, 16, 8, 128, 128, True),
     ("whisper_encoder", 4, 1500, 1500, 6, 6, 64, 64, False),
-    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False))
+    ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False),
+    *SERVED_TRAIN_SHAPES,
+    ("starcoder2_prefill", 4, 2048, 2048, 36, 4, 128, 128, True))
+# the plain backward timed in bf16 beside SDPA's (all causal, Sq = Sk)
+BWD_TIMED = ("qwen3_train", "qwen3_prefill",
+             *(c[0] for c in SERVED_TRAIN_SHAPES), "starcoder2_prefill")
 # f32 sums in other orders over up to 2,048 keys: each of dq, dk, dv within
 # BWD_TOL of its largest magnitude
 BWD_TOL = 5e-5
@@ -2449,150 +2505,27 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     whisper-tiny through ``train()``; (f) the launcher; (g) a checkpoint
     round trip; (h) FedAvg on phase 3's profiling dataset, card against
     CPU.  Returns the flash launches of (c) and (e) and the timing rows."""
-    import copy
     import os
     import subprocess
     import tempfile
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch import ckpt
-    from repro_torch.bench.common import BF16_OPS_PER_S, bound, timed_ms
-    from repro_torch.bench.kernels import flash_work
     from repro_torch.bench.mlp_spread import fedavg_clients
     from repro_torch.configs import get_config
     from repro_torch.core import fl
     from repro_torch.data.synthetic import train_batch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import build_model
-    from repro_torch.models.attention import (chunked_attention,
-                                              flash_attention_bwd,
-                                              naive_attention)
     from repro_torch.optim import AdamW, warmup_cosine
     from repro_torch.train import TrainConfig, train
-
-    out = {"phase_s": {}}
-    bf16 = torch.bfloat16
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def synced():
         torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    # -- (a) the log-sum-exp ------------------------------------------------
-    t_part = synced()
-    for case, b, s, sk, hq, hkv, d, dv, causal in LSE_SHAPES:
-        q = randn(b, s, hq, d, dtype=bf16)
-        k, v = randn(b, sk, hkv, d, dtype=bf16), randn(b, sk, hkv, dv,
-                                                        dtype=bf16)
-        fa_kernel.reset_counts()
-        got, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
-                                                    return_lse=True)
-        alone = fa_kernel.flash_attention_kernel(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        check(fa_kernel.flash_attention_kernel.by_kernel == {
-            "flash_fwd": 0, "flash_fwd_wgmma": 2}, f"lse {case}: ran "
-            f"{fa_kernel.flash_attention_kernel.by_kernel}")
-        check(torch.equal(got, alone), f"lse {case}: the output with lse "
-              "differs from the output without it")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        _, want = attention_ref(qt, kt, vt, causal=causal, return_lse=True)
-        err = (lse - want).abs()
-        over = (err / (LSE_TOL * (1 + want.abs()))).max().item()
-        want_o, tol_o = fa_ref.bf16_tolerance(qt, kt, vt, causal=causal)
-        over_o = ((got.transpose(1, 2).float() - want_o).abs()
-                  / tol_o).max().item()
-        line("lse_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
-             causal=causal, max_abs_err=err.max().item(), err_over_tol=over,
-             tolerance=f"{LSE_TOL} (1 + |lse|)", output_same_bits=True,
-             output_err_over_tol=over_o,
-             output_tolerance="flash_attention.ref.bf16_tolerance")
-        check(over <= 1.0, f"lse {case}: off by {over} of its tolerance")
-        check(over_o <= 1.0, f"lse {case}: the output is off the plain "
-              f"version by {over_o} of bf16_tolerance")
-        if case == "qwen3_train":
-            args = (q, k, v)
-        del q, k, v, qt, kt, vt, got, alone, lse, want, err, want_o, tol_o
-    # the training shape: the kernel with its lse, SDPA, the plain version
-    q, k, v = args
-    b, s, hq, d = q.shape
-    nbytes, ops = flash_work(b, s, hq, k.shape[2], d, 2)
-    fa_row = dict(
-        ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
-            q, k, v, return_lse=True), 20, graph=True),
-        eager_ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
-            q, k, v, return_lse=True), 20),
-        plain_ms=timed_ms(lambda: attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            return_lse=True), 5),
-        library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True), 20, graph=True),
-        timing="graph", shape=[b, s, hq, k.shape[2], d], with_lse=True)
-        # the lse's f32 [B, Hq, S] written besides
-    fa_row["bound_ms"], fa_row["bound_by"] = bound(nbytes + 4 * b * hq * s,
-                                                   ops, BF16_OPS_PER_S)
-    line("timing_extra", kernel="flash_attention", case="qwen3_train_lse",
-         dtype="bfloat16", **fa_row, device=smi)
-    out["train_shape"] = fa_row
-    out["phase_s"]["a_lse"] = synced() - t_part
-
-    # -- (b) the backward ---------------------------------------------------
-    t_part = synced()
-    bwd_rows = {}
-    for case, b, s, sk, hq, hkv, d, dv, causal in BWD_SHAPES:
-        q = randn(b, s, hq, d)
-        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, dv)
-        do = randn(b, s, hq, dv)
-        grads = []
-        for fn in (chunked_attention, naive_attention):
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-            o = fn(*leaves, causal=causal)
-            o.backward(do)
-            grads.append([t.grad for t in leaves])
-        worst = max(((g - w).abs().max() / w.abs().max()).item()
-                    for g, w in zip(*grads))
-        line("backward_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
-             causal=causal, dtype="float32", max_rel_err=worst,
-             tolerance=f"{BWD_TOL} of each gradient's max |value|")
-        check(worst <= BWD_TOL, f"backward {case}: dq/dk/dv off by {worst} "
-              f"of their largest magnitude (tolerance {BWD_TOL})")
-        del q, k, v, do, grads
-    # the plain backward in bf16 at the training shape and at B 4, S 2048,
-    # beside SDPA's backward under autograd
-    for case, b, s in (("qwen3_train", 8, 128), ("qwen3_prefill", 4, 2048)):
-        q = randn(b, s, 16, 128, dtype=bf16)
-        k, v = randn(b, s, 8, 128, dtype=bf16), randn(b, s, 8, 128,
-                                                       dtype=bf16)
-        do = randn(b, s, 16, 128, dtype=bf16)
-        o, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-        dot = do.transpose(1, 2)
-        nbytes, ops = flash_work(b, s, 16, 8, 128, 2)
-        # dq, dk, dv written, do and lse read besides; five products where
-        # the forward has two
-        bwd_rows[case] = dict(
-            plain_ms=timed_ms(lambda: flash_attention_bwd(
-                q, k, v, o, lse, do), 3),
-            library_ms=timed_ms(lambda: torch.autograd.grad(
-                so, (qt, kt, vt), dot, retain_graph=True), 10),
-            bound=bound(2 * nbytes + 4 * b * 16 * s, 2.5 * ops,
-                        BF16_OPS_PER_S),
-            shape=[b, s, 16, 8, 128], dtype="bfloat16")
-        line("timing_extra", kernel="flash_attention_backward", case=case,
-             **bwd_rows[case], device=smi)
-        del q, k, v, do, o, lse, qt, kt, vt, so
-    out["backward"] = bwd_rows
-    out["phase_s"]["b_backward"] = synced() - t_part
+    out = attention_training(dev, smi)
     torch.cuda.empty_cache()
 
     # -- (c) qwen3-1.7b at full width and depth in bf16 --------------------
@@ -2665,45 +2598,12 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     # -- (d) f32 at full width, 2 layers: the card against the CPU ---------
     t_part = synced()
     cfg32 = cfg.replace(dtype="float32", num_layers=CHECK_TRAIN_LAYERS)
-    api = build_model(cfg32)
-    cpu_params = api.init_params(SEED, "cpu", trainable=True)
-    card_params = copy.deepcopy(cpu_params).to(dev)
-    batch = train_batch(cfg32, 2, 64, seed=SEED, device="cpu")
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     fa_kernel.reset_counts()
-    card_loss, _ = api.train_loss(card_params,
-                                  {k_: t.to(dev) for k_, t in batch.items()})
-    card_loss.backward()
+    f32_card_vs_cpu(cfg32, 64, dev, model=TRAIN_ARCH,
+                    reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers}")
     check(fa_kernel.flash_attention_kernel.by_kernel == {
         "flash_fwd": 2 * cfg32.num_layers, "flash_fwd_wgmma": 0},
         f"f32 check: flash {fa_kernel.flash_attention_kernel.by_kernel}")
-    cpu_loss, _ = api.train_loss(cpu_params, batch)
-    cpu_loss.backward()
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
-        flags
-    worst, worst_name = 0.0, None
-    for (name, pc), pk in zip(cpu_params.named_parameters(),
-                              card_params.parameters()):
-        e = ((pk.grad.cpu() - pc.grad).abs().max()
-             / pc.grad.abs().max().clamp_min(1e-30)).item()
-        if e > worst:
-            worst, worst_name = e, name
-    loss_err = abs(card_loss.item() - cpu_loss.item()) / cpu_loss.item()
-    line("train_check", model=TRAIN_ARCH, dtype="float32",
-         layers=cfg32.num_layers,
-         reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers}",
-         batch=2, seq_len=64, loss_card=card_loss.item(),
-         loss_cpu=cpu_loss.item(), loss_rel_err=loss_err,
-         max_grad_rel_err=worst, worst_leaf=worst_name,
-         tolerance=f"loss {TRAIN_F32_TOL} relative, each gradient "
-         f"{TRAIN_F32_TOL} of its leaf's max |value|", tf32=False)
-    check(loss_err <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL,
-          f"f32 train_loss: card against CPU off by {loss_err} (loss), "
-          f"{worst} ({worst_name}); tolerance {TRAIN_F32_TOL}")
-    del cpu_params, card_params, card_loss, cpu_loss
     torch.cuda.empty_cache()
     out["phase_s"]["d_f32"] = synced() - t_part
 
@@ -2800,8 +2700,272 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     out["phase_s"]["h_fedavg"] = synced() - t_part
     out["scans"] = scan_training_slice(dev, smi)
     out["phase_s"].update(out["scans"].pop("phase_s"))
+    out["served"] = served_training_slice(dev, smi)
+    out["phase_s"].update(out["served"].pop("phase_s"))
+    out["launches"] += sum(out["served"]["launches"].values())
     line("training_phase", phase_s=out["phase_s"],
          total_s=sum(out["phase_s"].values()))
+    return out
+
+
+def f32_card_vs_cpu(cfg32, seq: int, dev, *, block_scaled: bool = False,
+                    counts=None, **fields) -> dict:
+    """One f32 ``train_loss`` of ``cfg32`` (``impl="chunked"``: the kernels
+    on the card, their plain versions on the CPU) and its gradients at B 2,
+    S ``seq``, on the card and on the CPU from the same weights (drawn on
+    the card from the seed twice, one tree moved home) and batch, TF32
+    off; the ``train_check`` line (with ``fields``) and the check within
+    ``TRAIN_F32_TOL``: the loss relative, each gradient leaf against its
+    largest magnitude (with ``block_scaled`` its block's: the leaves of
+    one name prefix).  A leaf the loss never reads (a VLM's token embedding)
+    must have no gradient on either side.  For an MoE model the forwards'
+    router choices are recorded: the (token, k) choices of the card that
+    the CPU did not make, and the smallest gap between a token's k-th and
+    (k+1)-th router probability (the CPU's).  ``counts()``, read right
+    after the card's backward, joins the line as ``launches`` (the CPU
+    counts none)."""
+    import torch
+    from repro_torch.data.synthetic import train_batch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as moe_mod
+
+    api = build_model(cfg32)
+    params = {"card": api.init_params(SEED, dev, trainable=True),
+              "cpu": api.init_params(SEED, dev, trainable=True).cpu()}
+    batch = train_batch(cfg32, 2, seq, seed=SEED, device="cpu")
+    batches = {"card": {k: t.to(dev) for k, t in batch.items()},
+               "cpu": batch}
+    route, routes, losses = moe_mod.route, {"card": [], "cpu": []}, {}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for where, sink in routes.items():
+        def recording(p, x_flat, c, sink=sink):
+            w, idx, aux = route(p, x_flat, c)
+            # outside autograd: the layer's recompute must save what its
+            # forward saved
+            with torch.no_grad():
+                probs = torch.softmax(x_flat.float() @ p["router"].float(),
+                                      dim=-1)
+                top = torch.topk(probs, c.top_k + 1, dim=-1).values
+                sink.append((idx.cpu(),
+                             (top[:, -2] - top[:, -1]).min().item()))
+            return w, idx, aux
+
+        moe_mod.route = recording
+        loss, _ = api.train_loss(params[where], batches[where])
+        moe_mod.route = route        # the backward's recompute unrecorded
+        loss.backward()
+        losses[where] = loss.item()
+        if where == "card" and counts is not None:
+            launches = counts()
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        flags
+    grads, no_grad = {}, []
+    for (name, pc), pk in zip(params["cpu"].named_parameters(),
+                              params["card"].parameters()):
+        if pc.grad is None or pk.grad is None:
+            check(pc.grad is None and pk.grad is None, f"{cfg32.name} f32 "
+                  f"check: {name} has a gradient on one side only")
+            no_grad.append(name)
+            continue
+        grads[name] = (pc.grad.to(dev), pk.grad)     # compared on the card
+
+    def block(name):
+        return name.rsplit(".", 1)[0] if block_scaled else name
+
+    scale = {}
+    for name, (w, _) in grads.items():
+        scale[block(name)] = max(scale.get(block(name), 0.0),
+                                 w.abs().max().item())
+    worst, worst_name = 0.0, None
+    for name, (w, g) in grads.items():
+        e = (g - w).abs().max().item() / max(scale[block(name)], 1e-30)
+        if e > worst:
+            worst, worst_name = e, name
+    loss_err = abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+    res = dict(layers=cfg32.num_layers, batch=2, seq_len=seq,
+               loss_card=losses["card"], loss_cpu=losses["cpu"],
+               loss_rel_err=loss_err, max_grad_rel_err=worst,
+               worst_leaf=worst_name, leaves=len(grads),
+               leaves_without_gradient=no_grad)
+    if counts is not None:
+        res["launches"] = launches
+    if cfg32.num_experts:
+        n_e, differing = cfg32.num_experts, 0
+        for (a, _), (b, _) in zip(routes["card"], routes["cpu"]):
+            ones = torch.ones(a.shape, dtype=torch.float32)
+            mine = torch.zeros(a.shape[0], n_e).scatter_(1, a, ones)
+            theirs = torch.zeros(b.shape[0], n_e).scatter_(1, b, ones)
+            differing += int((mine * (1 - theirs)).sum())
+        res.update(token_k_choices_differing=differing,
+                   token_k_choices=sum(b.numel() for b, _ in routes["cpu"]),
+                   min_router_gap_k_vs_k1=min(g for _, g in routes["cpu"]))
+    line("train_check", **fields, dtype="float32", impl="chunked", **res,
+         tolerance=f"loss {TRAIN_F32_TOL} relative, each gradient "
+         f"{TRAIN_F32_TOL} of its leaf's max |value|"
+         + (" (of its block's)" if block_scaled else ""), tf32=False)
+    check(loss_err <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL,
+          f"{fields.get('model')} f32 train_loss: card against CPU off by "
+          f"{loss_err} (loss), {worst} ({worst_name}); tolerance "
+          f"{TRAIN_F32_TOL}")
+    return res
+
+
+def attention_training(dev, smi: str) -> dict:
+    """Phase 11 (a)-(b): (a) flash's log-sum-exp at every ``LSE_SHAPES``
+    case against the plain version, the output the same bits as a call
+    without it, the training shapes of ``LSE_TIMED`` timed beside SDPA;
+    (b) the f32 backward (``FlashAttention``) at ``BWD_SHAPES`` against
+    autograd through ``naive_attention``, and the plain backward in bf16
+    at ``BWD_TIMED`` beside SDPA's.  Returns qwen3's timed training shape
+    (``train_shape``), the others' (``train_shapes``), the backward rows
+    and the seconds of each part."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.bench.common import BF16_OPS_PER_S, bound, timed_ms
+    from repro_torch.bench.kernels import flash_work
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models.attention import (chunked_attention,
+                                              flash_attention_bwd,
+                                              naive_attention)
+
+    out = {"phase_s": {}}
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    def sdpa(q, k, v, causal=True):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=causal, enable_gqa=True)
+
+    # -- (a) the log-sum-exp ------------------------------------------------
+    t_part = synced()
+    timed = {}
+    for case, b, s, sk, hq, hkv, d, dv, causal in LSE_SHAPES:
+        q = randn(b, s, hq, d, dtype=bf16)
+        k, v = randn(b, sk, hkv, d, dtype=bf16), randn(b, sk, hkv, dv,
+                                                        dtype=bf16)
+        fa_kernel.reset_counts()
+        got, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
+                                                    return_lse=True)
+        alone = fa_kernel.flash_attention_kernel(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        check(fa_kernel.flash_attention_kernel.by_kernel == {
+            "flash_fwd": 0, "flash_fwd_wgmma": 2}, f"lse {case}: ran "
+            f"{fa_kernel.flash_attention_kernel.by_kernel}")
+        check(torch.equal(got, alone), f"lse {case}: the output with lse "
+              "differs from the output without it")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        _, want = attention_ref(qt, kt, vt, causal=causal, return_lse=True)
+        err = (lse - want).abs()
+        over = (err / (LSE_TOL * (1 + want.abs()))).max().item()
+        want_o, tol_o = fa_ref.bf16_tolerance(qt, kt, vt, causal=causal)
+        over_o = ((got.transpose(1, 2).float() - want_o).abs()
+                  / tol_o).max().item()
+        line("lse_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
+             causal=causal, max_abs_err=err.max().item(), err_over_tol=over,
+             tolerance=f"{LSE_TOL} (1 + |lse|)", output_same_bits=True,
+             output_err_over_tol=over_o,
+             output_tolerance="flash_attention.ref.bf16_tolerance")
+        check(over <= 1.0, f"lse {case}: off by {over} of its tolerance")
+        check(over_o <= 1.0, f"lse {case}: the output is off the plain "
+              f"version by {over_o} of bf16_tolerance")
+        if case in LSE_TIMED:
+            timed[case] = (q, k, v)
+        del q, k, v, qt, kt, vt, got, alone, lse, want, err, want_o, tol_o
+    # the training shapes: the kernel with its lse, SDPA, the plain version
+    rows = {}
+    for case, (q, k, v) in timed.items():
+        b, s, hq, d = q.shape
+        hkv, dv = k.shape[2], v.shape[3]
+        nbytes, ops = flash_work(b, s, hq, hkv, d, 2, dv)
+        row = dict(
+            ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
+                q, k, v, return_lse=True), 20, graph=True),
+            eager_ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
+                q, k, v, return_lse=True), 20),
+            plain_ms=timed_ms(lambda: attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                return_lse=True), 5),
+            library_ms=timed_ms(lambda: sdpa(q, k, v), 20, graph=True),
+            timing="graph", shape=[b, s, hq, hkv, d, dv], with_lse=True,
+            instance=f"flash_fwd_wgmma<{d}, {dv}, LSE>")
+        # the lse's f32 [B, Hq, S] written besides
+        row["bound_ms"], row["bound_by"] = bound(nbytes + 4 * b * hq * s,
+                                                 ops, BF16_OPS_PER_S)
+        line("timing_extra", kernel="flash_attention", case=f"{case}_lse",
+             dtype="bfloat16", **row, device=smi)
+        rows[case] = row
+    out["train_shape"] = rows.pop("qwen3_train")
+    out["train_shapes"] = rows
+    del timed
+    out["phase_s"]["a_lse"] = synced() - t_part
+
+    # -- (b) the backward ---------------------------------------------------
+    t_part = synced()
+    shapes = {}
+    for case, b, s, sk, hq, hkv, d, dv, causal in BWD_SHAPES:
+        q = randn(b, s, hq, d)
+        k, v = randn(b, sk, hkv, d), randn(b, sk, hkv, dv)
+        do = randn(b, s, hq, dv)
+        grads = []
+        for fn in (chunked_attention, naive_attention):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, causal=causal)
+            o.backward(do)
+            grads.append([t.grad for t in leaves])
+        worst = max(((g - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(*grads))
+        line("backward_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
+             causal=causal, dtype="float32", max_rel_err=worst,
+             tolerance=f"{BWD_TOL} of each gradient's max |value|")
+        check(worst <= BWD_TOL, f"backward {case}: dq/dk/dv off by {worst} "
+              f"of their largest magnitude (tolerance {BWD_TOL})")
+        shapes[case] = (b, s, hq, hkv, d, dv)
+        del q, k, v, do, grads, leaves, o
+    torch.cuda.empty_cache()
+    # the plain backward in bf16 beside SDPA's backward under autograd
+    bwd_rows = {}
+    for case in BWD_TIMED:
+        b, s, hq, hkv, d, dv = shapes[case]
+        q = randn(b, s, hq, d, dtype=bf16)
+        k, v = randn(b, s, hkv, d, dtype=bf16), randn(b, s, hkv, dv,
+                                                       dtype=bf16)
+        do = randn(b, s, hq, dv, dtype=bf16)
+        o, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+        dot = do.transpose(1, 2)
+        nbytes, ops = flash_work(b, s, hq, hkv, d, 2, dv)
+        # dq, dk, dv written, do and lse read besides; five products where
+        # the forward has two (q·kᵀ and dO·vᵀ recomputed and formed, dv,
+        # dk and dq: 3 at D and 2 at Dv against the forward's D + Dv)
+        bwd_rows[case] = dict(
+            plain_ms=timed_ms(lambda: flash_attention_bwd(
+                q, k, v, o, lse, do), 3),
+            library_ms=timed_ms(lambda: torch.autograd.grad(
+                so, (qt, kt, vt), dot, retain_graph=True), 10),
+            bound=bound(2 * nbytes + 4 * b * hq * s,
+                        ops * (3 * d + 2 * dv) / (d + dv), BF16_OPS_PER_S),
+            shape=[b, s, hq, hkv, d, dv], dtype="bfloat16")
+        line("timing_extra", kernel="flash_attention_backward", case=case,
+             **bwd_rows[case], device=smi)
+        del q, k, v, do, o, lse, qt, kt, vt, so, dot
+    out["backward"] = bwd_rows
+    out["phase_s"]["b_backward"] = synced() - t_part
     return out
 
 
@@ -2815,21 +2979,17 @@ def scan_training_slice(dev, smi: str) -> dict:
     f32 ``train_loss`` and its gradients of each, cut to 2 groups, card
     against CPU.  Returns the ``ssm_scan`` and ``slstm_scan`` records'
     training entries and the phase's seconds."""
-    import copy
-
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.bench.common import F32_OPS_PER_S, bound, timed_ms
     from repro_torch.bench.kernels import slstm_bwd_work, ssm_bwd_work
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import train_batch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.slstm_scan import kernel as sl_kernel
     from repro_torch.kernels.slstm_scan import ref as sl_ref
     from repro_torch.kernels.ssm_scan import kernel as ss_kernel
     from repro_torch.kernels.ssm_scan import ref as ss_ref
-    from repro_torch.models import build_model
     from repro_torch.train import TrainConfig, train
 
     out = {"phase_s": {}, "ssm_scan": {}, "slstm_scan": {}}
@@ -3060,21 +3220,15 @@ def scan_training_slice(dev, smi: str) -> dict:
         every = cfg.shared_attn_every if cfg.family == "hybrid" else \
             cfg.slstm_every
         cfg32 = cfg.replace(dtype="float32", num_layers=2 * every)
-        api = build_model(cfg32, impl="chunked")
-        cpu_params = api.init_params(SEED, "cpu", trainable=True)
-        card_params = copy.deepcopy(cpu_params).to(dev)
-        batch = train_batch(cfg32, 2, seq, seed=SEED, device="cpu")
-        flags = (torch.backends.cuda.matmul.allow_tf32,
-                 torch.backends.cudnn.allow_tf32)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         reset_all()
-        card_loss, _ = api.train_loss(card_params, {
-            k_: t.to(dev) for k_, t in batch.items()})
-        card_loss.backward()
-        got = all_counts()
-        torch.backends.cuda.matmul.allow_tf32, \
-            torch.backends.cudnn.allow_tf32 = flags
+        # xLSTM's gate biases: held against their block's largest gradient,
+        # as tests/test_torch_train.py's BLOCK_SCALED (their gradients
+        # cancel to a small difference of large terms)
+        got = f32_card_vs_cpu(
+            cfg32, seq, dev, block_scaled=cfg.family == "ssm",
+            counts=all_counts, model=arch,
+            reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers} (2 "
+            "groups)")["launches"]
         mamba = cfg32.num_layers if cfg.family == "hybrid" else 0
         slstm = 2 if cfg.family == "ssm" else 0
         check(got["ssm_scan"]["calls"] == 2 * mamba
@@ -3082,40 +3236,101 @@ def scan_training_slice(dev, smi: str) -> dict:
               and got["slstm_scan"]["cluster"] == 2 * slstm
               and got["slstm_scan_bwd"]["cluster"] == slstm,
               f"{arch} f32 check: launches {got}")
-        cpu_loss, _ = api.train_loss(cpu_params, batch)
-        cpu_loss.backward()
-        grads = {name: (pc.grad, pk.grad.cpu()) for (name, pc), pk in zip(
-            cpu_params.named_parameters(), card_params.parameters())}
-        # xLSTM's gate biases: held against their block's largest gradient,
-        # as tests/test_torch_train.py's BLOCK_SCALED (their gradients
-        # cancel to a small difference of large terms)
-        scale = {}
-        for name, (w, _) in grads.items():
-            key = name.rsplit(".", 1)[0] if cfg.family == "ssm" else name
-            scale[key] = max(scale.get(key, 0.0), w.abs().max().item())
-        worst, worst_name = 0.0, None
-        for name, (w, g) in grads.items():
-            key = name.rsplit(".", 1)[0] if cfg.family == "ssm" else name
-            e = (g - w).abs().max().item() / max(scale[key], 1e-30)
-            if e > worst:
-                worst, worst_name = e, name
-        loss_err = abs(card_loss.item() - cpu_loss.item()) / cpu_loss.item()
-        line("train_check", model=arch, dtype="float32",
-             layers=cfg32.num_layers, impl="chunked",
-             reduced=f"num_layers {cfg.num_layers}→{cfg32.num_layers} (2 "
-             "groups)", batch=2, seq_len=seq, loss_card=card_loss.item(),
-             loss_cpu=cpu_loss.item(), loss_rel_err=loss_err,
-             max_grad_rel_err=worst, worst_leaf=worst_name, launches=got,
-             tolerance=f"loss {TRAIN_F32_TOL} relative, each gradient "
-             f"{TRAIN_F32_TOL} of its leaf's max |value|"
-             + (" (of its block's for xLSTM)" if cfg.family == "ssm"
-                else ""), tf32=False)
-        check(loss_err <= TRAIN_F32_TOL and worst <= TRAIN_F32_TOL,
-              f"{arch} f32 train_loss: card against CPU off by {loss_err} "
-              f"(loss), {worst} ({worst_name}); tolerance {TRAIN_F32_TOL}")
-        del cpu_params, card_params, card_loss, cpu_loss, grads
         torch.cuda.empty_cache()
         out["phase_s"][f"l_{arch}_f32"] = synced() - t_part
+    return out
+
+
+def served_training_slice(dev, smi: str) -> dict:
+    """The six served-only configurations trained (phase 11 m-n): (m) each
+    of ``SERVED_TRAIN_ARCHS`` at full width in bf16 through ``train()``
+    (``impl="chunked"``: the flash kernel storing its lse, the plain flash
+    backward), at full depth or ``TRAIN_LAYERS``' cut, 10 steps at B 8,
+    S 128 with 3 warm-up steps (``SCAN_TRAIN_RUNS``' first run): every
+    loss finite, the last 3 below the first 3, every flash call (the
+    forward and its recompute, 2 a layer a step) on ``flash_fwd_wgmma``;
+    (n) one f32 ``train_loss`` and its gradients of each at full width cut
+    to 2 layers, card against CPU (``f32_card_vs_cpu``; the MoE lines
+    count the router choices that differ).  Returns each run's row, the
+    flash launches per configuration and the seconds of each part."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.registry import param_count
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.train import TrainConfig, train
+
+    def synced():
+        torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    out = {"phase_s": {}, "runs": {}, "launches": {}}
+    steps, bsz, seq = SCAN_TRAIN_RUNS[0]
+    # -- (m) bf16 through train() -----------------------------------------
+    for arch, (d, dv) in SERVED_TRAIN_ARCHS.items():
+        t_part = synced()
+        full = get_config(arch)
+        cfg = full.replace(num_layers=TRAIN_LAYERS.get(arch, full.num_layers))
+        check(full.dtype == "bfloat16", f"{arch} is not in bf16")
+        n_params = param_count(param_shapes(cfg))
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        fa_kernel.reset_counts()
+        tcfg = TrainConfig(steps=steps, batch_size=bsz, seq_len=seq,
+                           warmup_steps=SCAN_TRAIN_WARMUP, log_every=0,
+                           seed=SEED)
+        t0 = synced()
+        res = train(cfg, tcfg, device=dev, log_fn=lambda m: None)
+        wall = synced() - t0
+        by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+        want_calls = 2 * steps * cfg.num_layers
+        row = dict(model=arch, dtype="bfloat16", layers=cfg.num_layers,
+                   reduced=(f"num_layers {full.num_layers}→{cfg.num_layers}"
+                            " (weights, gradients and AdamW's moments at "
+                            f"12 B a parameter: {12 * n_params / 1e9:.1f} "
+                            "GB)" if cfg.num_layers < full.num_layers
+                            else None),
+                   d_model=cfg.d_model, params=n_params, steps=steps,
+                   batch=bsz, seq_len=seq, lr=tcfg.lr,
+                   warmup_steps=tcfg.warmup_steps, losses=res.losses,
+                   steps_per_s=res.steps_per_s,
+                   tokens_per_s=res.steps_per_s * bsz * seq, wall_s=wall,
+                   max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
+                       dev), held_before_bytes=held,
+                   flash_by_kernel=by_kernel,
+                   flash_instance=f"flash_fwd_wgmma<{d}, {dv}, LSE>",
+                   device=smi)
+        line("train", **row)
+        out["runs"][arch] = row
+        out["launches"][arch] = by_kernel["flash_fwd_wgmma"]
+        losses = res.losses
+        del res
+        torch.cuda.empty_cache()
+        check(all(np.isfinite(losses)), f"{arch} B {bsz} S {seq}: a "
+              f"non-finite loss ({losses})")
+        check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"{arch}: the "
+              f"loss did not fall ({losses})")
+        check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
+              f"{arch} training: flash {by_kernel}, expected {want_calls} "
+              "calls on flash_fwd_wgmma")
+        out["phase_s"][f"m_{arch}"] = synced() - t_part
+
+    # -- (n) f32 at full width, 2 layers: the card against the CPU ---------
+    for arch in SERVED_TRAIN_ARCHS:
+        t_part = synced()
+        full = get_config(arch)
+        cfg32 = full.replace(dtype="float32", num_layers=CHECK_TRAIN_LAYERS)
+        fa_kernel.reset_counts()
+        f32_card_vs_cpu(cfg32, 64, dev, model=arch,
+                        reduced=f"num_layers {full.num_layers}→"
+                        f"{cfg32.num_layers}")
+        by_kernel = fa_kernel.flash_attention_kernel.by_kernel
+        check(by_kernel == {"flash_fwd": 2 * cfg32.num_layers,
+                            "flash_fwd_wgmma": 0},
+              f"{arch} f32 check: flash {by_kernel}")
+        torch.cuda.empty_cache()
+        out["phase_s"][f"n_{arch}_f32"] = synced() - t_part
     return out
 
 
@@ -4442,7 +4657,9 @@ def main() -> None:
     trained = training_slice(dev, smi, profiling_data)
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     flash.update(training_launches=trained["launches"],
+                 served_training_launches=trained["served"]["launches"],
                  training_shape=trained["train_shape"],
+                 training_shapes=trained["train_shapes"],
                  backward=trained["backward"])
     for name in ("ssm_scan", "slstm_scan"):
         next(r for r in kernels if r["name"] == name).update(

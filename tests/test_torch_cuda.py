@@ -1681,6 +1681,53 @@ def test_bf16_train_step_on_the_card(cuda):
     assert after.item() < loss.item()
 
 
+# f32 train_loss and gradients, card against CPU, TF32 off: the loss
+# relative, each gradient leaf against its largest magnitude
+TRAIN_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "deepseek-v2-lite-16b",
+                                  "phi-3-vision-4.2b", "gemma-2b",
+                                  "starcoder2-7b", "minitron-4b"])
+def test_f32_train_loss_and_gradients_match_the_cpu(cuda, arch):
+    """The six configurations served but, before, trained on the CPU only,
+    reduced, in f32 (``impl="chunked"``: ``flash_fwd`` with its lse and
+    the plain flash backward on the card, the plain versions on the CPU)
+    from the same weights and batch: the loss within 1e-4 relative and
+    every gradient leaf within 1e-4 of its largest magnitude; a VLM's token
+    embedding, which the loss never reads, has no gradient on either
+    side."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.synthetic import train_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models import build_model
+    cfg = reduced_config(arch).replace(dtype="float32")
+    api = build_model(cfg)
+    card = api.init_params(0, cuda, trainable=True)
+    cpu = api.init_params(0, cuda, trainable=True).cpu()
+    batch = train_batch(cfg, 2, 64, seed=0, device="cpu")
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fa_kernel.reset_counts()
+        got, _ = api.train_loss(card, {k: t.to(cuda) for k, t in
+                                       batch.items()})
+        got.backward()
+        assert fa_kernel.flash_attention_kernel.by_kernel == {
+            "flash_fwd": 2 * cfg.num_layers, "flash_fwd_wgmma": 0}
+        want, _ = api.train_loss(cpu, batch)
+        want.backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    assert abs(got.item() - want.item()) <= TRAIN_F32_TOL * want.item()
+    for (name, w), g in zip(cpu.named_parameters(), card.parameters()):
+        if w.grad is None:
+            assert g.grad is None and cfg.takes_embeddings, name
+            continue
+        err = (g.grad.cpu() - w.grad).abs().max() / w.grad.abs().max()
+        assert err <= TRAIN_F32_TOL, (name, err.item())
+
+
 # --------------------------------------------------------------------------
 # The scans' backward kernels
 # --------------------------------------------------------------------------

@@ -146,7 +146,9 @@ def test_train_loss_with_mask_matches_reference():
 # (B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, valid_len): causal and not,
 # a window on either, GQA and MQA, Sq != Sk (whisper's cross-attention),
 # ragged tails padded to the 16-wide chunks, an explicit valid_len, v
-# narrower than q/k (MLA)
+# narrower than q/k (MLA); the served models' head dims and groups: phi-3's
+# D 96, MLA's 192 with v at 128, gemma's 256 on one kv head, starcoder2's
+# group of 9 and minitron's of 3 at D 128
 BWD_CASES = [(2, 64, 64, 4, 4, 32, 32, True, 0, 0),
              (2, 64, 64, 4, 4, 32, 32, False, 0, 0),
              (1, 96, 96, 4, 2, 32, 32, True, 17, 0),
@@ -156,7 +158,12 @@ BWD_CASES = [(2, 64, 64, 4, 4, 32, 32, True, 0, 0),
              (1, 64, 64, 4, 1, 48, 32, True, 0, 0),
              (1, 40, 40, 2, 2, 24, 16, True, 7, 0),
              (2, 64, 64, 4, 2, 32, 32, True, 0, 40),
-             (2, 48, 64, 4, 4, 32, 32, False, 0, 37)]
+             (2, 48, 64, 4, 4, 32, 32, False, 0, 37),
+             (1, 64, 64, 4, 4, 96, 96, True, 0, 0),
+             (1, 64, 64, 4, 4, 192, 128, True, 0, 0),
+             (1, 64, 64, 4, 1, 256, 256, True, 0, 0),
+             (1, 48, 48, 18, 2, 128, 128, True, 0, 0),
+             (1, 48, 48, 6, 2, 128, 128, True, 0, 0)]
 # f32 in other orders: within 1e-5 of each output's largest magnitude
 # (measured <= 1e-6)
 BWD_TOL = 1e-5
@@ -237,7 +244,9 @@ def test_flash_attention_skips_the_lse_when_nothing_needs_a_gradient():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-moe-16b",
-                                  "whisper-tiny", "phi-3-vision-4.2b",
+                                  "deepseek-v2-lite-16b", "whisper-tiny",
+                                  "phi-3-vision-4.2b", "gemma-2b",
+                                  "starcoder2-7b", "minitron-4b",
                                   "zamba2-1.2b", "xlstm-350m"])
 def test_train_matches_reference_train(arch):
     """5 steps of AdamW under warmup_cosine from the same weights: each
