@@ -367,6 +367,29 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``example_losses`` lines, the ``examples`` line (seconds per run,
    launches, the records the leave-one-out ran over, the loss gaps, the
    logit error), ``examples_launches`` on the kernels line.
+15. The benches (``bench_slice``): each ``repro_torch.bench`` module
+   (``BENCH_EXPECT``) on the card, its CPU rows, the card's plain-path rows
+   and its kernels' rows in one run: the smoke mode of ``decisions`` (all
+   three modes), ``oracle``, ``stream``, ``fleet`` and ``contention``;
+   ``scheduler``, ``offload``, ``fl`` and ``serving`` whole; ``fig2a_mlp``
+   at ``BENCH_FIG2A`` on the card, ``fig2b_gbt`` at ``BENCH_FIG2B`` and
+   ``fig3_predictions`` on the kernels, the last five on phase 3's records.
+   Each module holds the reference script's gates (the card's sweeps no
+   slower than the CPU's at 16,384 envs and 65,536 rows, one predict call
+   per predictor sweep, the drift loop's refit and recovery and the card's
+   loop equal to the CPU's, the gain within 0.25 of 2, incremental no
+   slower than from-scratch, the fleet engine no slower than the event loop
+   and tracing within 10%, the contention assertions) and fails a kernel
+   row whose kernel was not launched; each bench's rows between them must
+   launch the kernels of ``BENCH_EXPECT``.  A gate the card breaks
+   (``BENCH_BROKEN``, each an open fault in ROADMAP.md §3: the fleet
+   engine's tracing overhead) is printed with its numbers (``gate_broken``)
+   after its bench's rows are written; any other failed gate stops the
+   script.  The ``bench`` line (rows, seconds and launches per bench),
+   ``bench_launches`` on the kernels line; rows under
+   ``results/bench_torch_<name>.json``.  Phases 3, 4(d), 5(a)-(d) and 12(b)
+   build their cells with these modules (``fig3_predictions``' predictors,
+   ``stream.cell``, ``fleet.fleet_day``, ``contention.tail_scenario``).
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -593,6 +616,29 @@ EXAMPLE_EXPECT = {
 # its eager mLSTM chunk loop on meta tensors takes 70-110 s a shape
 DRYRUN_SKIP = ("xlstm-350m",)
 DRYRUN_CHILDREN = 3
+# the bench phase (15): each repro_torch.bench module on the card, its CPU
+# rows, its card's plain rows and its kernels' rows in one run, the
+# smoke mode where the reference's script has one; the three figure
+# benches on the card alone, the sweeps at these sub-grids (Fig. 2a's
+# presets, Fig. 2b's (depth, subsample)): their CPU rows, a minute or more
+# of host fits, run in the full runs by hand
+BENCH_FIG2A = ("xs", "xl")
+BENCH_FIG2B = ((12, 0.8), (2, 0.5))
+# the kernels each bench's rows must launch between them
+BENCH_EXPECT = {
+    "decisions": ("decide_split",),
+    "decisions_cost": ("decide_split", "tree_predict"),
+    "decisions_backend": ("decide_split",),
+    "oracle": ("decide_split", "gbt_hist", "tree_predict"),
+    "stream": (), "fleet": ("fleet_scan",), "contention": ("decide_split",),
+    "scheduler": (), "offload": ("decide_split", "gbt_hist", "tree_predict"),
+    "fl": (), "serving": ("flash_attention", "slstm_scan"),
+    "fig2a_mlp": (), "fig2b_gbt": ("gbt_hist", "tree_predict"),
+    "fig3_predictions": ("gbt_hist", "tree_predict")}
+# the gates the card breaks, each logged as an open fault in ROADMAP.md §3:
+# phase 15 prints each one's numbers (the ``gate_broken`` line) where it
+# would stop; any other gate that fails stops it
+BENCH_BROKEN = {"fleet": "tracing overhead"}
 
 
 def fail(msg: str) -> None:
@@ -1041,11 +1087,13 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
     Table-I grid, fit the fig3 predictors on the profiling dataset, then
     decide with ridge and an MLP fitted on phase 2's per-layer rows.
     Returns the three decision kernels' launch counts of this phase and
-    the profiling dataset (phase 11's FedAvg trains on it)."""
+    the profiling records and dataset (phase 11's FedAvg trains on the
+    dataset, phase 15's benches read both)."""
     import collections
 
     import numpy as np
     import torch
+    from repro_torch.bench import fig3_predictions as fig3
     from repro_torch.bench.mlp_spread import one_step_drift, two_epoch_drift
     from repro_torch.core import costs as co
     from repro_torch.core import dataset as ds
@@ -1121,10 +1169,11 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
          flops_params_equal_cpu=sorted(f"{k}{t}" for k, t in firsts),
          tf32_restored=True)
 
-    # -- fit the fig3 predictors on the normalised 80/20 split
+    # -- fit the fig3 predictors (bench.fig3_predictions') on the
+    # normalised 80/20 split
     norm, _ = data.normalised()
     tr, te = norm.split(0.8)
-    gbt_kw = dict(n_trees=300, max_depth=12, subsample=0.8)
+    gbt_kw = fig3.GBT_KW
     hist_before = wrappers["gbt_hist"].launches
     launch_level, gh_ops.level_histogram_kernel = \
         gh_ops.level_histogram_kernel, recorder("profiling_")
@@ -1154,8 +1203,7 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
     nrmse = {"gbt": per_target_nrmse(pred_gbt.cpu().numpy(), te.y)}
     fit_s = {"gbt": gbt_fit_s}
     t0 = synced()
-    mlp = MLPRegressor(hidden=(2048, 1024, 512), epochs=150, lr=1e-3).fit(
-        tr.x, tr.y, device=dev)
+    mlp = MLPRegressor(**fig3.MLP_KW).fit(tr.x, tr.y, device=dev)
     fit_s["mlp"] = synced() - t0
     t0 = synced()
     ridge = RidgeRegressor().fit(tr.x, tr.y, device=dev)
@@ -1213,7 +1261,7 @@ def profiling_slice(dev, wrappers: dict, recorder, x_layers, y_layers,
           flush=True)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was not launched on the profiling path")
-    return launches, data
+    return launches, (records, data)
 
 
 def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
@@ -1228,6 +1276,7 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
     import numpy as np
     import torch
     from repro_torch import sim
+    from repro_torch.bench import stream as bench_stream
     from repro_torch.core import costs as co
     from repro_torch.core import decisions as dec
     from repro_torch.core import offload as off
@@ -1377,15 +1426,9 @@ def oracle_slice(dev, wrappers: dict, recorder, bw, pi5,
                nrmse_peak=peak, nrmse_recovered=recovered,
                recovered_over_peak=recovered / peak)
 
-    # -- (d) the static stream: bench_stream.py's largest cell ------------
-    # make_tasks(300, seed=rate + nodes), poisson_arrivals(rate, n=300,
-    # seed=rate * 7 + nodes) at rate 200/s and 32 nodes
-    brng = np.random.default_rng(200 + 32)
-    tasks = [sch.Task(f"t{i}", flops=float(brng.uniform(1e9, 5e11)),
-                      input_bytes=float(brng.uniform(1e4, 1e7)))
-             for i in range(300)]
-    arrivals = sim.poisson_arrivals(200.0, n=300, seed=200 * 7 + 32)
-    nodes = [sch.Node(specs[j % len(specs)]) for j in range(32)]
+    # -- (d) the static stream: bench.stream's largest cell ---------------
+    # 300 tasks at rate 200/s on 32 nodes, seeded as bench_stream.py seeds
+    tasks, arrivals, nodes = bench_stream.cell(200.0, 32, 300)
 
     def records(tel):
         return [(r.node_id, r.started_s, r.finished_s) for r in tel.records]
@@ -1555,32 +1598,6 @@ def oracle_timing(dev, shapes: dict) -> dict:
     return rows
 
 
-def fleet_day(n_tasks: int, n_nodes: int) -> tuple:
-    """benchmarks/bench_fleet.py's cell: one diurnal day of 3,600 s,
-    per-node diurnal links stepped every second, make_tasks(seed 0).
-    Returns (tasks, arrivals, nodes, a factory of fresh links)."""
-    import numpy as np
-    from repro_torch import sim
-    from repro_torch.core import scheduler as sch
-    from repro_torch.hw import EDGE_DEVICES
-
-    specs = list(EDGE_DEVICES.values())
-    arr = sim.diurnal_arrivals(n_tasks / FLEET_DAY_S * 1.2,
-                               horizon=FLEET_DAY_S, amplitude=0.6,
-                               period_s=FLEET_DAY_S / 2, seed=1)[:n_tasks]
-    rng = np.random.default_rng(0)
-    tasks = [sch.Task(f"t{i}", flops=float(rng.uniform(1e9, 5e11)),
-                      input_bytes=float(rng.uniform(1e4, 1e7)))
-             for i in range(len(arr))]
-    nodes = [sch.Node(specs[j % len(specs)]) for j in range(n_nodes)]
-
-    def links():
-        return sim.ClusterLinks([sim.DiurnalLink(
-            4e7, amplitude=0.5, period_s=FLEET_DAY_S / 2, noise_sigma=0.1,
-            seed=2 + j) for j in range(n_nodes)])
-    return tasks, arr, nodes, links
-
-
 def fleet_slice(dev) -> tuple[dict, dict]:
     """The queueing, Pareto and fleet slice (phase 5) through
     ``simulate_stream`` and ``decide_all``, on the card and, where it says
@@ -1591,18 +1608,19 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     import numpy as np
     import torch
     from repro_torch import sim
+    from repro_torch.bench import contention as bench_contention
+    from repro_torch.bench import stream as bench_stream
+    from repro_torch.bench.fleet import fleet_day
     from repro_torch.core import costs as co
     from repro_torch.core import decisions as dec
     from repro_torch.core import offload as off
-    from repro_torch.core import scheduler as sch
     from repro_torch.core.workloads import WorkloadConfig
-    from repro_torch.hw import EDGE_DEVICES, get_device
+    from repro_torch.hw import get_device
     from repro_torch.kernels.decide_split import kernel as ds_kernel
     from repro_torch.kernels.fleet_scan import kernel as fs_kernel
     from repro_torch.kernels.fleet_scan import ops as fs_ops
     from repro_torch.sim import fleet
 
-    specs = list(EDGE_DEVICES.values())
     jetson, pi5, a100 = (get_device(n) for n in (
         "jetson-orin-nano", "pi5-arm", "edge-server-a100"))
 
@@ -1625,8 +1643,9 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     out, shapes = {}, {}
     t_phase = time.perf_counter()
 
-    # -- (a) the fleet engine at bench_fleet.py's largest cell ------------
-    tasks, arr, nodes, links = fleet_day(FLEET_TASKS, FLEET_NODES)
+    # -- (a) the fleet engine at bench.fleet's largest cell --------------
+    tasks, arr, nodes, links = fleet_day(FLEET_TASKS, FLEET_NODES,
+                                         FLEET_DAY_S)
     runs, real = {}, fs_ops.place_singletons
     for d in (dev, "cpu"):
         calls = []
@@ -1688,7 +1707,8 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     del runs, calls, host_calls, card, cpu
 
     # -- (b) event loop against fleet engine on the card ------------------
-    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES)
+    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES,
+                                         FLEET_DAY_S)
     layers = off.workload_layer_costs(WorkloadConfig(
         "cnn", 2, epochs=5, optimiser="adam", lr=1e-3, batch_size=32))
 
@@ -1770,30 +1790,19 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     out["compare"] = dict(tasks=len(tasks), nodes=COMPARE_NODES, **compare)
     del seen
 
-    # -- (c) bench_contention.py's tail-vs-mean scenario, full horizon ----
-    crng = np.random.default_rng(3)
-    c_layers = [off.LayerCost(f"l{i}", flops=float(crng.uniform(2e10, 4.5e10)),
-                              act_bytes=float(crng.uniform(2e5, 4e6)))
-                for i in range(8)]
-    arr_ss, rtt_ss = sim.spawn_streams(4, 2)
-    c_arr = sim.mmpp_arrivals([2.0, 40.0], [8.0, 3.0],
-                              horizon=CONTENTION_HORIZON_S, seed=arr_ss)
+    # -- (c) bench.contention's tail-vs-mean scenario, full horizon -------
+    sc = bench_contention.tail_scenario(CONTENTION_HORIZON_S)
+    c_layers, c_arr, rtt_samples, rtt_model = (sc.layers, sc.arr,
+                                               sc.rtt_samples, sc.rtt_model)
     n_c = len(c_arr)
-    rtt_samples = sim.WeibullRTT(shape=0.6, scale=0.02,
-                                 seed=rtt_ss).sample(n_c)
-    rtt_model = sim.WeibullRTT(shape=0.6, scale=0.02, seed=0)
-    c_envs = dec.make_envs(jetson, a100, link_bw=np.asarray([30e6]),
+    c_envs = dec.make_envs(sc.device, sc.edge, link_bw=np.asarray([30e6]),
                            link_latency_s=0.005,
-                           input_bytes=np.asarray([2e6]), device=dev)
+                           input_bytes=np.asarray([sc.input_bytes]),
+                           device=dev)
 
     def contention(tail, backend, check_against=None):
-        base = co.CompositeCost(
-            weights={"latency_s": 1.0} if tail is None
-            else {"tail_latency_s": 1.0},
-            tail=tail, rtt=None if tail is None else rtt_model,
-            tail_alpha=0.99)
         pool = sim.ServerPool(2)
-        cost = co.QueueAwareCost(base=base, edge_pool=pool, rtt=rtt_model)
+        cost = bench_contention.policy_cost(sc, tail, pool)
         misses, splits, worst, differ, decide_s = 0, [], 0.0, [], 0.0
         for i in range(n_c):
             t = float(c_arr[i])
@@ -1870,13 +1879,8 @@ def fleet_slice(dev) -> tuple[dict, dict]:
         decide_split_launches=ds_kernel.decide_split_kernel.launches
         - before, policies=policies)
 
-    # -- (d) pools and RTT in the stream: bench_stream.py's largest cell --
-    brng = np.random.default_rng(200 + 32)
-    s_tasks = [sch.Task(f"t{i}", flops=float(brng.uniform(1e9, 5e11)),
-                        input_bytes=float(brng.uniform(1e4, 1e7)))
-               for i in range(300)]
-    s_arr = sim.poisson_arrivals(200.0, n=300, seed=200 * 7 + 32)
-    s_nodes = [sch.Node(specs[j % len(specs)]) for j in range(32)]
+    # -- (d) pools and RTT in the stream: bench.stream's largest cell -----
+    s_tasks, s_arr, s_nodes = bench_stream.cell(200.0, 32, 300)
     pooled = {}
     for d in (dev, "cpu"):
         for engine in ("event", "fleet"):
@@ -3351,6 +3355,7 @@ def trace_slice(dev, smi: str, oracle_runs: dict, serve_untraced: dict,
 
     import torch
     from repro_torch import sim
+    from repro_torch.bench.fleet import fleet_day
     from repro_torch.configs import get_config
     from repro_torch.core import costs as co
     from repro_torch.kernels.decide_split import kernel as ds_kernel
@@ -3472,7 +3477,8 @@ def trace_slice(dev, smi: str, oracle_runs: dict, serve_untraced: dict,
                             export_s=stats["export_s"])
 
     # -- (b) the fleet engine's slab path: 20k × 16 with an RTT ------------
-    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES)
+    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES,
+                                         FLEET_DAY_S)
     runs = {}
     for name, d, traced in (("untraced", dev, False), ("traced", dev, True),
                             ("cpu", "cpu", True)):
@@ -4068,6 +4074,94 @@ def examples_slice(dev, smi: str) -> dict:
     return launches
 
 
+def bench_slice(dev, smi: str, profiled) -> dict:
+    """The port's benches on the card (phase 15): each module of
+    ``repro_torch.bench`` (``BENCH_EXPECT``) through its ``main`` or, for
+    the figure sweeps, its row functions at ``BENCH_FIG2A`` /
+    ``BENCH_FIG2B``; the profiling benches on phase 3's records.  Each
+    module holds its gates and fails a card row whose kernel was not
+    launched; here every bench's rows must between them launch the kernels
+    of ``BENCH_EXPECT``.  Writes the ``bench`` line (rows, seconds and
+    launches per bench) and returns the launches per kernel."""
+    import collections
+
+    from repro_torch.bench import (contention, decisions, fig2a_mlp,
+                                   fig2b_gbt, fig3_predictions, fl, fleet,
+                                   offload, oracle, scheduler, serving,
+                                   stream)
+    from repro_torch.bench.common import GateBroken, emit
+
+    data = profiled[1]
+
+    def fig2a():
+        rows = fig2a_mlp.mlp_rows(data, BENCH_FIG2A, 150, "card", dev)
+        emit(rows, "fig2a_mlp")
+        return rows
+
+    def fig2b():
+        rows = fig2b_gbt.gbt_rows(data, BENCH_FIG2B, "kernel", dev)
+        emit(rows, "fig2b_gbt")
+        return rows
+
+    def fig3():
+        rows = [fig3_predictions.fig3_row(data, "kernel", dev)]
+        emit(rows, "fig3_predictions")
+        return rows
+
+    runs = {
+        "decisions": lambda: decisions.main(smoke=True),
+        "decisions_cost": lambda: decisions.main_costs("all", smoke=True),
+        "decisions_backend": lambda: decisions.main_backends(
+            "all", smoke=True),
+        "oracle": lambda: oracle.main(smoke=True),
+        "stream": lambda: stream.main(smoke=True),
+        "fleet": lambda: fleet.main(smoke=True),
+        "contention": lambda: contention.main(smoke=True),
+        "scheduler": scheduler.main,
+        "offload": lambda: offload.main(dataset=profiled),
+        "fl": lambda: fl.main(dataset=profiled),
+        "serving": serving.main,
+        "fig2a_mlp": fig2a, "fig2b_gbt": fig2b, "fig3_predictions": fig3}
+    check(set(runs) == set(BENCH_EXPECT), f"benches {sorted(runs)}")
+    t_phase = time.perf_counter()
+    out, total, broken = {}, collections.Counter(), {}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        try:
+            rows = run()
+        except GateBroken as e:
+            check(name in BENCH_BROKEN and all(
+                g.startswith(BENCH_BROKEN[name]) for g in e.gates),
+                f"bench {name}: gate failed: {e}")
+            rows, broken[name] = e.rows, e.gates
+            print(json.dumps({"gate_broken": name, "gates": e.gates,
+                              "logged": "ROADMAP.md section 3"}),
+                  flush=True)
+        seconds = time.perf_counter() - t0
+        launched = collections.Counter()
+        for r in rows:
+            if "card" in r:
+                check(r["card"] == smi and isinstance(r.get("launches"),
+                                                      dict),
+                      f"bench {name}: card row {r['name']} without the "
+                      "card or its launches")
+                launched.update(r["launches"])
+            else:
+                check(r.get("plain") is True, f"bench {name}: row "
+                      f"{r['name']} is neither a CPU nor a card row")
+        missing = [k for k in BENCH_EXPECT[name] if launched[k] <= 0]
+        check(not missing, f"bench {name}: its rows launched no "
+              f"{missing} ({dict(launched)})")
+        out[name] = dict(rows=len(rows), seconds=seconds,
+                         card_rows=sum("card" in r for r in rows),
+                         launches=dict(launched))
+        total.update(launched)
+        print(json.dumps({"bench_done": name, **out[name]}), flush=True)
+    line("bench", benches=out, launches=dict(total), gates_broken=broken,
+         phase_s=time.perf_counter() - t_phase, device=smi)
+    return dict(total)
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -4359,7 +4453,7 @@ def main() -> None:
         del exact
 
     # -- 3. the profiling loop at full width ------------------------------
-    profiling_launches, profiling_data = profiling_slice(
+    profiling_launches, profiled = profiling_slice(
         dev, wrappers, recorder, x, y, layers, envs, pi5, a100)
 
     # -- 4. the oracle loop and the streaming simulator -------------------
@@ -4654,7 +4748,7 @@ def main() -> None:
     kernels += kernel_bench()
 
     # -- 11. training -------------------------------------------------------
-    trained = training_slice(dev, smi, profiling_data)
+    trained = training_slice(dev, smi, profiled[1])
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     flash.update(training_launches=trained["launches"],
                  served_training_launches=trained["served"]["launches"],
@@ -4678,6 +4772,9 @@ def main() -> None:
 
     # -- 14. the examples ---------------------------------------------------
     by_run = examples_slice(dev, smi)
+
+    # -- 15. the benches ------------------------------------------------------
+    bench_launches = bench_slice(dev, smi, profiled)
     for rec in kernels:
         keys = {"flash_attention": ("flash_fwd", "flash_fwd_wgmma",
                                     "flash_fwd_lse"),
@@ -4687,6 +4784,7 @@ def main() -> None:
         rec["examples_launches"] = {
             run: {k: per[k] for k in keys if k in per}
             for run, per in by_run.items() if any(k in per for k in keys)}
+        rec["bench_launches"] = bench_launches.get(rec["name"], 0)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,29 @@
 """Timing and output shared by the port's benchmarks and ``chip_smoke.py``:
-CUDA-event timing, the H100 bound of a piece of work, the card's name and
-power limit, and the ``name,us_per_call,derived`` CSV + JSON rows of
-``benchmarks/common.py``."""
+CUDA-event and host timing, the H100 bound of a piece of work, the card's
+name and power limit, the ``name,us_per_call,derived`` CSV + JSON rows of
+``benchmarks/common.py``, its cached profiling dataset, and what every
+bench module of the package shares: the runs one invocation makes (the CPU,
+the card's plain path, the kernels) and the kernels' launch counts."""
 from __future__ import annotations
 
+import argparse
+import contextlib
+import functools
 import json
 import os
 import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
+from repro_torch._device import DeviceLike, resolve_device
+
 RESULTS_DIR = os.environ.get("REPRO_RESULTS", "results")
+#: the port's own profiling cache: the reference's records
+#: (``profiling_records.json``) were measured on another machine
+RECORDS_NAME = "profiling_records_torch.json"
 
 # The H100 SXM's published rates (NVIDIA's data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12            # device memory
@@ -81,9 +92,11 @@ def host_ms(fn, reps: int = 3) -> float:
     return statistics.median(out)
 
 
+@functools.lru_cache(maxsize=None)
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi
-    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (read
+    once a process)."""
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -101,3 +114,142 @@ def emit(rows: list[dict], name: str) -> None:
         derived = ";".join(f"{k}={v}" for k, v in r.items()
                            if k not in ("name", "us_per_call"))
         print(f"{r.get('name', name)},{r.get('us_per_call')},{derived}")
+
+
+def clock() -> float:
+    """Host clock once the card (where it is in use) has finished its
+    queued work."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def times_us(fn, reps: int) -> tuple[float, float]:
+    """(median, best) host wall time per call of ``fn`` in µs over ``reps``
+    calls after one warm-up, each ending at :func:`clock`."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = clock()
+        fn()
+        ts.append(clock() - t0)
+    return float(np.median(ts) * 1e6), float(np.min(ts) * 1e6)
+
+
+def profiling_dataset(n_runs: int = 0, force: bool = False,
+                      device: DeviceLike = None):
+    """(records, TabularDataset): measured Table-I grid runs (each projected
+    onto the other edge specs), profiled on ``device`` (None = the card)
+    and cached in ``results/profiling_records_torch.json``.  ``n_runs``
+    defaults to ``REPRO_PROFILE_RUNS`` (150); a cache with at least that
+    many measured runs is read instead of profiling again."""
+    from repro_torch.core import dataset as ds
+    from repro_torch.core.features import records_to_dataset
+    n_runs = n_runs or int(os.environ.get("REPRO_PROFILE_RUNS", "150"))
+    path = os.path.join(RESULTS_DIR, RECORDS_NAME)
+    os.makedirs(RESULTS_DIR, exist_ok=True)
+    if os.path.exists(path) and not force:
+        records = ds.load_records(path)
+        if len({r.label for r in records if "@" not in r.label}) >= n_runs:
+            return records, records_to_dataset(records)
+    t0 = time.time()
+    records, data = ds.generate(n_runs=n_runs, max_steps=6, verbose=True,
+                                device=device)
+    ds.save_records(records, path)
+    print(f"[bench] generated {len(records)} profiling records "
+          f"in {time.time()-t0:.0f}s -> {path}")
+    return records, data
+
+
+# -- what the bench modules share ------------------------------------------
+def paths(device: DeviceLike = None) -> list[tuple[str, torch.device]]:
+    """``[(path, torch device)]`` of one invocation: only ``("cpu", cpu)``
+    with ``device="cpu"``; otherwise three, which need the card
+    (``device=None`` raises without one): ``"cpu"``, the port's plain path
+    on the CPU (the reference's host / numpy rows); ``"card"``, the plain
+    path on the card (its jitted rows); ``"kernel"``, the hand-written
+    kernels on the card (its Pallas rows)."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return [("cpu", dev)]
+    return [("cpu", torch.device("cpu")), ("card", dev), ("kernel", dev)]
+
+
+def parser(doc: str, smoke: bool = True) -> argparse.ArgumentParser:
+    """A bench's argument parser: ``--device``, and ``--smoke`` where the
+    reference's script has it."""
+    ap = argparse.ArgumentParser(description=doc.strip().splitlines()[0])
+    ap.add_argument("--device", default=None,
+                    help="torch device; default the card (cuda), which "
+                    "raises without one; 'cpu' runs only the CPU rows")
+    if smoke:
+        ap.add_argument("--smoke", action="store_true",
+                        help="small sizes / few reps")
+    return ap
+
+
+def require(ok, msg: str) -> None:
+    """A bench's gate: the reference's ``assert``, kept under ``-O``."""
+    if not ok:
+        raise AssertionError(msg)
+
+
+class GateBroken(AssertionError):
+    """Gates that failed once their bench's rows were made: ``gates`` says
+    each with its numbers, ``rows`` are the rows (written before this is
+    raised, so that the numbers of a broken gate are kept)."""
+
+    def __init__(self, gates: list[str], rows: list[dict]):
+        super().__init__("; ".join(gates))
+        self.gates = gates
+        self.rows = rows
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel wrapper's launches so far (the kernels' counters)."""
+    from repro_torch.kernels.decide_split import kernel as ds_kernel
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.fleet_scan import kernel as fs_kernel
+    from repro_torch.kernels.gbt_hist import kernel as gh_kernel
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.tree_predict import kernel as tp_kernel
+    return dict(decide_split=ds_kernel.decide_split_kernel.launches,
+                tree_predict=tp_kernel.tree_predict_kernel.launches,
+                gbt_hist=gh_kernel.level_histogram_kernel.launches,
+                fleet_scan=fs_kernel.place_singletons_kernel.launches,
+                flash_attention=fa_kernel.flash_attention_kernel.launches,
+                ssm_scan=ss_kernel.ssd_scan_kernel.launches,
+                slstm_scan=sl_kernel.slstm_scan_kernel.launches)
+
+
+@contextlib.contextmanager
+def counting():
+    """Yields a dict that holds, after the block, each kernel's launches
+    made inside it (kernels not launched left out)."""
+    before = launch_counts()
+    got: dict[str, int] = {}
+    try:
+        yield got
+    finally:
+        got.update({k: n - before[k] for k, n in launch_counts().items()
+                    if n > before[k]})
+
+
+def tag(row: dict, path: str, launches: dict | None = None,
+        kernels: tuple = ()) -> dict:
+    """Flag ``row`` by its path: CPU rows ``plain: true``; card rows the
+    card's name and power limit (``card``) and the kernels launched during
+    the row (``launches``); a kernel row fails unless each of ``kernels``
+    was launched."""
+    if path == "cpu":
+        row["plain"] = True
+        return row
+    row["card"] = card()
+    row["launches"] = dict(launches or {})
+    if path == "kernel":
+        missing = [k for k in kernels if row["launches"].get(k, 0) <= 0]
+        require(kernels and not missing, f"{row['name']}: kernel(s) "
+                f"{missing or '(none named)'} not launched during the row "
+                f"(launches {row['launches']})")
+    return row

@@ -40,12 +40,14 @@ def test_import_loads_no_jax_and_no_reference():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
-def assert_loads_no_jax_and_no_reference(module):
+def assert_loads_no_jax_and_no_reference(module, also=()):
     """Importing ``module`` alone, in a fresh interpreter, loads neither
-    JAX nor the reference package."""
+    JAX nor the reference package (nor any top-level package of
+    ``also``)."""
+    banned = ("jax", "jaxlib", "repro", *also)
     code = (f"import {module}, sys\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')))\n")
+            f"{banned!r}))\n")
     proc = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=120)
@@ -62,11 +64,26 @@ def test_serving_subpackages_load_no_jax_and_no_reference(module):
 
 @pytest.mark.parametrize("module", ["repro_torch.bench.kernels",
                                     "repro_torch.bench.mlp_spread",
+                                    "repro_torch.bench.common",
+                                    "repro_torch.bench.decisions",
+                                    "repro_torch.bench.oracle",
+                                    "repro_torch.bench.stream",
+                                    "repro_torch.bench.fleet",
+                                    "repro_torch.bench.contention",
+                                    "repro_torch.bench.fig2a_mlp",
+                                    "repro_torch.bench.fig2b_gbt",
+                                    "repro_torch.bench.fig3_predictions",
+                                    "repro_torch.bench.offload",
+                                    "repro_torch.bench.fl",
+                                    "repro_torch.bench.scheduler",
+                                    "repro_torch.bench.serving",
                                     "repro_torch.kernels.int8_matmul.ref",
                                     "repro_torch.kernels.int8_matmul.ops",
                                     "repro_torch.kernels.int8_matmul.kernel"])
 def test_bench_and_int8_modules_load_no_jax_and_no_reference(module):
-    assert_loads_no_jax_and_no_reference(module)
+    """The bench modules also load nothing of the reference's
+    ``benchmarks/`` scripts."""
+    assert_loads_no_jax_and_no_reference(module, also=("benchmarks",))
 
 
 @pytest.mark.parametrize("module", ["repro_torch.optim",
