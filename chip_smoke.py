@@ -4,7 +4,8 @@ path, the online oracle riding the streaming simulator, the queueing, Pareto
 and fleet slice of the simulator, the serving path, the kernel bench,
 training (the LM loop, its flash backward, federated profiling), the
 main paths traced by ``repro_torch.obs``, the mesh path with the
-dry-run's predictions held against the card, and the ten examples.
+dry-run's predictions held against the card, the ten examples, the
+benches, and the collating benches over what they wrote.
 
     python3 chip_smoke.py
 
@@ -390,6 +391,24 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    ``results/bench_torch_<name>.json``.  Phases 3, 4(d), 5(a)-(d) and 12(b)
    build their cells with these modules (``fig3_predictions``' predictors,
    ``stream.cell``, ``fleet.fleet_day``, ``contention.tail_scenario``).
+16. The collating benches (``collate_slice``), each on what the phases
+   before wrote: ``bench.roofline`` over phase 14's dry-run records (every
+   ok row's bound above 0, its dominant term the largest);
+   ``bench.perf_experiments``, the reference's ten §Perf experiments on
+   meta tensors, run by CPU children (``CUDA_VISIBLE_DEVICES=""``, one a
+   group of ``PERF_PAIRS``) started with phase 14's, every experiment ok
+   and A1's compute term below ``ABSORB_MAX`` of A0's (a ``perf`` line
+   each: terms, bytes a device, ratios to the pair's baseline, verdict);
+   ``bench.report`` over phase 15's rows (a headline for each of the five
+   subsystems, naming the card's ``nvidia-smi`` line, or ``cpu`` where the
+   headline is a host-only row); ``bench.write_experiments`` from all of
+   them and phase 3's records (saved as
+   ``results/profiling_records_torch.json``) to
+   ``results/EXPERIMENTS_torch.md`` (every section of
+   ``EXPERIMENTS_HEADINGS``, none of ``TPU_FIGURES``); and ``python -m
+   repro_torch.bench.run scheduler`` in a child on the card meanwhile
+   (exit 0, its header, footer and rows).  The ``collate`` line has the
+   seconds of each step.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or run from a
@@ -639,6 +658,21 @@ BENCH_EXPECT = {
 # phase 15 prints each one's numbers (the ``gate_broken`` line) where it
 # would stop; any other gate that fails stops it
 BENCH_BROKEN = {"fleet": "tracing overhead"}
+# the collate phase (16): the §Perf experiments run on meta tensors in CPU
+# children started with phase 14's, one a group of pairs (pair B,
+# xlstm-350m's train_4k, takes 40-52 s an experiment on one host thread,
+# its eager mLSTM chunk loop; A and C 1-11 s); phase 16 waits at most
+# PERF_WAIT seconds for them
+PERF_PAIRS = ("A,C", "B")
+PERF_WAIT = 420
+# A1's compute term over A0's in the port's records must stay below this
+# (the reference's journey invariant, tests/test_results_invariants.py)
+ABSORB_MAX = 0.2
+# the sections of the port's EXPERIMENTS document, and the reference's
+# TPU figures, none of which it may state
+EXPERIMENTS_HEADINGS = ("## §Paper-validation", "## §Dry-run",
+                        "### Single pod", "## §Roofline", "## §Perf")
+TPU_FIGURES = ("197 TFLOP/s", "819 GB/s", "v5e", "16G")
 
 
 def fail(msg: str) -> None:
@@ -4162,6 +4196,179 @@ def bench_slice(dev, smi: str, profiled) -> dict:
     return dict(total)
 
 
+def start_perf_children() -> list:
+    """Phase 16's §Perf experiments: one CPU child of ``python -m
+    repro_torch.bench.perf_experiments`` per group of ``PERF_PAIRS``, on
+    meta tensors (``CUDA_VISIBLE_DEVICES=""``, one thread), started with
+    phase 14's children.  Returns ``[(pairs, process, records, log)]``."""
+    import os
+    import subprocess
+
+    out_dir = ROOT / "results" / "perf_cpu"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    children = []
+    for i, pairs in enumerate(PERF_PAIRS):
+        recs, log = out_dir / f"perf{i}.json", out_dir / f"perf{i}.log"
+        with open(log, "w") as f:     # the child holds its own copy
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.bench.perf_experiments",
+                 "--pairs", pairs, "--out", str(recs)], cwd=ROOT, env=env,
+                stdout=f, stderr=subprocess.STDOUT)
+        children.append((pairs, proc, recs, log))
+    return children
+
+
+def stop_children(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def collate_slice(dev, smi: str, profiled, perf_children) -> None:
+    """The collating benches (phase 16), each on what the phases before
+    wrote: ``bench.roofline`` over phase 14's dry-run records (every ok
+    row's bound above 0, its dominant term the largest);
+    ``bench.perf_experiments`` from the CPU children of
+    :func:`start_perf_children` (every experiment ok, A1's compute term
+    below ``ABSORB_MAX`` of A0's), merged into
+    ``results/perf_experiments_torch.json``; ``bench.report`` over phase
+    15's rows (a headline for each of the five subsystems, each naming
+    where its row ran: the card's ``nvidia-smi`` line, or ``cpu`` for a
+    host-only row); ``bench.write_experiments`` from all of them and phase
+    3's records (every section, none of the reference's TPU figures); and
+    ``python -m repro_torch.bench.run scheduler`` in a child on the card
+    meanwhile (exit 0, its header and rows).  Prints the ``perf`` and
+    ``collate`` lines."""
+    import os
+    import subprocess
+
+    from repro_torch.bench import common as bcommon
+    from repro_torch.bench import perf_experiments as pe
+    from repro_torch.bench import report, roofline
+    from repro_torch.bench import write_experiments as wx
+    from repro_torch.core.dataset import save_records
+
+    t_phase = time.perf_counter()
+    results = Path(bcommon.RESULTS_DIR)
+    seconds = {}
+    run_log = results / "bench_run_scheduler.log"
+    t_run = time.perf_counter()
+    with open(run_log, "w") as f:
+        run_child = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.bench.run", "scheduler"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            stdout=f, stderr=subprocess.STDOUT)
+    try:
+        # (a) the roofline table of phase 14's dry-run
+        t0 = time.perf_counter()
+        dry = ROOT / "results" / "examples_cpu" / "results" / \
+            roofline.DRYRUN_NAME
+        recs = json.loads(dry.read_text())
+        rows = roofline.main(str(dry), device=dev)
+        ok_rows = [r for r in rows if "status" not in r]
+        check(len(rows) == len(recs) and ok_rows and len(ok_rows) == sum(
+            r["status"] == "ok" for r in recs),
+            f"roofline: {len(rows)} rows, {len(ok_rows)} ok, of "
+            f"{len(recs)} records")
+        for r in ok_rows:
+            terms = {k: r[f"{k}_s"] for k in ("compute", "memory",
+                                              "collective")}
+            check(r["us_per_call"] > 0
+                  and r["dominant"] == max(terms, key=terms.get),
+                  f"roofline: {r['name']} bound {r['us_per_call']} us, "
+                  f"dominant {r['dominant']}, terms {terms}")
+        seconds["roofline"] = time.perf_counter() - t0
+        # (b) the perf experiments, from the CPU children
+        t0 = time.perf_counter()
+        perf, run_s = [], {}
+        for pairs, proc, out, log in perf_children:
+            try:
+                rc = proc.wait(timeout=max(
+                    1.0, PERF_WAIT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                fail(f"perf: the CPU child of pairs {pairs} took over "
+                     f"{PERF_WAIT} s of phase 16")
+            check(rc == 0, f"perf: the CPU child of pairs {pairs} exited "
+                  f"{rc}: {log.read_text()[-2000:]}")
+            group = json.loads(out.read_text())
+            run_s[pairs] = sum(r.get("run_s", 0.0) for r in group)
+            perf += group
+        order = [e["name"] for e in pe.EXPERIMENTS]
+        perf.sort(key=lambda r: order.index(r["experiment"]))
+        perf_path = results / pe.OUT_NAME
+        perf_path.write_text(json.dumps(perf, indent=1))
+        by = {r["experiment"]: r for r in perf}
+        failed = [n for n, r in by.items() if r["status"] != "ok"]
+        check(not failed, f"perf: {failed} failed: "
+              f"{[by[n].get('error') for n in failed]}")
+        for r in perf:
+            line("perf", experiment=r["experiment"],
+                 terms_s={k: r["roofline"][k] for k in (
+                     "compute_s", "memory_s", "collective_s")},
+                 dominant=r["roofline"]["dominant"],
+                 bytes_per_device=r["bytes_per_device"],
+                 vs_baseline=r["vs_baseline"], verdict=r["verdict"],
+                 predicts=r.get("predicts"), run_s=r["run_s"])
+        absorb = by["A1_mla_absorbed"]["roofline"]["compute_s"] / \
+            by["A0_baseline_mla_naive"]["roofline"]["compute_s"]
+        check(absorb < ABSORB_MAX, f"perf: A1's compute term is {absorb} "
+              f"of A0's (must stay below {ABSORB_MAX})")
+        seconds["perf_experiments_wait"] = time.perf_counter() - t0
+        # (c) the report of phase 15's rows
+        t0 = time.perf_counter()
+        entries = report.main(["--out", str(results / "report_torch.md")])
+        check(sorted(e["subsystem"] for e in entries) == sorted(
+            s for s, _ in report.SUBSYSTEMS.values()),
+            f"report: headlines {[e['subsystem'] for e in entries]}")
+        for e in entries:
+            head = next(r for r in json.loads(
+                (results / f"{e['bench']}.json").read_text())
+                if r["name"] == e["config"])
+            check(e["card"] == smi if "card" in head
+                  else e["card"] == "cpu" and head.get("plain") is True,
+                  f"report: {e['subsystem']}'s headline {e['config']} "
+                  f"reads card {e['card']!r}")
+        seconds["report"] = time.perf_counter() - t0
+        # (d) the EXPERIMENTS document from all of them
+        t0 = time.perf_counter()
+        save_records(profiled[0], str(results / bcommon.RECORDS_NAME))
+        doc_path = wx.main(["--dryrun", str(dry), "--perf", str(perf_path)])
+        doc = Path(doc_path).read_text()
+        check(Path(doc_path) == results / wx.OUT_NAME,
+              f"write_experiments wrote {doc_path}")
+        missing = [h for h in EXPERIMENTS_HEADINGS if h not in doc]
+        stated = [f for f in TPU_FIGURES if f in doc]
+        check(not missing and not stated, f"write_experiments: sections "
+              f"{missing} missing, TPU figures {stated} stated")
+        seconds["write_experiments"] = time.perf_counter() - t0
+        # (e) the orchestrator's child on the card
+        try:
+            rc = run_child.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            fail("bench.run scheduler took over 300 s")
+        seconds["run_scheduler"] = time.perf_counter() - t_run
+        text = run_log.read_text()
+        check(rc == 0 and "# === scheduler (paper §II-D) ===" in text
+              and "# --- scheduler (paper §II-D) done in " in text
+              and "sched_min_min," in text,
+              f"bench.run scheduler exited {rc}: {text[-2000:]}")
+    finally:
+        stop_children([run_child])
+    line("collate", seconds=seconds, perf_run_s=run_s,
+         perf_pairs=[p for p, *_ in perf_children],
+         roofline_rows=len(rows), roofline_ok=len(ok_rows),
+         a1_over_a0_compute=absorb,
+         verdicts={r["experiment"]: r["verdict"] for r in perf},
+         headlines={e["subsystem"]: [e["config"], e["speedup"], e["card"]]
+                    for e in entries},
+         document=str(doc_path), document_lines=len(doc.splitlines()),
+         run_lines=len(text.splitlines()),
+         phase_s=time.perf_counter() - t_phase, device=smi)
+
+
 def kernel_bench() -> list:
     """``repro_torch.bench.kernels.main()`` on the card: every row within
     its tolerance, ``int8_matmul`` launched on it, the prefill row on
@@ -4771,10 +4978,17 @@ def main() -> None:
     flash.update(mesh_launches=meshed["flash"])
 
     # -- 14. the examples ---------------------------------------------------
-    by_run = examples_slice(dev, smi)
+    perf_children = start_perf_children()
+    try:
+        by_run = examples_slice(dev, smi)
 
-    # -- 15. the benches ------------------------------------------------------
-    bench_launches = bench_slice(dev, smi, profiled)
+        # -- 15. the benches --------------------------------------------------
+        bench_launches = bench_slice(dev, smi, profiled)
+
+        # -- 16. the collating benches ----------------------------------------
+        collate_slice(dev, smi, profiled, perf_children)
+    finally:
+        stop_children([proc for _, proc, *_ in perf_children])
     for rec in kernels:
         keys = {"flash_attention": ("flash_fwd", "flash_fwd_wgmma",
                                     "flash_fwd_lse"),
