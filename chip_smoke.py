@@ -93,7 +93,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the fleet engine on the card, records equal, in four split modes: none,
    decide-at-admission with ``split_backend="kernel"`` from the
    jetson-orin-nano and from the pi5-arm to edge-server-a100 over a
-   diurnal link, and a ``ParetoStreamScheduler``; every kernel split (the
+   diurnal link, and a ``ParetoStreamScheduler`` (on the cell of
+   ``PLANNER_TASKS`` tasks over the same day: its event loop is the
+   phase's longest run); every kernel split (the
    event loop's E = 1 calls and the fleet engine's slab-batched ones)
    within 1e-4 of the f64 optimum of its environment; (c)
    ``benchmarks/bench_contention.py``'s tail-vs-mean scenario at its full
@@ -343,7 +345,23 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    within ``MESH_FLOP_TOL`` of ``FlopCounterMode`` of the card's step,
    and its roofline bound at most the measured step time (a bound
    above it is an impossible reading); the ``mesh_check`` and ``mesh``
-   lines, flash's ``mesh_launches`` on the kernels line.
+   lines, flash's ``mesh_launches`` on the kernels line.  After phase 14,
+   alone on the card, four processes of ``python -m
+   repro_torch.launch.card_mesh`` (``nccl`` puts no two ranks on one
+   device): a ``gloo`` (2, 2) data x model mesh whose compute and
+   collectives all run on the card's tensors: (a) qwen3-1.7b trained 2
+   steps with sequence parallelism (checked on: its row-parallel products
+   reduce-scattered), (b) gemma-2b's prefill and 2 decode steps on its
+   sequence-split cache at B 2 and B 1, (c) deepseek-v2-lite-16b's
+   latent-cache decode, naive and absorbed, and with MoE capacity that
+   drops tokens, held to one process serving each data rank's row alone
+   (the whole batch in one process at least ``CARD_MESH_DROP_MIN`` away),
+   (d) xlstm-350m and whisper-tiny trained 2 steps, then served, their
+   heads split (``slstm_scan`` and flash on half the heads), each against
+   one process on the card within ``CARD_MESH_TOL``
+   (``CARD_MESH_EXPECT``: the kernels each part launches, the heads they
+   see), gradients within ``CARD_MESH_GRAD_TOL``; the ``mesh4`` line,
+   ``mesh4_launches`` on the kernels line.
 14. The examples (``examples_slice``): each ``repro_torch.examples``
    module through its ``main`` on the card at the reference's defaults
    (``EXAMPLE_RUNS``; ``train_tiny_lm`` also on zamba2-1.2b and xlstm-350m
@@ -383,10 +401,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    and tracing within 10%, the contention assertions) and fails a kernel
    row whose kernel was not launched; each bench's rows between them must
    launch the kernels of ``BENCH_EXPECT``.  A gate the card breaks
-   (``BENCH_BROKEN``, each an open fault in ROADMAP.md §3: the fleet
-   engine's tracing overhead) is printed with its numbers (``gate_broken``)
-   after its bench's rows are written; any other failed gate stops the
-   script.  The ``bench`` line (rows, seconds and launches per bench),
+   (``BENCH_BROKEN``, each an open fault in ROADMAP.md §3; none since the
+   fleet engine's tracing overhead was repaired) is printed with its
+   numbers (``gate_broken``) after its bench's rows are written; any other
+   failed gate stops the script.  The ``bench`` line (rows, seconds and launches per bench),
    ``bench_launches`` on the kernels line; rows under
    ``results/bench_torch_<name>.json``.  Phases 3, 4(d), 5(a)-(d) and 12(b)
    build their cells with these modules (``fig3_predictions``' predictors,
@@ -471,6 +489,9 @@ MLP_CARD_TOL = 5e-2                  # two-epoch MLP, card vs CPU
 # CPU) and its first (event loop against fleet engine), one diurnal day
 FLEET_TASKS, FLEET_NODES, FLEET_DAY_S = 100_000, 256, 3600.0
 COMPARE_TASKS, COMPARE_NODES = 20_000, 16
+# the Pareto planner's mode of (b) at a cell of this many tasks (its event
+# loop took 90-116 s at 20,000, which kept the script over 1,100 s)
+PLANNER_TASKS = 8_000
 # benchmarks/bench_contention.py's tail-vs-mean scenario at full horizon
 CONTENTION_HORIZON_S, CONTENTION_DEADLINE_S = 240.0, 0.35
 # the training phase (11): qwen3-1.7b at full width and depth in bf16, 30
@@ -573,6 +594,39 @@ FEDAVG_CARD_TOL = 2e-3
 MESH_TRAIN = (5, 8, 128)
 MESH_PREFILL = (1, 2048)
 MESH_DECODE = (4, 2048)
+# the 4-process mesh on the one card (after phase 14, ``launch.card_mesh``):
+# four gloo ranks that all compute on cuda:0, a (2, 2) data x model mesh,
+# each part held against one process of the same model on the card, in
+# f32 with TF32 off at full width and cut depth, the mesh changing only
+# the order of f32 sums (the split products, the distributed softmax): a
+# loss within CARD_MESH_TOL relative and logits within it of the largest
+# |logit| (the CPU mesh tests' bar, tests/test_torch_mesh.py's TRAIN_TOL;
+# the card measured <= 2.9e-6); each gradient leaf within
+# CARD_MESH_GRAD_TOL of the leaf's largest, the xLSTM's of its block's
+# (tests/test_torch_train.py's GRAD_TOL and BLOCK_SCALED: f32 gradients
+# summed in other orders; the card measured <= 8.4e-6, the mLSTM's gate
+# weights)
+CARD_MESH_TOL = 1e-5
+CARD_MESH_GRAD_TOL = 2e-5
+# part c_mla_drops: one process on the whole batch (capacity over all its
+# tokens, not a data rank's) at least this far from the per-row reference
+# the mesh is held to, so that the drops the check covers happened
+CARD_MESH_DROP_MIN = 100 * CARD_MESH_TOL
+# the card mesh's ranks run alone on the card between phases 14 and 15;
+# they may take this long
+CARD_MESH_WAIT = 600
+# per part: the kernels its mesh run must launch, and the heads a "model"
+# rank's flash / slstm_scan calls see (half of each model's)
+CARD_MESH_EXPECT = {
+    "a_qwen3_sp": (("flash_fwd", "flash_fwd_lse"), {"flash": [8]}),
+    "b_gemma_b2": (("flash_fwd",), {"flash": [4]}),
+    "b_gemma_b1": (("flash_fwd",), {"flash": [4]}),
+    "c_mla_naive": (("flash_fwd",), {"flash": [8]}),
+    "c_mla_absorbed": (("flash_fwd",), {"flash": [8]}),
+    "c_mla_drops": (("flash_fwd",), {"flash": [8]}),
+    "d_xlstm": (("slstm_scan", "slstm_scan_bwd"), {"slstm": [2]}),
+    "d_whisper": (("flash_fwd", "flash_fwd_lse"), {"flash": [3]}),
+}
 # the card's step under FlopCounterMode against the dry-run's count: the
 # same ops (ATen's and the kernels' custom ops) at the same shapes, so
 # equal; 1% leaves room for an op whose formula reads a stride the fake
@@ -640,9 +694,12 @@ DRYRUN_CHILDREN = 3
 # smoke mode where the reference's script has one; the three figure
 # benches on the card alone, the sweeps at these sub-grids (Fig. 2a's
 # presets, Fig. 2b's (depth, subsample)): their CPU rows, a minute or more
-# of host fits, run in the full runs by hand
-BENCH_FIG2A = ("xs", "xl")
-BENCH_FIG2B = ((12, 0.8), (2, 0.5))
+# of host fits, run in the full runs by hand.  Cut to one point each to
+# keep the script inside its time on a slow host: Fig. 2a's largest (the
+# one its verdict reads), Fig. 2b's shallowest (fig3_predictions fits the
+# (12, 0.8) ensemble on the same records)
+BENCH_FIG2A = ("xl",)
+BENCH_FIG2B = ((2, 0.5),)
 # the kernels each bench's rows must launch between them
 BENCH_EXPECT = {
     "decisions": ("decide_split",),
@@ -656,8 +713,9 @@ BENCH_EXPECT = {
     "fig3_predictions": ("gbt_hist", "tree_predict")}
 # the gates the card breaks, each logged as an open fault in ROADMAP.md §3:
 # phase 15 prints each one's numbers (the ``gate_broken`` line) where it
-# would stop; any other gate that fails stops it
-BENCH_BROKEN = {"fleet": "tracing overhead"}
+# would stop; any other gate that fails stops it.  None is open: the fleet
+# engine's tracing overhead holds its 10% gate
+BENCH_BROKEN: dict = {}
 # the collate phase (16): the §Perf experiments run on meta tensors in CPU
 # children started with phase 14's, one a group of pairs (pair B,
 # xlstm-350m's train_4k, takes 40-52 s an experiment on one host thread,
@@ -1741,8 +1799,8 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     del runs, calls, host_calls, card, cpu
 
     # -- (b) event loop against fleet engine on the card ------------------
-    tasks, arr, nodes, links = fleet_day(COMPARE_TASKS, COMPARE_NODES,
-                                         FLEET_DAY_S)
+    day = fleet_day(COMPARE_TASKS, COMPARE_NODES, FLEET_DAY_S)
+    planner_day = fleet_day(PLANNER_TASKS, COMPARE_NODES, FLEET_DAY_S)
     layers = off.workload_layer_costs(WorkloadConfig(
         "cnn", 2, epochs=5, optimiser="adam", lr=1e-3, batch_size=32))
 
@@ -1768,6 +1826,7 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     decide = fleet._split_decide
     for mode, kw in modes.items():
         got = {}
+        tasks, arr, nodes, links = planner_day if mode == "planner" else day
         for engine in ("event", "fleet"):
             def recording(lay, envs, cost, backend, key=(mode, engine)):
                 plan = decide(lay, envs, cost, backend)
@@ -1821,7 +1880,9 @@ def fleet_slice(dev) -> tuple[dict, dict]:
     check({m for m, _ in seen} == {"decide", "decide_pi5"},
           f"fleet (b): splits decided in modes {sorted(seen)}")
     shapes["layers"] = layers
-    out["compare"] = dict(tasks=len(tasks), nodes=COMPARE_NODES, **compare)
+    out["compare"] = dict(tasks=len(day[0]),
+                          planner_tasks=len(planner_day[0]),
+                          nodes=COMPARE_NODES, **compare)
     del seen
 
     # -- (c) bench.contention's tail-vs-mean scenario, full horizon -------
@@ -3868,6 +3929,53 @@ def mesh_slice(dev, smi: str, layers, envs) -> dict:
     return out
 
 
+def card_mesh_check(procs, out: str, smi: str, t_start: float) -> dict:
+    """Join the 4-process card mesh of ``launch.card_mesh`` and hold each
+    part to ``CARD_MESH_TOL`` and ``CARD_MESH_EXPECT``, part (a) to
+    sequence parallelism and part c_mla_drops to ``CARD_MESH_DROP_MIN``;
+    prints the ``mesh4`` line (errors, launches, heads, collective bytes,
+    seconds).  Returns the parts' kernel launches."""
+    from repro_torch.launch import card_mesh
+
+    res = card_mesh.finish(procs, out, CARD_MESH_WAIT)
+    launches = {}
+    for part, (kernels, heads) in CARD_MESH_EXPECT.items():
+        r = res["parts"][part]
+        errs = {k: r[k] for k in ("loss", "grad", "logits") if k in r}
+        bars = {k: CARD_MESH_GRAD_TOL if k == "grad" else CARD_MESH_TOL
+                for k in errs}
+        check(errs and all(v <= bars[k] for k, v in errs.items()),
+              f"card mesh {part}: errors {errs} over {bars} "
+              f"(worst gradients {r.get('grad_worst')})")
+        missing = [k for k in kernels if r["launches"].get(k, 0) <= 0]
+        check(not missing, f"card mesh {part}: no {missing} launched "
+              f"({r['launches']})")
+        for kind, want in heads.items():
+            check(r["heads"][kind] == want, f"card mesh {part}: {kind} saw "
+                  f"heads {r['heads'][kind]}, expected {want}")
+        launches[part] = {k: v for k, v in r["launches"].items() if v}
+    sp = res["parts"]["a_qwen3_sp"]
+    check(sp["seq_parallel"] and sp["collectives"]["reduce-scatter"] > 0,
+          f"card mesh a_qwen3_sp: not sequence parallel ({sp['seq_parallel']}"
+          f", collective bytes {sp['collectives']})")
+    drop = res["parts"]["c_mla_drops"]["drop_effect"]
+    check(drop >= CARD_MESH_DROP_MIN, f"card mesh c_mla_drops: the whole "
+          f"batch {drop} from the per-row reference, under "
+          f"{CARD_MESH_DROP_MIN}: no capacity drop checked")
+    line("mesh4", mesh="gloo (2, 2) data x model, 4 processes on one card",
+         tolerance=CARD_MESH_TOL, grad_tolerance=CARD_MESH_GRAD_TOL,
+         errors={p: {k: r[k] for k in ("loss", "grad", "logits") if k in r}
+                 for p, r in res["parts"].items()},
+         launches=launches, heads={p: r["heads"]
+                                   for p, r in res["parts"].items()},
+         drop_effect=drop,
+         collectives={p: r["collectives"] for p, r in res["parts"].items()},
+         part_s={p: r["seconds"] for p, r in res["parts"].items()},
+         mesh_s=res["mesh_s"], one_process_s=res["one_process_s"],
+         wall_s=time.perf_counter() - t_start, device=smi)
+    return launches
+
+
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count, the flash kernels, flash's
     launches storing the lse and the scans' forward and backward apart."""
@@ -4974,13 +5082,26 @@ def main() -> None:
             per_path
 
     # -- 13. the mesh and the dry-run ---------------------------------------
-    meshed = mesh_slice(dev, smi, layers, envs)
-    flash.update(mesh_launches=meshed["flash"])
-
-    # -- 14. the examples ---------------------------------------------------
-    perf_children = start_perf_children()
+    from repro_torch.launch import card_mesh
+    mesh4, perf_children = [], []
     try:
+        meshed = mesh_slice(dev, smi, layers, envs)
+        flash.update(mesh_launches=meshed["flash"])
+
+        # -- 14. the examples -------------------------------------------------
+        perf_children = start_perf_children()
         by_run = examples_slice(dev, smi)
+
+        # -- the 4-process card mesh, alone on the card -----------------------
+        mesh4_dir = str(ROOT / "results" / "card_mesh")
+        t_mesh4 = time.perf_counter()
+        mesh4 = card_mesh.start(mesh4_dir)
+        mesh4_launches = card_mesh_check(mesh4, mesh4_dir, smi, t_mesh4)
+        flash.update(mesh4_launches={
+            p: {k: v for k, v in n.items() if k.startswith("flash")}
+            for p, n in mesh4_launches.items()})
+        next(r for r in kernels if r["name"] == "slstm_scan").update(
+            mesh4_launches=mesh4_launches["d_xlstm"])
 
         # -- 15. the benches --------------------------------------------------
         bench_launches = bench_slice(dev, smi, profiled)
@@ -4988,7 +5109,7 @@ def main() -> None:
         # -- 16. the collating benches ----------------------------------------
         collate_slice(dev, smi, profiled, perf_children)
     finally:
-        stop_children([proc for _, proc, *_ in perf_children])
+        stop_children(mesh4 + [proc for _, proc, *_ in perf_children])
     for rec in kernels:
         keys = {"flash_attention": ("flash_fwd", "flash_fwd_wgmma",
                                     "flash_fwd_lse"),

@@ -22,20 +22,25 @@ only the CPU runs, as the reference's gates skip its interpret-mode
 rows): at the largest cell the fleet run no slower than the host loop, on
 full runs at least 20x faster; a traced fleet run
 (``repro_torch.obs.Tracer``) within 10% of the untraced one, its Chrome
-export well paired (``obs_gate``).  These three time gates fail after
+export well paired (``obs_gate``; the export, where the tracer's deferred
+columns become events, timed apart as ``export_ms``).  These three time gates fail after
 the rows are written (``bench.common.GateBroken``), so that their numbers
 are kept.  The event loop has no tensor path (its analytic ETC is
 host code), so its rows are the CPU's only.  :func:`fleet_day` is the
 cell itself, which ``chip_smoke.py`` runs on card and CPU.
 
 Run:  PYTHONPATH=src python -m repro_torch.bench.fleet [--device cpu] \\
-          [--smoke]
+          [--smoke | --gate-spread N]
+
+``--gate-spread N`` prints N independent readings of the smoke cell's
+tracing gate (:func:`gate_spread`) and writes no rows.
 
 Rows go to ``results/bench_torch_fleet.json``.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import time
 
 import numpy as np
@@ -49,8 +54,10 @@ from repro_torch.sim import (ClusterLinks, DiurnalLink, diurnal_arrivals,
 
 HORIZON_S = 3600.0                       # one simulated diurnal "day"
 LINK_DT = 1.0
+#: the smoke mode's horizon and (tasks, nodes) cells, the reference's
+SMOKE_HORIZON_S, SMOKE_CELLS = 120.0, [(500, 8), (1500, 16)]
 TIMED = ("events_per_sec", "total_ms", "speedup_vs_host", "untraced_ms",
-         "trace_overhead")
+         "trace_overhead", "export_ms")
 
 
 def make_links(n_nodes: int, horizon: float) -> ClusterLinks:
@@ -117,16 +124,17 @@ def obs_gate(n_tasks: int, n_nodes: int, horizon: float,
              t_untraced: float, reps: int, path: str = "cpu",
              device="cpu") -> tuple[dict, str | None]:
     """A traced fleet run within 10% of the untraced wall clock (min of
-    reps on both sides), and its Chrome export passing the span-pairing
-    checker.  Returns the row and, where the time gate fails, its message
-    (the export's checks raise at once)."""
+    reps on both sides, the two runs of a rep back to back, so that a
+    change of the host's load between them weighs on both alike), and its
+    Chrome export passing the span-pairing checker.  Returns the row and,
+    where the time gate fails, its message (the export's checks raise at
+    once)."""
     from repro_torch.obs import Tracer, validate_chrome
     with counting() as launched:
-        t_plain = min(min(run_engine("fleet", n_tasks, n_nodes, horizon,
-                                     device=device)[0]
-                          for _ in range(reps)), t_untraced)
-        t_traced, tracer = np.inf, None
+        t_plain, t_traced, tracer = t_untraced, np.inf, None
         for _ in range(reps):
+            t_plain = min(t_plain, run_engine("fleet", n_tasks, n_nodes,
+                                              horizon, device=device)[0])
             tr = Tracer()
             dt = run_engine("fleet", n_tasks, n_nodes, horizon, obs=tr,
                             device=device)[0]
@@ -136,7 +144,12 @@ def obs_gate(n_tasks: int, n_nodes: int, horizon: float,
         f"tracing overhead {t_traced / t_plain - 1.0:+.1%} > 10% at "
         f"tasks={n_tasks}, n_nodes={n_nodes} on {path} "
         f"({t_traced*1e3:.1f}ms traced vs {t_plain*1e3:.1f}ms untraced)")
-    stats = validate_chrome(tracer.export_chrome(None))
+    # the tracer's deferred work (its columns made into events) runs here,
+    # outside the timed run: ``export_ms`` keeps it visible
+    t0 = time.perf_counter()
+    trace = tracer.export_chrome(None)
+    export_s = time.perf_counter() - t0
+    stats = validate_chrome(trace)
     # every task contributes at least its sojourn + service pair
     require(stats["n_spans"] >= 2 * n_tasks, f"{stats}")
     return tag({
@@ -148,6 +161,7 @@ def obs_gate(n_tasks: int, n_nodes: int, horizon: float,
         "total_ms": t_traced * 1e3,
         "untraced_ms": t_plain * 1e3,
         "trace_overhead": t_traced / t_plain - 1.0,
+        "export_ms": export_s * 1e3,
         **stats,
     }, path, launched, ("fleet_scan",)), broken
 
@@ -226,9 +240,24 @@ def fleet_rows(cells, horizon: float, reps: int, runs,
     return rows
 
 
+def gate_spread(n: int, device=None) -> dict:
+    """``n`` independent readings of the tracing gate at the smoke mode's
+    largest cell on the invocation's fleet path (traced over untraced
+    wall clock, min of 3 reps each, as :func:`fleet_rows` takes it): how
+    far the host's noise alone moves the ratio, and how many readings
+    cross the 1.10 bar."""
+    path, dev = paths(device)[-1]
+    n_tasks, n_nodes = SMOKE_CELLS[-1]
+    ratios = sorted(1.0 + obs_gate(n_tasks, n_nodes, SMOKE_HORIZON_S,
+                                   np.inf, 3, path, dev)[0]["trace_overhead"]
+                    for _ in range(n))
+    return {"path": path, "readings": n,
+            "over_bar": sum(r > 1.10 for r in ratios), "ratios": ratios}
+
+
 def main(smoke: bool = False, device=None) -> list[dict]:
     if smoke:
-        horizon, cells, reps = 120.0, [(500, 8), (1500, 16)], 1
+        horizon, cells, reps = SMOKE_HORIZON_S, SMOKE_CELLS, 1
     else:
         horizon, reps = HORIZON_S, 3
         cells = [(20000, 16), (50000, 64), (100000, 256)]
@@ -243,5 +272,11 @@ def main(smoke: bool = False, device=None) -> list[dict]:
 
 
 if __name__ == "__main__":
-    args = parser(__doc__).parse_args()
-    main(smoke=args.smoke, device=args.device)
+    ap = parser(__doc__)
+    ap.add_argument("--gate-spread", type=int, default=0, metavar="N",
+                    help="print N readings of the smoke cell's tracing gate")
+    args = ap.parse_args()
+    if args.gate_spread:
+        print(json.dumps(gate_spread(args.gate_spread, args.device)))
+    else:
+        main(smoke=args.smoke, device=args.device)

@@ -19,11 +19,13 @@ term moved that way, ``refuted`` where it moved the other, ``unchanged``
 where it did not move.  The terms are the dry-run's bounds at the H100
 SXM's data-sheet rates, not times measured on a card.
 
-The port has no GSPMD: ``distributed.context.constrain`` moves nothing and
-the port holds the sequence-parallel residual as the plain one, so the
-levers that act through them (B3's pinning, C2's sequence parallelism)
-may leave the terms where they were; the verdicts say what the port's
-records show.
+The port has no GSPMD: its step issues the collectives by hand, so the
+levers act through what it does.  C0/C2's ``seq_parallel`` splits the
+residual stream by sequence (an all-gather and a reduce-scatter around
+each layer's products, where it would all-reduce); B3's
+``xlstm_pin_inner`` computes the mLSTM's up projection whole from its
+gathered weight where B1 all-gathers its ``x_in`` activation.  The
+verdicts say what the port's records show.
 
 Run:  PYTHONPATH=src python -m repro_torch.bench.perf_experiments
       [--pairs A,C] [--out PATH]

@@ -6,7 +6,10 @@ Model code calls ``constrain(x, "activation")`` at the reference's places
 input).  Outside a mesh this is the identity.  A step builder of
 ``repro_torch.launch.steps`` activates a mesh with :func:`axis_mapping`
 while its step runs; the MoE layer reads the mesh from here to take its
-expert-parallel branch.
+expert-parallel branch.  A model whose config sets ``seq_parallel``
+splits its residual stream by sequence over the "model" group
+(:func:`sp_split`, :func:`sequence_parallel`), and
+``constrain(x, "activation_sp")`` checks that split.
 
 Logical axes:
   dp  — batch/data parallel        → ("pod", "data") or ("data",)
@@ -24,12 +27,16 @@ from __future__ import annotations
 import collections
 import contextlib
 import math
-import threading
+import types
 from typing import Optional
 
 import torch
 
-_state = threading.local()
+# the active step's mapping, mesh and splits: process-wide, not
+# thread-local, since the autograd engine runs a CUDA backward (and with it
+# the recomputation of each checkpointed layer, whose collectives read the
+# mesh) on a thread of its own
+_state = types.SimpleNamespace()
 
 # logical name -> PartitionSpec template (in logical axes)
 SPEC_TABLE = {
@@ -99,6 +106,44 @@ def _mapping() -> Optional[dict]:
 
 
 @contextlib.contextmanager
+def sequence_parallel(seq: Optional[int]):
+    """While active with ``seq`` (not None), the residual stream of
+    ``seq`` rows is split by sequence over the "model" group: each rank
+    holds its ``seq // tp`` rows (``distributed.collectives.tp_stream``,
+    ``tp_reduce``, ``tp_rows`` read this)."""
+    prev = getattr(_state, "sp_seq", None)
+    _state.sp_seq = seq
+    try:
+        yield
+    finally:
+        _state.sp_seq = prev
+
+
+def sp_seq() -> Optional[int]:
+    """The whole length of the active sequence-parallel stream (None: no
+    split active)."""
+    return getattr(_state, "sp_seq", None)
+
+
+def tp_size() -> int:
+    """The size of the active step's "model" group (1 outside a
+    mesh)."""
+    mesh, axes = current_mesh(), tp_axes()
+    if mesh is None or not axes:
+        return 1
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+def sp_split(cfg, seq: int) -> Optional[int]:
+    """``seq`` where ``cfg.seq_parallel`` splits a stream of ``seq`` rows
+    on the active mesh ("model" > 1 and dividing ``seq``), else None: a
+    sequence the group does not divide keeps the whole stream."""
+    tp = tp_size()
+    return seq if cfg.seq_parallel and tp > 1 and seq % tp == 0 else None
+
+
+@contextlib.contextmanager
 def axis_mapping(mapping: dict[str, tuple[str, ...]], mesh=None, *,
                  batch_split: bool = False):
     """mapping: logical axis -> tuple of mesh axis names (or ()).
@@ -155,13 +200,22 @@ def constrain(x: torch.Tensor, name: str) -> torch.Tensor:
     step sees each rank's local block, and every tensor at these places
     already has the one layout the step gives it (``launch/steps.py``):
     its batch rows split over dp when the batch was split, the residual
-    stream whole over "model" (no sequence parallelism, so
-    ``activation_sp`` is held as ``activation``), the logits split over
-    "model" by vocabulary where the LM head is.  So nothing moves: the
-    spec is resolved, a rank mismatch is skipped (as the reference skips
-    its ``ValueError``), and the call is counted in :data:`CONSTRAINED`."""
+    stream split by sequence over "model" inside a
+    :func:`sequence_parallel` block (``activation_sp``) and whole
+    elsewhere, the logits split over "model" by vocabulary where the LM
+    head is.  So nothing moves: the spec is resolved, a rank mismatch is
+    skipped (as the reference skips its ``ValueError``), an
+    ``activation_sp`` stream that does not hold this rank's
+    ``seq // tp`` rows of an active split raises, and the call is counted
+    in :data:`CONSTRAINED`."""
     spec = resolve(name)
     if spec is None or x.ndim != len(spec):
         return x
+    seq = sp_seq()
+    if name == "activation_sp" and seq is not None \
+            and x.shape[1] * tp_size() != seq:
+        raise ValueError(f"activation_sp: {x.shape[1]} rows a rank, not "
+                         f"{seq} // {tp_size()} of the sequence-parallel "
+                         "stream")
     CONSTRAINED[name] += 1
     return x

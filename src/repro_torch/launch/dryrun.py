@@ -63,12 +63,18 @@ class PeakBytes(TorchDispatchMode):
     """The live and peak bytes of the storages the ops under it allocate:
     a storage counts from the first op output on it until the last tensor
     on it is gone; :meth:`release` moves one out (a gradient, counted
-    elsewhere)."""
+    elsewhere), and :meth:`held` marks storages that exist before (the
+    step's arguments, counted in ``static``), which an in-place op's
+    output on them does not count again."""
 
     def __init__(self):
         super().__init__()
         self.live = self.peak = 0
         self._refs: dict[int, list] = {}          # storage -> [count, bytes]
+        self._held: set[int] = set()
+
+    def held(self, tensors) -> None:
+        self._held.update(t.untyped_storage()._cdata for t in tensors)
 
     def _drop(self, key: int) -> None:
         ref = self._refs.get(key)
@@ -90,6 +96,8 @@ class PeakBytes(TorchDispatchMode):
                 continue
             st = t.untyped_storage()
             key = st._cdata
+            if key in self._held:
+                continue
             ref = self._refs.get(key)
             if ref is None:
                 ref = self._refs[key] = [0, st.nbytes()]
@@ -160,6 +168,10 @@ def step_costs(step, shape) -> dict:
         cache = _meta_tree(step.arg_specs[2], step.specs[2], mesh)
         cache["pos"] = shape.seq_len - 1
         args = args + (cache,)
+        # the decode step writes its token into the cache blocks in place
+        tracker.held(shd.tree_leaves(cache["layers"] if "layers" in cache
+                                     else {k: v for k, v in cache.items()
+                                           if k != "pos"}))
     with FlopCounterMode(display=False) as fc, tracker:
         out = step(*args)
     del out, args

@@ -8,7 +8,9 @@ that no network address is needed:
   * :func:`make_debug_mesh` — the reference's forced host devices as
     ``gloo`` ranks on the CPU, a ``(devices//2, 2)`` mesh;
   * :func:`make_card_mesh` — one card, an ``nccl`` group of world size 1,
-    a ``(1, 1)`` mesh.
+    a ``(1, 1)`` mesh;
+  * :func:`make_shared_card_mesh` — ``gloo`` ranks that share one card, a
+    ``(devices//2, 2)`` mesh (``launch.card_mesh``).
 
 Every group gets a timeout, so a stuck collective fails instead of
 hanging.  If ``nccl`` cannot start, that is an error: there is no
@@ -57,6 +59,20 @@ def make_debug_mesh(devices: int = 4):
                            f"process group of {devices} ranks "
                            "(launch.mesh.start_group)")
     return init_device_mesh("cpu", (devices // 2, 2),
+                            mesh_dim_names=("data", "model"))
+
+
+def make_shared_card_mesh(devices: int = 4):
+    """A ``(devices//2, 2)`` ("data", "model") mesh over the initialised
+    ``gloo`` group of ``devices`` ranks that all compute on ``cuda:0``
+    (``nccl`` puts no two ranks on one device): each rank's compute on
+    the card, its collectives through gloo (``launch.card_mesh``)."""
+    if not dist.is_initialized() or dist.get_world_size() != devices:
+        raise RuntimeError(f"make_shared_card_mesh({devices}) needs an "
+                           f"initialised process group of {devices} ranks "
+                           "(launch.mesh.start_group)")
+    torch.cuda.set_device(0)
+    return init_device_mesh("cuda", (devices // 2, 2),
                             mesh_dim_names=("data", "model"))
 
 

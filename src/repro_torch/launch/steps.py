@@ -17,28 +17,37 @@ view: every rank runs the model on its own blocks of the tensors.
   * Parameters are stored as this rank's blocks of ``param_specs``
     (tensor parallelism on "model", FSDP on "data"), each of the spec's
     local shape.
-  * Tensor parallelism (Megatron's, without its sequence parallelism):
-    in the dense, MoE, VLM and hybrid families each "model" rank computes
-    with its part of each weight (:func:`leaf_split`): its query heads
-    and their key/value heads (a key/value head shared by the query heads
-    of several ranks is computed by each of them), its columns of the
-    MLP's up and gate products and rows of its down product, its Mamba2
-    heads (their ``w_z``/``w_x``/``w_dt`` columns, conv channels, A, D,
-    dt bias and gated-norm units, ``w_out`` rows), and its vocabulary rows
-    of the embedding and columns of the LM head.  The kernels (flash
-    attention, ``ssm_scan``) run on those local heads.  A product whose
-    contraction dim is split is summed over "model" (``layers.matmul``),
-    the gated norm's statistics too, the embedding sums its rows, the
-    loss is the vocabulary-parallel cross-entropy and served logits are
-    gathered whole (``distributed.collectives``).  The residual stream
-    stays whole on every "model" rank (``seq_parallel`` is set as the
-    reference sets it, and ``constrain`` moves nothing).
+  * Tensor parallelism (Megatron's): in every family each "model" rank
+    computes with its part of each weight (:func:`leaf_split`): its query
+    heads and their key/value heads (a key/value head shared by the query
+    heads of several ranks is computed by each of them), its columns of
+    the MLP's up and gate products and rows of its down product, its
+    Mamba2 heads (their ``w_z``/``w_x``/``w_dt`` columns, conv channels,
+    A, D, dt bias and gated-norm units, ``w_out`` rows), its xLSTM heads
+    (the mLSTM's q/k/v and gate columns, the sLSTM's gates, biases and
+    block-diagonal R; the mLSTM's ``w_up`` by its units of both halves
+    ``[x_in | gate]``, or whole with ``xlstm_pin_inner``; each
+    ``w_down`` by rows), whisper's attention heads and MLP units, and its
+    vocabulary rows of the embedding and columns of the LM head.  The
+    kernels (flash attention, ``ssm_scan``, ``slstm_scan``) run on those
+    local heads.  A product whose contraction dim is split is summed over
+    "model" (``layers.matmul``), the gated norm's statistics too, the
+    embedding sums its rows, the loss is the vocabulary-parallel
+    cross-entropy and served logits are gathered whole
+    (``distributed.collectives``).
+  * Sequence parallelism (Megatron-SP): where the config sets
+    ``seq_parallel`` (the train step sets it for dense models when tp > 1
+    divides S, as the reference does) the residual stream between layers,
+    and each layer's saved input, holds this rank's S/tp rows; each layer
+    all-gathers its normed rows before the column-parallel products and
+    ends each row-parallel product (the MoE's expert sum included) in a
+    reduce-scatter (``models.transformer.block_full``).
   * What :func:`leaf_split` leaves whole is computed whole on every
     "model" rank: MLA's latent and shared rope key (its heads split as
-    GQA's do), the xLSTM and whisper families, and
-    any head or unit count the "model" axis does not divide (gemma-2b's
-    8 query heads at 16 ranks).  The MoE experts are split by expert
-    (``models.moe``'s expert-parallel branch, one sum over "model").
+    GQA's do), the xLSTM's depthwise convolutions, and any head or unit
+    count the "model" axis does not divide (gemma-2b's 8 query heads at
+    16 ranks).  The MoE experts are split by expert (``models.moe``'s
+    expert-parallel branch, one sum over "model").
     ``LoweredStep.tp_compute`` lists which matrices run split and which
     whole.
   * A layer reads its weights through a view (:class:`Gathered`) that
@@ -57,9 +66,14 @@ view: every rank runs the model on its own blocks of the tensors.
     changes.
   * The decode cache is held as this rank's blocks of ``cache_specs``.
     Where those split the heads over "model" as the layers do, a step
-    computes on its block as it is; otherwise (a sequence split over
-    "model", the conv tail) it gathers the block whole, cuts its heads,
-    and after the step gathers the heads back and keeps its block.
+    computes on its block as it is.  Where they split the sequence (over
+    "model", "data" or both), the step keeps the block, marked with its
+    place (``collectives.SeqSplit``): the layers write the new token only
+    into the block that holds its slot and take the distributed softmax
+    over the axes that split it (``models.attention.cached_attention``,
+    ``models.mla``).  Otherwise (heads the layers split but the spec
+    leaves whole, the conv tail) it cuts its heads from the block, and
+    after the step gathers them back and keeps its block.
 
 On a mesh of one rank every collective is the identity and every weight
 whole, so the step is ``train()``'s own, op for op.
@@ -202,11 +216,16 @@ def whole(t: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Tensor parallelism: which part of each weight a "model" rank computes with
 # --------------------------------------------------------------------------
-#: families whose layers compute on "model"-split weights
-TP_FAMILIES = ("dense", "moe", "vlm", "hybrid")
+_ATTN_PARENTS = ("attn", "self_attn", "cross_attn")
 _MLP_PARENTS = ("mlp", "shared")
 _MAMBA_COLS = ("w_z", "w_x", "w_dt", "conv_x_w")
 _MAMBA_UNITS = ("conv_x_b", "norm_scale", "a_log", "d_skip", "dt_bias")
+#: xLSTM leaves split by head: the mLSTM's and the sLSTM's columns, and
+#: their per-unit vectors (the sLSTM's block-diagonal R by its head dim)
+_XLSTM_COLS = ("w_q", "w_k", "w_v", "w_ig", "w_fg", "w_z", "w_i", "w_f",
+               "w_o")
+_XLSTM_UNITS = ("b_ig", "b_fg", "out_norm_scale", "b_z", "b_i", "b_f",
+                "b_o", "r_z", "r_i", "r_f", "r_o")
 
 
 def _kv_split(cfg, tp: int, rank: int) -> Optional[coll.Split]:
@@ -224,7 +243,7 @@ def leaf_split(path, shape, cfg, tp: int, rank: int
                ) -> Optional[coll.Split]:
     """The part of one parameter leaf that "model" rank ``rank`` of ``tp``
     computes with (module docstring), or None: the whole."""
-    if tp == 1 or cfg.family not in TP_FAMILIES:
+    if tp == 1:
         return None
     name = str(path[-1])
     parent = str(path[-2]) if len(path) > 1 else ""
@@ -232,13 +251,15 @@ def leaf_split(path, shape, cfg, tp: int, rank: int
         if cfg.vocab_size % tp:
             return None
         return coll.Split(0 if name == "embed" else 1, rank, tp)
+    if cfg.family == "ssm":
+        return _xlstm_split(path, name, cfg, tp, rank)
     if parent == "attn" and cfg.attn_kind == "mla":
         if cfg.num_heads % tp:
             return None
         cols = coll.Split(1, rank, tp)
         return {"wq": cols, "w_uk": cols, "w_uv": cols,
                 "wo": coll.Split(0, rank, tp)}.get(name)
-    if parent == "attn":
+    if parent in _ATTN_PARENTS:
         kv = _kv_split(cfg, tp, rank)
         if kv is None:
             return None
@@ -254,6 +275,29 @@ def leaf_split(path, shape, cfg, tp: int, rank: int
             return coll.Split(1, rank, tp)
         if name in _MAMBA_UNITS or name == "w_out":
             return coll.Split(0, rank, tp)
+    return None
+
+
+def _xlstm_split(path, name, cfg, tp: int, rank: int
+                 ) -> Optional[coll.Split]:
+    """An xLSTM leaf's part: by head where the heads divide the "model"
+    group (the mLSTM's q/k/v and gates, the sLSTM's gates, biases and
+    R, both output norms); the mLSTM's ``w_up`` by this rank's units of
+    each half, unless ``xlstm_pin_inner`` computes it whole; each
+    ``w_down`` by rows where its units divide."""
+    heads = cfg.num_heads % tp == 0
+    units = (int(cfg.xlstm_proj_factor * cfg.d_model) if "mlstm" in path
+             else cfg.d_model)
+    if name == "w_up":
+        if cfg.xlstm_pin_inner or units % tp:
+            return None
+        return coll.Split(1, rank, tp, groups=2)
+    if name == "w_down":
+        return coll.Split(0, rank, tp) if units % tp == 0 else None
+    if heads and name in _XLSTM_COLS:
+        return coll.Split(1, rank, tp)
+    if heads and name in _XLSTM_UNITS:
+        return coll.Split(0, rank, tp)
     return None
 
 
@@ -280,7 +324,8 @@ def tp_summary(pshapes, splits) -> dict:
 def _model_keeps(t, spec, split, mesh) -> bool:
     """Whether the stored block along ``split.dim`` already is the part."""
     return (split is not None and spec[split.dim] == "model"
-            and split.parts == axis_sizes(mesh)["model"])
+            and split.parts == axis_sizes(mesh)["model"]
+            and split.groups == 1)
 
 
 def local_weight(t: torch.Tensor, spec, mesh, split, keep=()
@@ -297,8 +342,7 @@ def local_weight(t: torch.Tensor, spec, mesh, split, keep=()
     if split.dim in keep:
         w = w.view(w.shape)                    # a tensor of its own to mark
     else:
-        size = w.shape[split.dim] // split.parts
-        w = w.narrow(split.dim, split.index * size, size)
+        w = split.take(w)
     return coll.mark(w, split)
 
 
@@ -433,77 +477,118 @@ def _mesh_train_step(api, opt, mesh, pspecs, splits, bspecs, mapping,
 # --------------------------------------------------------------------------
 # The decode cache: stored blocks <-> the layout the layers compute with
 # --------------------------------------------------------------------------
-_KV = ("k", "v", "attn_k", "attn_v")
+_MLSTM_STATE = ("m_C", "m_n", "m_m")
+_SLSTM_STATE = ("s_c", "s_n", "s_h", "s_m")
 
 
-def cache_splits(cfg, cspecs, mesh) -> PyTree:
+def _seq_dim(name: str, spec) -> Optional[int]:
+    """The sequence dim of a key/value or latent cache leaf whose spec
+    splits it (None: not such a leaf, or its sequence whole)."""
+    if name not in shd._KV_LEAVES and name not in shd._LATENT_LEAVES:
+        return None
+    return 2 if shd.entry_axes(spec[2]) else None     # [L, B, S, ...]
+
+
+def cache_splits(cfg, cspecs, mesh, *, decode: bool = False) -> PyTree:
     """Per cache leaf, the part of its heads this rank computes with: the
     key/value heads of its query heads ([..., S, Hkv, D], dim -2), the
-    SSM heads ([L, B, H, P, N], dim 2), or for the conv tail ([L, B, W-1,
-    d_inner + 2N]) its own d_inner columns (a Split on dim -1 whose
-    ``parts`` split only those); None: whole."""
+    SSM heads ([L, B, H, P, N], dim 2), the mLSTM's heads ([G, M, B, H,
+    ...], dim 3) or the sLSTM's units ([G, B, d], dim 2), or for the conv
+    tail ([L, B, W-1, d_inner + 2N]) its own d_inner columns (a Split on
+    dim -1 whose ``parts`` split only those); None: whole.  In ``decode``
+    a key/value leaf whose sequence is split over "model" is None: its
+    block serves every head (``attention.cached_attention``)."""
     tp = axis_sizes(mesh).get("model", 1)
     rank = mesh.get_local_rank("model") if tp > 1 else 0
     kv = leaf_split(("attn", "wk"), (), cfg, tp, rank)
     mamba = leaf_split(("mamba", 0, "w_x"), (), cfg, tp, rank)
+    mlstm = leaf_split(("mlstm", 0, "w_q"), (), cfg, tp, rank)
+    slstm = leaf_split(("slstm", 0, "w_z"), (), cfg, tp, rank)
 
     def split(path, spec):
         name = str(path[-1])
-        if name in _KV and kv is not None:
+        if name in shd._KV_LEAVES and kv is not None:
+            seq = _seq_dim(name, spec)
+            if decode and seq is not None \
+                    and "model" in shd.entry_axes(spec[seq]):
+                return None
             return coll.Split(len(spec) - 2, kv.index, kv.parts)
         if name == "ssm" and mamba is not None:
             return coll.Split(2, rank, tp)
         if name == "conv" and mamba is not None:
             return coll.Split(len(spec) - 1, rank, tp)
+        if name in _MLSTM_STATE and mlstm is not None:
+            return coll.Split(3, rank, tp)
+        if name in _SLSTM_STATE and slstm is not None:
+            return coll.Split(2, rank, tp)
         return None
     return shd.tree_map_with_path(split, cspecs)
 
 
-def _cache_in(t, spec, split, keep, *, mesh, d_inner):
-    """A stored cache block → the tensor the layers compute with."""
+def _seq_mark(name, t, spec, mesh) -> torch.Tensor:
+    """Mark a decode cache block whose spec splits its sequence with its
+    ``SeqSplit`` (the layers' distributed softmax reads it)."""
+    seq = _seq_dim(name, spec)
+    if seq is None:
+        return t
+    axes = shd.entry_axes(spec[seq])
+    return coll.mark_seq(t, coll.SeqSplit(axes, coll.group_rank(mesh, axes),
+                                          coll.group_size(mesh, axes)))
+
+
+def _cache_in(name, t, spec, split, keep, *, mesh, d_inner):
+    """A stored cache block → the tensor the layers compute with.  A
+    block whose sequence is split stays this rank's block (``keep`` holds
+    its sequence dim), marked."""
     if _model_keeps(t, spec, split, mesh):
-        return whole(t, spec, mesh, keep + (split.dim,))
-    w = whole(t, spec, mesh, keep)
-    if split is None:
-        return w
-    if split.dim == w.ndim - 1:                              # conv tail
-        cols = d_inner // split.parts
-        return torch.cat([w[..., split.index * cols:(split.index + 1) * cols],
-                          w[..., d_inner:]], dim=-1)
-    size = w.shape[split.dim] // split.parts
-    return w.narrow(split.dim, split.index * size, size).contiguous()
+        w = whole(t, spec, mesh, keep + (split.dim,))
+    else:
+        w = whole(t, spec, mesh, keep)
+        if split is not None and name == "conv":            # conv tail
+            cols = d_inner // split.parts
+            return torch.cat([w[..., split.index * cols:
+                                (split.index + 1) * cols],
+                              w[..., d_inner:]], dim=-1)
+        if split is not None:
+            w = split.take(w).contiguous()
+    return _seq_mark(name, w, spec, mesh)
 
 
-def _cache_out(t, spec, split, keep, *, mesh, d_inner):
+def _cache_out(name, t, spec, split, keep, *, mesh, d_inner):
     """The tensor the layers computed with → this rank's stored block."""
     if _model_keeps(t, spec, split, mesh):
         return _own_block(t, spec, mesh, keep + (split.dim,))
     if split is not None:
         tp, axes = axis_sizes(mesh)["model"], ("model",)
-        if split.dim == t.ndim - 1:                          # conv tail
+        if name == "conv":                                   # conv tail
             cols = d_inner // split.parts
             t = torch.cat([coll.all_gather(t[..., :cols], mesh, axes, -1),
                            t[..., cols:]], dim=-1)
         else:
             t = coll.all_gather(t, mesh, axes, split.dim)
             if split.parts < tp:       # ranks that shared a head: one copy
-                d = split.dim
+                d = split.dim % t.ndim
                 t = t.unflatten(d, (split.parts, tp // split.parts, -1)
                                 ).select(d + 1, 0).flatten(d, d + 1)
     return _own_block(t, spec, mesh, keep)
 
 
-def _batch_dims(cspecs, dp) -> dict:
+def _batch_dims(cspecs, dp, *, seq: bool = False) -> dict:
     """Per cache leaf: the dim its spec splits over exactly the dp axes
-    (its batch rows), kept a block when the batch is split."""
-    return shd.tree_map_with_path(
-        lambda _, s: tuple(d for d, e in enumerate(s)
-                           if dp and shd.entry_axes(e) == dp), cspecs)
+    (its batch rows), kept a block when the batch is split; with ``seq``
+    also a key/value or latent leaf's split sequence dim (a decode step
+    keeps its block)."""
+    def dims(path, spec):
+        out = tuple(d for d, e in enumerate(spec)
+                    if dp and shd.entry_axes(e) == dp)
+        sd = _seq_dim(str(path[-1]), spec) if seq else None
+        return out if sd is None else tuple(sorted(set(out) | {sd}))
+    return shd.tree_map_with_path(dims, cspecs)
 
 
 def _map_cache(fn, cache: dict, cspecs, splits, keep) -> dict:
-    """``fn(tensor, spec, split, keep)`` over a cache's tensors; ``pos``
-    as is."""
+    """``fn(name, tensor, spec, split, keep)`` over a cache's tensors;
+    ``pos`` as is."""
     out = {}
     for k, v in cache.items():
         if k not in cspecs:
@@ -511,7 +596,7 @@ def _map_cache(fn, cache: dict, cspecs, splits, keep) -> dict:
         elif isinstance(v, dict):
             out[k] = _map_cache(fn, v, cspecs[k], splits[k], keep[k])
         else:
-            out[k] = fn(v, cspecs[k], splits[k], keep[k])
+            out[k] = fn(k, v, cspecs[k], splits[k], keep[k])
     return out
 
 
@@ -597,13 +682,15 @@ def assemble(cfg: ModelConfig, shape: InputShape, mesh, *,
                            specs=(pspecs, bspecs, cspecs), **base)
 
     step = build_serve_step(api)
+    dsplits = cache_splits(cfg, cspecs, mesh, decode=True)
+    dkeep = _batch_dims(cspecs, dp, seq=True)
 
     def serve_step(params, batch, cache):
         local = {k: block(t, bspecs[k], mesh) for k, t in batch.items()}
-        held = _map_cache(cache_in, cache, cspecs, csplits, keep)
+        held = _map_cache(cache_in, cache, cspecs, dsplits, dkeep)
         with axis_mapping(mapping, mesh=mesh, batch_split=split):
             logits, held = step(weights(params), local, held)
-        return logits, _map_cache(cache_out, held, cspecs, csplits, keep)
+        return logits, _map_cache(cache_out, held, cspecs, dsplits, dkeep)
     return LoweredStep(f"{cfg.name}/{shape.name}/decode", serve_step,
                        (params_sds, batch_sds, cache_sds), report,
                        specs=(pspecs, bspecs, cspecs), **base)

@@ -16,7 +16,12 @@ log-sum-exp.  The reference computes its backward outside any Pallas
 kernel too.
 
 ``decode_attention`` is one query token against a (possibly ring-buffered)
-KV cache, plain torch as in the reference.
+KV cache, plain torch as in the reference.  On a mesh whose cache spec
+splits the cache's sequence, each rank keeps its block: it writes the new
+token only where its block holds the slot, and the softmax is the
+distributed one (the row max, the sum of exponentials and ``p·V``
+all-reduced over the axes that split the sequence), what GSPMD makes of
+the reference's plain ``decode_attention``.
 
 Shapes: q [B,Sq,Hq,D], k/v [B,Skv,Hkv,D]; grouping G = Hq // Hkv.
 """
@@ -26,6 +31,8 @@ from typing import Union
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import current_mesh, tp_axes
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
@@ -166,6 +173,50 @@ def _pos_vector(pos: Pos, b: int, device) -> torch.Tensor:
     return torch.full((b,), int(pos), dtype=torch.int64, device=device)
 
 
+def cache_slots(cache: torch.Tensor) -> torch.Tensor:
+    """The sequence slot index of each row of a cache block [B, S, ...]:
+    ``0..S-1``, or on a sequence split (``collectives.SeqSplit``) the
+    block's own slots of the whole cache."""
+    size = cache.shape[1]
+    split = coll.seq_split_of(cache)
+    base = 0 if split is None else split.index * size
+    return torch.arange(base, base + size, device=cache.device)
+
+
+def cache_write(cache: torch.Tensor, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write ``new`` [B, ...] at each row's ``slot`` ([B], the whole
+    cache's index) of ``cache`` [B, S, ...] in place; on a sequence split
+    only the rows whose slot lies in this block."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    split = coll.seq_split_of(cache)
+    new = new.to(cache.dtype)
+    if split is None:
+        cache[rows, slot] = new
+        return
+    size = cache.shape[1]
+    local = slot - split.index * size
+    mine = ((local >= 0) & (local < size)).reshape(-1, *[1] * (new.ndim - 1))
+    at = local.clamp(0, size - 1)
+    cache[rows, at] = torch.where(mine, new, cache[rows, at])
+
+
+def softmax_attend(s: torch.Tensor, attend, split) -> torch.Tensor:
+    """``attend(softmax(s))`` for f32 masked scores ``s`` [..., S] and
+    ``attend``: probabilities [..., S] -> [..., D] (the product with the
+    values).  On a sequence split (``split``, a ``collectives.SeqSplit``)
+    the distributed softmax: the row max all-reduced (MAX), then the sum
+    of exponentials and ``attend`` of them (SUM) over ``split.axes``; the
+    result in f32."""
+    if split is None:
+        return attend(torch.softmax(s, dim=-1))
+    mesh = current_mesh()
+    m = coll.all_reduce_max(s.amax(dim=-1, keepdim=True), mesh, split.axes)
+    e = torch.exp(s - m)
+    total = coll.all_reduce(e.sum(dim=-1, keepdim=True), mesh, split.axes)
+    return coll.all_reduce(attend(e).float(), mesh, split.axes) / total
+
+
 def decode_attention(q, k_cache, v_cache, pos: Pos, *, window=0,
                      scale=None):
     """One-token attention against a cache.
@@ -174,11 +225,15 @@ def decode_attention(q, k_cache, v_cache, pos: Pos, *, window=0,
     the query token: an int, or [B] for ragged per-slot positions.  With
     ``window > 0`` the cache is a ring buffer of Smax == window slots (slot
     = abs_pos % window); otherwise it is linear and slots <= pos are valid.
+    A cache block split by sequence (``collectives.SeqSplit``, a decode
+    step on a mesh) holds its slots of the whole: the valid mask reads
+    their whole-cache index and the softmax is the distributed one
+    (:func:`softmax_attend`).
     """
     b, _, hq, d = q.shape
-    smax, hkv = k_cache.shape[1], k_cache.shape[2]
+    hkv = k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
-    slots = torch.arange(smax, device=q.device)
+    slots = cache_slots(k_cache)
     pos_v = _pos_vector(pos, b, q.device)[:, None]
     if window:
         # absolute position held by each ring slot (after this step's write)
@@ -190,9 +245,54 @@ def decode_attention(q, k_cache, v_cache, pos: Pos, *, window=0,
     s = torch.einsum("bhgd,bkhd->bhgk", qg,
                      k_cache.to(q.dtype)).float() * scale
     s = s + torch.where(valid, 0.0, NEG_INF)[:, None, None, :]
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    out = softmax_attend(s, lambda p: torch.einsum(
+        "bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache),
+        coll.seq_split_of(k_cache))
     return out.reshape(b, 1, hq, v_cache.shape[-1]).to(q.dtype)
+
+
+def heads_across(cache: torch.Tensor, held: int, total: int) -> bool:
+    """Whether a decode layer that holds ``held`` of ``total`` query heads
+    scores every head against ``cache``: its sequence is split over the
+    "model" ranks that split the heads, so each rank's block serves every
+    head (its queries are gathered first, and its output cut back to its
+    own heads)."""
+    split = coll.seq_split_of(cache)
+    return split is not None and "model" in split.axes and held < total
+
+
+def _all_kv_heads(t: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """Every key/value head of a new token [B, 1, Hkv_local, D] from the
+    "model" ranks' heads (a head shared by several ranks taken once)."""
+    t = coll.tp_gather(t, 2)
+    return t[:, :, ::t.shape[2] // n_kv]
+
+
+def cached_attention(q, k_cache, v_cache, pos: Pos, *, n_heads: int,
+                     n_kv_heads: int, new_kv=None, window=0):
+    """The new token's (k, v) ([B,1,Hkv,D] each, or None: a cache written
+    before) written at slot ``pos`` (``pos % window`` in a ring), then
+    :func:`decode_attention` of ``q`` [B,1,Hq,D] at this layer's heads.
+    Where the cache's sequence is split over the ranks that split the
+    heads (:func:`heads_across`), the queries and the new key/value heads
+    are gathered over "model", every head is scored against this block,
+    and the output is cut back to this rank's heads."""
+    b, _, hq, _ = q.shape
+    across = heads_across(k_cache, hq, n_heads)
+    if across:
+        q = coll.tp_gather(q, 2)
+    if new_kv is not None:
+        pos_v = _pos_vector(pos, b, q.device)
+        slot = torch.remainder(pos_v, window) if window else pos_v
+        for cache, new in zip((k_cache, v_cache), new_kv):
+            if across:
+                new = _all_kv_heads(new, n_kv_heads)
+            cache_write(cache, slot, new[:, 0])
+    out = decode_attention(q, k_cache, v_cache, pos, window=window)
+    if across:
+        out = out.narrow(2, coll.group_rank(current_mesh(), tp_axes()) * hq,
+                         hq)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -244,16 +344,15 @@ def gqa_decode_attention(params, x, cfg, *, k_cache, v_cache, pos: Pos):
     ``pos`` is the absolute position of the incoming token — an int, or
     [B] for ragged slots.  Its K/V are written at slot ``pos % window``
     (ring) or ``pos`` (linear) *in place* (the reference returns updated
-    copies), then attention runs over the updated cache.
+    copies), then attention runs over the updated cache
+    (:func:`cached_attention`).
     """
     b = x.shape[0]
     pos_v = _pos_vector(pos, b, x.device)
     q, k, v = _project_qkv(params, x, cfg, pos_v[:, None])
-    slot = torch.remainder(pos_v, cfg.window) if cfg.window else pos_v
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, slot] = v[:, 0].to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, pos, window=cfg.window)
+    out = cached_attention(q, k_cache, v_cache, pos, n_heads=cfg.num_heads,
+                           n_kv_heads=cfg.num_kv_heads, new_kv=(k, v),
+                           window=cfg.window)
     _, _, hq, hd = q.shape
     return matmul(out.reshape(b, 1, hq * hd), params["wo"]), (k_cache,
                                                               v_cache)

@@ -12,7 +12,11 @@ Self- and cross-attention over full segments go through
 ``attention.chunked_attention`` (the flash kernel on the card) or, with
 ``impl="naive"``, ``attention.naive_attention``.  Decode writes the
 self-attention K/V cache in place; the cross K/V are written once, at
-prefill.
+prefill.  On a mesh (``launch.steps``) the layers compute at the heads
+the weights hold (the attention's heads, the MLP's units, the rows of
+``wo`` and of the MLP's output, summed over "model"); the layer norms
+stay over the whole d, and whisper's projections carry no bias to add
+after that sum.
 
     encode(params, frames, cfg)                    -> enc_out [B,enc_seq,d]
     decode_full(params, tokens, enc_out, cfg)      -> (logits, kvs)
@@ -26,12 +30,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import (ParamTree, gated_mlp, init_tree,
-                                       layer_norm, matmul, mlp_param_shapes,
+from repro_torch.models.layers import (ParamTree, embed_lookup, gated_mlp,
+                                       init_tree, layer_norm, matmul,
+                                       mlp_param_shapes,
                                        sinusoidal_positions)
-from repro_torch.models.transformer import (chunked_lm_loss, dtype_of,
-                                            lm_loss)
+from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
 
 
 def _ln_shapes(d):
@@ -80,15 +85,20 @@ def _ln(x, p, eps):
     return layer_norm(x, p["scale"], p["bias"], eps)
 
 
+def _heads(params, x, cfg, name):
+    """``x @ params[name]`` as heads [B, S, h, hd] (h the heads the weight
+    holds: all of them, or on a mesh this rank's)."""
+    return matmul(x, params[name]).reshape(*x.shape[:2], -1, cfg.head_dim)
+
+
 def _mha(params, x, cfg, *, kv=None, causal, impl):
-    """Self (``kv=None``) or cross attention, no rope.  Returns (out,
-    (k, v))."""
+    """Self (``kv=None``) or cross attention, no rope, at the heads the
+    weights hold.  Returns (out, (k, v))."""
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
     src = x if kv is None else kv
-    q = matmul(x, params["wq"]).reshape(b, s, h, hd)
-    k = matmul(src, params["wk"]).reshape(b, src.shape[1], h, hd)
-    v = matmul(src, params["wv"]).reshape(b, src.shape[1], h, hd)
+    q = _heads(params, x, cfg, "wq")
+    k, v = _heads(params, src, cfg, "wk"), _heads(params, src, cfg, "wv")
+    h, hd = q.shape[2], cfg.head_dim
     if impl == "naive":
         out = attn_mod.naive_attention(q, k, v, causal=causal)
     else:
@@ -119,7 +129,7 @@ def encode(params, frames, cfg, *, impl="chunked", remat=False):
 
 def _dec_embed(params, tokens, cfg):
     """Token embeddings plus the sinusoidal table's first S rows."""
-    x = params["embed"][tokens].to(dtype_of(cfg))
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
     pos = sinusoidal_positions(tokens.shape[1], cfg.d_model, x.device)
     return x + pos.to(x.dtype)[None]
 
@@ -127,7 +137,7 @@ def _dec_embed(params, tokens, cfg):
 def _dec_embed_at(params, token, cfg, pos: int):
     """One token's embedding plus position ``pos``'s sin/cos, the angle
     formed in f32 from ``pos`` (the reference's decode formula)."""
-    x = params["embed"][token].to(dtype_of(cfg))
+    x = embed_lookup(params["embed"], token).to(dtype_of(cfg))
     d = cfg.d_model
     dim = torch.arange(d // 2, dtype=torch.float32, device=x.device)
     ang = (torch.tensor(float(pos), dtype=torch.float32, device=x.device)
@@ -171,7 +181,7 @@ def decode_full(params, tokens, enc_out, cfg, *, impl="chunked",
     x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
     if return_hidden:
         return x, kvs
-    return matmul(x, params["embed"].T), kvs
+    return _lm_head(params, x, cfg), kvs
 
 
 def forward(params, batch, cfg, *, impl="chunked"):
@@ -185,25 +195,21 @@ def train_loss(params, batch, cfg, *, impl="chunked"):
     Returns (xent, {"xent", "aux"}); whisper has no auxiliary loss."""
     enc_out = encode(params, batch["frames"], cfg, impl=impl, remat=True)
     tokens = batch["tokens"]
-    if cfg.loss_chunk:
-        x, _ = decode_full(params, tokens[:, :-1], enc_out, cfg, impl=impl,
-                           remat=True, return_hidden=True)
-        loss = chunked_lm_loss(x, params["embed"].T, tokens[:, 1:], cfg)
-    else:
-        logits, _ = decode_full(params, tokens[:, :-1], enc_out, cfg,
-                                impl=impl, remat=True)
-        loss = lm_loss(logits, tokens[:, 1:], batch.get("mask"))
+    x, _ = decode_full(params, tokens[:, :-1], enc_out, cfg, impl=impl,
+                       remat=True, return_hidden=True)
+    loss = head_loss(params, x, tokens[:, 1:], cfg, batch.get("mask"))
     return loss, {"xent": loss, "aux": torch.zeros((), device=loss.device)}
 
 
 # --------------------------------------------------------------------------
 # Cache / decode
 # --------------------------------------------------------------------------
-def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+def cache_shapes(cfg, batch_size: int, max_len: int, held=None) -> dict:
     """(shape, dtype) of each cache tensor, stacked over decoder layers;
-    the cache also carries ``pos``, an int."""
+    the cache also carries ``pos``, an int.  ``held``: the key/value heads
+    the weights hold (on a mesh this rank's); default all."""
     l, dtype = cfg.num_layers, dtype_of(cfg)
-    h, hd = cfg.num_kv_heads, cfg.head_dim
+    h, hd = held or cfg.num_kv_heads, cfg.head_dim
     return {
         "self_k": ((l, batch_size, max_len, h, hd), dtype),
         "self_v": ((l, batch_size, max_len, h, hd), dtype),
@@ -213,10 +219,11 @@ def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
 
 
 def init_cache(cfg, batch_size: int, max_len: int,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None, held=None) -> dict:
     dev = resolve_device(device)
     cache = {name: torch.zeros(shape, dtype=dt, device=dev) for name,
-             (shape, dt) in cache_shapes(cfg, batch_size, max_len).items()}
+             (shape, dt) in cache_shapes(cfg, batch_size, max_len,
+                                         held).items()}
     cache["pos"] = 0
     return cache
 
@@ -227,7 +234,9 @@ def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     tokens = batch["tokens"]
     enc_out = encode(params, batch["frames"], cfg, impl=impl)
     logits, kvs = decode_full(params, tokens, enc_out, cfg, impl=impl)
-    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    held = params["dec_layers"][0]["self_attn"]["wk"].shape[1] \
+        // cfg.head_dim
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device, held)
     s = tokens.shape[1]
     for l, ((sk, sv), (ck, cv)) in enumerate(kvs):
         cache["self_k"][l, :, :s] = sk
@@ -244,25 +253,25 @@ def decode_step(params, batch, cache, cfg):
     query position ``enc_seq - 1``)."""
     pos = cache["pos"]
     x = _dec_embed_at(params, batch["token"], cfg, pos)
-    h, hd = cfg.num_heads, cfg.head_dim
-    b = x.shape[0]
+    heads = dict(n_heads=cfg.num_heads, n_kv_heads=cfg.num_kv_heads)
     for l, lp in enumerate(params["dec_layers"]):
         xn = _ln(x, lp["ln1"], cfg.norm_eps)
         sa = lp["self_attn"]
-        q = matmul(xn, sa["wq"]).reshape(b, 1, h, hd)
-        cache["self_k"][l, :, pos] = matmul(xn, sa["wk"]).reshape(b, h, hd)
-        cache["self_v"][l, :, pos] = matmul(xn, sa["wv"]).reshape(b, h, hd)
-        a = attn_mod.decode_attention(q, cache["self_k"][l],
-                                      cache["self_v"][l], pos)
-        x = x + matmul(a.reshape(b, 1, h * hd), sa["wo"])
+        q = _heads(sa, xn, cfg, "wq")
+        a = attn_mod.cached_attention(
+            q, coll.layer_of(cache["self_k"], l),
+            coll.layer_of(cache["self_v"], l), pos,
+            new_kv=(_heads(sa, xn, cfg, "wk"), _heads(sa, xn, cfg, "wv")),
+            **heads)
+        x = x + matmul(a.flatten(2), sa["wo"])
         xn = _ln(x, lp["ln2"], cfg.norm_eps)
         ca = lp["cross_attn"]
-        q = matmul(xn, ca["wq"]).reshape(b, 1, h, hd)
-        c = attn_mod.decode_attention(q, cache["cross_k"][l],
-                                      cache["cross_v"][l], cfg.enc_seq - 1)
-        x = x + matmul(c.reshape(b, 1, h * hd), ca["wo"])
+        c = attn_mod.cached_attention(
+            _heads(ca, xn, cfg, "wq"), coll.layer_of(cache["cross_k"], l),
+            coll.layer_of(cache["cross_v"], l), cfg.enc_seq - 1, **heads)
+        x = x + matmul(c.flatten(2), ca["wo"])
         x = x + gated_mlp(_ln(x, lp["ln3"], cfg.norm_eps), lp["mlp"],
                           "gelu_plain")
     x = _ln(x, params["dec_final_ln"], cfg.norm_eps)
     cache["pos"] = pos + 1
-    return matmul(x, params["embed"].T), cache
+    return _lm_head(params, x, cfg), cache

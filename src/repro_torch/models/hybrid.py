@@ -25,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import constrain
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2
@@ -211,8 +212,8 @@ def decode_step(params, batch, cache, cfg):
     for gi in range(g):
         a, _ = attn_mod.gqa_decode_attention(
             shared["attn"], rms_norm(x, shared["ln_scale"], cfg.norm_eps),
-            cfg, k_cache=cache["attn_k"][gi], v_cache=cache["attn_v"][gi],
-            pos=pos)
+            cfg, k_cache=coll.layer_of(cache["attn_k"], gi),
+            v_cache=coll.layer_of(cache["attn_v"], gi), pos=pos)
         x = x + a
         x = x + gated_mlp(rms_norm(x, shared["ln2_scale"], cfg.norm_eps),
                           shared["mlp"], cfg.mlp_act)

@@ -26,16 +26,17 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Native-dtype product ``x @ w`` with ``w`` stored ``[in, out]``.  A
     ``w`` that holds this rank's rows (``distributed.collectives.Split``
     on dim 0, a row-parallel product on a mesh) gives a partial product,
-    summed over the "model" group here."""
+    summed over the "model" group here (``collectives.tp_reduce``: on a
+    sequence-parallel stream the sum keeps this rank's rows)."""
     y = torch.matmul(x, w.to(x.dtype))
     split = coll.split_of(w)
-    return coll.tp_sum(y) if split is not None and split.dim == 0 else y
+    return coll.tp_reduce(y) if split is not None and split.dim == 0 else y
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``table[tokens]``; a table that holds this rank's vocabulary rows
     (a ``Split`` on dim 0) looks up the tokens in its range, 0 elsewhere,
-    and sums the rows over the "model" group."""
+    and sums the rows over the "model" group (``collectives.tp_reduce``)."""
     split = coll.split_of(table)
     if split is None:
         return table[tokens]
@@ -43,7 +44,7 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     local = tokens - split.index * rows
     ok = (local >= 0) & (local < rows)
     out = table[local.clamp(0, rows - 1)] * ok[..., None].to(table.dtype)
-    return coll.tp_sum(out)
+    return coll.tp_reduce(out)
 
 
 # --------------------------------------------------------------------------

@@ -20,8 +20,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.context import current_mesh, tp_axes
 from repro_torch.models.attention import (NEG_INF, Pos, _pos_vector,
-                                          chunked_attention, naive_attention)
+                                          cache_slots, cache_write,
+                                          chunked_attention, heads_across,
+                                          naive_attention, softmax_attend)
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 
@@ -81,7 +85,14 @@ def mla_decode_attention(params, x, cfg, *, ckv_cache, kr_cache, pos: Pos,
 
     ckv_cache [B,Smax,r], kr_cache [B,Smax,dr], written in place at
     ``pos`` (the reference returns updated copies).  Returns
-    (out, (ckv_cache, kr_cache))."""
+    (out, (ckv_cache, kr_cache)).  On a mesh whose cache spec splits the
+    latent's sequence (``collectives.SeqSplit``), each rank writes the new
+    latent only where its block holds the slot and the softmax is the
+    distributed one (``attention.softmax_attend``); where the split runs
+    over the "model" ranks that split the heads, every head is scored
+    against the block (the queries gathered over "model": the absorbed
+    path's latent-space ones, the naive path's with its up-projections)
+    and the output cut back to this rank's heads."""
     b = x.shape[0]
     h, dn, dv, dr, r = (held_heads(params, cfg), cfg.qk_nope_dim,
                         cfg.v_head_dim, cfg.qk_rope_dim, cfg.kv_lora_rank)
@@ -89,33 +100,55 @@ def mla_decode_attention(params, x, cfg, *, ckv_cache, kr_cache, pos: Pos,
     positions = pos_v[:, None]
     q_nope, q_rope = _queries(params, x, cfg, positions)    # [B,1,h,dn/dr]
     c_new, kr_new = _latent(params, x, cfg, positions)
-    rows = torch.arange(b, device=x.device)
-    ckv_cache[rows, pos_v] = c_new[:, 0].to(ckv_cache.dtype)
-    kr_cache[rows, pos_v] = kr_new[:, 0].to(kr_cache.dtype)
+    cache_write(ckv_cache, pos_v, c_new[:, 0])
+    cache_write(kr_cache, pos_v, kr_new[:, 0])
+    split = coll.seq_split_of(ckv_cache)
+    across = heads_across(ckv_cache, h, cfg.num_heads)
     smax = ckv_cache.shape[1]
-    valid = torch.arange(smax, device=x.device)[None, :] <= positions
+    valid = cache_slots(ckv_cache)[None, :] <= positions
     bias = torch.where(valid, 0.0, NEG_INF)[:, None, :]     # [B,1,Smax]
     scale = (dn + dr) ** -0.5
     dt = x.dtype
     ckv, kr = ckv_cache.to(dt), kr_cache.to(dt)
+    w_uk, w_uv = params["w_uk"], params["w_uv"]
+    if across:
+        q_rope = coll.tp_gather(q_rope, 2)
     s_rope = torch.einsum("bohd,bsd->bhs", q_rope, kr)
     if absorbed:
         # W_uk folded into the query: per-head latent-space query [B,h,r]
-        w_uk = params["w_uk"].reshape(r, h, dn).to(dt)
-        q_lat = torch.einsum("bohd,rhd->bhr", q_nope, w_uk)
+        q_lat = torch.einsum("bohd,rhd->bhr", q_nope,
+                             w_uk.reshape(r, h, dn).to(dt))
+        if across:
+            q_lat = coll.tp_gather(q_lat, 1)
         s_nope = torch.einsum("bhr,bsr->bhs", q_lat, ckv)
         s = (s_nope + s_rope).float() * scale + bias
-        p = torch.softmax(s, dim=-1).to(dt)
-        o_lat = torch.einsum("bhs,bsr->bhr", p, ckv)
-        w_uv = params["w_uv"].reshape(r, h, dv).to(dt)
-        out = torch.einsum("bhr,rhd->bhd", o_lat, w_uv)
+        o_lat = softmax_attend(s, lambda p: torch.einsum(
+            "bhs,bsr->bhr", p.to(dt), ckv), split).to(dt)
+        if across:
+            o_lat = _own_heads(o_lat, h)
+        out = torch.einsum("bhr,rhd->bhd", o_lat,
+                           w_uv.reshape(r, h, dv).to(dt))
     else:
-        # rebuild K/V for the whole context every step
-        k_nope = matmul(ckv_cache, params["w_uk"]).reshape(b, smax, h, dn)
-        v = matmul(ckv_cache, params["w_uv"]).reshape(b, smax, h, dv)
+        # rebuild K/V for the whole context every step (every head's, from
+        # the up-projections gathered over "model", where the block serves
+        # every head)
+        if across:
+            q_nope = coll.tp_gather(q_nope, 2)
+            w_uk, w_uv = coll.tp_gather(w_uk, 1), coll.tp_gather(w_uv, 1)
+        hs = q_nope.shape[2]
+        k_nope = matmul(ckv_cache, w_uk).reshape(b, smax, hs, dn)
+        v = matmul(ckv_cache, w_uv).reshape(b, smax, hs, dv)
         s_nope = torch.einsum("bohd,bshd->bhs", q_nope, k_nope.to(dt))
         s = (s_nope + s_rope).float() * scale + bias
-        p = torch.softmax(s, dim=-1).to(dt)
-        out = torch.einsum("bhs,bshd->bhd", p, v)
+        out = softmax_attend(s, lambda p: torch.einsum(
+            "bhs,bshd->bhd", p.to(dt), v), split).to(dt)
+        if across:
+            out = _own_heads(out, h)
     out = out.reshape(b, 1, h * dv).to(x.dtype)
     return matmul(out, params["wo"]), (ckv_cache, kr_cache)
+
+
+def _own_heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """This "model" rank's ``h`` heads of [B, H, ...] computed for every
+    head."""
+    return t.narrow(1, coll.group_rank(current_mesh(), tp_axes()) * h, h)

@@ -23,7 +23,11 @@ outputs meet in one sum over the "model" group in the compute dtype.
 Tokens held whole on every dp rank are split over dp first (when they
 divide) and gathered after, as the reference's ``shard_map`` splits them;
 capacity is taken per local token count, so with drops the result is the
-reference's sharded one, not its single-device one.
+reference's sharded one, not its single-device one.  On a
+sequence-parallel stream (``context.sequence_parallel``) the layer takes
+the gathered sequence, and its output, the routed experts' sum and the
+shared experts' alike, is reduce-scattered to this rank's rows (cut to
+them where it was computed whole).
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ import torch
 from repro_torch._device import true_f32
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import (axis_sizes, batch_split,
-                                             current_mesh, dp_axes, tp_axes)
+                                             current_mesh, dp_axes, sp_seq,
+                                             tp_axes)
 from repro_torch.models.layers import _ACTS, gated_mlp, mlp_param_shapes
 
 
@@ -135,7 +140,8 @@ def _expert_compute(x_flat, idx, weights, w_gate, w_up, w_down, cfg,
 
 
 def moe_mlp(params, x: torch.Tensor, cfg):
-    """x [B,S,d] (or [T,d]) → (y of the same shape, aux_loss); on a mesh
+    """x [B,S,d] (or [T,d]) → (y of the same shape, or this rank's rows of
+    it on a sequence-parallel stream, aux_loss); on a mesh
     the expert-parallel branch (module docstring).  The expert weights may
     hold all E experts or, on a mesh, this "model" rank's E/tp."""
     shape = x.shape
@@ -161,12 +167,20 @@ def moe_mlp(params, x: torch.Tensor, cfg):
                 weights[lo:lo + tl]
         y = _expert_compute(xl, il, wl, *w, cfg, e_base, n_local,
                             capacity(xl.shape[0], cfg))
-        y = coll.all_reduce(y, mesh, tuple(tp))          # compute dtype
-        if split:
-            y = coll.all_gather(y, mesh, dp, 0)
+        if sp_seq() is None:
+            y = coll.all_reduce(y, mesh, tuple(tp))      # compute dtype
+            if split:
+                y = coll.all_gather(y, mesh, dp, 0)
+            y = y.reshape(shape)
+        else:
+            # a sequence-parallel stream: the experts' partial sums
+            # reduce-scattered to this rank's rows
+            if split:
+                y = coll.all_gather(y, mesh, dp, 0)
+            y = coll.tp_reduce(y.reshape(shape))
     else:
-        y = _expert_compute(x_flat, idx, weights, *w, cfg, 0, e,
-                            capacity(t, cfg))
+        y = coll.tp_rows(_expert_compute(x_flat, idx, weights, *w, cfg, 0,
+                                         e, capacity(t, cfg)).reshape(shape))
     if cfg.num_shared_experts:
-        y = y + gated_mlp(x_flat, params["shared"], cfg.mlp_act)
-    return y.reshape(shape), aux
+        y = y + coll.tp_rows(gated_mlp(x, params["shared"], cfg.mlp_act))
+    return y, aux

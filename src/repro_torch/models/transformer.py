@@ -31,7 +31,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.context import constrain
+from repro_torch.distributed.context import (constrain, sequence_parallel,
+                                             sp_split)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -84,24 +85,36 @@ def _ffn(lp, x, cfg):
     return gated_mlp(x, lp["mlp"], cfg.mlp_act), 0.0
 
 
-def block_full(lp, x, cfg, positions, impl):
+def block_full(lp, x, cfg, positions, impl, sp=None):
     """One pre-norm layer over a full segment.  Returns (x, aux, kv): kv
-    is (k, v), or (c_kv, k_rope) for MLA."""
-    xn = rms_norm(x, lp["ln1_scale"], cfg.norm_eps)
-    if cfg.attn_kind == "mla":
-        h, kv = mla_mod.mla_self_attention(lp["attn"], xn, cfg,
-                                           positions=positions, impl=impl)
-    else:
-        h, kv = attn_mod.gqa_self_attention(lp["attn"], xn, cfg,
-                                            positions=positions, impl=impl)
-    x = x + h
-    f, aux = _ffn(lp, rms_norm(x, lp["ln2_scale"], cfg.norm_eps), cfg)
-    return x + f, aux, kv
+    is (k, v), or (c_kv, k_rope) for MLA.
+
+    With ``sp`` (the sequence length, on a mesh whose "model" group splits
+    it: Megatron-SP) ``x`` holds this rank's rows: each norm runs on them,
+    its output is all-gathered on the sequence before the column-parallel
+    products, and each row-parallel product ends in a reduce-scatter back
+    to this rank's rows (an output computed whole is cut to them).  Run
+    under ``torch.utils.checkpoint``, the recomputation sets the split
+    again."""
+    with sequence_parallel(sp):
+        xn = coll.tp_stream(rms_norm(x, lp["ln1_scale"], cfg.norm_eps))
+        if cfg.attn_kind == "mla":
+            h, kv = mla_mod.mla_self_attention(lp["attn"], xn, cfg,
+                                               positions=positions,
+                                               impl=impl)
+        else:
+            h, kv = attn_mod.gqa_self_attention(lp["attn"], xn, cfg,
+                                                positions=positions,
+                                                impl=impl)
+        x = x + coll.tp_rows(h)
+        f, aux = _ffn(lp, coll.tp_stream(
+            rms_norm(x, lp["ln2_scale"], cfg.norm_eps)), cfg)
+        return x + coll.tp_rows(f), aux, kv
 
 
-def _block_train(lp, x, cfg, positions, impl):
+def _block_train(lp, x, cfg, positions, impl, sp=None):
     """:func:`block_full` without its K/V: (x, aux)."""
-    x, aux, _ = block_full(lp, x, cfg, positions, impl)
+    x, aux, _ = block_full(lp, x, cfg, positions, impl, sp)
     return x, aux
 
 
@@ -146,20 +159,32 @@ def _lm_head(params, x, cfg):
 def backbone(params, batch, cfg, *, impl="chunked", remat=False):
     """All layers + final norm; returns (hidden [B,S,d], aux_loss).  With
     ``remat`` each layer keeps only its input for the backward and runs
-    again there."""
+    again there.  On a mesh where ``cfg.seq_parallel`` splits the sequence
+    (``context.sp_split``) the stream between layers, and so each layer's
+    saved input, holds this rank's S/tp rows: the embedding's sum is
+    reduce-scattered to them, and the final norm's rows are gathered back
+    into the whole sequence for the LM head."""
     act_name = "activation_sp" if cfg.seq_parallel else "activation"
-    x = constrain(_embed_in(params, batch, cfg), act_name)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    key = "embeds" if cfg.takes_embeddings and "embeds" in batch \
+        else "tokens"
+    seq = batch[key].shape[1]
+    sp = sp_split(cfg, seq)
+    with sequence_parallel(sp):
+        x = constrain(coll.tp_rows(_embed_in(params, batch, cfg)), act_name)
+    positions = torch.arange(seq, device=x.device)[None, :]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
         if remat:
-            x, a = checkpoint(_block_train, lp, x, cfg, positions, impl,
+            x, a = checkpoint(_block_train, lp, x, cfg, positions, impl, sp,
                               use_reentrant=False)
         else:
-            x, a = _block_train(lp, x, cfg, positions, impl)
-        x = constrain(x, act_name)
+            x, a = _block_train(lp, x, cfg, positions, impl, sp)
+        with sequence_parallel(sp):
+            x = constrain(x, act_name)
         aux = aux + a
-    return rms_norm(x, params["final_norm_scale"], cfg.norm_eps), aux
+    x = rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
+    with sequence_parallel(sp):
+        return coll.tp_stream(x), aux
 
 
 def forward(params, batch, cfg, *, impl="chunked"):
@@ -319,8 +344,9 @@ def decode_step(params, batch, cache, cfg):
     x = _embed_in(params, {"tokens": batch["token"]}, cfg)
     pos = cache["pos"]
     for l, lp in enumerate(params["layers"]):
-        x = block_decode(lp, x, cfg, {name: val[l] for name, val in
-                                      cache["layers"].items()}, pos)
+        x = block_decode(lp, x, cfg, {name: coll.layer_of(val, l) for
+                                      name, val in cache["layers"].items()},
+                         pos)
     x = rms_norm(x, params["final_norm_scale"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return _lm_head(params, x, cfg), cache

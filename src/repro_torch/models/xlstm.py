@@ -14,6 +14,16 @@ on the CPU or with ``impl="naive"``.
 
 Shapes: x [B, S, d]; mLSTM q/k/v [B, S, H, D] with D = di / H (di =
 ``xlstm_proj_factor`` d), gates [B, S, H]; sLSTM units du = d / H.
+
+Tensor parallelism (``launch.steps``): on a mesh the blocks compute with
+the parts of the weights a step builder hands them, H the heads those
+hold.  The mLSTM's ``w_up`` holds this rank's units of both halves
+``[x_in | gate]`` (its ``x_in`` units all-gathered: q, k and v contract
+over the whole di) or, with ``xlstm_pin_inner``, is computed whole;
+``w_down`` holds this rank's rows, the output's units cut to them and the
+partial products summed over "model".  The sLSTM's gates, biases and
+block-diagonal ``R`` hold this rank's heads, its output norm's statistics
+run over the whole d.
 """
 from __future__ import annotations
 
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._device import true_f32
+from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import constrain
 from repro_torch.kernels.slstm_scan.ops import slstm_scan as slstm_scan_op
 from repro_torch.kernels.slstm_scan.ref import (GATES, recurrent_gates,
@@ -163,7 +174,9 @@ def slstm_scan(x, params, n_heads: int, *, impl: str = "chunked"):
     The gates' input products for the whole sequence are four true-f32
     matmuls (``pre`` [4, B, S, d], bias added); the recurrence is
     ``kernels.slstm_scan``: its kernel on the card (under autograd with
-    its backward kernel), or with ``impl="naive"`` its plain step loop."""
+    its backward kernel), or with ``impl="naive"`` its plain step loop.
+    ``n_heads`` is the heads the weights hold (on a mesh this rank's: the
+    block-diagonal recurrence splits by head with no collective)."""
     assert params["r_z"].shape[0] == n_heads, (params["r_z"].shape, n_heads)
     x32 = x.float()
     with true_f32():
@@ -253,70 +266,104 @@ def _gates_in(xc, params):
     return i_raw, f_raw
 
 
-def _mlstm_out(params, out, gate, x, cfg, di):
+def _units(t: torch.Tensor, w_down) -> torch.Tensor:
+    """The units of ``t`` [..., n] that ``w_down``'s rows take: all of
+    them, or on a mesh this rank's block where ``t`` was computed whole."""
+    rows, split = w_down.shape[0], coll.split_of(w_down)
+    if split is None or t.shape[-1] == rows:
+        return t
+    return t.narrow(-1, split.index * rows, rows)
+
+
+def _up(params, xn, cfg):
+    """The up projection's two halves: (x_in [.., di] whole, the output
+    gate [.., units], di).  On a mesh whose ``w_up`` holds this rank's
+    units of both halves, its ``x_in`` units are all-gathered over "model"
+    (``w_q``/``w_k``/``w_v`` contract over the whole di) and the gate
+    keeps its units; a ``w_up`` computed whole (``xlstm_pin_inner``:
+    ``u`` pinned replicated) gives both halves whole."""
+    w = params["w_up"]
+    u = matmul(xn, w)
+    half = u.shape[-1] // 2
+    if coll.split_of(w) is not None:
+        return coll.tp_gather(u[..., :half], -1), u[..., half:], \
+            half * coll.split_of(w).parts
+    if cfg.xlstm_pin_inner:
+        u = constrain(u, "activation")
+    return u[..., :half], u[..., half:], half
+
+
+def _qkv_gates(params, xc, x_in, dh):
+    """q, k (from the convolved input), v (from the raw one) at the heads
+    the weights hold, [.., h, dh], and the input and forget gates."""
+    lead = xc.shape[:-1]
+    q = matmul(xc, params["w_q"]).reshape(*lead, -1, dh)
+    k = matmul(xc, params["w_k"]).reshape(*lead, -1, dh)
+    v = matmul(x_in, params["w_v"]).reshape(*lead, -1, dh)
+    return (q, k, v, *_gates_in(xc, params))
+
+
+def _mlstm_out(params, out, gate, x, cfg):
     """Per-head output norm, the SiLU output gate, the down projection and
-    the residual."""
-    h = cfg.num_heads
+    the residual; ``out`` [.., h, dh] at the heads the weights hold, and
+    on a mesh the units ``w_down``'s rows take (its partial products
+    summed over "model")."""
+    h, dh = out.shape[-2:]
     shape = out.shape[:-2]
     out = rms_norm(out.to(x.dtype), params["out_norm_scale"].reshape(
-        h, di // h), cfg.norm_eps).reshape(*shape, di)
-    out = out * F.silu(gate.float()).to(x.dtype)
-    return x + matmul(out, params["w_down"])
+        h, dh), cfg.norm_eps).reshape(*shape, h * dh)
+    wd = params["w_down"]
+    out = _units(out, wd) * F.silu(_units(gate, wd).float()).to(x.dtype)
+    return x + matmul(out, wd)
 
 
 def mlstm_block(params, x, cfg, chunk: int = 128):
     """Full-segment mLSTM block.  x [B,S,d] → (y, (C, n, m), conv_tail):
     q and k from the convolved input, v from the raw one; the conv tail
-    that decode carries is the pre-conv input's last 3 steps."""
-    bsz, s, _ = x.shape
-    h = cfg.num_heads
+    that decode carries is the pre-conv input's last 3 steps.  On a mesh
+    the heads are the weights' (``mlstm_chunked`` runs on them)."""
     xn = rms_norm(x, params["norm_scale"], cfg.norm_eps)
-    u = matmul(xn, params["w_up"])
-    if cfg.xlstm_pin_inner:
-        u = constrain(u, "activation")
-    di = u.shape[-1] // 2
-    x_in, gate = u[..., :di], u[..., di:]
+    x_in, gate, di = _up(params, xn, cfg)
     conv_tail = x_in[:, -3:]
     xc = _conv_causal(x_in, params["conv_w"], params["conv_b"])
     if cfg.xlstm_pin_inner:
         xc = constrain(xc, "activation")
-    q = matmul(xc, params["w_q"]).reshape(bsz, s, h, di // h)
-    k = matmul(xc, params["w_k"]).reshape(bsz, s, h, di // h)
-    v = matmul(x_in, params["w_v"]).reshape(bsz, s, h, di // h)
-    i_raw, f_raw = _gates_in(xc, params)
-    out, state = mlstm_chunked(q, k, v, i_raw, f_raw, chunk)
-    return _mlstm_out(params, out, gate, x, cfg, di), state, conv_tail
+    out, state = mlstm_chunked(*_qkv_gates(params, xc, x_in,
+                                           di // cfg.num_heads), chunk)
+    return _mlstm_out(params, out, gate, x, cfg), state, conv_tail
 
 
 def mlstm_block_step(params, x, cfg, *, state, conv_state):
     """Single-token mLSTM block.  x [B,1,d]; conv_state [B,3,di] →
     (y, new state, new conv_state)."""
-    bsz = x.shape[0]
-    h = cfg.num_heads
     xn = rms_norm(x, params["norm_scale"], cfg.norm_eps)
-    u = matmul(xn, params["w_up"])
-    di = u.shape[-1] // 2
-    x_in, gate = u[..., :di], u[..., di:]
+    x_in, gate, di = _up(params, xn, cfg)
     window = torch.cat([conv_state.to(x_in.dtype), x_in], dim=1)  # [B,4,di]
     xc = _conv_window(window, params["conv_w"], params["conv_b"], x.dtype)
-    q = matmul(xc, params["w_q"]).reshape(bsz, h, di // h)
-    k = matmul(xc, params["w_k"]).reshape(bsz, h, di // h)
-    v = matmul(x_in[:, 0], params["w_v"]).reshape(bsz, h, di // h)
-    i_raw, f_raw = _gates_in(xc, params)
-    new_state, out = mlstm_step(state, q, k, v, i_raw, f_raw)
-    y = _mlstm_out(params, out[:, None], gate, x, cfg, di)
+    new_state, out = mlstm_step(state, *_qkv_gates(
+        params, xc, x_in[:, 0], di // cfg.num_heads))
+    y = _mlstm_out(params, out[:, None], gate, x, cfg)
     return y, new_state, window[:, 1:]
+
+
+def _slstm_out(params, out, x, cfg):
+    """The output norm (over the whole d: its statistics summed over
+    "model" where the scale holds this rank's units), the down projection
+    and the residual."""
+    out = rms_norm(out, params["out_norm_scale"], cfg.norm_eps)
+    wd = params["w_down"]
+    return x + matmul(_units(out, wd), wd)
 
 
 def slstm_block(params, x, cfg, *, impl: str = "chunked"):
     """Full-segment sLSTM block → (y, (c, n, h, m), conv_tail); the conv
-    tail is the normed input's last 3 steps."""
+    tail is the normed input's last 3 steps.  On a mesh the heads (and
+    the state's units) are the weights'."""
     xn = rms_norm(x, params["norm_scale"], cfg.norm_eps)
     conv_tail = xn[:, -3:]
     xc = _conv_causal(xn, params["conv_w"], params["conv_b"])
-    out, state = slstm_scan(xc, params, cfg.num_heads, impl=impl)
-    out = rms_norm(out, params["out_norm_scale"], cfg.norm_eps)
-    return x + matmul(out, params["w_down"]), state, conv_tail
+    out, state = slstm_scan(xc, params, params["r_z"].shape[0], impl=impl)
+    return _slstm_out(params, out, x, cfg), state, conv_tail
 
 
 def slstm_block_step(params, x, cfg, *, state, conv_state):
@@ -325,5 +372,4 @@ def slstm_block_step(params, x, cfg, *, state, conv_state):
     window = torch.cat([conv_state.to(xn.dtype), xn], dim=1)
     xc = _conv_window(window, params["conv_w"], params["conv_b"], x.dtype)
     new_state, out = slstm_step(state, xc, params)
-    out = rms_norm(out[:, None], params["out_norm_scale"], cfg.norm_eps)
-    return x + matmul(out, params["w_down"]), new_state, window[:, 1:]
+    return _slstm_out(params, out[:, None], x, cfg), new_state, window[:, 1:]

@@ -26,7 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.distributed.context import constrain
 from repro_torch.models import xlstm as xl
-from repro_torch.models.layers import ParamTree, init_tree, rms_norm
+from repro_torch.models.layers import (ParamTree, embed_lookup, init_tree,
+                                       rms_norm)
 from repro_torch.models.transformer import _lm_head, dtype_of, head_loss
 
 
@@ -57,7 +58,7 @@ def init_params(cfg, seed: int = 0, device: DeviceLike = None) -> ParamTree:
 
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens].to(dtype_of(cfg))
+    x = embed_lookup(params["embed"], tokens).to(dtype_of(cfg))
     return constrain(x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype),
                      "activation")
 
@@ -124,38 +125,53 @@ def train_loss(params, batch, cfg, *, impl="chunked"):
 # --------------------------------------------------------------------------
 # Cache / decode
 # --------------------------------------------------------------------------
-def cache_shapes(cfg, batch_size: int, max_len: int) -> dict:
+def cache_shapes(cfg, batch_size: int, max_len: int, held=None) -> dict:
     """(shape, dtype) of each cache tensor (``max_len`` is unused: no KV
     growth); the cache also carries ``pos``, an int.  The mLSTM head dim
-    is di / H (512 at xlstm-350m, not its ``head_dim``)."""
+    is di / H (512 at xlstm-350m, not its ``head_dim``).  ``held``: the
+    (mLSTM heads, sLSTM units) the weights hold, on a mesh this rank's
+    (:func:`held_units`); default all."""
     del max_len
     g, m = _grouping(cfg)
     d, h = cfg.d_model, cfg.num_heads
     di = int(cfg.xlstm_proj_factor * d)
     dh = di // h
+    hl, du = held or (h, d)
     b, f32, dtype = batch_size, torch.float32, dtype_of(cfg)
     shapes = {
-        "m_C": ((g, m, b, h, dh, dh), f32),
-        "m_n": ((g, m, b, h, dh), f32),
-        "m_m": ((g, m, b, h), f32),
+        "m_C": ((g, m, b, hl, dh, dh), f32),
+        "m_n": ((g, m, b, hl, dh), f32),
+        "m_m": ((g, m, b, hl), f32),
         "m_conv": ((g, m, b, 3, di), dtype),
     }
     if cfg.slstm_every:
         shapes.update({
-            "s_c": ((g, b, d), f32),
-            "s_n": ((g, b, d), f32),
-            "s_h": ((g, b, d), f32),
-            "s_m": ((g, b, d), f32),
+            "s_c": ((g, b, du), f32),
+            "s_n": ((g, b, du), f32),
+            "s_h": ((g, b, du), f32),
+            "s_m": ((g, b, du), f32),
             "s_conv": ((g, b, 3, d), dtype),
         })
     return shapes
 
 
+def held_units(params, cfg) -> tuple[int, int]:
+    """(mLSTM heads, sLSTM units) the weights hold: all of them, or on a
+    mesh this rank's."""
+    dh = int(cfg.xlstm_proj_factor * cfg.d_model) // cfg.num_heads
+    du = cfg.d_model // cfg.num_heads
+    hl = params["mlstm"][0]["w_q"].shape[1] // dh
+    units = params["slstm"][0]["r_z"].shape[0] * du if cfg.slstm_every \
+        else cfg.d_model
+    return hl, units
+
+
 def init_cache(cfg, batch_size: int, max_len: int,
-               device: DeviceLike = None) -> dict:
+               device: DeviceLike = None, held=None) -> dict:
     dev = resolve_device(device)
     cache = {name: torch.zeros(shape, dtype=dt, device=dev) for name,
-             (shape, dt) in cache_shapes(cfg, batch_size, max_len).items()}
+             (shape, dt) in cache_shapes(cfg, batch_size, max_len,
+                                         held).items()}
     cache["pos"] = 0
     return cache
 
@@ -164,7 +180,8 @@ def prefill(params, batch, cfg, max_len: int, *, impl="chunked"):
     """Run the prompt; build the cache.  Returns (last-token logits,
     cache)."""
     tokens = batch["tokens"]
-    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device)
+    cache = init_cache(cfg, tokens.shape[0], max_len, tokens.device,
+                       held_units(params, cfg))
     x = _hidden(params, tokens, cfg, impl, cache)
     cache["pos"] = tokens.shape[1]
     return _lm_head(params, x[:, -1:], cfg), cache

@@ -32,6 +32,9 @@ Ingestion paths mirror :class:`repro_torch.sim.telemetry.Telemetry`:
     to the host once, as a whole, at that read: never element by element.
     Columns are held by reference until then; the fleet engine passes
     fresh arrays (fancy-indexed copies) that nothing writes afterwards.
+    A column may also be a :class:`Deferred`: its rows are built at that
+    read, so a column the run would otherwise make row by row in Python
+    (the ``node@j`` track labels) costs the run nothing.
 
 The last ``ring`` events (spans and instants interleaved in ingestion
 order) are kept in a bounded flight-recorder deque: :meth:`Tracer.last`
@@ -61,7 +64,25 @@ from collections import deque
 from typing import Optional, Sequence
 
 __all__ = ["SpanEvent", "InstantEvent", "NullTracer", "Tracer",
-           "NULL_TRACER", "postmortem_dump"]
+           "NULL_TRACER", "Deferred", "postmortem_dump"]
+
+
+class Deferred:
+    """A column of ``n`` rows that ``build()`` makes when the tracer
+    first reads it (its export), not when the run hands it over.  It
+    iterates as the built rows, so a tracer that copies its columns at
+    once (the reference's) reads it as a list."""
+
+    __slots__ = ("n", "build")
+
+    def __init__(self, n: int, build):
+        self.n, self.build = int(n), build
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        return iter(self.build())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +169,8 @@ def _host_list(col) -> Optional[list]:
     it)."""
     if col is None:
         return None
+    if isinstance(col, Deferred):
+        return _host_list(col.build())
     tolist = getattr(col, "tolist", None)
     if tolist is not None:
         return tolist()
@@ -248,9 +271,9 @@ class Tracer(NullTracer):
             if len(col) != n:
                 raise ValueError(f"args column {key!r} has {len(col)} "
                                  f"rows, expected {n}")
-        self._pending.append(("spans", list(tracks), tids, list(names),
-                              arrived_s, started_s, finished_s,
-                              transfer_s, args_cols))
+        self._pending.append(("spans", tracks, tids, names, arrived_s,
+                              started_s, finished_s, transfer_s,
+                              args_cols))
 
     def instant_arrays(self, track: str, name: str, ts, *, tid: int = 0,
                        args_cols: Optional[dict] = None) -> None:
@@ -272,9 +295,10 @@ class Tracer(NullTracer):
             if batch[0] == "spans":
                 (_, tracks, tids, names, arrived, started, finished,
                  transfer, args_cols) = batch
-                tids, arrived, started, finished, transfer = (
-                    _host_list(c) for c in (tids, arrived, started,
-                                            finished, transfer))
+                tracks, tids, names, arrived, started, finished, \
+                    transfer = (_host_list(c) for c in (
+                        tracks, tids, names, arrived, started, finished,
+                        transfer))
                 cols = {key: _host_list(col)
                         for key, col in (args_cols or {}).items()}
                 for k in range(len(names)):

@@ -51,7 +51,7 @@ from repro_torch.core import scheduler as sch
 from repro_torch.core.offload import DEFAULT_EFFICIENCY
 from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.fleet_scan import ops as scan_ops
-from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.obs.trace import NULL_TRACER, Deferred
 from repro_torch.sim.state import ClusterLinks, DriftingEnv
 from repro_torch.sim.telemetry import Telemetry
 
@@ -600,35 +600,33 @@ def simulate_fleet(tasks: Sequence[sch.Task], arrivals,
     # host's finish events — (realised finish, placement seq)
     if n_tasks:
         ord_p = np.argsort(fin_real, kind="stable")
-        rid_o = p_rid[ord_p]
+        rid_o, j_o = p_rid[ord_p], p_j[ord_p]
         energy = (fin_real - p_start) * tdp[p_j]
+        # the per-task columns, made once: the telemetry's and the
+        # tracer's alike (nothing writes them afterwards)
+        names_o = [tasks[r].name for r in rid_o]
+        deadline_o = [tasks[r].deadline_s for r in rid_o]
+        split_o = None if split_by_rid is None \
+            else [split_by_rid[r] for r in rid_o]
         telemetry.complete_arrays(
-            [tasks[r].name for r in rid_o],
-            arrivals[rid_o], p_start[ord_p], fin_real[ord_p],
-            node=[node_names[j] for j in p_j[ord_p]],
-            node_id=p_j[ord_p],
-            deadline_s=[tasks[r].deadline_s for r in rid_o],
-            energy_j=energy[ord_p],
-            split=None if split_by_rid is None
-            else [split_by_rid[r] for r in rid_o],
+            names_o, arrivals[rid_o], p_start[ord_p], fin_real[ord_p],
+            node=[node_names[j] for j in j_o], node_id=j_o,
+            deadline_s=deadline_o, energy_j=energy[ord_p], split=split_o,
             switches=None if switches_by_rid is None
             else [switches_by_rid[r] for r in rid_o],
             transfer_s=None if rtt_draws is None else rtt_draws[ord_p])
         if obs.enabled:
             # lifecycle spans as one deferred column batch, in the same
             # completion order the host engine emits them; deadline and
-            # split ride as sojourn args (None entries drop per row).  Every
-            # column is a fresh array or list (fancy-indexed here), which
-            # the tracer holds unread until its first read
-            args_cols = {
-                "deadline_s": [tasks[r].deadline_s for r in rid_o],
-                "split": None if split_by_rid is None
-                else [split_by_rid[r] for r in rid_o],
-            }
+            # split ride as sojourn args (None entries drop per row).  The
+            # track labels are made at the tracer's first read (a
+            # ``Deferred`` column), the other columns are the telemetry's
+            args_cols = {"deadline_s": deadline_o, "split": split_o}
             obs.span_arrays(
-                [f"{node_names[j]}@{j}" for j in p_j[ord_p]],
-                rid_o, [tasks[r].name for r in rid_o],
-                arrivals[rid_o], p_start[ord_p], fin_real[ord_p],
+                Deferred(n_tasks, lambda: [f"{node_names[j]}@{j}"
+                                           for j in j_o.tolist()]),
+                rid_o, names_o, arrivals[rid_o], p_start[ord_p],
+                fin_real[ord_p],
                 transfer_s=None if rtt_draws is None
                 else rtt_draws[ord_p],
                 args_cols={k: v for k, v in args_cols.items()

@@ -266,6 +266,18 @@ def test_stream_rows_match_the_reference(results):
     assert len(nodes) == 32 and len(arr) == 300
 
 
+def test_fleet_gate_spread_reads_the_smoke_cell_gate():
+    """``bench.fleet.gate_spread``: independent readings of the tracing
+    gate at the smoke cell, each a positive finite ratio, sorted, with the
+    readings over the 1.10 bar counted."""
+    port = port_bench("fleet")
+    got = port.gate_spread(2, "cpu")
+    assert got["path"] == "cpu" and got["readings"] == 2
+    assert len(got["ratios"]) == 2 and got["ratios"] == sorted(got["ratios"])
+    assert all(np.isfinite(r) and r > 0 for r in got["ratios"])
+    assert got["over_bar"] == sum(r > 1.10 for r in got["ratios"])
+
+
 def test_fleet_rows_match_the_reference_event_loop(results):
     """The event loop's rows against the reference's, and the fleet
     engine's (its plain version on the CPU) events equal to them: the

@@ -236,3 +236,52 @@ def test_roofline_terms_on_the_h100():
     assert roof.bound_s == pytest.approx(1.0)
     assert roof.useful_ratio == pytest.approx(0.5)
     assert H100_SXM.peak_flops == 989e12 and H100_SXM.hbm_bw == 3.35e12
+
+
+def test_dryrun_sees_sequence_parallelism():
+    """reduced qwen3-1.7b's train step on the (4, 2) mesh: the step sets
+    seq_parallel (tp 2 divides S 64) and the dry-run's shape-only
+    collectives see the reduce-scatters that end its row-parallel
+    products, fewer all-reduced bytes than with it off, and a lower peak
+    (each layer's saved input holds S/2 rows)."""
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    shape = InputShape("t", 64, 8, "train")
+    cfg = reduced_config("qwen3-1.7b")
+    on = assemble(cfg, shape, mesh)
+    off = assemble(cfg, shape, mesh, extra_cfg_kw={"seq_parallel": False})
+    assert on.cfg.seq_parallel and not off.cfg.seq_parallel
+    c_on, c_off = dryrun.step_costs(on, shape), dryrun.step_costs(off, shape)
+    assert c_on["collectives"]["reduce-scatter"] > \
+        c_off["collectives"]["reduce-scatter"]
+    assert c_on["collectives"]["all-reduce"] < \
+        c_off["collectives"]["all-reduce"]
+    assert c_on["temp_peak_bytes"] < c_off["temp_peak_bytes"]
+
+
+@pytest.mark.parametrize("arch,kernel", [
+    ("xlstm-350m", "slstm_scan_save"), ("whisper-tiny", "flash_attention_lse")])
+def test_dryrun_splits_xlstm_and_whisper_heads(arch, kernel):
+    """xlstm-350m and whisper-tiny (reduced, 4 heads) compute with half of
+    their heads a "model" rank on the (4, 2) mesh: the kernel's operations
+    a rank are half of those on a (4, 1) mesh (the same rows a rank)."""
+    shape = InputShape("t", 64, 8, "train")
+    flops = {}
+    for tp in (1, 2):
+        mesh = AbstractMesh((4, tp), ("data", "model"))
+        step = assemble(reduced_config(arch), shape, mesh, auto_knobs=False)
+        flops[tp] = dryrun.step_costs(step, shape)["kernel_flops"][kernel]
+        assert bool(step.tp_compute["split"]) == (tp == 2)
+    assert flops[2] * 2 == flops[1]
+
+
+def test_production_decode_keeps_its_cache_block():
+    """qwen3-1.7b × decode_32k on the 16 × 16 mesh: its 8 key/value heads
+    do not divide 16, so its cache spec splits the sequence over "model";
+    the decode step keeps each rank's block (no whole gather), so the
+    step's transient bytes stay below its cache block and the card's
+    bytes below 10 GiB (35.41 GiB while the block was gathered)."""
+    rec = dryrun.run_one("qwen3-1.7b", "decode_32k", verbose=False)
+    assert rec["status"] == "ok"
+    assert rec["memory"]["temp_peak_bytes"] < \
+        rec["memory"]["static"]["cache"]
+    assert rec["bytes_per_device"] < 10 * 2**30

@@ -63,8 +63,23 @@ N_ENVS = 13
 #: reduced configs run with their heads split over "model" (tp = 2): Mamba2
 #: heads into ssm_scan, a key/value head shared by both "model" ranks with
 #: a tied vocabulary-parallel head, attention and shared experts beside
-#: the expert-parallel MoE
-TP_ARCHS = ("zamba2-1.2b", "gemma-2b", "deepseek-moe-16b")
+#: the expert-parallel MoE, the xLSTM's mLSTM and sLSTM heads (slstm_scan)
+#: with its up projection pinned whole, as xlstm-350m sets it, and split
+#: (its x_in gathered), whisper's encoder, self- and cross-attention and
+#: MLPs
+TP_ARCHS = ("zamba2-1.2b", "gemma-2b", "deepseek-moe-16b", "xlstm-350m",
+            "whisper-tiny")
+#: case -> (arch, config overrides)
+TP_CASES = {**{a: (a, {}) for a in TP_ARCHS},
+            "xlstm-350m-unpinned": ("xlstm-350m",
+                                    {"xlstm_pin_inner": False})}
+#: decode steps whose cache spec splits the sequence: (tag, arch, config
+#: overrides, batch)
+SEQ_DECODES = (("gemma_b2", "gemma-2b", {}, 2),
+               ("gemma_b1", "gemma-2b", {}, 1),
+               ("mla_naive", "deepseek-v2-lite-16b", {"mla_absorbed": False}, 2),
+               ("mla_absorbed", "deepseek-v2-lite-16b", {"mla_absorbed": True},
+                2))
 
 WORKER = r'''
 import os, sys, json
@@ -83,6 +98,7 @@ from repro_torch.launch.mesh import axis_mapping_for, make_debug_mesh, start_gro
 from repro_torch.launch.steps import assemble
 from repro_torch.models import build_model, moe
 from repro_torch.sim.fleet import decide_all_sharded
+SEQ_DECODES = {SEQ_DECODES}
 
 def leaf(tree, path):
     for k in path:
@@ -94,6 +110,32 @@ torch.set_num_threads(1)
 start_group("gloo", rank, world, store, timeout_s=120)
 mesh = make_debug_mesh(world)
 out = {}
+
+# what the collectives move and the residual stream holds, while `record`
+# is on: the shapes of all-reduces (not gloo's reduce-scatter, a sum then a
+# slice) and all-gathers, activation_sp rows
+from repro_torch.models import transformer as tf_mod
+record = {"on": False, "reduce": [], "gather": [], "sp_rows": set()}
+_red, _gat, _con = coll._reduce, coll._gather, tf_mod.constrain
+def _rec_red(x, *a, **k):
+    if record["on"]:
+        record["reduce"].append(list(x.shape))
+    return _red(x, *a, **k)
+def _rec_gat(x, *a, **k):
+    y = _gat(x, *a, **k)
+    if record["on"]:
+        record["gather"].append(list(y.shape))
+    return y
+def _rec_con(x, name):
+    if record["on"] and name == "activation_sp":
+        record["sp_rows"].add(x.shape[1])
+    return _con(x, name)
+coll._reduce, coll._gather, tf_mod.constrain = _rec_red, _rec_gat, _rec_con
+def recorded():
+    out = {"reduce": record["reduce"][:], "gather": record["gather"][:],
+           "sp_rows": sorted(record["sp_rows"])}
+    record["reduce"].clear(), record["gather"].clear(), record["sp_rows"].clear()
+    return out
 
 # -- train: reduced qwen3-1.7b in f32, with and without FSDP -------------
 cfg = reduced_config("qwen3-1.7b").replace(dtype="float32")
@@ -110,8 +152,12 @@ for fsdp in (False, True):
     params.requires_grad_(True)
     opt, losses = None, []
     for i in range({STEPS}):
+        record["on"] = i == 0
         params, opt, loss, _ = step(params, opt, train_batch(
             step.cfg, {B}, {S}, seed=i, device="cpu"))
+        record["on"] = False
+        if i == 0:
+            sp_record = recorded()
         losses.append(loss.item())
         if i == 0:                      # the first step's summed gradients
             grads = step.gather_params(shd.tree_map_with_path(
@@ -121,7 +167,8 @@ for fsdp in (False, True):
     out[tag] = dict(losses=losses, report=step.shard_report.summary(),
                     local_numel=sum(p.numel() for p in params.parameters()),
                     collectives=dict(coll.COLLECTIVE_BYTES),
-                    constrained=dict(context.CONSTRAINED))
+                    constrained=dict(context.CONSTRAINED),
+                    seq_parallel=step.cfg.seq_parallel, **sp_record)
     if rank == 0:
         torch.save({k: v.detach() for k, v in full.named_parameters()},
                    os.path.join(io, f"train_{tag}.pt"))
@@ -144,6 +191,57 @@ out["moe_train"] = losses
 if rank == 0:
     torch.save({k: v.detach() for k, v in full.named_parameters()},
                os.path.join(io, "moe_train.pt"))
+
+# -- the expert-parallel MoE trained with sequence parallelism forced on ----
+mcfg = reduced_config("deepseek-moe-16b").replace(dtype="float32",
+                                                 capacity_factor=4.0)
+step = assemble(mcfg, InputShape("t", 16, 8, "train"), mesh,
+                extra_cfg_kw={"seq_parallel": True})
+params = step.shard_params(build_model(mcfg).init_params(0, "cpu"))
+params.requires_grad_(True)
+opt, losses = None, []
+for i in range(2):
+    record["on"] = i == 0
+    params, opt, loss, _ = step(params, opt, train_batch(mcfg, 8, 16, seed=i,
+                                                         device="cpu"))
+    record["on"] = False
+    if i == 0:
+        moe_sp = recorded()
+    losses.append(loss.item())
+full = step.gather_params(params)
+out["moe_sp_train"] = dict(losses=losses, seq_parallel=step.cfg.seq_parallel,
+                           **moe_sp)
+if rank == 0:
+    torch.save({k: v.detach() for k, v in full.named_parameters()},
+               os.path.join(io, "moe_sp_train.pt"))
+
+# -- decode on sequence-split caches: gemma-2b (its one key/value head) at
+#    B 2 (the sequence over "model") and B 1 (over "model" x "data"), and
+#    deepseek-v2-lite-16b's latent cache, naive and absorbed --------------
+for tag, arch, kw, b in SEQ_DECODES:
+    c = reduced_config(arch).replace(dtype="float32", **kw)
+    if c.num_experts:
+        c = c.replace(capacity_factor=4.0)
+    pf = assemble(c, InputShape("p", 16, b, "prefill"), mesh)
+    dc = assemble(c, InputShape("d", 16, b, "decode"), mesh)
+    params = pf.shard_params(build_model(c).init_params(0, "cpu"))
+    tok = torch.arange(1, b + 1)[:, None]
+    with torch.no_grad():
+        lg, cache = pf(params, prefill_batch(c, b, 12, seed=0, device="cpu"))
+        record["on"] = True
+        lg1, cache = dc(params, {"token": tok}, cache)
+        lg2, cache = dc(params, {"token": tok + 1}, cache)
+        record["on"] = False
+    seen_dec = recorded()
+    parts = [lg, lg1, lg2]
+    if b % 2 == 0:
+        parts = [coll.all_gather(x, mesh, ("data",), 0) for x in parts]
+    leaf = {k: list(v.shape) for k, v in cache["layers"].items()}
+    out["seq_" + tag] = dict(gather=seen_dec["gather"], block=leaf,
+                             cache_spec={k: [list(shd.entry_axes(e)) for e in v]
+                                         for k, v in dc.specs[2]["layers"].items()})
+    if rank == 0:
+        torch.save(torch.cat(parts, 1), os.path.join(io, f"seq_{tag}.pt"))
 
 # -- the expert-parallel MoE layer ----------------------------------------
 mcfg = reduced_config("deepseek-moe-16b").replace(
@@ -185,20 +283,27 @@ if rank == 0:
 # -- tensor parallelism across families: the heads each kernel sees --------
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba2 as m2_mod
-seen = {"flash": set(), "ssm": set()}
+from repro_torch.models import xlstm as xl_mod
+seen = {"flash": set(), "ssm": set(), "slstm": set()}
 _fa, _ssd = attn_mod.flash_attention, m2_mod.ssd_chunked_kernel
+_sl = xl_mod.slstm_scan_op
 def _seen_fa(q, *a, **k):
     seen["flash"].add(q.shape[2])
     return _fa(q, *a, **k)
 def _seen_ssd(x, *a, **k):
     seen["ssm"].add(x.shape[2])
     return _ssd(x, *a, **k)
+def _seen_sl(pre, r, *a, **k):
+    seen["slstm"].add(r.shape[1])
+    return _sl(pre, r, *a, **k)
 attn_mod.flash_attention, m2_mod.ssd_chunked_kernel = _seen_fa, _seen_ssd
-for arch in {TP_ARCHS}:
-    c = reduced_config(arch).replace(dtype="float32")
+xl_mod.slstm_scan_op = _seen_sl
+for arch, (name, kw) in {TP_CASES}.items():
+    c = reduced_config(name).replace(dtype="float32", **kw)
     if c.num_experts:
         c = c.replace(capacity_factor=4.0)
-    seen["flash"].clear(), seen["ssm"].clear()
+    for v in seen.values():
+        v.clear()
     p0 = build_model(c).init_params(0, "cpu")
     tr = assemble(c, InputShape("t", 16, 4, "train"), mesh, auto_knobs=False)
     params = tr.shard_params(p0).requires_grad_(True)
@@ -228,7 +333,8 @@ with open(os.path.join(io, f"rank{rank}.json"), "w") as f:
 torch.distributed.destroy_process_group()
 '''.replace("{S}", str(S)).replace("{B}", str(B)).replace(
     "{STEPS}", str(STEPS)).replace("{CF}", str(MOE_CAPACITY_FACTOR)).replace(
-    "{N}", str(N_ENVS)).replace("{TP_ARCHS}", repr(TP_ARCHS))
+    "{N}", str(N_ENVS)).replace("{TP_CASES}", repr(TP_CASES)).replace(
+    "{SEQ_DECODES}", repr(SEQ_DECODES))
 
 REF_MOE = r'''
 import os, sys
@@ -472,26 +578,38 @@ def test_prefill_and_decode_on_the_mesh_match_one_process(run):
     assert (got - want).abs().max() <= 1e-5 * want.abs().max()
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
+#: the matrices each family computes whole on every "model" rank at tp 2
+WHOLE = {"hybrid": ["mamba/conv_b_w", "mamba/conv_c_w", "mamba/w_b",
+                    "mamba/w_c"],
+         "moe": ["layers/moe/router", "layers/moe/w_down",
+                 "layers/moe/w_gate", "layers/moe/w_up"],
+         "ssm": ["mlstm/conv_w", "mlstm/w_up", "slstm/conv_w"]}
+
+
+@pytest.mark.parametrize("arch", list(TP_CASES))
 def test_tensor_parallel_families_match_one_process(run, arch):
     """Each "model" rank computes with its half of the heads (flash
-    attention and ssm_scan see half of them), and nothing but the
-    matrices that have no head or unit dim runs whole; 2 train steps'
-    losses within 1e-5 relative, and a prefill and two decode steps'
-    logits within 1e-5 of max |logit|, of the port's single process."""
+    attention, ssm_scan and slstm_scan see half of them), and nothing but
+    the matrices that have no head or unit dim runs whole (the xLSTM's
+    depthwise convolutions, and its up projection where it is pinned);
+    2 train steps' losses within 1e-5 relative, and a prefill and two
+    decode steps' logits within 1e-5 of max |logit|, of the port's single
+    process."""
     io, ranks = run
     got = ranks[0]["tp_" + arch]
-    cfg = p_reduced(arch).replace(dtype="float32")
+    name, kw = TP_CASES[arch]
+    cfg = p_reduced(name).replace(dtype="float32", **kw)
     if cfg.num_experts:
         cfg = cfg.replace(capacity_factor=4.0)
-    assert got["heads"]["flash"] == [cfg.num_heads // 2]
+    half = cfg.num_heads // 2
+    assert got["heads"]["flash"] == ([] if cfg.family == "ssm" else [half])
+    assert got["heads"]["slstm"] == ([half] if cfg.family == "ssm" else [])
     if cfg.family == "hybrid":
         assert got["heads"]["ssm"] == [cfg.n_ssm_heads // 2]
-    whole = {"hybrid": ["mamba/conv_b_w", "mamba/conv_c_w", "mamba/w_b",
-                        "mamba/w_c"],
-             "moe": ["layers/moe/router", "layers/moe/w_down",
-                     "layers/moe/w_gate", "layers/moe/w_up"]}
-    assert got["tp_compute"]["whole"] == whole.get(cfg.family, [])
+    whole = WHOLE.get(cfg.family, [])
+    if cfg.family == "ssm" and not cfg.xlstm_pin_inner:
+        whole = [w for w in whole if w != "mlstm/w_up"]
+    assert got["tp_compute"]["whole"] == whole
     assert all(r["tp_" + arch]["losses"] == got["losses"] for r in ranks)
     api = build_model(cfg)
     params = api.init_params(0, "cpu", trainable=True)
@@ -502,15 +620,128 @@ def test_tensor_parallel_families_match_one_process(run, arch):
             cfg, 4, 16, seed=i, device="cpu"))
         losses.append(loss.item())
     np.testing.assert_allclose(got["losses"], losses, rtol=TRAIN_TOL)
-    from repro_torch.data.synthetic import prefill_batch
     params = api.init_params(0, "cpu")
     tok = torch.tensor([[1], [2], [3], [4]])
-    with torch.no_grad():
-        lg, cache = api.prefill(params, prefill_batch(cfg, 4, 12, seed=0,
-                                                      device="cpu"), 16)
-        lg1, cache = api.decode_step(params, {"token": tok}, cache)
-        lg2, cache = api.decode_step(params, {"token": tok + 1}, cache)
-    want = torch.cat([lg, lg1, lg2], 1)
+    want = _one_process_serve(api, params, cfg, 4, tok)
     served = torch.load(io / f"tp_{arch}.pt")
     assert served.shape == want.shape
     assert (served - want).abs().max() <= TRAIN_TOL * want.abs().max()
+
+
+def _one_process_serve(api, params, cfg, b, tok):
+    """A 12-token prefill (cache of 16) and two decode steps' logits."""
+    from repro_torch.data.synthetic import prefill_batch
+    with torch.no_grad():
+        lg, cache = api.prefill(params, prefill_batch(cfg, b, 12, seed=0,
+                                                      device="cpu"), 16)
+        lg1, cache = api.decode_step(params, {"token": tok}, cache)
+        lg2, cache = api.decode_step(params, {"token": tok + 1}, cache)
+    return torch.cat([lg, lg1, lg2], 1)
+
+
+@pytest.mark.parametrize("tag", ["tp", "fsdp"])
+def test_sequence_parallel_residual_holds_its_rows(run, tag):
+    """qwen3-1.7b's train step (S 64; seq_parallel set by the step, as tp
+    2 divides S): the residual stream between layers holds S/2 rows a
+    rank, and no [B, S, d] tensor is all-reduced (the row-parallel
+    products end in reduce-scatters, the embedding's sum too)."""
+    _, ranks = run
+    got = ranks[0][tag]
+    d = p_reduced("qwen3-1.7b").d_model
+    assert got["seq_parallel"]
+    assert got["sp_rows"] == [S // 2]
+    assert [B // 2, S, d] not in got["reduce"]
+    assert [B // 2, S, d] in got["gather"]
+
+
+def test_sequence_parallel_moe_trains_as_one_process(run):
+    """reduced deepseek-moe-16b with seq_parallel forced on (as the §Perf
+    pair C's baseline does), 2 steps at B 8, S 16 without capacity drops:
+    its residual holds S/2 rows a rank, the MoE input is gathered and its
+    output reduce-scattered (no [B, S, d] all-reduce), and the losses and
+    parameters match the port's single process as the expert-parallel
+    test holds them."""
+    io, ranks = run
+    got = ranks[0]["moe_sp_train"]
+    cfg = p_reduced("deepseek-moe-16b").replace(dtype="float32",
+                                                capacity_factor=4.0)
+    assert got["seq_parallel"] and got["sp_rows"] == [8]
+    assert [4, 16, cfg.d_model] not in got["reduce"]
+    assert all(r["moe_sp_train"]["losses"] == got["losses"] for r in ranks)
+    api = build_model(cfg)
+    params = api.init_params(0, "cpu", trainable=True)
+    step = build_train_step(api, lambda ps: AdamW(ps, 1e-4))
+    opt, losses = None, []
+    for i in range(2):
+        params, opt, loss, _ = step(params, opt, train_batch(
+            cfg, 8, 16, seed=i, device="cpu"))
+        losses.append(loss.item())
+    np.testing.assert_allclose(got["losses"], losses, rtol=TRAIN_TOL)
+    full = torch.load(io / "moe_sp_train.pt")
+    for name, w in params.named_parameters():
+        w = w.detach()
+        err = ((full[name] - w).norm() / w.norm()).item()
+        assert err <= TRAIN_TOL, (name, err)
+
+
+@pytest.mark.parametrize("tag", [t[0] for t in SEQ_DECODES])
+def test_sequence_split_decode_matches_one_process(run, tag):
+    """A decode step whose cache spec splits the sequence (gemma-2b's one
+    key/value head over "model", at B 1 over "model" x "data" too;
+    deepseek-v2-lite-16b's latent cache over "model") keeps each rank's
+    block: the stored block holds its share of the 16 slots, no cache
+    leaf (nor a layer of it) is gathered whole (the distributed softmax
+    moves the queries, the new key/value and its statistics; the naive
+    MLA path its up-projections), and the logits of a prefill and two
+    decode steps are within 1e-5 of max |logit| of the port's single
+    process."""
+    io, ranks = run
+    _, arch, kw, b = next(t for t in SEQ_DECODES if t[0] == tag)
+    got = ranks[0]["seq_" + tag]
+    seq_axes = {k: v[2] for k, v in got["cache_spec"].items()}
+    want_axes = ["model", "data"] if b == 1 else ["model"]
+    assert all(v == want_axes for v in seq_axes.values()), seq_axes
+    parts = 2 * len(want_axes)
+    for name, shape in got["block"].items():
+        assert shape[2] == 16 // parts, (name, shape)
+        whole = shape[:2] + [16] + shape[3:]
+        assert whole not in got["gather"], (name, got["gather"])
+        assert whole[1:] not in got["gather"], (name, got["gather"])
+    cfg = p_reduced(arch).replace(dtype="float32", **kw)
+    if cfg.num_experts:
+        cfg = cfg.replace(capacity_factor=4.0)
+    api = build_model(cfg)
+    tok = torch.arange(1, b + 1)[:, None]
+    want = _one_process_serve(api, api.init_params(0, "cpu"), cfg, b, tok)
+    served = torch.load(io / f"seq_{tag}.pt")
+    assert served.shape == want.shape
+    assert (served - want).abs().max() <= TRAIN_TOL * want.abs().max()
+
+
+def test_card_mesh_module_on_cpu_ranks(tmp_path):
+    """``launch.card_mesh``, the 4-process mesh chip_smoke runs on one card
+    (gloo ranks sharing it), here on 4 gloo CPU ranks at the reduced
+    configs: each part (qwen3 trained with sequence parallelism, gemma-2b
+    and deepseek-v2-lite-16b decoding on sequence-split caches, the latter
+    also with capacity drops taken per data rank, xlstm-350m and
+    whisper-tiny trained and served with their heads split) against rank
+    0's one process, losses and logits within 1e-5, gradients within 2e-5
+    of their leaf's largest (``tests/test_torch_train.py``'s bar), every
+    kernel seeing half the heads; qwen3's stream split by sequence (its
+    row-parallel products reduce-scattered), and the drops changing the
+    logits."""
+    from repro_torch.launch import card_mesh
+    procs = card_mesh.start(str(tmp_path), device="cpu", reduced=True)
+    res = card_mesh.finish(procs, str(tmp_path), TIMEOUT_S)
+    assert set(res["parts"]) == {"a_qwen3_sp", "b_gemma_b2", "b_gemma_b1",
+                                 "c_mla_naive", "c_mla_absorbed",
+                                 "c_mla_drops", "d_xlstm", "d_whisper"}
+    for part, r in res["parts"].items():
+        for key, tol in (("loss", TRAIN_TOL), ("logits", TRAIN_TOL),
+                         ("grad", 2e-5)):
+            assert r.get(key, 0.0) <= tol, (part, key, r.get(key))
+        kind = "slstm" if part == "d_xlstm" else "flash"
+        assert r["heads"][kind] == [2], (part, r["heads"])
+    assert res["parts"]["a_qwen3_sp"]["seq_parallel"]
+    assert res["parts"]["a_qwen3_sp"]["collectives"]["reduce-scatter"] > 0
+    assert res["parts"]["c_mla_drops"]["drop_effect"] > 100 * TRAIN_TOL
