@@ -235,7 +235,10 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    the output equal bit for bit to a call without it and within
    ``flash_attention.ref.bf16_tolerance`` of the plain version; qwen3's
    and the six training shapes timed with their lse beside SDPA, the
-   bound counting the lse's bytes; (b) the backward in f32
+   bound counting the lse's bytes; the f32 route (``flash_fwd``) at the
+   shape of its phase 14 launches (``train_tiny_lm``'s reduced qwen3-1.7b,
+   ``F32_FLASH_SHAPE``, with lse) timed beside its f32 bound and SDPA on
+   the same f32 tensors with TF32 off; (b) the backward in f32
    (``FlashAttention``: ``flash_fwd`` with its lse, the plain flash
    backward) at qwen3's, whisper's and the six training shapes (head dims
    96, 192 with v at 128 and 256; GQA groups of 9 and 3) and at
@@ -270,8 +273,11 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    xlstm-350m's H 4, du 256), random cotangents on every output, each
    within ``SCAN_BWD_TOL`` of each gradient's largest magnitude and the
    same bits twice, the forward that saves its states the same bits as the
-   served one, each timed beside its bound (``bench.kernels``'
-   ``ssm_bwd_work`` / ``slstm_bwd_work``), the plain backward beside; (k)
+   served one, each timed part by part (``bench.scan_bwd``: the SSD's
+   chain, chunks, at each head group too, and head sum; the sLSTM's
+   chain and dR product) beside its bounds (f32 on the CUDA cores; the
+   SSD's also as three TF32 products at the TF32 rate), the plain
+   backward beside; (k)
    zamba2-1.2b and xlstm-350m at full width and depth in bf16 through
    ``train()``: 10 steps at B 8, S 128, then 3 at B 4, S 2048, every loss
    finite, the last 3 of the first run below its first 3, the counts set
@@ -560,6 +566,9 @@ BWD_SHAPES = (
 # the plain backward timed in bf16 beside SDPA's (all causal, Sq = Sk)
 BWD_TIMED = ("qwen3_train", "qwen3_prefill",
              *(c[0] for c in SERVED_TRAIN_SHAPES), "starcoder2_prefill")
+# the f32 flash route's shape on the main path: train_tiny_lm's reduced
+# qwen3-1.7b in f32 at the example's B 8, S 64 (B, S, Hq, Hkv, D)
+F32_FLASH_SHAPE = (8, 64, 4, 2, 64)
 # f32 sums in other orders over up to 2,048 keys: each of dq, dk, dv within
 # BWD_TOL of its largest magnitude
 BWD_TOL = 5e-5
@@ -2923,7 +2932,9 @@ def attention_training(dev, smi: str) -> dict:
     and the seconds of each part."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.bench.common import BF16_OPS_PER_S, bound, timed_ms
+    from repro_torch._device import true_f32
+    from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                          bound, timed_ms)
     from repro_torch.bench.kernels import flash_work
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -3009,6 +3020,41 @@ def attention_training(dev, smi: str) -> dict:
     out["train_shape"] = rows.pop("qwen3_train")
     out["train_shapes"] = rows
     del timed
+    # the f32 route (flash_fwd, CUDA cores) at the shape of its phase 14
+    # launches: train_tiny_lm's reduced qwen3-1.7b in f32 (B 8, S 64, Hq 4,
+    # Hkv 2, D 64, causal, with lse), against its f32 bound and SDPA on the
+    # same f32 tensors with TF32 off
+    b, s, hq, hkv, d = F32_FLASH_SHAPE
+    q, k, v = (randn(b, s, h_, d) for h_ in (hq, hkv, hkv))
+    fa_kernel.reset_counts()
+    got, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True)
+    taken = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    want, want_lse = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), return_lse=True)
+    err = max((got - want.transpose(1, 2)).abs().max().item(),
+              (lse - want_lse).abs().max().item())
+    check(taken == {"flash_fwd": 1, "flash_fwd_wgmma": 0}, f"f32 flash at "
+          f"{F32_FLASH_SHAPE}: took {taken}, not flash_fwd")
+    check(err <= 1e-4, f"f32 flash at {F32_FLASH_SHAPE}: off the plain "
+          f"version by {err}")
+    nbytes, ops = flash_work(b, s, hq, hkv, d, 4, d)
+    with true_f32():
+        library_ms = timed_ms(lambda: sdpa(q, k, v), 20)
+    row = dict(ms=timed_ms(lambda: fa_kernel.flash_attention_kernel(
+                   q, k, v, return_lse=True), 20),
+               plain_ms=timed_ms(lambda: attention_ref(
+                   q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                   return_lse=True), 20),
+               library_ms=library_ms, library="SDPA, f32, TF32 off",
+               timing="eager, as train_tiny_lm calls it",
+               shape=[b, s, hq, hkv, d, d], with_lse=True,
+               kernel_taken="flash_fwd", max_abs_err=err)
+    row["bound_ms"], row["bound_by"] = bound(nbytes + 4 * b * hq * s, ops,
+                                             F32_OPS_PER_S)
+    line("timing_extra", kernel="flash_attention", case="tiny_lm_f32_lse",
+         dtype="float32", **row, device=smi)
+    out["f32_shape"] = row
+    del q, k, v, got, lse, want, want_lse
     out["phase_s"]["a_lse"] = synced() - t_part
 
     # -- (b) the backward ---------------------------------------------------
@@ -3081,8 +3127,9 @@ def scan_training_slice(dev, smi: str) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from repro_torch.bench.common import F32_OPS_PER_S, bound, timed_ms
-    from repro_torch.bench.kernels import slstm_bwd_work, ssm_bwd_work
+    from repro_torch.bench.common import timed_ms
+    from repro_torch.bench.scan_bwd import (slstm_bounds, slstm_parts,
+                                            ssm_bounds, ssm_parts)
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.slstm_scan import kernel as sl_kernel
@@ -3158,13 +3205,22 @@ def scan_training_slice(dev, smi: str) -> dict:
               f"{case}: off the plain backward by {errs} (tolerance "
               f"{SCAN_BWD_TOL})")
         del got, again, want, y, y2, st, st2
-        b_ms, b_by = bound(*ssm_bwd_work(b, s, h, p, n, chunk),
-                           F32_OPS_PER_S)
+        # the call and its parts: the chain, the chunks (also at each head
+        # group beside the one taken) and the head sum
+        split = ssm_parts(dict(xdt=xdt, loga=loga, b=bm, c=cm, cb=saved[0],
+                               h_prev=saved[1], chunk=chunk, dy=dy,
+                               dst=dst))
+        bounds = ssm_bounds(b, s)
         rows[case] = dict(
-            ms=timed_ms(lambda: ss_kernel.ssd_scan_bwd_kernel(*args), 5),
+            ms=split["ms"], parts_ms=split["parts"],
+            heads_per_block=split["heads_per_block"],
+            chunk_ms_by_group=split["chunk_by_group"],
             plain_ms=timed_ms(lambda: ss_ref.ssd_scan_chunked_bwd_ref(
                 xdt, loga, bm, cm, chunk, dy, dst), 1, groups=2),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None, bound_ms=bounds["bound_f32"][0],
+            bound_by=bounds["bound_f32"][1],
+            bound_3xtf32_ms=bounds["bound_3xtf32"][0],
+            bound_3xtf32_by=bounds["bound_3xtf32"][1],
             forward_saving_ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(
                 *fwd, save_states=True), 5),
             forward_ms=timed_ms(lambda: ss_kernel.ssd_scan_kernel(*fwd), 5),
@@ -3216,15 +3272,17 @@ def scan_training_slice(dev, smi: str) -> dict:
                   f"backward {case} {name}: off the plain backward by "
                   f"{errs} (tolerance {SCAN_BWD_TOL})")
             del got, again, want, hs, hs2, st, st2
-            ms = timed_ms(lambda: sl_kernel.slstm_scan_bwd_kernel(
-                saved, r, h_cot, st_cot), 3, groups=3)
-            b_ms, b_by = bound(*slstm_bwd_work(b, s, xh, du,
-                                               r.element_size()),
-                               F32_OPS_PER_S)
+            # the call and its parts: the chain and the dR product
+            split = slstm_parts(dict(saved=saved, r=r, h_cot=h_cot,
+                                     st_cot=st_cot))
+            ms = split["ms"]
+            b_ms, b_by = slstm_bounds(b, s, r.element_size())["bound_f32"]
             # the plain backward: its one call above by the host clock,
             # synchronised (two step loops, host-bound: seconds at S 2048)
             rows[case, name] = dict(
-                ms=ms, us_per_step=ms * 1e3 / s, plain_ms=plain_host_s * 1e3,
+                ms=ms, us_per_step=ms * 1e3 / s, parts_ms=split["parts"],
+                chain_us_per_step=split["parts"]["slstm_bwd_cluster"] * 1e3
+                / s, plain_ms=plain_host_s * 1e3,
                 plain_timing="host clock, one call", library_ms=None,
                 bound_ms=b_ms, bound_by=b_by,
                 forward_saving_ms=timed_ms(lambda: sl_kernel.slstm_scan_kernel(
@@ -4599,13 +4657,15 @@ def main() -> None:
     # the scans' instances that keep their state in registers: fleet_scan's
     # registers route at 1-8 nodes a lane, slstm_scan's cluster route at
     # 2 R dtypes × 2 h dtypes; and the scans' backward kernels: the SSD's
-    # chain and chunks, the sLSTM's two routes at 2 R dtypes; none may
-    # touch local memory
+    # chain and chunks (each with float4 rows or not), the sLSTM's cluster
+    # route at 2 R dtypes × R's rows in registers (4 or 8 rows a thread)
+    # or shared memory and its block route at 2 R dtypes; none may touch
+    # local memory
     frames = {"singleton_scan_registers": ("fleet_scan", 8),
               "slstm_scan_cluster": ("slstm_scan", 4),
-              "ssd_bwd_chain": ("ssm_scan", 1),
-              "ssd_bwd_chunk": ("ssm_scan", 1),
-              "slstm_bwd_cluster": ("slstm_scan", 2),
+              "ssd_bwd_chain": ("ssm_scan", 2),
+              "ssd_bwd_chunk": ("ssm_scan", 2),
+              "slstm_bwd_cluster": ("slstm_scan", 6),
               "slstm_bwd_block": ("slstm_scan", 2)}
     frame_lines = {k: [] for k in frames}
     for name, log in logs.items():
@@ -5069,6 +5129,7 @@ def main() -> None:
                  served_training_launches=trained["served"]["launches"],
                  training_shape=trained["train_shape"],
                  training_shapes=trained["train_shapes"],
+                 f32_shape=trained["f32_shape"],
                  backward=trained["backward"])
     for name in ("ssm_scan", "slstm_scan"):
         next(r for r in kernels if r["name"] == name).update(

@@ -30,6 +30,7 @@ HBM_BYTES_PER_S = 3.35e12            # device memory
 F32_OPS_PER_S = 67e12                # f32 outside the tensor cores
 F64_OPS_PER_S = 34e12                # f64 outside the tensor cores
 BF16_OPS_PER_S = 989e12              # dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12              # dense TF32 on the tensor cores
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S

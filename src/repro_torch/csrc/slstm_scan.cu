@@ -89,6 +89,8 @@ constexpr int CLUSTER_THREADS = 512;  // a CTA of the cluster route, at most
 constexpr int CS = 8;                 // CTAs a cluster: the portable size
 constexpr int LG = 8;                 // lanes that split a unit's sums
 constexpr int ROWS = 4;               // batch rows a lane group holds
+constexpr int REG_UNITS = 32;         // the backward's R rows in registers
+constexpr int REG_THREADS = 256;      // its CTA: a thread per u at du 256
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
@@ -247,6 +249,23 @@ __device__ __forceinline__ void gates4(const float* p, float* w) {
 }
 __device__ __forceinline__ void gates4(const __nv_bfloat16* p, float* w) {
   const uint2 x = *reinterpret_cast<const uint2*>(p);
+  w[0] = __uint_as_float(x.x << 16);
+  w[1] = __uint_as_float(x.x & 0xffff0000u);
+  w[2] = __uint_as_float(x.y << 16);
+  w[3] = __uint_as_float(x.y & 0xffff0000u);
+}
+
+// four gates of R as one load, and widened to f32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ uint2 load4(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ void widen4(float4 x, float* w) {
+  w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
+}
+__device__ __forceinline__ void widen4(uint2 x, float* w) {
   w[0] = __uint_as_float(x.x << 16);
   w[1] = __uint_as_float(x.x & 0xffff0000u);
   w[2] = __uint_as_float(x.y << 16);
@@ -431,7 +450,9 @@ int launch_cluster(const float* pre, const void* r, void* h_out,
 }
 
 // ---------------------------------------------------------------------------
-// The backward: the reverse chain, from the forward's saved steps.  Per
+// The backward: replaces what the reference differentiates with jax.vjp,
+// the lax.scan of slstm_scan (src/repro/models/xlstm.py); the reverse
+// chain, from the forward's saved steps.  Per
 // unit and row, step t from S - 1 down, with dh_t = h's cotangent plus
 // sum_k sum_v R[k, hd, u, v] dg_{t+1}[k, v] (and the final h's cotangent
 // at S - 1), and dc, dn, dm carried (seeded by the final state's):
@@ -572,75 +593,106 @@ __global__ void __launch_bounds__(4 * MAX_UNITS) slstm_bwd_block(
   }
 }
 
-// shared memory of the cluster route's backward: dg twice, then the R slice
+// elements of a row u of the backward's R slice: the CTA's U units v of 4
+// gates, padded so that consecutive rows lie 4 entries past a multiple of
+// 128 bytes (a warp's 32 rows read as 32 consecutive 4-entry groups)
+__host__ __device__ __forceinline__ int r_stride_bwd(int units, int el) {
+  const int bytes = 4 * units * el;
+  return (bytes + (4 * el - bytes % 128 + 128) % 128) / el;
+}
+
+// shared memory of the cluster route's backward: the partial sums of dh
+// of its own units from every CTA, twice; its own units' dg; the R slice
 __host__ __device__ __forceinline__ size_t cluster_bwd_smem(int B, int du,
                                                             int units,
                                                             int el) {
-  const int nb = (B + ROWS - 1) / ROWS;
-  return sizeof(float) * 2 * 4 * (size_t)du * ROWS * nb
-         + (size_t)units * r_stride(du, el) * el;
+  const int hrow = ROWS * ((B + ROWS - 1) / ROWS);
+  return sizeof(float) * ((size_t)2 * CS * units * hrow
+                          + (size_t)units * hrow * 4)
+         + (size_t)du * r_stride_bwd(units, el) * el;
 }
 
-// Route "cluster": the forward's layout read the other way.  A cluster of
-// CS CTAs per head; CTA c owns units u in [c U, (c+1) U) as the rows of R:
-// its slice R[k, hd, u, v] for all v and k, as rs[u][v][k] (the forward's
-// padding), stays in shared memory.  Each CTA keeps the head's dg of the
-// step after, [4 gates][du][4 nb] f32, twice: step t reads slot (t+1) % 2,
-// and writes the four gates of each unit and row it owns into slot t % 2
-// of every CTA (four remote stores per CTA), then meets one cluster
-// barrier.  A lane group of LG lanes owns (unit u, row block) and splits
-// v; the butterfly (two halving exchanges, one full) leaves both lanes of
-// row q / 2 with sum_v sum_k R[k, u, v] dg[k, v] in the same bits; both
-// apply the cell backward, and they share the CS remote stores.  A step's
-// saved values are loaded two steps ahead, off the chain.
-// Gate-major dg: for one gate a lane group's 8 lanes read 8 consecutive
-// units' four rows (one 128-byte line a float4 load at B <= 4, as the
-// forward reads h).  Laid out [du][rows][4 gates] they were 64 bytes apart
-// (4-way bank conflicts at B <= 4, 8-way at B 8): 20.9 against 8.5 ms at
-// xlstm-350m's B 4, S 2048 in bf16, 4.7 against 1.7 ms at B 8, S 128, the
-// same bits (chip_smoke.py phase 11(j) on an H100, PERF.md).
-template <typename TR>
-__global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_bwd_cluster(
+__device__ __forceinline__ void store_cluster4(uint32_t addr, float a,
+                                               float b, float c, float d) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   addr),
+               "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
+}
+
+// Route "cluster": the forward's layout, the all-gather of dg turned into a
+// reduce-scatter of dh.  A cluster of CS CTAs per head; CTA c owns the
+// units v in [c U, (c+1) U) and keeps the forward's R slice, R[k, hd, u,
+// v] for every u and its own v, as rs[u][v][k] (rows padded by
+// r_stride_bwd).  Each step every thread (u, block of RT rows) forms the
+// partial sum_{k, v own} R[k, u, v] dg_{t+1}[k, v] of its rows from the
+// CTA's own dg (in shared memory, read as broadcasts) and stores it, 16
+// bytes a remote store, into slot t % 2 of the CTA that owns u: 1,024
+// remote floats a CTA a step at B 4, the forward's count, where storing
+// each unit's four dg into all 8 CTAs would be 4,096.  One cluster
+// barrier; then the owner's cell threads (unit, row) add the CS partials
+// in rank order, apply the cell backward and write dg into their own CTA
+// only; a CTA barrier ends the step.  Sums in fixed orders: two calls give
+// the same bits.  A step's saved values are loaded two steps ahead.
+// With RU = 32 units a CTA (du 256) a thread holds its row of the slice
+// in registers and takes all RT = 4 or 8 rows (B up to 8), du threads a
+// CTA; else it reads the row from shared memory each step, RT = 4 rows a
+// thread.  At xlstm-350m's B 4, S 2048 the chain takes ~2.4 us a step in
+// bf16 and f32 on an H100 against ~3.8 us when every CTA gathered every
+// unit's dg (bench/scan_bwd.py, PERF.md): the step's latency, its FMAs
+// and broadcast reads, one cluster barrier and the cell, sets it.
+template <typename TR, int RU, int RT, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1) slstm_bwd_cluster(
     const float* __restrict__ save, const TR* __restrict__ r,
     const float* __restrict__ h_cot, const float* __restrict__ dc_last,
     const float* __restrict__ dn_last, const float* __restrict__ dh_last,
     const float* __restrict__ dm_last, float* __restrict__ dpre, int B,
     int S, int H, int du, int units) {
-  constexpr int SUBS = LG / 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nb = (B + ROWS - 1) / ROWS, hrow = ROWS * nb, d = H * du;
-  const int slot = 4 * du * hrow;                      // floats of a slot
-  float* gbuf = reinterpret_cast<float*>(smem_raw);    // [2][4][du][hrow]
-  TR* rs = reinterpret_cast<TR*>(gbuf + 2 * slot);     // [units][rstride]
-  const int rstride = r_stride(du, (int)sizeof(TR));
+  const int slot = CS * units * hrow;                 // floats of a slot
+  float* pbuf = reinterpret_cast<float*>(smem_raw);   // [2][CS][units][hrow]
+  float* dgb = pbuf + 2 * slot;                       // [units][hrow][4]
+  TR* rs = reinterpret_cast<TR*>(dgb + units * hrow * 4);  // [du][rstride]
+  const int rstride = r_stride_bwd(units, (int)sizeof(TR));
   const unsigned rank = cluster_rank();
   const int head = blockIdx.x / CS, tid = threadIdx.x, nt = blockDim.x;
-  const int task = tid / LG, q = tid % LG;
-  const int unit = task % units, rb = task / units;
-  const int u = (int)rank * units + unit;         // R's row: the unit here
-  const int row = q / SUBS, sub = q % SUBS;
-  const int b = rb * ROWS + row;
-  const bool live = b < B;
+  // as a partial thread: row u of R, rows RT rb.. of the batch
+  const int u = tid % du, rb = tid / du;
+  // as a cell thread (tid < units hrow): own unit w, row b
+  const bool cell = tid < units * hrow;
+  const int w = tid / hrow, b = tid % hrow;
+  const int v = (int)rank * units + w;            // its unit in the head
+  const bool live = cell && b < B;
 
-  for (int i = tid; i < 2 * slot; i += nt) gbuf[i] = 0.f;
+  for (int i = tid; i < units * hrow * 4; i += nt) dgb[i] = 0.f;
   for (int i = tid; i < 4 * du * units; i += nt) {
-    const int vv = i % du, wk = i / du, w = wk % units, k = wk / units;
-    rs[w * rstride + vv * 4 + k] =
-        r[((size_t)(k * H + head) * du + rank * units + w) * du + vv];
+    const int ww = i % units, uu = (i / units) % du, k = i / (units * du);
+    rs[uu * rstride + ww * 4 + k] =
+        r[((size_t)(k * H + head) * du + uu) * du + rank * units + ww];
   }
-  cluster_arrive();
+  cluster_arrive();          // every CTA set up before any remote store
   cluster_wait();
 
   const size_t plane = (size_t)B * S * d;
-  const size_t col = (size_t)(live ? b : 0) * S * d + head * du + u;
-  const size_t fin = (size_t)(live ? b : 0) * d + head * du + u;
+  const size_t col = (size_t)(live ? b : 0) * S * d + head * du + v;
+  const size_t fin = (size_t)(live ? b : 0) * d + head * du + v;
   float dc = live ? dc_last[fin] : 0.f, dn = live ? dn_last[fin] : 0.f;
   float dm = live ? dm_last[fin] : 0.f;
   const float dh_end = live ? dh_last[fin] : 0.f;
-  const TR* rrow = rs + unit * rstride;
-  const uint32_t gbase = (uint32_t)__cvta_generic_to_shared(gbuf)
-                         + (uint32_t)(sizeof(float) * (u * hrow + b));
-  const uint32_t gate_bytes = (uint32_t)(sizeof(float) * du * hrow);
+  const TR* rrow = rs + u * rstride;
+  // RU > 0 (RU = units): the thread's row of the slice held in registers
+  decltype(load4(rrow)) rreg[RU > 0 ? RU : 1];
+  if constexpr (RU > 0) {
+#pragma unroll
+    for (int ww = 0; ww < RU; ++ww) rreg[ww] = load4(rrow + ww * 4);
+  }
+  const float* grow = dgb + rb * RT * 4;
+  // where this thread's partial goes: slot 0, this CTA's rank, unit u % U
+  const uint32_t pdst = (uint32_t)__cvta_generic_to_shared(pbuf)
+      + (uint32_t)(sizeof(float) * (((int)rank * units + u % units) * hrow
+                                    + rb * RT));
+  const unsigned owner = (unsigned)(u / units);
   StepIn cur = {}, nxt = {};
   if (live) {
     cur = load_step(save, plane, h_cot, col + (size_t)(S - 1) * d);
@@ -651,65 +703,66 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) slstm_bwd_cluster(
     // issued now, used two steps later: the saved steps are off the chain
     if (live && t >= 2)
       after = load_step(save, plane, h_cot, col + (size_t)(t - 2) * d);
-    // acc[j]: row j of the block, over this lane's v
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const float* gs = gbuf + ((t + 1) & 1) * slot + rb * ROWS;
+    // acc[j]: row RT rb + j, over this CTA's units and the four gates
+    float acc[RT];
+#pragma unroll
+    for (int j = 0; j < RT; ++j) acc[j] = 0.f;
+    const auto add = [&](int ww, const float (&rk)[4]) {
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        const float4 g = *reinterpret_cast<const float4*>(
+            grow + (ww * hrow + j) * 4);
+        acc[j] = fmaf(rk[0], g.x, acc[j]);
+        acc[j] = fmaf(rk[1], g.y, acc[j]);
+        acc[j] = fmaf(rk[2], g.z, acc[j]);
+        acc[j] = fmaf(rk[3], g.w, acc[j]);
+      }
+    };
+    if constexpr (RU > 0) {
+#pragma unroll
+      for (int ww = 0; ww < RU; ++ww) {
+        float rk[4];
+        widen4(rreg[ww], rk);
+        add(ww, rk);
+      }
+    } else {
 #pragma unroll 4
-    for (int v = q; v < du; v += LG) {
-      float w[4], g[4][4];
-      gates4(rrow + v * 4, w);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            gs + (k * du + v) * hrow);
-        g[k][0] = x.x, g[k][1] = x.y, g[k][2] = x.z, g[k][3] = x.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) acc[j] = fmaf(g[k][j], w[k], acc[j]);
-    }
-    {
-      const bool up = q & (LG / 2);
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float send = up ? acc[i] : acc[i + 2];
-        const float keep = up ? acc[i + 2] : acc[i];
-        acc[i] = keep + __shfl_xor_sync(FULL, send, LG / 2);
+      for (int ww = 0; ww < units; ++ww) {
+        float rk[4];
+        widen4(load4(rrow + ww * 4), rk);
+        add(ww, rk);
       }
     }
-    {
-      const bool up = q & (LG / 4);
-      const float send = up ? acc[0] : acc[1];
-      const float keep = up ? acc[1] : acc[0];
-      acc[0] = keep + __shfl_xor_sync(FULL, send, LG / 4);
-    }
 #pragma unroll
-    for (int o = SUBS / 2; o >= 1; o >>= 1)
-      acc[0] += __shfl_xor_sync(FULL, acc[0], o);
-    float dh = acc[0] + cur.hc;
-    if (t == S - 1) dh += dh_end;
-    float dg[4];
-    cell_bwd(cur, t ? nxt.c : 0.f, t ? nxt.n : 0.f, t ? nxt.m : 0.f, dh, dc,
-             dn, dm, dg);
-    if (live) {
-      const uint32_t dst =
-          gbase + (uint32_t)(sizeof(float) * (t & 1) * slot);
-#pragma unroll
-      for (int rk = sub; rk < CS; rk += SUBS)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          store_cluster(map_rank(dst + k * gate_bytes, (unsigned)rk), dg[k]);
-    }
+    for (int j = 0; j < RT; j += 4)
+      store_cluster4(map_rank(pdst + (uint32_t)(sizeof(float) *
+                                                ((t & 1) * slot + j)),
+                              owner),
+                     acc[j], acc[j + 1], acc[j + 2], acc[j + 3]);
     cluster_arrive();
-    if (live && sub == 0) {
-      const size_t at = col + (size_t)t * d;
+    cluster_wait();
+    if (cell) {
+      const float* ps = pbuf + (t & 1) * slot + w * hrow + b;
+      float dh = 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k) dpre[k * plane + at] = dg[k];
+      for (int k = 0; k < CS; ++k) dh += ps[k * units * hrow];
+      dh += cur.hc;
+      if (t == S - 1) dh += dh_end;
+      float dg[4];
+      cell_bwd(cur, t ? nxt.c : 0.f, t ? nxt.n : 0.f, t ? nxt.m : 0.f, dh,
+               dc, dn, dm, dg);
+      if (!live) dg[0] = dg[1] = dg[2] = dg[3] = 0.f;
+      *reinterpret_cast<float4*>(dgb + (w * hrow + b) * 4) =
+          make_float4(dg[0], dg[1], dg[2], dg[3]);
+      if (live) {
+        const size_t at = col + (size_t)t * d;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dpre[k * plane + at] = dg[k];
+      }
     }
     cur = nxt;
     nxt = after;
-    cluster_wait();
+    __syncthreads();       // dg of this step written before the next reads
   }
 }
 
@@ -733,13 +786,20 @@ int launch_bwd(const float* save, const void* r, const float* h_cot,
   }
   const int units = du / CS, nb = (B + ROWS - 1) / ROWS;
   const size_t smem = cluster_bwd_smem(B, du, units, (int)sizeof(TR));
-  auto kernel = slstm_bwd_cluster<TR>;
+  // R's row in registers where a CTA has 32 units (xlstm-350m's du 256): a
+  // thread per u, for all 4 or 8 rows (up to B 8), du threads; else R read
+  // from shared memory each step, a thread per (u, 4 rows)
+  const bool in_regs = units == REG_UNITS && nb <= 2;
+  auto kernel = !in_regs ? slstm_bwd_cluster<TR, 0, ROWS, CLUSTER_THREADS>
+                : nb == 1
+                    ? slstm_bwd_cluster<TR, REG_UNITS, ROWS, REG_THREADS>
+                    : slstm_bwd_cluster<TR, REG_UNITS, 2 * ROWS, REG_THREADS>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(H * CS, 1, 1);
-  cfg.blockDim = dim3(units * nb * LG, 1, 1);
+  cfg.blockDim = dim3(in_regs ? du : units * nb * LG, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

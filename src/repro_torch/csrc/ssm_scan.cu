@@ -173,14 +173,10 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// csum[t] = the inclusive cumsum of log a over the chunk (steps past valid
-// add 0): warp 0, 4 steps a lane
-__device__ __forceinline__ void chunk_csum(const float* __restrict__ loga,
-                                           long long step0, int nh, int hh,
-                                           int valid, float* csum) {
+// csum <- its inclusive cumsum over the chunk, once every thread has
+// written its step: warp 0, 4 steps a lane
+__device__ __forceinline__ void csum_scan(float* csum) {
   const int tid = threadIdx.x;
-  if (tid < QC)
-    csum[tid] = tid < valid ? __ldg(loga + (step0 + tid) * nh + hh) : 0.f;
   __syncthreads();
   if (tid < 32) {
     float v[4], run = 0.f;
@@ -200,6 +196,17 @@ __device__ __forceinline__ void chunk_csum(const float* __restrict__ loga,
     for (int j = 0; j < 4; ++j) csum[tid * 4 + j] = v[j] + excl;
   }
   __syncthreads();
+}
+
+// csum[t] = the inclusive cumsum of log a over the chunk (steps past valid
+// add 0)
+__device__ __forceinline__ void chunk_csum(const float* __restrict__ loga,
+                                           long long step0, int nh, int hh,
+                                           int valid, float* csum) {
+  const int tid = threadIdx.x;
+  if (tid < QC)
+    csum[tid] = tid < valid ? __ldg(loga + (step0 + tid) * nh + hh) : 0.f;
+  csum_scan(csum);
 }
 
 // Ct[ct_at(n, t)] = C[t][n] ecs[t] and Bd[t][n] = B[t][n] dout[t]
@@ -517,9 +524,11 @@ __global__ void __launch_bounds__(NT, 2)
 }
 
 // ---------------------------------------------------------------------------
-// The backward.  Per chunk, with dy the cotangent of y, dH that of the state
-// after the chunk, L[t][s] = exp(csum[t] - csum[s]) for s <= t (else 0),
-// DX[t][s] = dy_t . xdt_s and W = L o DX:
+// The backward.  Replaces what the reference differentiates with jax.vjp:
+// ssd_chunked (src/repro/models/mamba2.py), whose chunked form the Pallas
+// kernel ssd_scan_kernel computes.  Per chunk, with dy the cotangent of y,
+// dH that of the state after the chunk, L[t][s] = exp(csum[t] - csum[s])
+// for s <= t (else 0), DX[t][s] = dy_t . xdt_s and W = L o DX:
 //   dH_prev  = exp(total) dH + sum_t exp(csum[t]) dy_t (x) C_t
 //   dxdt_s   = sum_t (C_t . B_s) L[t][s] dy_t + exp(total - csum[s]) dH B_s
 //   dC_t     = sum_s W[t][s] B_s + exp(csum[t]) dy_t H_prev
@@ -529,8 +538,18 @@ __global__ void __launch_bounds__(NT, 2)
 //            - B_t . (exp(total - csum[t]) xdt_t dH)
 //            + [t = Q-1] sum(dH o H_new)
 //   dloga    = the reverse cumsum of dcsum within the chunk
-// dB and dC are summed over the heads of a batch row by the caller, from
-// one share a head (no atomics: the same bits on every run).
+// dB and dC are summed over the heads (B and C are shared by them).
+//
+// What bounds it on the H100: operations.  At zamba2's B 4, S 2048 it needs
+// 34.6 GFLOP of f32 (kernels/work.py:ssm_bwd_work; 0.516 ms at 67 TFLOP/s)
+// against ~0.37 GB.  Its products are all tile products of 128 x 128 x 64
+// or 128 x 64 x 64, which the tensor cores run; but TF32 keeps 10 bits of
+// mantissa, and the backward is held to f32 (1e-4 of each gradient's
+// scale; one TF32 product is ~5e-4 off, tests/test_torch_ssm_scan.py).  So
+// ssd_bwd_chunk runs every product as split TF32: each f32 operand is a
+// TF32 high part plus the remainder, and a.b = hi.hi + hi.lo + lo.hi, each
+// an mma.sync.m16n8k8 into f32 (the lo.lo term, 2^-22 of the product, is
+// dropped).  Three TF32 products of 34.6 GFLOP at 495 TFLOP/s: 0.21 ms.
 //
 // ssd_bwd_chain  the reverse chain: one block per (batch, head, chunk),
 //                tickets handed out from the last chunk down (so every
@@ -539,27 +558,174 @@ __global__ void __launch_bounds__(NT, 2)
 //                for the chunk after it to publish dH, writes dH_prev for
 //                the chunk before it and releases the row's counter.  dh
 //                [B*H][nc][64][64] ends holding every chunk's dH, the last
-//                one the final state's cotangent.
-// ssd_bwd_chunk  one block per (batch, head, chunk), no order among them:
-//                the chunk's tiles in shared memory (xdt, dy, B, C at pitch
-//                68, one [Q][Q] tile at pitch 132, H_prev then dH), 256
-//                threads each owning rows r = ty + 16 i and columns
-//                c = tx + 16 j of a product, so a warp's reads of a row
-//                tile are broadcasts and of a column tile consecutive.  The
-//                tile holds W, then G = (C.B) o L.  Plain f32 on the CUDA
-//                cores, as the forward; exp(csum[t] - csum[s]) for s <= t
-//                only.
+//                one the final state's cotangent.  A block's dy and C
+//                arrive in one batch of copies (cp.async); its product
+//                stays on the CUDA cores: on the tensor cores (split
+//                TF32), and as a parallel pass with the decay-and-add left
+//                to the last block of a row, the chain measured slower
+//                (PERF.md).
+// ssd_bwd_chunk  one block per (batch row, chunk, group of heads), 8 warps.
+//                B and C of the chunk are loaded once for the group's
+//                heads; a head's xdt, dy, H_prev and dH in one batch of
+//                copies straight into shared memory (cp.async).  No [Q][Q]
+//                tile is kept: warp w owns rows 16w.. of the chunk twice.
+//                As t rows it walks the causal s tiles two at a time,
+//                forming DX on the tensor cores (a tile's three split
+//                products in three accumulators, three independent
+//                chains), W = L o DX and its share of dcsum in registers,
+//                and feeds W straight back as the A operand of W B (an
+//                accumulator tile is an A fragment once its k order is
+//                permuted: columns 2q, 2q + 1 of the tile are k = q,
+//                q + 4, and B's rows are read in the same order).  As s
+//                rows it walks the t tiles again for DX^T, giving W^T C and
+//                G^T dy (G = (C.B) o L, C.B read from the forward's tile
+//                in L2).  The state terms are four products with H_prev or
+//                dH.  dB and dC stay in registers across the group's heads,
+//                added in head order; each group writes its share, added
+//                up by the caller in group order.  dloga per head, from
+//                the row sums in registers, reduced over the 4 lanes of a
+//                row and then in fixed orders: every run gives the same
+//                bits.  ~176 KB of shared memory and 250-255 registers a
+//                thread: one block an SM, 8 warps, whose dependent mma
+//                chains the SM cannot hide (PERF.md); 16 warps at 128
+//                registers spilled.
 
-constexpr int PP = PC + 4;    // pitch of the [.][P or N] tiles
+constexpr int XP = PC + 4;    // pitch of the [Q][P or N] tiles (4 mod 32)
+constexpr int HP = NC + 8;    // pitch of the [P][N] tiles (8 mod 32)
 constexpr size_t BWD_CHAIN_SMEM = sizeof(float) * (2 * QC * PC + QC);
 constexpr size_t BWD_CHUNK_SMEM =
-    sizeof(float) * (4 * (size_t)QC * PP + (size_t)QC * TP + PC * PP +
-                     6 * QC);
+    sizeof(float) * (4 * (size_t)QC * XP + 2 * (size_t)PC * HP + 7 * QC);
 
-__device__ __forceinline__ float warp_sum16(float v) {
+// an f32 operand as a TF32 high part, x rounded to nearest at 10 mantissa
+// bits (ties away from zero, as cvt.rna.tf32.f32, in two integer
+// operations), and the remainder x - hi, exact in f32, of which the tensor
+// cores read the TF32 bits (its low 13 bits, 2^-21 of x at most, are
+// ignored)
+struct Split {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  return {hi, __float_as_uint(x - __uint_as_float(hi))};
+}
+
+// the fragments of mma.m16n8k8, lane 4g + q: A holds rows g, g + 8 at k q,
+// q + 4 (a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)); B
+// holds k q, q + 4 of column g; the accumulator rows g, g + 8 at columns
+// 2q, 2q + 1 (c0 (g, 2q), c1 (g, 2q + 1), c2 (g + 8, 2q), c3 (g + 8,
+// 2q + 1))
+struct FragA {
+  Split v[4];
+};
+struct FragB {
+  Split v[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a b at f32 accuracy: lo.hi, hi.lo, then hi.hi (lo.lo dropped)
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.v[0].lo, a.v[1].lo, a.v[2].lo, a.v[3].lo, b.v[0].hi,
+           b.v[1].hi);
+  mma_tf32(d, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].lo,
+           b.v[1].lo);
+  mma_tf32(d, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].hi,
+           b.v[1].hi);
+}
+
+// the three products of mma3 into three accumulators: three chains of
+// dependent mma.sync where mma3 makes one
+__device__ __forceinline__ void mma3_apart(float (&hh)[4], float (&lh)[4],
+                                           float (&hl)[4], const FragA& a,
+                                           const FragB& b) {
+  mma_tf32(lh, a.v[0].lo, a.v[1].lo, a.v[2].lo, a.v[3].lo, b.v[0].hi,
+           b.v[1].hi);
+  mma_tf32(hl, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].lo,
+           b.v[1].lo);
+  mma_tf32(hh, a.v[0].hi, a.v[1].hi, a.v[2].hi, a.v[3].hi, b.v[0].hi,
+           b.v[1].hi);
+}
+
+__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
+__device__ __forceinline__ int lane_q() { return threadIdx.x & 3; }
+
+// A fragment of rows r0.., k k0.. of a row-major tile
+__device__ __forceinline__ FragA frag_a(const float* m, int pitch, int r0,
+                                        int k0) {
+  const float* p = m + (r0 + lane_g()) * pitch + k0 + lane_q();
+  return {{split(p[0]), split(p[8 * pitch]), split(p[4]),
+           split(p[8 * pitch + 4])}};
+}
+// B fragment of k k0.., columns n0.. of a tile stored [n][k]
+__device__ __forceinline__ FragB frag_b_nk(const float* m, int pitch, int k0,
+                                           int n0) {
+  const float* p = m + (n0 + lane_g()) * pitch + k0 + lane_q();
+  return {{split(p[0]), split(p[4])}};
+}
+// B fragment of a tile stored [k][n]
+__device__ __forceinline__ FragB frag_b_kn(const float* m, int pitch, int k0,
+                                           int n0) {
+  const float* p = m + (k0 + lane_q()) * pitch + n0 + lane_g();
+  return {{split(p[0]), split(p[4 * pitch])}};
+}
+// B fragment of a tile stored [k][n], rows in the k order of acc_as_a: k q
+// is row 2q, k q + 4 row 2q + 1
+__device__ __forceinline__ FragB frag_b_perm(const float* m, int pitch,
+                                             int k0, int n0) {
+  const float* p = m + (k0 + 2 * lane_q()) * pitch + n0 + lane_g();
+  return {{split(p[0]), split(p[pitch])}};
+}
+// an accumulator tile as the A fragment of the product over its columns:
+// columns 2q, 2q + 1 taken as k q, q + 4
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
+  return {{split(c[0]), split(c[2]), split(c[1]), split(c[3])}};
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
 #pragma unroll
-  for (int o = 8; o >= 1; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// the sum over the 4 lanes of a fragment row: the same bits on each
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// row[col], row[col + 1] = a, b where col (+ 1) < width
+__device__ __forceinline__ void store_pair(float* row, int col, int width,
+                                           float a, float b) {
+  if (col + 1 < width && (reinterpret_cast<uintptr_t>(row + col) & 7) == 0) {
+    *reinterpret_cast<float2*>(row + col) = make_float2(a, b);
+  } else {
+    if (col < width) row[col] = a;
+    if (col + 1 < width) row[col + 1] = b;
+  }
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (zeros where !full); cp_async_wait_all waits for the thread's copies
+__device__ __forceinline__ void cp_async16(float* dst, const float4* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;" ::: "memory");
 }
 
 // rows [0, QC) x columns [0, cols) of a [QC][pitch] tile from a [.][stride]
@@ -582,6 +748,8 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src,
       });
 }
 
+// VEC: P = N = 64 and 16-byte aligned rows, copied as float4 (cp.async)
+template <bool VEC>
 __global__ void __launch_bounds__(NT, 2)
     ssd_bwd_chain(const float* __restrict__ loga,
                   const float* __restrict__ cmat,
@@ -602,12 +770,37 @@ __global__ void __launch_bounds__(NT, 2)
   const int bb = bh / nh, hh = bh % nh;
   const int c0 = c * q, valid = min(q, seq - c0);
   const long long step0 = (long long)bb * seq + c0;
-  load_rows<PC>(dy + (long long)hh * p, step0, (long long)nh * p, p, valid,
-                DY, PC);
-  load_rows<NC>(cmat, step0, n, n, valid, CE, NC);
-  chunk_csum(loga, step0, nh, hh, valid, csum);
+  // the chunk's dy and C rows and log a: with VEC every copy in flight at
+  // once (one wait on memory)
+  const float lv = tid < valid ? __ldg(loga + (step0 + tid) * nh + hh)
+                               : 0.f;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int k = 0; k < QC * PC / 4 / NT; ++k) {
+      const int i = tid + k * NT, t = i / (PC / 4);
+      const long long ay = t < valid
+          ? ((step0 + t) * nh * PC + (long long)hh * PC) / 4 + i % (PC / 4)
+          : 0;
+      const long long ac = t < valid ? (step0 + t) * (NC / 4) + i % (NC / 4)
+                                     : 0;
+      cp_async16(DY + 4 * i, reinterpret_cast<const float4*>(dy) + ay,
+                 t < valid);
+      cp_async16(CE + 4 * i, reinterpret_cast<const float4*>(cmat) + ac,
+                 t < valid);
+    }
+    cp_async_wait_all();
+  } else {
+    load_rows<PC>(dy + (long long)hh * p, step0, (long long)nh * p, p,
+                  valid, DY, PC);
+    load_rows<NC>(cmat, step0, n, n, valid, CE, NC);
+  }
+  if (tid < QC) csum[tid] = lv;
+  csum_scan(csum);
   const float total = csum[QC - 1];
-  for (int i = tid; i < QC * NC; i += NT) CE[i] *= expf(csum[i / NC]);
+  __syncthreads();   // total is read: csum takes exp(csum)
+  if (tid < QC) csum[tid] = expf(csum[tid]);
+  __syncthreads();
+  for (int i = tid; i < QC * NC; i += NT) CE[i] *= csum[i / NC];
   __syncthreads();
   // sb[p][n] = sum_t dy_t[p] C_t[n] exp(csum[t]), p = 4ty.., n = 4tx..
   float sb[4][4];
@@ -691,33 +884,8 @@ __device__ __forceinline__ void reverse_cumsum(float* dcs) {
   __syncthreads();
 }
 
-// out[r][c] (r = ty + 16 i, i < 8; c = tx + 16 j, j < J) += sum_k a(r, k)
-// b(k, c) over k < kn
-template <int J, class A, class B>
-__device__ __forceinline__ void product(float (&acc)[8][J], int kn, A a,
-                                        B b) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  for (int k = 0; k < kn; ++k) {
-    float av[8], bv[J];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = a(ty + 16 * i, k);
-#pragma unroll
-    for (int j = 0; j < J; ++j) bv[j] = b(k, tx + 16 * j);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < J; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-template <int J>
-__device__ __forceinline__ void zero(float (&acc)[8][J]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
-}
-
+// VEC: P = N = 64 and 16-byte aligned rows, read as float4
+template <bool VEC>
 __global__ void __launch_bounds__(NT, 1)
     ssd_bwd_chunk(const float* __restrict__ xdt,
                   const float* __restrict__ loga,
@@ -729,195 +897,364 @@ __global__ void __launch_bounds__(NT, 1)
                   const float* __restrict__ dy, float* __restrict__ dxdt,
                   float* __restrict__ dloga, float* __restrict__ db_part,
                   float* __restrict__ dc_part, int bsz, int seq, int nh,
-                  int p, int n, int q, int nc) {
-  extern __shared__ float smem[];
-  float* X = smem;               // [QC][PP]  xdt
-  float* DY = X + QC * PP;       // [QC][PP]  dy
-  float* Bm = DY + QC * PP;      // [QC][PP]  B
-  float* Cm = Bm + QC * PP;      // [QC][PP]  C
-  float* T = Cm + QC * PP;       // [QC][TP]  W, later G, at [t][s]
-  float* HM = T + QC * TP;       // [PC][PP]  H_prev, later dH
-  float* csum = HM + PC * PP;    // [QC]
+                  int p, int n, int q, int nc, int hg) {
+  extern __shared__ __align__(16) float smem[];
+  float* X = smem;               // [QC][XP]  xdt of the head
+  float* DY = X + QC * XP;       // [QC][XP]  dy of the head
+  float* Bm = DY + QC * XP;      // [QC][XP]  B of the chunk
+  float* Cm = Bm + QC * XP;      // [QC][XP]  C of the chunk
+  float* HM = Cm + QC * XP;      // [PC][HP]  H_prev of the head
+  float* DH = HM + PC * HP;      // [PC][HP]  dH of the head
+  float* csum = DH + PC * HP;    // [QC]
   float* ecs = csum + QC;        // [QC]  exp(csum)
   float* dout = ecs + QC;        // [QC]  exp(total - csum)
   float* lcs = dout + QC;        // [QC]  csum log2(e)
-  float* dcs = lcs + QC;         // [QC]  dcsum, then dloga
+  float* dct = lcs + QC;         // [QC]  dcsum's terms of the t rows
+  float* dcs = dct + QC;         // [QC]  those of the s rows, then dcsum
   float* es = dcs + QC;          // [QC]  B_s . dB_state_s
   __shared__ float red[NT / 32];
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int c = blockIdx.x % nc, bh = blockIdx.x / nc;
-  const int bb = bh / nh, hh = bh % nh;
+  const int tid = threadIdx.x, warp = tid / 32, g = lane_g(), qd = lane_q();
+  const int groups = (nh + hg - 1) / hg;
+  const int grp = blockIdx.x % groups, bc = blockIdx.x / groups;
+  const int c = bc % nc, bb = bc / nc;
   const int c0 = c * q, valid = min(q, seq - c0);
   const long long step0 = (long long)bb * seq + c0;
   const long long row_stride = (long long)nh * p;
-  const float* hp_g = hprev + ((long long)bh * nc + c) * PC * NC;
-  const float* dh_g = dh + ((long long)bh * nc + c) * PC * NC;
   const float* cbc = cb + ((long long)bb * nc + c) * QC * QC;  // [s][t]
+  const int r0 = 16 * warp;                  // the warp's 16 rows
+  const int ra = r0 + g, rb = ra + 8;        // the lane's two of them
+  const int t_tiles = min(2 * warp + 2, (valid + 7) / 8);
+  const int s_tiles = (valid + 7) / 8;
 
-  load_rows<PC>(xdt + (long long)hh * p, step0, row_stride, p, valid, X, PP);
-  load_rows<PC>(dy + (long long)hh * p, step0, row_stride, p, valid, DY, PP);
-  load_rows<NC>(bmat, step0, n, n, valid, Bm, PP);
-  load_rows<NC>(cmat, step0, n, n, valid, Cm, PP);
-  for (int i = tid; i < PC * NC; i += NT)
-    HM[(i / NC) * PP + i % NC] = __ldcg(hp_g + i);
-  // <dH, H_prev>, for dtotal
-  float hd = 0.f;
-  for (int i = tid; i < PC * NC; i += NT)
-    hd = fmaf(__ldcg(dh_g + i), __ldcg(hp_g + i), hd);
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) hd += __shfl_xor_sync(0xffffffffu, hd, o);
-  if (tid % 32 == 0) red[tid / 32] = hd;
-  chunk_csum(loga, step0, nh, hh, valid, csum);   // syncs
-  const float total = csum[QC - 1];
-  if (tid < QC) {
-    ecs[tid] = expf(csum[tid]);
-    dout[tid] = expf(total - csum[tid]);
-    lcs[tid] = csum[tid] * 1.4426950408889634f;
-    dcs[tid] = 0.f;
-  }
-  __syncthreads();
+  load_rows<NC>(bmat, step0, n, n, valid, Bm, XP);
+  load_rows<NC>(cmat, step0, n, n, valid, Cm, XP);
+  // dC (rows ra, rb as t) and dB (as s), over the group's heads
+  float dc_acc[NC / 8][4], db_acc[NC / 8][4];
+  zero(dc_acc);
+  zero(db_acc);
 
-  // W[t][s] = L[t][s] dy_t . xdt_s
-  {
-    float acc[8][8];
-    zero(acc);
-    product(acc, p, [&](int t, int k) { return DY[t * PP + k]; },
-            [&](int k, int s) { return X[s * PP + k]; });
+  const int h_end = min(nh, (grp + 1) * hg);
+  for (int hh = grp * hg; hh < h_end; ++hh) {
+    const long long tile = (((long long)bb * nh + hh) * nc + c) * PC * NC;
+    __syncthreads();   // the previous head's reads are done
+    // the head's xdt and dy rows, H_prev, dH and log a: with VEC every
+    // load in flight before the first store (one wait on memory a head)
+    const float lv = tid < valid ? __ldg(loga + (step0 + tid) * nh + hh)
+                                 : 0.f;
+    float hd = 0.f;    // <dH, H_prev>, for dtotal
+    if constexpr (VEC) {
+      // straight into shared memory (cp.async: no registers held), then
+      // <dH, H_prev> from the thread's own copies
+      constexpr int RV = QC * PC / 4 / NT, HV = PC * NC / 4 / NT;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int t = ty + 16 * i, s = tx + 16 * j;
-        T[t * TP + s] = s <= t ? acc[i][j] * fast_exp2(lcs[t] - lcs[s]) : 0.f;
+      for (int k = 0; k < RV; ++k) {
+        const int i = tid + k * NT, t = i / (PC / 4);
+        const long long at = t < valid
+            ? ((step0 + t) * row_stride + (long long)hh * PC) / 4
+                  + i % (PC / 4)
+            : 0;
+        const int to = t * XP + 4 * (i % (PC / 4));
+        cp_async16(X + to, reinterpret_cast<const float4*>(xdt) + at,
+                   t < valid);
+        cp_async16(DY + to, reinterpret_cast<const float4*>(dy) + at,
+                   t < valid);
       }
-  }
-  __syncthreads();
-  // the intra gate's share of dcsum: row sums minus column sums of
-  // (C.B) o W, each in one thread's fixed order
-  float colsum = 0.f;
-  if (tid < QC) {
-    float row = 0.f;
-    for (int s = 0; s <= tid; ++s)
-      row = fmaf(__ldg(cbc + s * QC + tid), T[tid * TP + s], row);
-    dcs[tid] = row;
-  } else {
-    const int s = tid - QC;
-    for (int t = s; t < QC; ++t)
-      colsum = fmaf(__ldg(cbc + s * QC + t), T[t * TP + s], colsum);
-  }
-  __syncthreads();
-  if (tid >= QC) dcs[tid - QC] -= colsum;
-
-  // dC = W B + exp(csum) dy H_prev; dcsum += C . (the second term)
-  {
-    float acc[8][4], inter[8][4];
-    zero(acc);
-    zero(inter);
-    product(acc, valid, [&](int t, int s) { return T[t * TP + s]; },
-            [&](int s, int nn) { return Bm[s * PP + nn]; });
-    product(inter, p, [&](int t, int k) { return DY[t * PP + k]; },
-            [&](int k, int nn) { return HM[k * PP + nn]; });
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int t = ty + 16 * i;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nn = tx + 16 * j;
-        inter[i][j] *= ecs[t];
-        part = fmaf(Cm[t * PP + nn], inter[i][j], part);
-        if (t < valid && nn < n)
-          dc_part[(((long long)hh * bsz + bb) * seq + c0 + t) * n + nn] =
-              acc[i][j] + inter[i][j];
+      for (int k = 0; k < HV; ++k) {
+        const int i = tid + k * NT;
+        const int to = (i / (NC / 4)) * HP + 4 * (i % (NC / 4));
+        cp_async16(HM + to, reinterpret_cast<const float4*>(hprev + tile) + i,
+                   true);
+        cp_async16(DH + to, reinterpret_cast<const float4*>(dh + tile) + i,
+                   true);
       }
-      part = warp_sum16(part);
-      __syncwarp();
-      if (tx == 0) dcs[t] += part;
-    }
-  }
-  __syncthreads();   // H_prev is read: HM takes dH
-  for (int i = tid; i < PC * NC; i += NT)
-    HM[(i / NC) * PP + i % NC] = __ldcg(dh_g + i);
-  __syncthreads();
-
-  // dB = W^T C + exp(total - csum) xdt dH; dcsum -= B . (the second term)
-  {
-    float acc[8][4], st[8][4];
-    zero(acc);
-    zero(st);
-    product(acc, valid, [&](int s, int t) { return T[t * TP + s]; },
-            [&](int t, int nn) { return Cm[t * PP + nn]; });
-    product(st, p, [&](int s, int k) { return X[s * PP + k]; },
-            [&](int k, int nn) { return HM[k * PP + nn]; });
+      cp_async_wait_all();
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int s = ty + 16 * i;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int nn = tx + 16 * j;
-        st[i][j] *= dout[s];
-        part = fmaf(Bm[s * PP + nn], st[i][j], part);
-        if (s < valid && nn < n)
-          db_part[(((long long)hh * bsz + bb) * seq + c0 + s) * n + nn] =
-              acc[i][j] + st[i][j];
+      for (int k = 0; k < HV; ++k) {
+        const int i = tid + k * NT;
+        const int to = (i / (NC / 4)) * HP + 4 * (i % (NC / 4));
+        const float4 a = *reinterpret_cast<const float4*>(HM + to);
+        const float4 d = *reinterpret_cast<const float4*>(DH + to);
+        hd = fmaf(d.x, a.x, hd);
+        hd = fmaf(d.y, a.y, hd);
+        hd = fmaf(d.z, a.z, hd);
+        hd = fmaf(d.w, a.w, hd);
       }
-      part = warp_sum16(part);
-      __syncwarp();
-      if (tx == 0) {
-        dcs[s] -= part;
-        es[s] = part;
+    } else {
+      load_rows<PC>(xdt + (long long)hh * p, step0, row_stride, p, valid, X,
+                    XP);
+      load_rows<PC>(dy + (long long)hh * p, step0, row_stride, p, valid, DY,
+                    XP);
+      for (int i = tid; i < PC * NC / 4; i += NT) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(hprev + tile)
+                               + i);
+        const float4 d = __ldg(reinterpret_cast<const float4*>(dh + tile)
+                               + i);
+        const int at = (i / (NC / 4)) * HP + 4 * (i % (NC / 4));
+        *reinterpret_cast<float4*>(HM + at) = a;
+        *reinterpret_cast<float4*>(DH + at) = d;
+        hd = fmaf(d.x, a.x, hd);
+        hd = fmaf(d.y, a.y, hd);
+        hd = fmaf(d.z, a.z, hd);
+        hd = fmaf(d.w, a.w, hd);
       }
     }
-  }
-  __syncthreads();   // W is read: T takes G
-
-  // G[t][s] = (C_t . B_s) L[t][s]
-  staged<QC * QC / NT>(
-      [&](int k) {
-        const int i = tid + k * NT, s = i / QC, t = i % QC;
-        return s <= t ? __ldg(cbc + i) : 0.f;
-      },
-      [&](int k, float v) {
-        const int i = tid + k * NT, s = i / QC, t = i % QC;
-        T[t * TP + s] = s <= t ? v * fast_exp2(lcs[t] - lcs[s]) : 0.f;
-      });
-  __syncthreads();
-
-  // dxdt = G^T dy + exp(total - csum) B dH^T
-  {
-    float acc[8][4], st[8][4];
-    zero(acc);
-    zero(st);
-    product(acc, valid, [&](int s, int t) { return T[t * TP + s]; },
-            [&](int t, int pp) { return DY[t * PP + pp]; });
-    product(st, n, [&](int s, int k) { return Bm[s * PP + k]; },
-            [&](int k, int pp) { return HM[pp * PP + k]; });
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int s = ty + 16 * i;
-      if (s >= valid) continue;
+    for (int o = 16; o >= 1; o >>= 1)
+      hd += __shfl_xor_sync(0xffffffffu, hd, o);
+    if (tid % 32 == 0) red[warp] = hd;
+    if (tid < QC) csum[tid] = lv;
+    csum_scan(csum);
+    const float total = csum[QC - 1];
+    if (tid < QC) {
+      ecs[tid] = expf(csum[tid]);
+      dout[tid] = expf(total - csum[tid]);
+      lcs[tid] = csum[tid] * 1.4426950408889634f;
+    }
+    __syncthreads();
+
+    // -- rows as t: W = L o (dy xdt^T) two tiles of 8 s at a time over
+    //    s <= t, dC += W B, then dC's state term exp(csum) dy H_prev
+    {
+      const float la = lcs[ra], lb = lcs[rb];
+      float va = 0.f, vb = 0.f;    // sum_s (C.B)[t][s] W[t][s], then more
+      for (int j = 0; j < t_tiles; j += 2) {
+        float cbt[2][4];           // C.B at (ra | rb, sa | sb), from L2
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int pp = tx + 16 * j;
-        if (pp < p)
-          dxdt[(step0 + s) * row_stride + (long long)hh * p + pp] =
-              fmaf(dout[s], st[i][j], acc[i][j]);
+        for (int e = 0; e < 2; ++e) {
+          const int sa = 8 * (j + e) + 2 * qd;
+          cbt[e][0] = __ldg(cbc + sa * QC + ra);
+          cbt[e][1] = __ldg(cbc + (sa + 1) * QC + ra);
+          cbt[e][2] = __ldg(cbc + sa * QC + rb);
+          cbt[e][3] = __ldg(cbc + (sa + 1) * QC + rb);
+        }
+        float ahh[2][4], alh[2][4], ahl[2][4];
+        zero(ahh);
+        zero(alh);
+        zero(ahl);
+#pragma unroll
+        for (int ks = 0; ks < PC / 8; ++ks) {
+          const FragA a = frag_a(DY, XP, r0, 8 * ks);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            mma3_apart(ahh[e], alh[e], ahl[e], a,
+                       frag_b_nk(X, XP, 8 * ks, 8 * (j + e)));
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int s0 = 8 * (j + e), sa = s0 + 2 * qd, sb = sa + 1;
+          const float lsa = lcs[sa], lsb = lcs[sb];
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = (alh[e][i] + ahl[e][i]) + ahh[e][i];
+          w[0] = sa <= ra ? w[0] * fast_exp2(la - lsa) : 0.f;
+          w[1] = sb <= ra ? w[1] * fast_exp2(la - lsb) : 0.f;
+          w[2] = sa <= rb ? w[2] * fast_exp2(lb - lsa) : 0.f;
+          w[3] = sb <= rb ? w[3] * fast_exp2(lb - lsb) : 0.f;
+          va = fmaf(cbt[e][0], w[0], fmaf(cbt[e][1], w[1], va));
+          vb = fmaf(cbt[e][2], w[2], fmaf(cbt[e][3], w[3], vb));
+          const FragA aw = acc_as_a(w);
+#pragma unroll
+          for (int nt = 0; nt < NC / 8; ++nt)
+            mma3(dc_acc[nt], aw, frag_b_perm(Bm, XP, s0, 8 * nt));
+        }
+      }
+      float st[NC / 8][4];
+      zero(st);
+#pragma unroll
+      for (int ks = 0; ks < PC / 8; ++ks) {
+        const FragA a = frag_a(DY, XP, r0, 8 * ks);
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt)
+          mma3(st[nt], a, frag_b_kn(HM, HP, 8 * ks, 8 * nt));
+      }
+      const float ea = ecs[ra], eb = ecs[rb];
+#pragma unroll
+      for (int nt = 0; nt < NC / 8; ++nt) {
+        const int nn = 8 * nt + 2 * qd;
+        const float2 ca = *reinterpret_cast<const float2*>(Cm + ra * XP + nn);
+        const float2 cv = *reinterpret_cast<const float2*>(Cm + rb * XP + nn);
+        st[nt][0] *= ea;
+        st[nt][1] *= ea;
+        st[nt][2] *= eb;
+        st[nt][3] *= eb;
+        va = fmaf(ca.x, st[nt][0], fmaf(ca.y, st[nt][1], va));
+        vb = fmaf(cv.x, st[nt][2], fmaf(cv.y, st[nt][3], vb));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dc_acc[nt][i] += st[nt][i];
+      }
+      va = quad_sum(va);
+      vb = quad_sum(vb);
+      if (qd == 0) {
+        dct[ra] = va;
+        dct[rb] = vb;
       }
     }
+
+    // -- rows as s: dB's state term exp(total - csum) xdt dH, dxdt's
+    //    exp(total - csum) B dH^T, then W^T = L^T o (xdt dy^T) two tiles of
+    //    8 t at a time over t >= s: dB += W^T C, dxdt += G^T dy
+    {
+      const float da = dout[ra], dd = dout[rb];
+      float ua = 0.f, ub = 0.f;    // B_s . dB_state_s
+      {
+        float st[NC / 8][4];
+        zero(st);
+#pragma unroll
+        for (int ks = 0; ks < PC / 8; ++ks) {
+          const FragA a = frag_a(X, XP, r0, 8 * ks);
+#pragma unroll
+          for (int nt = 0; nt < NC / 8; ++nt)
+            mma3(st[nt], a, frag_b_kn(DH, HP, 8 * ks, 8 * nt));
+        }
+#pragma unroll
+        for (int nt = 0; nt < NC / 8; ++nt) {
+          const int nn = 8 * nt + 2 * qd;
+          const float2 ba =
+              *reinterpret_cast<const float2*>(Bm + ra * XP + nn);
+          const float2 bv =
+              *reinterpret_cast<const float2*>(Bm + rb * XP + nn);
+          st[nt][0] *= da;
+          st[nt][1] *= da;
+          st[nt][2] *= dd;
+          st[nt][3] *= dd;
+          ua = fmaf(ba.x, st[nt][0], fmaf(ba.y, st[nt][1], ua));
+          ub = fmaf(bv.x, st[nt][2], fmaf(bv.y, st[nt][3], ub));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) db_acc[nt][i] += st[nt][i];
+        }
+      }
+      float dx[PC / 8][4];
+      zero(dx);
+#pragma unroll
+      for (int ks = 0; ks < NC / 8; ++ks) {
+        const FragA ab = frag_a(Bm, XP, r0, 8 * ks);
+#pragma unroll
+        for (int pt = 0; pt < PC / 8; ++pt)
+          mma3(dx[pt], ab, frag_b_nk(DH, HP, 8 * ks, 8 * pt));
+      }
+#pragma unroll
+      for (int pt = 0; pt < PC / 8; ++pt) {
+        dx[pt][0] *= da;
+        dx[pt][1] *= da;
+        dx[pt][2] *= dd;
+        dx[pt][3] *= dd;
+      }
+      const float la = lcs[ra], lb = lcs[rb];
+      float va = 0.f, vb = 0.f;    // sum_t (C.B)[t][s] W[t][s]
+      for (int j = 2 * warp; j < s_tiles; j += 2) {
+        float2 cbs[2][2];          // C.B at (ra | rb, ta..tb), from L2
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ta = 8 * (j + e) + 2 * qd;
+          cbs[e][0] = __ldg(reinterpret_cast<const float2*>(
+              cbc + ra * QC + ta));
+          cbs[e][1] = __ldg(reinterpret_cast<const float2*>(
+              cbc + rb * QC + ta));
+        }
+        float ahh[2][4], alh[2][4], ahl[2][4];
+        zero(ahh);
+        zero(alh);
+        zero(ahl);
+#pragma unroll
+        for (int ks = 0; ks < PC / 8; ++ks) {
+          const FragA a = frag_a(X, XP, r0, 8 * ks);
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            mma3_apart(ahh[e], alh[e], ahl[e], a,
+                       frag_b_nk(DY, XP, 8 * ks, 8 * (j + e)));
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int t0 = 8 * (j + e), ta = t0 + 2 * qd, tb = ta + 1;
+          const float lta = lcs[ta], ltb = lcs[tb];
+          const float l[4] = {ra <= ta ? fast_exp2(lta - la) : 0.f,
+                              ra <= tb ? fast_exp2(ltb - la) : 0.f,
+                              rb <= ta ? fast_exp2(lta - lb) : 0.f,
+                              rb <= tb ? fast_exp2(ltb - lb) : 0.f};
+          float w[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            w[i] = ((alh[e][i] + ahl[e][i]) + ahh[e][i]) * l[i];
+          const float2 ca = cbs[e][0], cv = cbs[e][1];
+          const float gt[4] = {ca.x * l[0], ca.y * l[1], cv.x * l[2],
+                               cv.y * l[3]};
+          va = fmaf(ca.x, w[0], fmaf(ca.y, w[1], va));
+          vb = fmaf(cv.x, w[2], fmaf(cv.y, w[3], vb));
+          const FragA aw = acc_as_a(w), ag = acc_as_a(gt);
+#pragma unroll
+          for (int nt = 0; nt < NC / 8; ++nt)
+            mma3(db_acc[nt], aw, frag_b_perm(Cm, XP, t0, 8 * nt));
+#pragma unroll
+          for (int pt = 0; pt < PC / 8; ++pt)
+            mma3(dx[pt], ag, frag_b_perm(DY, XP, t0, 8 * pt));
+        }
+      }
+#pragma unroll
+      for (int pt = 0; pt < PC / 8; ++pt) {
+        const int pp = 8 * pt + 2 * qd;
+        if (ra < valid)
+          store_pair(dxdt + (step0 + ra) * row_stride + (long long)hh * p,
+                     pp, p, dx[pt][0], dx[pt][1]);
+        if (rb < valid)
+          store_pair(dxdt + (step0 + rb) * row_stride + (long long)hh * p,
+                     pp, p, dx[pt][2], dx[pt][3]);
+      }
+      va = quad_sum(va + ua);
+      vb = quad_sum(vb + ub);
+      ua = quad_sum(ua);
+      ub = quad_sum(ub);
+      if (qd == 0) {
+        dcs[ra] = va;
+        dcs[rb] = vb;
+        es[ra] = ua;
+        es[rb] = ub;
+      }
+    }
+    __syncthreads();
+    if (tid < QC) dcs[tid] = dct[tid] - dcs[tid];
+    __syncthreads();
+    // dtotal = exp(total) <dH, H_prev> + sum_s B_s . dB_state_s, at Q - 1
+    if (tid < 32) {
+      // sum_s es[s] over the valid steps, 4 a lane, then across the warp
+      float esum = 0.f;
+#pragma unroll
+      for (int j = 0; j < QC / 32; ++j)
+        esum += 32 * j + tid < valid ? es[32 * j + tid] : 0.f;
+#pragma unroll
+      for (int o = 16; o >= 1; o >>= 1)
+        esum += __shfl_xor_sync(0xffffffffu, esum, o);
+      if (tid == 0) {
+        float hsum = 0.f;
+        for (int w = 0; w < NT / 32; ++w) hsum += red[w];
+        dcs[QC - 1] += fmaf(expf(total), hsum, esum);
+      }
+    }
+    __syncthreads();
+    reverse_cumsum(dcs);
+    if (tid < valid) dloga[(step0 + tid) * nh + hh] = dcs[tid];
   }
 
-  // dtotal = exp(total) <dH, H_prev> + sum_s B_s . dB_state_s, at Q - 1
-  if (tid == 0) {
-    float hsum = 0.f, esum = 0.f;
-    for (int w = 0; w < NT / 32; ++w) hsum += red[w];
-    for (int s = 0; s < valid; ++s) esum += es[s];
-    dcs[QC - 1] += fmaf(expf(total), hsum, esum);
+  // the group's share of dB and dC
+  const long long part = ((long long)grp * bsz + bb) * seq + c0;
+#pragma unroll
+  for (int nt = 0; nt < NC / 8; ++nt) {
+    const int nn = 8 * nt + 2 * qd;
+    if (ra < valid) {
+      store_pair(dc_part + (part + ra) * n, nn, n, dc_acc[nt][0],
+                 dc_acc[nt][1]);
+      store_pair(db_part + (part + ra) * n, nn, n, db_acc[nt][0],
+                 db_acc[nt][1]);
+    }
+    if (rb < valid) {
+      store_pair(dc_part + (part + rb) * n, nn, n, dc_acc[nt][2],
+                 dc_acc[nt][3]);
+      store_pair(db_part + (part + rb) * n, nn, n, db_acc[nt][2],
+                 db_acc[nt][3]);
+    }
   }
-  __syncthreads();
-  reverse_cumsum(dcs);
-  if (tid < valid) dloga[(step0 + tid) * nh + hh] = dcs[tid];
 }
 
 bool shapes_ok(int chunk, int p, int n) {
@@ -1006,15 +1343,17 @@ int ssm_scan_bwd_chain(const void* loga, const void* c, const void* dy,
   if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto kernel = vec_ok(dy, c, c, dy, p, n) ? ssd_bwd_chain<true>
+                                                  : ssd_bwd_chain<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_chain, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)BWD_CHAIN_SMEM);
   if (err != cudaSuccess) return (int)err;
   const int rows = bsz * nh, nc = (seq + chunk - 1) / chunk;
   int* cnt = static_cast<int*>(counters);
   err = cudaMemsetAsync(cnt, 0, sizeof(int) * (rows + 1), st);
   if (err != cudaSuccess) return (int)err;
-  ssd_bwd_chain<<<rows * nc, NT, BWD_CHAIN_SMEM, st>>>(
+  kernel<<<rows * nc, NT, BWD_CHAIN_SMEM, st>>>(
       static_cast<const float*>(loga), static_cast<const float*>(c),
       static_cast<const float*>(dy), static_cast<const float*>(state_cot),
       static_cast<float*>(dh), cnt, cnt + 1, bsz, seq, nh, p, n, chunk, nc);
@@ -1024,30 +1363,35 @@ int ssm_scan_bwd_chain(const void* loga, const void* c, const void* dy,
 // The backward's chunks.  xdt [B,S,H,P], loga [B,S,H], b/c [B,S,N], cb from
 // ssm_scan_cb, hprev (ssm_scan_chunks' hsave) and dh (ssm_scan_bwd_chain)
 // [B*H, nc, 64, 64], dy [B,S,H,P], all f32 and contiguous -> dxdt
-// [B,S,H,P], dloga [B,S,H], and each head's share of db and dc
-// [H,B,S,N].  Returns the launch's cudaError_t.
+// [B,S,H,P], dloga [B,S,H], and db/dc in one share per group of
+// heads_per_block heads, [ceil(H / heads_per_block), B, S, N] (the group's
+// heads added in order).  Returns the launch's cudaError_t.
 int ssm_scan_bwd_chunks(const void* xdt, const void* loga, const void* b,
                         const void* c, const void* cb, const void* hprev,
                         const void* dh, const void* dy, void* dxdt,
                         void* dloga, void* db_part, void* dc_part, int bsz,
                         int seq, int nh, int p, int n, int chunk,
-                        void* stream) {
-  if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1)
+                        int heads_per_block, void* stream) {
+  if (!shapes_ok(chunk, p, n) || seq < 1 || bsz < 1 || nh < 1 ||
+      heads_per_block < 1)
     return (int)cudaErrorInvalidValue;
+  const auto kernel = vec_ok(xdt, b, c, dy, p, n) ? ssd_bwd_chunk<true>
+                                                    : ssd_bwd_chunk<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_chunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)BWD_CHUNK_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int rows = bsz * nh, nc = (seq + chunk - 1) / chunk;
-  ssd_bwd_chunk<<<rows * nc, NT, BWD_CHUNK_SMEM,
-                  static_cast<cudaStream_t>(stream)>>>(
+  const int nc = (seq + chunk - 1) / chunk;
+  const int groups = (nh + heads_per_block - 1) / heads_per_block;
+  kernel<<<bsz * nc * groups, NT, BWD_CHUNK_SMEM,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(xdt), static_cast<const float*>(loga),
       static_cast<const float*>(b), static_cast<const float*>(c),
       static_cast<const float*>(cb), static_cast<const float*>(hprev),
       static_cast<const float*>(dh), static_cast<const float*>(dy),
       static_cast<float*>(dxdt), static_cast<float*>(dloga),
       static_cast<float*>(db_part), static_cast<float*>(dc_part), bsz, seq,
-      nh, p, n, chunk, nc);
+      nh, p, n, chunk, nc, heads_per_block);
   return (int)cudaGetLastError();
 }
 

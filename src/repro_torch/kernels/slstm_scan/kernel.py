@@ -62,12 +62,23 @@ def choose_route(b: int, du: int, r_dtype: torch.dtype) -> str:
     return "cluster" if cluster_fits(b, du, r_dtype) else "block"
 
 
+def _r_stride_bwd(units: int, el: int) -> int:
+    """Elements of a row u of the backward's R slice: the CTA's units v of
+    four gates, padded to 4 entries past a multiple of 128 bytes
+    (``csrc`` ``r_stride_bwd``)."""
+    nbytes = 4 * units * el
+    return (nbytes + (4 * el - nbytes % 128) % 128) // el
+
+
 def cluster_bwd_smem(b: int, du: int, el: int) -> int:
-    """Shared memory of a CTA of the backward's cluster route: the head's
-    four gates' dg, [du] × ``b`` rows padded to a multiple of 4 × 4,
-    twice, then its R slice as the forward's."""
-    rows = ROWS * -(-b // ROWS)
-    return 4 * 2 * 4 * du * rows + (du // CLUSTER) * _r_stride(du, el) * el
+    """Shared memory of a CTA of the backward's cluster route: the partial
+    sums of dh of its du / :data:`CLUSTER` units from every CTA, [8] ×
+    [units] × ``b`` rows padded to a multiple of 4, twice; its units' four
+    gates' dg; then the forward's R slice (every u, its own v), a row per
+    u."""
+    rows, units = ROWS * -(-b // ROWS), du // CLUSTER
+    return (4 * (2 * CLUSTER * units * rows + units * rows * 4)
+            + du * _r_stride_bwd(units, el) * el)
 
 
 def bwd_routes(b: int, du: int, r_dtype: torch.dtype) -> tuple[str, ...]:
@@ -207,15 +218,29 @@ def slstm_scan_bwd_kernel(saved: torch.Tensor, r: torch.Tensor,
     if dev.type != "cuda" or r.device != dev:
         raise ValueError("slstm_scan_bwd_kernel needs its inputs on one CUDA "
                          f"device, got {dev} and {r.device}")
+    if b * s * d == 0:
+        return (torch.zeros((4, b, s, d), dtype=torch.float32, device=dev),
+                torch.zeros(r.shape, dtype=torch.float32, device=dev))
+    dpre = bwd_chain_kernel(saved, r, h_cot, state_cot, route)
+    slstm_scan_bwd_kernel.launches += 1
+    return dpre, recurrent_grad(saved, dpre, h)
+
+
+def bwd_chain_kernel(saved: torch.Tensor, r: torch.Tensor,
+                     h_cot: torch.Tensor | None, state_cot, route: str
+                     ) -> torch.Tensor:
+    """The backward's reverse chain, ``slstm_scan_bwd`` on ``route`` (one
+    launch, counted in ``slstm_scan_bwd_kernel.by_route``) → dpre [4, B,
+    S, d] f32."""
+    _, b, s, d = saved.shape
+    _, h, du, _ = r.shape
+    dev = saved.device
     zeros = torch.zeros((b, d), dtype=torch.float32, device=dev)
     h_cot = (torch.zeros((b, s, d), dtype=torch.float32, device=dev)
              if h_cot is None else h_cot.float().contiguous())
     finals = [zeros if g is None else g.float().contiguous()
               for g in (state_cot or (None,) * 4)]
     dpre = torch.empty((4, b, s, d), dtype=torch.float32, device=dev)
-    if b * s * d == 0:
-        return dpre.zero_(), torch.zeros(r.shape, dtype=torch.float32,
-                                         device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.slstm_scan_bwd(
@@ -223,15 +248,23 @@ def slstm_scan_bwd_kernel(saved: torch.Tensor, r: torch.Tensor,
             *(_build.ptr(t) for t in (h_cot, *finals, dpre)),
             int(route == "cluster"), b, s, h, du, _build.stream_of(saved))
     _build.check(lib, rc, f"slstm_scan_bwd ({route})")
-    slstm_scan_bwd_kernel.launches += 1
     slstm_scan_bwd_kernel.by_route[route] += 1
-    # h_{t-1}: the saved h one step later, 0 before the first
+    return dpre
+
+
+def recurrent_grad(saved: torch.Tensor, dpre: torch.Tensor, h: int
+                   ) -> torch.Tensor:
+    """dR [4, H, du, du] = sum over b and t of h_{t-1}ᵀ dg_t: one true-f32
+    batched product (a plain product outside the chain, as the reference
+    leaves it to XLA) of the saved h one step later, 0 before the first,
+    and dpre."""
+    _, b, s, d = saved.shape
+    du = d // h
     h_prev = torch.nn.functional.pad(saved[SAVED.index("h"), :, :-1],
                                      (0, 0, 1, 0))
     with true_f32():
-        dr = torch.einsum("xhu,gxhv->ghuv", h_prev.reshape(b * s, h, du),
-                          dpre.reshape(4, b * s, h, du))
-    return dpre, dr
+        return torch.einsum("xhu,gxhv->ghuv", h_prev.reshape(b * s, h, du),
+                            dpre.reshape(4, b * s, h, du))
 
 
 def reset_counts() -> None:

@@ -12,8 +12,10 @@ MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 64
 #: the two CUDA kernels each call launches, in order
 KERNELS = ("ssd_cb", "ssd_chunk")
 #: the two CUDA kernels each backward call launches, in order: the reverse
-#: chain over chunks, then one block per (batch, head, chunk)
+#: chain over chunks, then one block per (batch row, chunk, group of heads)
 BWD_KERNELS = ("ssd_bwd_chain", "ssd_bwd_chunk")
+#: heads a block of ``ssd_bwd_chunk`` may take besides 1 (``head_group``)
+HEAD_GROUPS = (4, 2)
 
 
 def _lib() -> ctypes.CDLL:
@@ -25,7 +27,7 @@ def _lib() -> ctypes.CDLL:
     lib.ssm_scan_chunks.restype = ctypes.c_int
     lib.ssm_scan_bwd_chain.argtypes = [p] * 6 + [i] * 6 + [p]
     lib.ssm_scan_bwd_chain.restype = ctypes.c_int
-    lib.ssm_scan_bwd_chunks.argtypes = [p] * 12 + [i] * 6 + [p]
+    lib.ssm_scan_bwd_chunks.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.ssm_scan_bwd_chunks.restype = ctypes.c_int
     return lib
 
@@ -146,7 +148,8 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, loga: torch.Tensor,
                         b: torch.Tensor, c: torch.Tensor,
                         cb: torch.Tensor, h_prev: torch.Tensor, chunk: int,
                         y_cot: torch.Tensor | None,
-                        state_cot: torch.Tensor | None
+                        state_cot: torch.Tensor | None, *,
+                        heads_per_block: int | None = None
                         ) -> tuple[torch.Tensor, ...]:
     """The backward of :func:`ssd_scan_kernel` from what it saved (``cb``,
     ``h_prev``) and the cotangents of y [B,S,H,P] and of the final state
@@ -155,10 +158,12 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, loga: torch.Tensor,
 
     Two launches (``by_kernel``): ``ssd_bwd_chain`` runs the chunks from
     the last down, each forming the cotangent of the state after it, dH;
-    ``ssd_bwd_chunk`` then gives every (batch, head, chunk) a block that
-    forms dxdt, dloga and the head's share of dB and dC.  The shares are
-    summed over heads here, in a fixed order: two calls give the same
-    bits.  ``launches`` counts calls."""
+    ``ssd_bwd_chunk`` then gives every (batch row, chunk, group of heads)
+    a block that forms dxdt and dloga of each head on the tensor cores in
+    split TF32 (f32 accuracy) and the group's share of dB and dC.  Where
+    there are several groups (``heads_per_block``, default
+    :func:`head_group`) the shares are summed here, in a fixed order: two
+    calls give the same bits.  ``launches`` counts calls."""
     chunk = _check_inputs(xdt, loga, b, c, chunk)
     bsz, s, h, p = xdt.shape
     n = b.shape[-1]
@@ -179,29 +184,93 @@ def ssd_scan_bwd_kernel(xdt: torch.Tensor, loga: torch.Tensor,
         raise ValueError(f"saved cb {tuple(cb.shape)} and h_prev "
                          f"{tuple(h_prev.shape)} are not the forward's at "
                          f"this shape and chunk {chunk}")
-    d_h = _states(bsz, h, s, chunk, dev)
-    counters = torch.empty(bsz * h + 1, dtype=torch.int32, device=dev)
-    dxdt = torch.empty_like(xdt)
-    dloga = torch.empty_like(loga)
-    db = torch.empty((h, bsz, s, n), dtype=torch.float32, device=dev)
-    dc = torch.empty_like(db)
+    d_h = bwd_chain_kernel(loga, c, y_cot, state_cot, chunk)
+    dxdt, dloga, db, dc = bwd_chunk_kernel(xdt, loga, b, c, cb, h_prev, d_h,
+                                           y_cot, chunk, heads_per_block)
+    ssd_scan_bwd_kernel.launches += 1
+    return dxdt, dloga, *head_sum(db, dc)
+
+
+def bwd_chain_kernel(loga: torch.Tensor, c: torch.Tensor,
+                     y_cot: torch.Tensor, state_cot: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """The backward's reverse chain (``ssd_bwd_chain``, one launch, counted
+    in ``ssd_scan_bwd_kernel.by_kernel``) → dH [B·H, nc, 64, 64]: the
+    cotangent of the state after each chunk."""
+    bsz, s, h = loga.shape
+    p, n = y_cot.shape[-1], c.shape[-1]
+    d_h = _states(bsz, h, s, chunk, loga.device)
+    counters = torch.empty(bsz * h + 1, dtype=torch.int32,
+                           device=loga.device)
     lib = _lib()
-    stream = _build.stream_of(xdt)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(loga.device):
         rc = lib.ssm_scan_bwd_chain(
             *(_build.ptr(t) for t in (loga, c, y_cot, state_cot, d_h,
                                       counters)),
-            bsz, s, h, p, n, chunk, stream)
-        _build.check(lib, rc, "ssm_scan (ssd_bwd_chain)")
-        ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chain"] += 1
+            bsz, s, h, p, n, chunk, _build.stream_of(loga))
+    _build.check(lib, rc, "ssm_scan (ssd_bwd_chain)")
+    ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chain"] += 1
+    return d_h
+
+
+def head_group(bsz: int, nc: int, h: int, sms: int) -> int:
+    """Heads one block of ``ssd_bwd_chunk`` takes (1 or one of
+    :data:`HEAD_GROUPS` up to H): the one that leaves the fewest heads on
+    the busiest of the card's ``sms`` SMs (B·nc·ceil(H / group) blocks,
+    one an SM at a time), the largest of those that tie.  More heads a
+    block load B and C once for more of them and leave fewer shares of dB
+    and dC to add; fewer fill the card."""
+    def busiest(g: int) -> int:
+        return -(-bsz * nc * -(-h // g) // sms) * g
+
+    return min((g for g in (*HEAD_GROUPS, 1) if g == 1 or g <= h),
+               key=lambda g: (busiest(g), -g))
+
+
+def bwd_chunk_kernel(xdt: torch.Tensor, loga: torch.Tensor, b: torch.Tensor,
+                     c: torch.Tensor, cb: torch.Tensor, h_prev: torch.Tensor,
+                     d_h: torch.Tensor, y_cot: torch.Tensor, chunk: int,
+                     heads_per_block: int | None = None
+                     ) -> tuple[torch.Tensor, ...]:
+    """The backward's chunks (``ssd_bwd_chunk``, one launch, counted in
+    ``ssd_scan_bwd_kernel.by_kernel``): a block per (batch row, chunk,
+    group of ``heads_per_block`` heads; default :func:`head_group`) →
+    dxdt, dloga, and dB and dC as one share a group, [G, B, S, N], that
+    :func:`head_sum` adds up."""
+    bsz, s, h, p = xdt.shape
+    n = b.shape[-1]
+    dev = xdt.device
+    if heads_per_block is None:
+        heads_per_block = head_group(
+            bsz, -(-s // chunk), h, torch.cuda.get_device_properties(dev)
+            .multi_processor_count)
+    if heads_per_block < 1:
+        raise ValueError(f"heads_per_block must be >= 1, got "
+                         f"{heads_per_block}")
+    groups = -(-h // heads_per_block)
+    dxdt = torch.empty_like(xdt)
+    dloga = torch.empty_like(loga)
+    db = torch.empty((groups, bsz, s, n), dtype=torch.float32, device=dev)
+    dc = torch.empty_like(db)
+    lib = _lib()
+    with torch.cuda.device(dev):
         rc = lib.ssm_scan_bwd_chunks(
             *(_build.ptr(t) for t in (xdt, loga, b, c, cb, h_prev, d_h,
                                       y_cot, dxdt, dloga, db, dc)),
-            bsz, s, h, p, n, chunk, stream)
-        _build.check(lib, rc, "ssm_scan (ssd_bwd_chunk)")
-        ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chunk"] += 1
-    ssd_scan_bwd_kernel.launches += 1
-    return dxdt, dloga, db.sum(0), dc.sum(0)
+            bsz, s, h, p, n, chunk, heads_per_block, _build.stream_of(xdt))
+    _build.check(lib, rc, "ssm_scan (ssd_bwd_chunk)")
+    ssd_scan_bwd_kernel.by_kernel["ssd_bwd_chunk"] += 1
+    return dxdt, dloga, db, dc
+
+
+def head_sum(db: torch.Tensor, dc: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dB and dC from :func:`bwd_chunk_kernel`'s shares: the one share
+    itself, or the shares added in a fixed order (no atomics: two calls
+    give the same bits)."""
+    if db.shape[0] == 1:
+        return db[0], dc[0]
+    return db.sum(0), dc.sum(0)
 
 
 def reset_counts() -> None:

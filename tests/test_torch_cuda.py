@@ -1736,7 +1736,8 @@ def test_f32_train_loss_and_gradients_match_the_cpu(cuda, arch):
 # over a ragged tail, zamba2's chunk of 128 at B 1 and two chunks at B 5
 SSD_BWD_GPU_CASES = [(1, 1, 2, 8, 8, 16), (2, 100, 3, 16, 4, 32),
                      (3, 200, 4, 64, 64, 64), (1, 33, 1, 4, 32, 8),
-                     (1, 128, 8, 64, 64, 128), (5, 256, 2, 64, 16, 128)]
+                     (1, 128, 8, 64, 64, 128), (5, 256, 2, 64, 16, 128),
+                     (3, 300, 5, 64, 64, 128), (1, 70, 3, 24, 40, 128)]
 # f32 sums in other orders (the head sums of dB and dC over up to 64
 # heads): each gradient within SSD_BWD_GPU_TOL of its largest magnitude
 SSD_BWD_GPU_TOL = 1e-4
@@ -1789,6 +1790,55 @@ def _ssd_bwd_scale(name, w, xdt, want):
     return scale
 
 
+# (B, S, H, heads a block) of ssd_bwd_chunk's head groups at zamba2's P =
+# N = 64, Q 128: groups that H fills, a last group that H does not fill (3
+# heads in 2s, 5 in 4s), one head a block, and a group wider than H
+SSD_GROUP_CASES = [(2, 256, 8, 4), (1, 200, 3, 2), (3, 130, 5, 4),
+                   (2, 128, 4, 1), (1, 96, 3, 16)]
+
+
+@pytest.mark.parametrize("b,s,h,group", SSD_GROUP_CASES)
+def test_ssm_scan_backward_head_groups_match_plain(cuda, b, s, h, group):
+    """The backward with ``heads_per_block`` forced: one share of dB and dC
+    a group, added after; each gradient within SSD_BWD_GPU_TOL of the
+    plain backward's scale, the same bits in a second call."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_bwd_ref
+    xdt, loga, bb, cc = _ssd_case(cuda, b, s, h, 64, 64)
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    dy = torch.randn(xdt.shape, generator=gen, device=cuda)
+    dst = torch.randn((b, h, 64, 64), generator=gen, device=cuda)
+    _, _, saved = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, 128,
+                                            save_states=True)
+    args = (xdt, loga, bb, cc, *saved, 128, dy, dst)
+    got = ss_kernel.ssd_scan_bwd_kernel(*args, heads_per_block=group)
+    again = ss_kernel.ssd_scan_bwd_kernel(*args, heads_per_block=group)
+    want = ssd_scan_chunked_bwd_ref(xdt, loga, bb, cc, 128, dy, dst)
+    for name, g, g2, w in zip(("dxdt", "dloga", "db", "dc"), got, again,
+                              want):
+        assert torch.equal(g, g2), name
+        err = (g - w).abs().max().item() / _ssd_bwd_scale(name, w, xdt, want)
+        assert err <= SSD_BWD_GPU_TOL, (name, err)
+
+
+def test_ssm_scan_head_group_rule_fills_the_card(cuda):
+    """``head_group`` at zamba2's training shapes on this card: the
+    busiest SM's heads are the fewest any group gives, and the group is
+    the largest that gives them."""
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for bsz, nc in ((8, 1), (4, 16)):
+        g = ss_kernel.head_group(bsz, nc, 64, sms)
+
+        def busiest(k):
+            return -(-bsz * nc * -(-64 // k) // sms) * k
+
+        best = min(busiest(k) for k in (1, *ss_kernel.HEAD_GROUPS))
+        assert busiest(g) == best
+        assert all(k <= g for k in (1, *ss_kernel.HEAD_GROUPS)
+                   if busiest(k) == best)
+
+
 def test_ssm_scan_backward_takes_absent_cotangents(cuda):
     """A cotangent on y alone (training: the final state unused) and on the
     state alone, each against the plain backward."""
@@ -1811,10 +1861,15 @@ def test_ssm_scan_backward_takes_absent_cotangents(cuda):
 
 # (B, S, H, du, dtype of R and h, route) of the sLSTM backward: one step,
 # B not a multiple of 4, xlstm-350m's width (H 4, du 256) on both routes
-# and both dtypes, B 8 (two row blocks), and shapes only the block route
-# takes (du 24, B 9 at du 256)
+# and both dtypes (R's rows in registers up to B 4, from shared memory at
+# B 8), B 8 (two row blocks), the cluster route at du 32, 64 and 128 (4,
+# 8 and 16 units a CTA), and shapes only the block route takes (du 24, B
+# 9 at du 256)
 SLSTM_BWD_GPU_CASES = [
     (1, 1, 4, 256, torch.float32, "cluster"),
+    (2, 50, 3, 32, torch.float32, "cluster"),
+    (4, 70, 2, 128, torch.bfloat16, "cluster"),
+    (8, 40, 1, 256, torch.bfloat16, "cluster"),
     (3, 40, 4, 256, torch.bfloat16, "cluster"),
     (3, 40, 4, 256, torch.float32, "block"),
     (4, 300, 4, 256, torch.bfloat16, "cluster"),
@@ -1862,6 +1917,112 @@ def test_slstm_scan_backward_matches_plain(cuda, b, s, h, du, dtype, route):
         print(f"slstm backward {(b, s, h, du, dtype, route)} {name}: "
               f"{err:.3g}")
         assert err <= SLSTM_BWD_GPU_TOL, (name, err)
+
+
+def _scan_bwd_readings(cuda):
+    """The largest gap of each scan backward's gradients to its plain
+    backward over SCAN_BWD_TOL (1e-4) of the gradient's scale, at
+    zamba2's Mamba2 width (B 2, S 256, H 8) and xlstm-350m's sLSTM width
+    in bf16 (B 4, S 64, H 2): {"ssm_scan": r, "slstm_scan": r}.  A NaN
+    reads as inf."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.slstm_scan import ref as sl_ref
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    from repro_torch.kernels.ssm_scan.ref import ssd_scan_chunked_bwd_ref
+
+    def reading(got, want, scales):
+        return max(torch.nan_to_num((g - w).abs().max() / sc,
+                                    nan=float("inf")).item()
+                   for g, w, sc in zip(got, want, scales)) / 1e-4
+
+    xdt, loga, bb, cc = _ssd_case(cuda, 2, 256, 8, 64, 64)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn(xdt.shape, generator=gen, device=cuda)
+    dst = torch.randn((2, 8, 64, 64), generator=gen, device=cuda)
+    _, _, saved = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, 128,
+                                            save_states=True)
+    want = ssd_scan_chunked_bwd_ref(xdt, loga, bb, cc, 128, dy, dst)
+    out = {"ssm_scan": reading(
+        ss_kernel.ssd_scan_bwd_kernel(xdt, loga, bb, cc, *saved, 128, dy,
+                                      dst, heads_per_block=4), want,
+        [_ssd_bwd_scale(n, w, xdt, want)
+         for n, w in zip(("dxdt", "dloga", "db", "dc"), want)])}
+    pre, r = _slstm_inputs(cuda, 4, 64, 2, 256, torch.bfloat16)
+    h_cot = torch.randn((4, 64, 512), generator=gen, device=cuda)
+    st_cot = tuple(torch.randn((4, 512), generator=gen, device=cuda)
+                   for _ in range(4))
+    _, _, saved = sl_kernel.slstm_scan_kernel(pre, r, out_dtype=r.dtype,
+                                              save_states=True)
+    want = sl_ref.slstm_scan_bwd_ref(pre, r, h_cot, st_cot)
+    out["slstm_scan"] = reading(
+        sl_kernel.slstm_scan_bwd_kernel(saved, r, h_cot, st_cot,
+                                        route="cluster"), want,
+        [w.abs().max() for w in want])
+    return out
+
+
+# faults planted in a copy of the sources: the SSD backward's products in
+# single TF32 (the remainder of the split dropped) or with W's k order
+# and B's rows paired wrongly; the sLSTM backward's owner reading the
+# partial sums of dh of the step before, or each CTA storing its partial
+# of unit u into the slot of the next unit
+SCAN_BWD_FAULTS = {
+    "ssd_split_remainder_dropped": (
+        "ssm_scan", "return {hi, __float_as_uint(x - __uint_as_float(hi))};",
+        "return {hi, 0u};"),
+    "ssd_k_order_mismatched": (
+        "ssm_scan", "return {{split(p[0]), split(p[pitch])}};",
+        "return {{split(p[pitch]), split(p[0])}};"),
+    "slstm_stale_partials": (
+        "slstm_scan", "const float* ps = pbuf + (t & 1) * slot",
+        "const float* ps = pbuf + ((t + 1) & 1) * slot"),
+    "slstm_partial_to_next_unit": (
+        "slstm_scan", "(((int)rank * units + u % units) * hrow",
+        "(((int)rank * units + (u + 1) % units) * hrow"),
+}
+
+
+def test_scan_backward_kernels_are_bitwise_deterministic(cuda):
+    """Three calls of each scan backward at the readings' shapes give the
+    same bits: the head shares, the partial sums of dh and the row sums
+    are all added in fixed orders."""
+    from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+    from repro_torch.kernels.ssm_scan import kernel as ss_kernel
+    xdt, loga, bb, cc = _ssd_case(cuda, 2, 256, 8, 64, 64)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(xdt.shape, generator=gen, device=cuda)
+    _, _, saved = ss_kernel.ssd_scan_kernel(xdt, loga, bb, cc, 128,
+                                            save_states=True)
+    pre, r = _slstm_inputs(cuda, 4, 64, 2, 256, torch.float32)
+    h_cot = torch.randn((4, 64, 512), generator=gen, device=cuda)
+    _, _, sl_saved = sl_kernel.slstm_scan_kernel(pre, r, save_states=True)
+    for call in (lambda: ss_kernel.ssd_scan_bwd_kernel(
+                     xdt, loga, bb, cc, *saved, 128, dy, None),
+                 lambda: sl_kernel.slstm_scan_bwd_kernel(
+                     sl_saved, r, h_cot, None, route="cluster")):
+        first = call()
+        for _ in range(2):
+            assert all(torch.equal(a, b) for a, b in zip(call(), first))
+
+
+@pytest.mark.parametrize("fault", sorted(SCAN_BWD_FAULTS))
+def test_scan_backward_tolerance_sees_planted_faults(cuda, fault, tmp_path,
+                                                     monkeypatch):
+    """Each fault, built from a copy of ``csrc`` in a temporary directory,
+    reads above 1 on the kernel whose source it is in (SCAN_BWD_TOL would
+    fail it); the sound kernels read below 1."""
+    from repro_torch.kernels import _build
+    name, old, new = SCAN_BWD_FAULTS[fault]
+    csrc = _csrc_copy(tmp_path, name, old, new)
+    sound = _scan_bwd_readings(cuda)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    planted = _scan_bwd_readings(cuda)
+    print(f"scan backward fault {fault}: err_over_tol sound {sound}, "
+          f"planted {planted}")
+    assert all(v < 1.0 for v in sound.values())
+    assert planted[name] > 1.0
 
 
 def test_scan_ops_take_the_backward_kernels_under_autograd(cuda):

@@ -77,6 +77,8 @@ def test_serving_subpackages_load_no_jax_and_no_reference(module):
                                     "repro_torch.bench.fl",
                                     "repro_torch.bench.scheduler",
                                     "repro_torch.bench.serving",
+                                    "repro_torch.bench.scan_bwd",
+                                    "repro_torch.bench.scan_train",
                                     "repro_torch.kernels.int8_matmul.ref",
                                     "repro_torch.kernels.int8_matmul.ops",
                                     "repro_torch.kernels.int8_matmul.kernel"])

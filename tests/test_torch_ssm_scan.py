@@ -14,6 +14,7 @@ from repro.kernels.ssm_scan.ops import ssd_chunked_kernel as r_ssd_kernel
 from repro.kernels.ssm_scan.ref import ssd_scan_ref as r_scan_ref
 from repro.models import mamba2 as r_m2
 
+from repro_torch.kernels.ssm_scan.kernel import head_group
 from repro_torch.kernels.ssm_scan.ops import ssd_chunked_kernel
 from repro_torch.kernels.ssm_scan.ref import (ssd_inputs,
                                               ssd_scan_chunked_bwd_ref,
@@ -274,3 +275,110 @@ def test_ssd_scan_saves_nothing_without_grad():
         (y if cot == "y" else st).backward(torch.as_tensor(
             dy if cot == "y" else dst))
         assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+
+
+# the card's backward kernels are held to their plain versions within
+# SCAN_BWD_TOL of each gradient's scale (chip_smoke.py)
+SCAN_BWD_TOL = 1e-4
+
+
+def tf32(x, rounded=True):
+    """``x`` (f32) at TF32's 10 mantissa bits: rounded to nearest, ties
+    away from zero (``cvt.rna.tf32.f32``), or with the low 13 bits dropped,
+    as the tensor cores read an f32 register given as TF32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000 if rounded else bits) & -0x2000).view(
+        torch.float32)
+
+
+def split_tf32_einsum(terms):
+    """``torch.einsum`` on f32 operands as ``ssd_bwd_chunk`` forms its
+    products on the tensor cores: each operand split into a TF32 high part
+    (rounded) and the remainder (read as TF32: truncated), the product of
+    the high parts plus, with ``terms`` 3, each product with one remainder
+    in place of its high part (hi·hi + hi·lo + lo·hi for two operands),
+    summed in f32."""
+    plain = torch.einsum
+
+    def einsum(eq, *ops):
+        his = [tf32(o) for o in ops]
+        out = plain(eq, *his)
+        if terms == 3:
+            los = [tf32(o - hi, rounded=False) for o, hi in zip(ops, his)]
+            for i in range(len(ops)):
+                out = out + plain(eq, *his[:i], los[i], *his[i + 1:])
+        return out
+
+    return einsum
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk", [(2, 40, 3, 16, 8, 16),
+                                             (1, 128, 2, 64, 64, 128)])
+def test_split_tf32_keeps_the_backward_at_f32_accuracy(b, s, h, p, n, chunk,
+                                                       monkeypatch):
+    """Every product of ``ssd_scan_chunked_bwd_ref`` in split TF32 (the
+    card's ``ssd_bwd_chunk`` design, emulated on the CPU) against autograd
+    of the plain scan in f64: the three-term split within SCAN_BWD_TOL of
+    each gradient's scale, single TF32 (hi·hi alone) at least 10x further
+    off."""
+    args, (dy, dst) = ssd_bwd_inputs(b * s + p, b, s, h, p, n)
+    x, dt, a_log, bb, cc, _ = map(torch.as_tensor, args)
+    xdt, loga = ssd_inputs(x, dt, a_log)
+    dy, dst = torch.as_tensor(dy), torch.as_tensor(dst)
+    leaves = [t.double().requires_grad_() for t in (xdt, loga, bb, cc)]
+    torch.autograd.backward(ssd_scan_chunked_ref(*leaves, chunk),
+                            [dy.double(), dst.double()])
+    want = [t.grad for t in leaves]
+    errs = {}
+    for terms in (3, 1):
+        monkeypatch.setattr(torch, "einsum", split_tf32_einsum(terms))
+        got = ssd_scan_chunked_bwd_ref(xdt, loga, bb, cc, chunk, dy, dst)
+        monkeypatch.undo()
+        errs[terms] = {}
+        for name, g, w in zip(("dxdt", "dloga", "db", "dc"), got, want):
+            # dloga: at least 1e-2 of max |xdt| · max |dxdt|, the terms it
+            # sums (they cancel to 0 at one step)
+            scale = w.abs().max().item()
+            if name == "dloga":
+                scale = max(scale, 1e-2 * xdt.abs().max().item()
+                            * want[0].abs().max().item())
+            errs[terms][name] = (g.double() - w).abs().max().item() / scale
+    print(f"split TF32 {(b, s, h, p, n, chunk)}: 3 terms {errs[3]}, "
+          f"1 term {errs[1]}")
+    assert max(errs[3].values()) <= SCAN_BWD_TOL
+    assert max(errs[1].values()) >= 10 * max(errs[3].values())
+
+
+# (B, nc, H, SMs) → heads a block of ssd_bwd_chunk takes: zamba2's training
+# shapes on 132 SMs (every group leaves 4 or 32 heads on the busiest SM:
+# the largest, 4, taken), fewer heads than a group, and a small card
+HEAD_GROUP_CASES = [(8, 1, 64, 132, 4), (4, 16, 64, 132, 4),
+                    (1, 1, 3, 132, 1), (2, 4, 3, 132, 1),
+                    (1, 4, 8, 16, 2), (3, 2, 64, 2, 4)]
+
+
+@pytest.mark.parametrize("b,nc,h,sms,want", HEAD_GROUP_CASES)
+def test_head_group_leaves_the_fewest_heads_on_the_busiest_sm(b, nc, h, sms,
+                                                              want):
+    assert head_group(b, nc, h, sms) == want
+
+
+def test_scan_bwd_bench_bounds_and_refusal():
+    """``bench.scan_bwd``'s bounds at zamba2's B 4, S 2048: the f32 rate
+    over ``ssm_bwd_work``'s operations, three TF32 products at the TF32
+    rate; the bench refuses the CPU (it times CUDA kernels), and
+    ``bench.scan_train`` a machine without a card."""
+    from repro_torch.bench import scan_bwd
+    from repro_torch.kernels.work import ssm_bwd_work
+    _, ops = ssm_bwd_work(4, 2048, 64, 64, 64, 128)
+    got = scan_bwd.ssm_bounds(4, 2048)
+    assert got["bound_f32"] == (pytest.approx(ops / 67e12 * 1e3),
+                                "operations")
+    assert got["bound_3xtf32"] == (pytest.approx(3 * ops / 495e12 * 1e3),
+                                   "operations")
+    with pytest.raises(RuntimeError, match="card"):
+        scan_bwd.main("cpu")
+    if not torch.cuda.is_available():
+        from repro_torch.bench import scan_train
+        with pytest.raises(RuntimeError, match="card"):
+            scan_train.main()

@@ -327,9 +327,10 @@ def test_slstm_cluster_route_shared_memory():
 
 
 # (B, du, R's dtype) → the backward's routes: the cluster route where the
-# forward's plan fits and the head's dg (four gates, twice) beside the R
-# slice fits a CTA (xlstm-350m's du 256 up to B 8 in f32), the block route
-# while 44 B du bytes fit (B 20 at du 256), neither past both
+# forward's plan fits and the partial sums of dh from the 8 CTAs (twice)
+# and the CTA's dg beside the R slice fit a CTA (xlstm-350m's du 256 up to
+# B 8 in f32), the block route while 44 B du bytes fit (B 20 at du 256),
+# neither past both
 SLSTM_BWD_ROUTE_CASES = [
     (4, 256, torch.bfloat16, ("cluster", "block")),
     (8, 256, torch.float32, ("cluster", "block")),
@@ -345,9 +346,11 @@ SLSTM_BWD_ROUTE_CASES = [
 def test_slstm_backward_routes_by_shape(b, du, dtype, routes):
     assert sl_kernel.bwd_routes(b, du, dtype) == routes
     el = torch.empty((), dtype=dtype).element_size()
+    rows, units = 4 * -(-b // 4), du // 8
     assert (sl_kernel.cluster_bwd_smem(b, du, el)
-            == 2 * 4 * 4 * du * 4 * -(-b // 4)
-            + du // 8 * sl_kernel._r_stride(du, el) * el)
+            == 4 * (2 * 8 * units * rows + units * rows * 4)
+            + du * sl_kernel._r_stride_bwd(units, el) * el)
+    assert sl_kernel._r_stride_bwd(units, el) * el % 128 == 4 * el
 
 
 def test_slstm_backward_wrapper_refuses_before_building():
