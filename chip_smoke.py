@@ -12,15 +12,17 @@ benches, and the collating benches over what they wrote.
 Phases, in order (any failed check exits non-zero; nothing is caught):
 
 1. Environment: the card's name and power limit (nvidia-smi), then the
-   eight CUDA kernels built from ``src/repro_torch/csrc`` in parallel (one
+   nine CUDA sources built from ``src/repro_torch/csrc`` in parallel (one
    ``nvcc`` each), with each build's register, spill and shared-memory
    lines; the SASS of each of ``flash_fwd_wgmma``'s ten instances (D, Dv
    = 64, 96, 128, 192/128, 256, each without and with the lse store) and of ``w8a16_wgmma`` must hold HGMMA
    and UTMALDG, none may write an A register of a ``wgmma`` still in
    flight (every instance's count is printed), and no
    ``flash_fwd_wgmma`` instance may spill; no instance of ``fleet_scan``'s
-   registers route or of ``slstm_scan``'s cluster route may use local
-   memory (ptxas: 0 bytes of stack frame and of spills).
+   registers route, of ``slstm_scan``'s cluster route or of the flash
+   backward's tensor-core kernels (``flash_bwd_dkdv_mma``,
+   ``flash_bwd_dq_mma``, 5 each) may use local memory (ptxas: 0 bytes of
+   stack frame and of spills).
 2. The decision slice at full width, through the entry points a user calls:
    a ``GBTRegressor(n_trees=200, max_depth=12, subsample=0.8, n_bins=64)``
    fitted on the card (``gbt_hist`` kernel, one launch per tree level: at
@@ -239,17 +241,24 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    shape of its phase 14 launches (``train_tiny_lm``'s reduced qwen3-1.7b,
    ``F32_FLASH_SHAPE``, with lse) timed beside its f32 bound and SDPA on
    the same f32 tensors with TF32 off; (b) the backward in f32
-   (``FlashAttention``: ``flash_fwd`` with its lse, the plain flash
-   backward) at qwen3's, whisper's and the six training shapes (head dims
-   96, 192 with v at 128 and 256; GQA groups of 9 and 3) and at
+   (``FlashAttention``: ``flash_fwd`` with its lse, the backward kernel's
+   CUDA-core route ``flash_bwd``, the plain backward called 0 times on the
+   card) at qwen3's, whisper's and the six training shapes (head dims 96,
+   192 with v at 128 and 256; GQA groups of 9 and 3) and at
    starcoder2-7b's prefill (B 4, S 2048, group 9) against autograd
-   through ``naive_attention`` within ``BWD_TOL``, and the plain backward
-   in bf16 at each of these causal shapes timed beside SDPA's backward;
+   through ``naive_attention`` within ``BWD_TOL``; the bf16 backward on
+   the tensor cores (``flash_bwd_mma``) at these shapes and whisper's
+   three training shapes against the plain backward of the same bf16
+   inputs within ``flash_attention.ref.bwd_bf16_tolerance``, the same
+   bits twice; at each causal shape of ``BWD_TIMED`` the kernel (CUDA
+   graph and eager) timed beside the plain backward, SDPA's backward and
+   the bound (``kernels.work.flash_bwd_work``);
    (c) qwen3-1.7b at full width and depth in bf16 through
    ``train()``: 30 steps at the ``TrainConfig`` defaults, then 5 at B 4,
    S 2048, every loss finite and the last 5 of the first run below its
    first 5, every flash call (the forward and its recompute: 2 a layer
-   a step) on ``flash_fwd_wgmma`` (counts set to 0 before, read after);
+   a step) on ``flash_fwd_wgmma`` and every backward (1 a layer a step)
+   on ``flash_bwd_mma`` (counts set to 0 before, read after);
    steps/s, tokens/s, peak memory; (d) the same model in f32 cut to 2
    layers: one ``train_loss`` and its gradients on the card (``flash_fwd``
    and the backward) against the CPU, TF32 off, within
@@ -264,7 +273,9 @@ Phases, in order (any failed check exits non-zero; nothing is caught):
    federated RMSE card against CPU within ``FEDAVG_CARD_TOL``
    (``repro_torch.bench.mlp_spread --fedavg``), the DP run the noisier.
    The flash record on the kernels line carries the training launches,
-   the training shape's times and the backward's.  Then the recurrent
+   the training shape's times and the backward's; the backward kernel
+   has a record of its own (``flash_attention_bwd``: its launches in
+   phase 11's trainings, qwen3's B 4, S 2048 times and bound).  Then the recurrent
    families (``scan_training_slice``): (i) the SSD backward kernels
    (``ssd_bwd_chain``, ``ssd_bwd_chunk``) against
    ``ssd_scan_chunked_bwd_ref`` and (j) ``slstm_scan_bwd`` against
@@ -563,7 +574,8 @@ BWD_SHAPES = (
     ("whisper_cross", 4, 224, 1500, 6, 6, 64, 64, False),
     *SERVED_TRAIN_SHAPES,
     ("starcoder2_prefill", 4, 2048, 2048, 36, 4, 128, 128, True))
-# the plain backward timed in bf16 beside SDPA's (all causal, Sq = Sk)
+# the backward kernel timed in bf16 beside the plain backward and SDPA's
+# (all causal, Sq = Sk)
 BWD_TIMED = ("qwen3_train", "qwen3_prefill",
              *(c[0] for c in SERVED_TRAIN_SHAPES), "starcoder2_prefill")
 # the f32 flash route's shape on the main path: train_tiny_lm's reduced
@@ -627,14 +639,16 @@ CARD_MESH_WAIT = 600
 # per part: the kernels its mesh run must launch, and the heads a "model"
 # rank's flash / slstm_scan calls see (half of each model's)
 CARD_MESH_EXPECT = {
-    "a_qwen3_sp": (("flash_fwd", "flash_fwd_lse"), {"flash": [8]}),
+    "a_qwen3_sp": (("flash_fwd", "flash_fwd_lse", "flash_bwd"),
+                   {"flash": [8]}),
     "b_gemma_b2": (("flash_fwd",), {"flash": [4]}),
     "b_gemma_b1": (("flash_fwd",), {"flash": [4]}),
     "c_mla_naive": (("flash_fwd",), {"flash": [8]}),
     "c_mla_absorbed": (("flash_fwd",), {"flash": [8]}),
     "c_mla_drops": (("flash_fwd",), {"flash": [8]}),
     "d_xlstm": (("slstm_scan", "slstm_scan_bwd"), {"slstm": [2]}),
-    "d_whisper": (("flash_fwd", "flash_fwd_lse"), {"flash": [3]}),
+    "d_whisper": (("flash_fwd", "flash_fwd_lse", "flash_bwd"),
+                  {"flash": [3]}),
 }
 # the card's step under FlopCounterMode against the dry-run's count: the
 # same ops (ATen's and the kernels' custom ops) at the same shapes, so
@@ -679,14 +693,15 @@ EXAMPLE_HOST_TIMING = (r"in [0-9.]+ ms", r"[0-9,]+ decisions/s",
                        r"scheduled in +[0-9.]+ ms")
 # the kernels each run must launch: the decision kernels, flash_fwd (f32:
 # the reduced models run in f32; in training storing its lse, counted as
-# flash_fwd_lse) and the scans forward and backward
+# flash_fwd_lse, and its backward on the CUDA cores, flash_bwd) and the
+# scans forward and backward
 EXAMPLE_EXPECT = {
     "offload_simulation": ("decide_split", "gbt_hist", "tree_predict"),
     "contention_tails": ("decide_split",),
     "quickstart": ("gbt_hist", "tree_predict"),
     "oracle_serving": ("decide_split", "gbt_hist", "tree_predict"),
     "serve_batched": ("flash_fwd", "decide_split"),
-    "train_tiny_lm": ("flash_fwd", "flash_fwd_lse"),
+    "train_tiny_lm": ("flash_fwd", "flash_fwd_lse", "flash_bwd"),
     f"train_tiny_lm --arch zamba2-1.2b --steps {EXAMPLE_TRAIN_STEPS}": (
         "ssm_scan", "ssm_scan_bwd"),
     f"train_tiny_lm --arch xlstm-350m --steps {EXAMPLE_TRAIN_STEPS}": (
@@ -2633,6 +2648,7 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
         torch.cuda.synchronize(dev)
         return time.perf_counter()
 
+    watch_plain_backward()
     out = attention_training(dev, smi)
     torch.cuda.empty_cache()
 
@@ -2650,6 +2666,7 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
         # what earlier phases (and the previous run) still hold
         held = torch.cuda.memory_allocated(dev)
         before = dict(fa_kernel.flash_attention_kernel.by_kernel)
+        before_bwd = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
         tcfg = TrainConfig(steps=steps, batch_size=bsz, seq_len=seq,
                            log_every=0, seed=SEED)
         t0 = synced()
@@ -2660,6 +2677,8 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
         losses = res.losses
         by_kernel = {k_: n - before[k_] for k_, n in
                      fa_kernel.flash_attention_kernel.by_kernel.items()}
+        bwd = {k_: n - before_bwd[k_] for k_, n in
+               fa_kernel.flash_attention_bwd_kernel.by_kernel.items()}
         # each layer's flash forward, and again in its backward (remat)
         want_calls = steps * cfg.num_layers * 2
         row = dict(model=TRAIN_ARCH, dtype="bfloat16",
@@ -2670,7 +2689,8 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
                    tokens_per_s=res.steps_per_s * bsz * seq, wall_s=wall,
                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
                        dev), held_before_bytes=held,
-                   flash_by_kernel=by_kernel, device=smi)
+                   flash_by_kernel=by_kernel, flash_bwd_by_kernel=bwd,
+                   device=smi)
         # one more pair of steps, the second timed in two synchronised
         # parts: train_loss + backward, then AdamW's update
         api = build_model(cfg)
@@ -2693,12 +2713,19 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
         check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
               f"{TRAIN_ARCH} training: flash {by_kernel}, expected "
               f"{want_calls} calls on flash_fwd_wgmma")
+        check(bwd == {"flash_bwd": 0, "flash_bwd_mma": want_calls // 2},
+              f"{TRAIN_ARCH} training: flash backward {bwd}, expected "
+              f"{want_calls // 2} calls on flash_bwd_mma")
     first = runs[0]["losses"]
     check(np.mean(first[-5:]) < np.mean(first[:5]), f"{TRAIN_ARCH}: the "
           f"loss did not fall ({first})")
     out["train"] = runs
     out["launches"] = sum(r["flash_by_kernel"]["flash_fwd_wgmma"]
                           for r in runs)
+    # the backward kernel's launches on the training paths of phase 11
+    out["bwd_launches"] = {
+        "qwen3": sum(r["flash_bwd_by_kernel"]["flash_bwd_mma"]
+                     for r in runs)}
     del params, res
     torch.cuda.empty_cache()
     out["phase_s"]["c_qwen3"] = synced() - t_part
@@ -2712,6 +2739,10 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     check(fa_kernel.flash_attention_kernel.by_kernel == {
         "flash_fwd": 2 * cfg32.num_layers, "flash_fwd_wgmma": 0},
         f"f32 check: flash {fa_kernel.flash_attention_kernel.by_kernel}")
+    check(fa_kernel.flash_attention_bwd_kernel.by_kernel == {
+        "flash_bwd": cfg32.num_layers, "flash_bwd_mma": 0},
+        f"f32 check: flash backward "
+        f"{fa_kernel.flash_attention_bwd_kernel.by_kernel}")
     torch.cuda.empty_cache()
     out["phase_s"]["d_f32"] = synced() - t_part
 
@@ -2723,17 +2754,22 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     res = train(wcfg, TrainConfig(steps=steps, log_every=0, seed=SEED),
                 device=dev, log_fn=lambda m: None)
     wby = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    wbwd = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
     want_calls = steps * 2 * (wcfg.enc_layers + 2 * wcfg.num_layers)
     line("train", model="whisper-tiny", dtype="bfloat16",
          layers=wcfg.num_layers, enc_layers=wcfg.enc_layers,
          encoder_frames=wcfg.enc_seq, steps=steps, batch=8, seq_len=128,
          losses=res.losses, steps_per_s=res.steps_per_s,
-         flash_by_kernel=wby, device=smi)
+         flash_by_kernel=wby, flash_bwd_by_kernel=wbwd, device=smi)
     check(all(np.isfinite(res.losses)), f"whisper-tiny: a non-finite loss "
           f"({res.losses})")
     check(wby == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
           f"whisper-tiny training: flash {wby}, expected {want_calls} on "
           "flash_fwd_wgmma")
+    check(wbwd == {"flash_bwd": 0, "flash_bwd_mma": want_calls // 2},
+          f"whisper-tiny training: flash backward {wbwd}, expected "
+          f"{want_calls // 2} on flash_bwd_mma")
+    out["bwd_launches"]["whisper-tiny"] = wbwd["flash_bwd_mma"]
     out["launches"] += fa_kernel.flash_attention_kernel.launches
     out["phase_s"]["e_whisper"] = synced() - t_part
 
@@ -2811,9 +2847,37 @@ def training_slice(dev, smi: str, profiling_data) -> dict:
     out["served"] = served_training_slice(dev, smi)
     out["phase_s"].update(out["served"].pop("phase_s"))
     out["launches"] += sum(out["served"]["launches"].values())
+    out["bwd_launches"].update(out["scans"].pop("bwd_launches"))
+    out["bwd_launches"].update(out["served"].pop("bwd_launches"))
+    check(PLAIN_BWD["cuda"] == 0, f"the plain attention backward ran "
+          f"{PLAIN_BWD['cuda']} times on the card in phase 11")
     line("training_phase", phase_s=out["phase_s"],
-         total_s=sum(out["phase_s"].values()))
+         total_s=sum(out["phase_s"].values()),
+         flash_bwd_launches=out["bwd_launches"],
+         plain_bwd_calls_on_card=PLAIN_BWD["cuda"])
     return out
+
+
+# calls of the plain attention backward on CUDA tensors since phase 11
+# started (watch_plain_backward): the card's training must make none
+PLAIN_BWD = {"cuda": 0}
+
+
+def watch_plain_backward() -> None:
+    """Count the plain attention backward's calls on CUDA tensors where the
+    port can reach it (the op's CPU branch, ``ops.attention_bwd_ref``, and
+    ``models.attention.flash_attention_bwd``) in ``PLAIN_BWD``.  This
+    script's own timings and tolerances call ``ref.attention_bwd_ref``,
+    which stays as it is."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import attention as attn
+    plain = fa_ops.attention_bwd_ref
+
+    def counted(q, *args, **kw):
+        PLAIN_BWD["cuda"] += q.device.type == "cuda"
+        return plain(q, *args, **kw)
+
+    fa_ops.attention_bwd_ref = attn.flash_attention_bwd = counted
 
 
 def f32_card_vs_cpu(cfg32, seq: int, dev, *, block_scaled: bool = False,
@@ -2925,14 +2989,17 @@ def attention_training(dev, smi: str) -> dict:
     """Phase 11 (a)-(b): (a) flash's log-sum-exp at every ``LSE_SHAPES``
     case against the plain version, the output the same bits as a call
     without it, the training shapes of ``LSE_TIMED`` timed beside SDPA;
-    (b) the f32 backward (``FlashAttention``) at ``BWD_SHAPES`` against
-    autograd through ``naive_attention``, and the plain backward in bf16
-    at ``BWD_TIMED`` beside SDPA's.  Returns qwen3's timed training shape
+    (b) the f32 backward (``FlashAttention``: the kernel's CUDA-core
+    route) at ``BWD_SHAPES`` against autograd through ``naive_attention``,
+    the bf16 backward kernel against the plain backward within
+    ``bwd_bf16_tolerance``, and the kernel at ``BWD_TIMED`` beside the
+    plain backward and SDPA's.  Returns qwen3's timed training shape
     (``train_shape``), the others' (``train_shapes``), the backward rows
     and the seconds of each part."""
     import torch
     import torch.nn.functional as F
     from repro_torch._device import true_f32
+    from repro_torch.bench.attn_bwd import bwd_row
     from repro_torch.bench.common import (BF16_OPS_PER_S, F32_OPS_PER_S,
                                           bound, timed_ms)
     from repro_torch.bench.kernels import flash_work
@@ -2940,7 +3007,6 @@ def attention_training(dev, smi: str) -> dict:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.attention import (chunked_attention,
-                                              flash_attention_bwd,
                                               naive_attention)
 
     out = {"phase_s": {}}
@@ -3067,48 +3133,72 @@ def attention_training(dev, smi: str) -> dict:
         grads = []
         for fn in (chunked_attention, naive_attention):
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            fa_kernel.reset_counts()
             o = fn(*leaves, causal=causal)
             o.backward(do)
             grads.append([t.grad for t in leaves])
+            if fn is chunked_attention:
+                taken = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
         worst = max(((g - w).abs().max() / w.abs().max()).item()
                     for g, w in zip(*grads))
         line("backward_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
              causal=causal, dtype="float32", max_rel_err=worst,
+             route=taken, plain_calls_on_card=PLAIN_BWD["cuda"],
              tolerance=f"{BWD_TOL} of each gradient's max |value|")
         check(worst <= BWD_TOL, f"backward {case}: dq/dk/dv off by {worst} "
               f"of their largest magnitude (tolerance {BWD_TOL})")
+        check(taken == {"flash_bwd": 1, "flash_bwd_mma": 0}, f"backward "
+              f"{case}: f32 took {taken}, not one flash_bwd call")
         shapes[case] = (b, s, hq, hkv, d, dv)
         del q, k, v, do, grads, leaves, o
     torch.cuda.empty_cache()
-    # the plain backward in bf16 beside SDPA's backward under autograd
+    # bf16 on the tensor cores against the plain backward of the same bf16
+    # inputs: BWD_SHAPES and whisper's three training shapes
+    for case, b, s, sk, hq, hkv, d, dv, causal in (
+            *BWD_SHAPES, *(c for c in LSE_SHAPES
+                           if c[0].startswith("whisper_")
+                           and c[0].endswith("_train"))):
+        q = randn(b, s, hq, d, dtype=bf16)
+        k, v = randn(b, sk, hkv, d, dtype=bf16), randn(b, sk, hkv, dv,
+                                                        dtype=bf16)
+        do = randn(b, s, hq, dv, dtype=bf16)
+        o, lse = fa_kernel.flash_attention_kernel(q, k, v, causal=causal,
+                                                  return_lse=True)
+        fa_kernel.reset_counts()
+        got = fa_kernel.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                   causal=causal)
+        again = fa_kernel.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                     causal=causal)
+        torch.cuda.synchronize()
+        taken = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        want, tol = fa_ref.bwd_bf16_tolerance(q, k, v, o, lse, do,
+                                              causal=causal)
+        over = {n: ((g.float() - w).abs() / t).max().item()
+                for n, g, w, t in zip(("dq", "dk", "dv"), got, want, tol)}
+        err = max((g.float() - w).abs().max().item()
+                  for g, w in zip(got, want))
+        line("backward_check", case=case, shape=[b, s, sk, hq, hkv, d, dv],
+             causal=causal, dtype="bfloat16", route=taken,
+             err_over_tol=over, max_abs_err=err, same_bits_in_two_calls=same,
+             tolerance="flash_attention.ref.bwd_bf16_tolerance")
+        check(taken == {"flash_bwd": 0, "flash_bwd_mma": 2}, f"bf16 "
+              f"backward {case}: took {taken}, not flash_bwd_mma")
+        check(same, f"bf16 backward {case}: two calls differ")
+        check(max(over.values()) <= 1.0, f"bf16 backward {case}: off the "
+              f"plain backward by {over} of bwd_bf16_tolerance")
+        del q, k, v, do, o, lse, got, again, want, tol
+    torch.cuda.empty_cache()
+    # the kernel (CUDA graph and eager), the plain backward and SDPA's
+    # backward under autograd in bf16, beside the bound (bench.attn_bwd)
     bwd_rows = {}
     for case in BWD_TIMED:
-        b, s, hq, hkv, d, dv = shapes[case]
-        q = randn(b, s, hq, d, dtype=bf16)
-        k, v = randn(b, s, hkv, d, dtype=bf16), randn(b, s, hkv, dv,
-                                                       dtype=bf16)
-        do = randn(b, s, hq, dv, dtype=bf16)
-        o, lse = fa_kernel.flash_attention_kernel(q, k, v, return_lse=True)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        so = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            enable_gqa=True)
-        dot = do.transpose(1, 2)
-        nbytes, ops = flash_work(b, s, hq, hkv, d, 2, dv)
-        # dq, dk, dv written, do and lse read besides; five products where
-        # the forward has two (q·kᵀ and dO·vᵀ recomputed and formed, dv,
-        # dk and dq: 3 at D and 2 at Dv against the forward's D + Dv)
-        bwd_rows[case] = dict(
-            plain_ms=timed_ms(lambda: flash_attention_bwd(
-                q, k, v, o, lse, do), 3),
-            library_ms=timed_ms(lambda: torch.autograd.grad(
-                so, (qt, kt, vt), dot, retain_graph=True), 10),
-            bound=bound(2 * nbytes + 4 * b * hq * s,
-                        ops * (3 * d + 2 * dv) / (d + dv), BF16_OPS_PER_S),
-            shape=[b, s, hq, hkv, d, dv], dtype="bfloat16")
+        bwd_rows[case] = bwd_row(dev, *shapes[case], seed=SEED)
         line("timing_extra", kernel="flash_attention_backward", case=case,
-             **bwd_rows[case], device=smi)
-        del q, k, v, do, o, lse, qt, kt, vt, so, dot
+             timing="graph", **bwd_rows[case], device=smi)
+        check(bwd_rows[case]["err_over_tol"] <= 1.0, f"bf16 backward "
+              f"{case}: off by {bwd_rows[case]['err_over_tol']} of "
+              "bwd_bf16_tolerance")
     out["backward"] = bwd_rows
     out["phase_s"]["b_backward"] = synced() - t_part
     return out
@@ -3138,7 +3228,8 @@ def scan_training_slice(dev, smi: str) -> dict:
     from repro_torch.kernels.ssm_scan import ref as ss_ref
     from repro_torch.train import TrainConfig, train
 
-    out = {"phase_s": {}, "ssm_scan": {}, "slstm_scan": {}}
+    out = {"phase_s": {}, "ssm_scan": {}, "slstm_scan": {},
+           "bwd_launches": {}}
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     def randn(*shape, scale=1.0):
@@ -3160,7 +3251,8 @@ def scan_training_slice(dev, smi: str) -> dict:
                               calls=ss_kernel.ssd_scan_bwd_kernel.launches),
             slstm_scan=dict(sl_kernel.slstm_scan_kernel.by_route),
             slstm_scan_bwd=dict(sl_kernel.slstm_scan_bwd_kernel.by_route),
-            flash=dict(fa_kernel.flash_attention_kernel.by_kernel))
+            flash=dict(fa_kernel.flash_attention_kernel.by_kernel),
+            flash_bwd=dict(fa_kernel.flash_attention_bwd_kernel.by_kernel))
 
     def reset_all():
         ss_kernel.reset_counts()
@@ -3339,7 +3431,8 @@ def scan_training_slice(dev, smi: str) -> dict:
                                   calls=steps * mamba),
                 slstm_scan=dict(cluster=2 * steps * slstm, block=0),
                 slstm_scan_bwd=dict(cluster=steps * slstm, block=0),
-                flash=dict(flash_fwd=0, flash_fwd_wgmma=2 * steps * groups))
+                flash=dict(flash_fwd=0, flash_fwd_wgmma=2 * steps * groups),
+                flash_bwd=dict(flash_bwd=0, flash_bwd_mma=steps * groups))
             row = dict(model=arch, dtype="bfloat16", layers=cfg.num_layers,
                        d_model=cfg.d_model, steps=steps, batch=bsz,
                        seq_len=seq, lr=tcfg.lr, warmup_steps=tcfg.warmup_steps,
@@ -3357,6 +3450,8 @@ def scan_training_slice(dev, smi: str) -> dict:
             for k in launches:
                 launches[k] += got[k]["calls"] if "calls" in got[k] else sum(
                     got[k].values())
+            out["bwd_launches"][arch] = out["bwd_launches"].get(
+                arch, 0) + got["flash_bwd"]["flash_bwd_mma"]
         first = runs[0]["losses"]
         check(np.mean(first[-3:]) < np.mean(first[:3]), f"{arch}: the loss "
               f"did not fall ({first})")
@@ -3401,11 +3496,12 @@ def scan_training_slice(dev, smi: str) -> dict:
 def served_training_slice(dev, smi: str) -> dict:
     """The six served-only configurations trained (phase 11 m-n): (m) each
     of ``SERVED_TRAIN_ARCHS`` at full width in bf16 through ``train()``
-    (``impl="chunked"``: the flash kernel storing its lse, the plain flash
-    backward), at full depth or ``TRAIN_LAYERS``' cut, 10 steps at B 8,
+    (``impl="chunked"``: the flash kernel storing its lse, the backward
+    kernel), at full depth or ``TRAIN_LAYERS``' cut, 10 steps at B 8,
     S 128 with 3 warm-up steps (``SCAN_TRAIN_RUNS``' first run): every
     loss finite, the last 3 below the first 3, every flash call (the
-    forward and its recompute, 2 a layer a step) on ``flash_fwd_wgmma``;
+    forward and its recompute, 2 a layer a step) on ``flash_fwd_wgmma``,
+    every backward (1) on ``flash_bwd_mma``;
     (n) one f32 ``train_loss`` and its gradients of each at full width cut
     to 2 layers, card against CPU (``f32_card_vs_cpu``; the MoE lines
     count the router choices that differ).  Returns each run's row, the
@@ -3422,7 +3518,7 @@ def served_training_slice(dev, smi: str) -> dict:
         torch.cuda.synchronize(dev)
         return time.perf_counter()
 
-    out = {"phase_s": {}, "runs": {}, "launches": {}}
+    out = {"phase_s": {}, "runs": {}, "launches": {}, "bwd_launches": {}}
     steps, bsz, seq = SCAN_TRAIN_RUNS[0]
     # -- (m) bf16 through train() -----------------------------------------
     for arch, (d, dv) in SERVED_TRAIN_ARCHS.items():
@@ -3441,6 +3537,7 @@ def served_training_slice(dev, smi: str) -> dict:
         res = train(cfg, tcfg, device=dev, log_fn=lambda m: None)
         wall = synced() - t0
         by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+        bwd = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
         want_calls = 2 * steps * cfg.num_layers
         row = dict(model=arch, dtype="bfloat16", layers=cfg.num_layers,
                    reduced=(f"num_layers {full.num_layers}→{cfg.num_layers}"
@@ -3455,12 +3552,13 @@ def served_training_slice(dev, smi: str) -> dict:
                    tokens_per_s=res.steps_per_s * bsz * seq, wall_s=wall,
                    max_memory_allocated_bytes=torch.cuda.max_memory_allocated(
                        dev), held_before_bytes=held,
-                   flash_by_kernel=by_kernel,
+                   flash_by_kernel=by_kernel, flash_bwd_by_kernel=bwd,
                    flash_instance=f"flash_fwd_wgmma<{d}, {dv}, LSE>",
                    device=smi)
         line("train", **row)
         out["runs"][arch] = row
         out["launches"][arch] = by_kernel["flash_fwd_wgmma"]
+        out["bwd_launches"][arch] = bwd["flash_bwd_mma"]
         losses = res.losses
         del res
         torch.cuda.empty_cache()
@@ -3471,6 +3569,9 @@ def served_training_slice(dev, smi: str) -> dict:
         check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want_calls},
               f"{arch} training: flash {by_kernel}, expected {want_calls} "
               "calls on flash_fwd_wgmma")
+        check(bwd == {"flash_bwd": 0, "flash_bwd_mma": want_calls // 2},
+              f"{arch} training: flash backward {bwd}, expected "
+              f"{want_calls // 2} calls on flash_bwd_mma")
         out["phase_s"][f"m_{arch}"] = synced() - t_part
 
     # -- (n) f32 at full width, 2 layers: the card against the CPU ---------
@@ -3486,6 +3587,9 @@ def served_training_slice(dev, smi: str) -> dict:
         check(by_kernel == {"flash_fwd": 2 * cfg32.num_layers,
                             "flash_fwd_wgmma": 0},
               f"{arch} f32 check: flash {by_kernel}")
+        bwd = fa_kernel.flash_attention_bwd_kernel.by_kernel
+        check(bwd == {"flash_bwd": cfg32.num_layers, "flash_bwd_mma": 0},
+              f"{arch} f32 check: flash backward {bwd}")
         torch.cuda.empty_cache()
         out["phase_s"][f"n_{arch}_f32"] = synced() - t_part
     return out
@@ -3881,12 +3985,17 @@ def mesh_slice(dev, smi: str, layers, envs) -> dict:
     meshed = train(step.cfg, tcfg, jit_step=step, params=params, device=dev,
                    log_fn=lambda m: None)
     by_kernel = dict(fa_kernel.flash_attention_kernel.by_kernel)
+    bwd = dict(fa_kernel.flash_attention_bwd_kernel.by_kernel)
     peak = torch.cuda.max_memory_allocated(dev)
     want = steps * step.cfg.num_layers * 2
     check(by_kernel == {"flash_fwd": 0, "flash_fwd_wgmma": want},
           f"mesh train: flash {by_kernel}, expected {want} calls on "
           "flash_fwd_wgmma")
+    check(bwd == {"flash_bwd": 0, "flash_bwd_mma": want // 2},
+          f"mesh train: flash backward {bwd}, expected {want // 2} calls "
+          "on flash_bwd_mma")
     out["flash"]["train"] = by_kernel["flash_fwd_wgmma"]
+    out["flash"]["train_backward"] = bwd["flash_bwd_mma"]
     same = meshed.losses == plain.losses
     check(same, f"mesh train: losses {meshed.losses} differ from train()'s "
           f"{plain.losses}")
@@ -3898,7 +4007,7 @@ def mesh_slice(dev, smi: str, layers, envs) -> dict:
             1.0 / meshed.steps_per_s, model=step.cfg.name,
             loss_chunk=step.cfg.loss_chunk, losses=meshed.losses,
             same_bits_as_train=same, flash_by_kernel=by_kernel,
-            shape=[bsz, seq], steps=steps)
+            flash_bwd_by_kernel=bwd, shape=[bsz, seq], steps=steps)
     del meshed, params, step, api
     torch.cuda.empty_cache()
 
@@ -4036,7 +4145,8 @@ def card_mesh_check(procs, out: str, smi: str, t_start: float) -> dict:
 
 def kernel_counts() -> dict:
     """Every kernel wrapper's launch count, the flash kernels, flash's
-    launches storing the lse and the scans' forward and backward apart."""
+    launches storing the lse, flash's backward routes and the scans'
+    forward and backward apart."""
     from repro_torch.kernels.decide_split import kernel as ds_kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.fleet_scan import kernel as fs_kernel
@@ -4050,6 +4160,7 @@ def kernel_counts() -> dict:
                 fleet_scan=fs_kernel.place_singletons_kernel.launches,
                 **fa_kernel.flash_attention_kernel.by_kernel,
                 flash_fwd_lse=fa_kernel.flash_attention_kernel.lse_launches,
+                **fa_kernel.flash_attention_bwd_kernel.by_kernel,
                 ssm_scan=ss_kernel.ssd_scan_kernel.launches,
                 ssm_scan_bwd=ss_kernel.ssd_scan_bwd_kernel.launches,
                 slstm_scan=sl_kernel.slstm_scan_kernel.launches,
@@ -4659,14 +4770,17 @@ def main() -> None:
     # 2 R dtypes × 2 h dtypes; and the scans' backward kernels: the SSD's
     # chain and chunks (each with float4 rows or not), the sLSTM's cluster
     # route at 2 R dtypes × R's rows in registers (4 or 8 rows a thread)
-    # or shared memory and its block route at 2 R dtypes; none may touch
+    # or shared memory and its block route at 2 R dtypes; the flash
+    # backward's tensor-core kernels at its 5 (D, Dv); none may touch
     # local memory
     frames = {"singleton_scan_registers": ("fleet_scan", 8),
               "slstm_scan_cluster": ("slstm_scan", 4),
               "ssd_bwd_chain": ("ssm_scan", 2),
               "ssd_bwd_chunk": ("ssm_scan", 2),
               "slstm_bwd_cluster": ("slstm_scan", 6),
-              "slstm_bwd_block": ("slstm_scan", 2)}
+              "slstm_bwd_block": ("slstm_scan", 2),
+              "flash_bwd_dkdv_mma": ("flash_attention_bwd", 5),
+              "flash_bwd_dq_mma": ("flash_attention_bwd", 5)}
     frame_lines = {k: [] for k in frames}
     for name, log in logs.items():
         entry = name          # a source may hold several kernels
@@ -5131,6 +5245,27 @@ def main() -> None:
                  training_shapes=trained["train_shapes"],
                  f32_shape=trained["f32_shape"],
                  backward=trained["backward"])
+    # the backward kernel: its launches on phase 11's training paths, its
+    # times at qwen3-1.7b's B 4, S 2048 (CUDA graph), the other timed
+    # shapes beside
+    bwd_row = trained["backward"]["qwen3_prefill"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:167",
+        "counterpart_of": "the custom_vjp backward of flash_attention, "
+        "whose forward is the Pallas kernel "
+        "src/repro/kernels/flash_attention/kernel.py:78",
+        "launches": sum(trained["bwd_launches"].values()),
+        "launches_by_model": trained["bwd_launches"],
+        "max_abs_err": bwd_row["max_abs_err"], "ms": bwd_row["ms"],
+        "eager_ms": bwd_row["eager_ms"], "plain_ms": bwd_row["plain_ms"],
+        "bound_ms": bwd_row["bound_ms"], "bound_by": bwd_row["bound_by"],
+        "library_ms": bwd_row["library_ms"], "library": bwd_row["library"],
+        "err_over_tol": bwd_row["err_over_tol"],
+        "shape": bwd_row["shape"], "timing": "graph",
+        "other_shapes": {k: v for k, v in trained["backward"].items()
+                         if k != "qwen3_prefill"}})
     for name in ("ssm_scan", "slstm_scan"):
         next(r for r in kernels if r["name"] == name).update(
             trained["scans"][name])
@@ -5148,6 +5283,8 @@ def main() -> None:
     try:
         meshed = mesh_slice(dev, smi, layers, envs)
         flash.update(mesh_launches=meshed["flash"])
+        next(r for r in kernels if r["name"] == "flash_attention_bwd")[
+            "mesh_launches"] = meshed["flash"]["train_backward"]
 
         # -- 14. the examples -------------------------------------------------
         perf_children = start_perf_children()
@@ -5173,7 +5310,9 @@ def main() -> None:
         stop_children(mesh4 + [proc for _, proc, *_ in perf_children])
     for rec in kernels:
         keys = {"flash_attention": ("flash_fwd", "flash_fwd_wgmma",
-                                    "flash_fwd_lse"),
+                                    "flash_fwd_lse", "flash_bwd",
+                                    "flash_bwd_mma"),
+                "flash_attention_bwd": ("flash_bwd", "flash_bwd_mma"),
                 "ssm_scan": ("ssm_scan", "ssm_scan_bwd"),
                 "slstm_scan": ("slstm_scan", "slstm_scan_bwd")}.get(
                     rec["name"], (rec["name"],))

@@ -1,6 +1,7 @@
-"""Wrapper of the CUDA flash-attention forward kernels
-(``csrc/flash_attention.cu``), and the rule by which the tensor-core kernel
-sorts key tiles into skipped, masked and full ones."""
+"""Wrappers of the CUDA flash-attention kernels, the forward
+(``csrc/flash_attention.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``), and the rule by which the tensor-core
+forward sorts key tiles into skipped, masked and full ones."""
 from __future__ import annotations
 
 import ctypes
@@ -147,14 +148,108 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+#: the two routes of ``flash_attention_bwd``, by the number the C entry
+#: reports: f32 / other head dims / unaligned rows on the CUDA cores, and
+#: bf16 at the (D, Dv) of ``BWD_MMA`` on the tensor cores (mma.sync)
+BWD_KERNELS = ("flash_bwd", "flash_bwd_mma")
+#: the (q/k head dim, v head dim) pairs of the tensor-core backward
+BWD_MMA = ((64, 64), (96, 96), (128, 128), (192, 128), (256, 256))
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd.argtypes = (
+        [p] * 10 + [i] * 9 + [ctypes.POINTER(ctypes.c_longlong),
+                              ctypes.c_float, i, i, p, ctypes.POINTER(i)])
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               scale=None, valid_len: int = 0):
+    """The backward of :func:`flash_attention_kernel`: (dq, dk, dv) in the
+    shapes and dtype of q, k and v from the saved q [B,Sq,Hq,D], k
+    [B,Sk,Hkv,D], v [B,Sk,Hkv,Dv], ``out`` [B,Sq,Hq,Dv], ``lse`` (f32
+    [B,Hq,Sq], the forward's) and the output's cotangent ``do``, all on one
+    CUDA device and all float32 or all bfloat16.
+
+    What ``ref.attention_bwd_ref`` computes, with the forward's masks and
+    ``scale`` (default D ** -0.5 over q/k's head dim).  bf16 at a (D, Dv)
+    of ``BWD_MMA`` with aligned rows takes the tensor cores
+    (``flash_bwd_mma``), everything else the CUDA cores (``flash_bwd``);
+    a shape neither takes (D > 256, Dv > D) raises.  Three launches a call
+    (delta, dq, dk and dv), counted as one call of the route taken."""
+    ts = (q, k, v, out, lse, do)
+    if any(t.device.type != "cuda" or t.device != q.device for t in ts):
+        raise ValueError("flash_attention_bwd_kernel needs q, k, v, out, "
+                         "lse and do on one CUDA device, got "
+                         f"{[str(t.device) for t in ts]}")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype
+                                     for t in (k, v, out, do)):
+        raise TypeError("q, k, v, out and do must all be float32 or all "
+                        f"bfloat16, got {[t.dtype for t in ts]}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"lse must be float32, got {lse.dtype}")
+    if any(t.ndim != 4 for t in (q, k, v, out, do)) or k.shape[:3] != \
+            v.shape[:3]:
+        raise ValueError(f"expected q [B,Sq,Hq,D], k [B,Sk,Hkv,D] and v "
+                         f"[B,Sk,Hkv,Dv], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, d = q.shape
+    _, sk, hkv, dk_ = k.shape
+    dv = v.shape[-1]
+    if (k.shape[0] != b or dk_ != d or hkv == 0 or hq % hkv
+            or not 0 < dv <= d or out.shape != (b, sq, hq, dv)
+            or do.shape != out.shape or lse.shape != (b, hq, sq)):
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, out "
+                         f"{tuple(out.shape)}, lse {tuple(lse.shape)} and "
+                         f"do {tuple(do.shape)}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} outside 1..{MAX_HEAD_DIM}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a unit stride on the head dim")
+    # the cotangent as autograd hands it may be expanded or transposed
+    out, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (out, do))
+    lse = lse.contiguous()
+    dq, dk, dv_ = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                   for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0 or v.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv_.zero_()
+    scale = float(scale if scale is not None else d ** -0.5)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, out, do, dq, dk, dv_) for s in t.stride()[:3]])
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    taken = ctypes.c_int(-1)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd(
+            *[_build.ptr(t) for t in (q, k, v, out, do, lse, delta, dq, dk,
+                                      dv_)],
+            _DTYPES[q.dtype], b, hq, hkv, sq, sk, d, dv, int(valid_len or sk),
+            strides, scale, int(causal), int(window), _build.stream_of(q),
+            ctypes.byref(taken))
+    _build.check(lib, rc, "flash_attention_bwd")
+    flash_attention_bwd_kernel.launches += 1
+    flash_attention_bwd_kernel.by_kernel[BWD_KERNELS[taken.value]] += 1
+    return dq, dk, dv_
+
+
 def reset_counts() -> None:
-    """Set the launch counts (all, per kernel, with the lse) to 0."""
+    """Set the launch counts (all, per kernel, with the lse; the
+    backward's, all and per route) to 0."""
     flash_attention_kernel.launches = 0
     flash_attention_kernel.by_kernel = dict.fromkeys(KERNELS, 0)
     flash_attention_kernel.lse_launches = 0
+    flash_attention_bwd_kernel.launches = 0
+    flash_attention_bwd_kernel.by_kernel = dict.fromkeys(BWD_KERNELS, 0)
 
 
 #: launches of the CUDA kernels since the counts were last set to 0, in all
 #: (``launches``), per kernel (``by_kernel``) and storing the lse
-#: (``lse_launches``)
+#: (``lse_launches``); the backward's calls in all and per route
 reset_counts()

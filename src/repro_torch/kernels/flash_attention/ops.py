@@ -2,11 +2,13 @@
 CPU, the CUDA kernel on the card.
 
 The call is a ``torch.library`` custom op, ``repro_torch::flash_attention``
-(and ``flash_attention_lse``, which also returns the rows' log-sum-exp):
-its fake implementation gives meta and fake tensors the kernel's outputs
-(the dry-run runs the model on meta tensors), and its FLOP formula,
-``kernels.work.flash_work``, lets ``FlopCounterMode`` count the kernel,
-which ATen's counters cannot see."""
+(and ``flash_attention_lse``, which also returns the rows' log-sum-exp),
+and the backward another, ``repro_torch::flash_attention_bwd``: their
+fake implementations give meta and fake tensors the kernels' outputs (the
+dry-run runs the model, and its training step, on meta tensors), and their
+FLOP formulas, ``kernels.work.flash_work`` and ``flash_bwd_work``, let
+``FlopCounterMode`` count the kernels, which ATen's counters cannot
+see."""
 from __future__ import annotations
 
 from typing import Optional
@@ -14,9 +16,11 @@ from typing import Optional
 import torch
 from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.work import flash_work
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_kernel, flash_attention_kernel)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_ref)
+from repro_torch.kernels.work import flash_bwd_work, flash_work
 
 
 def _run(q, k, v, causal, window, scale, valid_len, return_lse):
@@ -70,6 +74,51 @@ def _flops(q_shape, k_shape, v_shape, causal, window, scale, valid_len, *,
     return flash_work(b, sq, hq, k_shape[2], d, 1, v_shape[-1],
                       sk=k_shape[1], causal=causal, window=window,
                       valid_len=valid_len)[1]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd",
+                         mutates_args=())
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+               causal: bool, window: int, scale: Optional[float],
+               valid_len: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    kw = dict(causal=causal, window=window, scale=scale,
+              valid_len=valid_len)
+    if q.device.type != "cpu":
+        return flash_attention_bwd_kernel(q, k, v, out, lse, do, **kw)
+    return attention_bwd_ref(q, k, v, out, lse, do, **kw)
+
+
+@_flash_bwd.register_fake
+def _(q, k, v, out, lse, do, causal, window, scale, valid_len):
+    return tuple(torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, out_shape_, lse_shape, do_shape,
+               causal, window, scale, valid_len, *, out_shape=None,
+               **kwargs) -> int:
+    b, sq, hq, d = q_shape
+    return flash_bwd_work(b, sq, hq, k_shape[2], d, 1, v_shape[-1],
+                          sk=k_shape[1], causal=causal, window=window,
+                          valid_len=valid_len)[1]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale=None, valid_len: int = 0):
+    """The backward of :func:`flash_attention` with ``return_lse``: (dq,
+    dk, dv) in the shapes and dtypes of q, k and v from the saved q, k, v,
+    ``out``, ``lse`` and the output's cotangent ``do``.  CPU tensors take
+    :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`,
+    CUDA tensors the kernel (``flash_attention_bwd_kernel``), meta tensors
+    the op's fake implementation."""
+    return torch.ops.repro_torch.flash_attention_bwd(
+        q, k, v, out, lse, do, causal, window,
+        None if scale is None else float(scale), valid_len)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

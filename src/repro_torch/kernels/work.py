@@ -46,6 +46,25 @@ def flash_work(b: int, s: int, hq: int, hkv: int, d: int, el: int,
             2 * (d + dv) * pairs * b * hq)
 
 
+def flash_bwd_work(b: int, s: int, hq: int, hkv: int, d: int, el: int,
+                   dv: int | None = None, *, sk: int | None = None,
+                   causal: bool = True, window: int = 0, valid_len: int = 0
+                   ) -> tuple[int, int]:
+    """(bytes, operations) of attention's backward, the shapes as in
+    :func:`flash_work`: q, k, v, out and the output's cotangent read, dq,
+    dk and dv written once, the lse (f32 [B, Hq, S]) read; five products
+    over the (row, col) pairs the masks leave: q·kᵀ and do·vᵀ recomputed,
+    dv = pᵀ·do, dk = dsᵀ·q and dq = ds·k, 3 at D and 2 at Dv, so
+    2 (3 D + 2 Dv) operations a pair (a kernel that recomputes the first
+    two for a pass of its own does more)."""
+    dv = d if dv is None else dv
+    sk = s if sk is None else sk
+    pairs = attention_pairs(s, sk, causal=causal, window=window,
+                            valid_len=valid_len)
+    return (2 * (b * s * hq + b * sk * hkv) * (d + dv) * el
+            + 4 * b * hq * s, 2 * (3 * d + 2 * dv) * pairs * b * hq)
+
+
 def slstm_work(b: int, s: int, h: int, du: int, r_el: int, out_el: int
                ) -> tuple[int, int]:
     """(bytes, operations) of the sLSTM recurrence: pre [4, B, S, d] f32

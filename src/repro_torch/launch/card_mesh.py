@@ -134,6 +134,7 @@ def _launches() -> dict:
     from repro_torch.kernels.slstm_scan import kernel as sl_kernel
     return dict(**fa_kernel.flash_attention_kernel.by_kernel,
                 flash_fwd_lse=fa_kernel.flash_attention_kernel.lse_launches,
+                **fa_kernel.flash_attention_bwd_kernel.by_kernel,
                 slstm_scan=sl_kernel.slstm_scan_kernel.launches,
                 slstm_scan_bwd=sl_kernel.slstm_scan_bwd_kernel.launches)
 

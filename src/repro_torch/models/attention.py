@@ -9,11 +9,11 @@ and against the reference):
                   tensors, the hand-written CUDA kernel on the card.
 
 Under autograd ``chunked_attention`` runs :class:`FlashAttention`: the
-same forward, which also keeps each row's log-sum-exp, and the reference's
-flash backward (``repro/models/attention.py:167-213``) in plain torch,
-which recomputes the probabilities key block by key block from that
-log-sum-exp.  The reference computes its backward outside any Pallas
-kernel too.
+same forward, which also keeps each row's log-sum-exp, and the flash
+backward (the reference's ``repro/models/attention.py:167-213``), which
+recomputes the probabilities key block by key block from that
+log-sum-exp: the plain version on CPU tensors, the hand-written CUDA
+kernel (``csrc/flash_attention_bwd.cu``) on the card.
 
 ``decode_attention`` is one query token against a (possibly ring-buffered)
 KV cache, plain torch as in the reference.  On a mesh whose cache spec
@@ -33,12 +33,15 @@ import torch
 
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.context import current_mesh, tp_axes
+from torch.autograd.function import once_differentiable
+
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import \
+    flash_attention_bwd as flash_attention_bwd_op
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
 from repro_torch.models.layers import apply_rope, matmul, rms_norm
 
 NEG_INF = -1e30
-#: keys a block of :func:`flash_attention_bwd` recomputes at once
-BWD_KEY_BLOCK = 512
 
 Pos = Union[int, torch.Tensor]
 
@@ -98,8 +101,9 @@ def chunked_attention(q, k, v, *, causal=True, window=0, scale=None,
 
 class FlashAttention(torch.autograd.Function):
     """Flash attention with the flash backward: the forward of
-    :func:`chunked_attention` saving (q, k, v, out, lse), the backward
-    :func:`flash_attention_bwd`."""
+    :func:`chunked_attention` saving (q, k, v, out, lse), the backward the
+    op ``repro_torch::flash_attention_bwd`` (the plain version on CPU
+    tensors, the CUDA kernel on the card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, valid_len):
@@ -112,56 +116,15 @@ class FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, do):
-        grads = flash_attention_bwd(*ctx.saved_tensors, do, **ctx.opts)
+        grads = flash_attention_bwd_op(*ctx.saved_tensors, do, **ctx.opts)
         return (*grads, None, None, None, None)
 
 
-def flash_attention_bwd(q, k, v, out, lse, do, *, causal=True, window=0,
-                        scale=None, valid_len=0):
-    """The reference's ``_flash_bwd`` in plain torch: (dq, dk, dv) in the
-    dtypes of q, k, v from the saved ``out`` [B,Sq,Hq,Dv], ``lse``
-    [B,Hq,Sq] and the output's cotangent ``do``.
-
-    Key blocks of ``BWD_KEY_BLOCK`` columns, each recomputing its
-    probabilities ``p = exp(s - lse)`` in f32, masked as the forward masks
-    them (keys at or past ``valid_len``, 0 meaning Sk, causal, window): the
-    memory is O(Sq · BWD_KEY_BLOCK) per head, never O(Sq · Sk).  A row with
-    no live key has p = 0 in every column, so no gradient, consistent with
-    its output of 0 (the reference's padded rows carry a cotangent of 0).
-    v may be narrower than q/k (MLA's Dv 128 beside D 192)."""
-    b, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
-    g = hq // hkv
-    scale = scale if scale is not None else d ** -0.5
-    live_k = min(sk, valid_len or sk)
-    qg = _group(q, hkv).float()                          # [B,Sq,Hkv,G,D]
-    dog = _group(do, hkv).float()                        # [B,Sq,Hkv,G,Dv]
-    delta = (_group(out, hkv).float() * dog).sum(-1)     # [B,Sq,Hkv,G]
-    delta = delta.permute(0, 2, 3, 1)[..., None]         # [B,Hkv,G,Sq,1]
-    lse = lse.reshape(b, hkv, g, sq, 1)
-    pos_q = torch.arange(sq, device=q.device)[:, None]
-    dq = torch.zeros(qg.shape, dtype=torch.float32, device=q.device)
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
-    for k0 in range(0, sk, BWD_KEY_BLOCK):
-        k1 = min(k0 + BWD_KEY_BLOCK, sk)
-        kb, vb = k[:, k0:k1].float(), v[:, k0:k1].float()
-        pos_k = torch.arange(k0, k1, device=q.device)[None, :]
-        ok = pos_k < live_k
-        if causal:
-            ok = ok & (pos_k <= pos_q)
-        if window:
-            ok = ok & ((pos_q - pos_k) < window)
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb) * scale
-        p = torch.where(ok, torch.exp(s - lse), 0.0)
-        dv[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
-        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vb)
-        ds = p * (dp - delta) * scale
-        dk[:, k0:k1] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
-        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kb)
-    return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+#: the plain backward (``kernels.flash_attention.ref.attention_bwd_ref``),
+#: what the op runs on CPU tensors
+flash_attention_bwd = attention_bwd_ref
 
 
 def _pos_vector(pos: Pos, b: int, device) -> torch.Tensor:

@@ -4,12 +4,13 @@ from repro_torch.kernels import _build
 
 
 def test_sources_follow_quoted_includes():
-    """The two tensor-core sources include the shared Hopper header; the
+    """The three tensor-core sources include the shared Hopper header; the
     others stand alone."""
     for name in _build.KERNELS:
         got = [p.name for p in _build.sources(name)]
         assert got[0] == f"{name}.cu"
-        want = (["hopper.cuh"] if name in ("flash_attention", "int8_matmul")
+        want = (["hopper.cuh"] if name in ("flash_attention", "int8_matmul",
+                                           "flash_attention_bwd")
                 else [])
         assert got[1:] == want, (name, got)
 

@@ -1617,9 +1617,10 @@ BWD_CASES = [(2, 256, 256, 8, 4, 128, 128, True, 0),
 def test_flash_attention_backward_matches_autograd_of_naive(
         cuda, b, sq, sk, hq, hkv, d, dv, causal, window):
     """f32: ``chunked_attention`` under autograd (``flash_fwd`` with its
-    lse, then the plain flash backward) against autograd through
-    ``naive_attention``: the output and dq, dk, dv within 1e-5 of each
-    one's largest magnitude (TF32 off, f32 sums in other orders)."""
+    lse, then the backward kernel's CUDA-core route ``flash_bwd``) against
+    autograd through ``naive_attention``: the output and dq, dk, dv within
+    1e-5 of each one's largest magnitude (TF32 off, f32 sums in other
+    orders)."""
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models.attention import (chunked_attention,
                                               naive_attention)
@@ -1638,17 +1639,226 @@ def test_flash_attention_backward_matches_autograd_of_naive(
         if fn is chunked_attention:
             assert fa_kernel.flash_attention_kernel.by_kernel == {
                 "flash_fwd": 1, "flash_fwd_wgmma": 0}
+            assert fa_kernel.flash_attention_bwd_kernel.by_kernel == {
+                "flash_bwd": 1, "flash_bwd_mma": 0}
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * want.abs().max().item())
 
 
+# (B, Sq, Sk, Hq, Hkv, D, Dv, causal, window, valid_len, dtype) of the
+# backward kernel against its plain version: each tensor-core instance
+# (bf16 at (64, 64), (96, 96), (128, 128), (192, 128), (256, 256)), ragged
+# rows, a window, valid_len, dead rows (a window past valid_len), causal
+# with Sq != Sk either way, whisper's cross-attention, GQA groups 1, 3, 8
+# and 9; the CUDA-core route in f32 and in bf16 at head dims without an
+# instance
+BWD_KERNEL_CASES = [
+    (2, 200, 200, 8, 8, 64, 64, True, 0, 0, torch.bfloat16),
+    (2, 129, 129, 6, 2, 96, 96, True, 0, 0, torch.bfloat16),
+    (1, 300, 300, 8, 1, 128, 128, True, 40, 0, torch.bfloat16),
+    (1, 257, 257, 4, 4, 192, 128, True, 0, 0, torch.bfloat16),
+    (1, 130, 130, 8, 1, 256, 256, True, 0, 100, torch.bfloat16),
+    (2, 224, 1500, 6, 6, 64, 64, False, 0, 0, torch.bfloat16),
+    (1, 160, 160, 18, 2, 128, 128, True, 0, 0, torch.bfloat16),
+    (1, 96, 96, 4, 2, 64, 64, True, 8, 40, torch.bfloat16),
+    (2, 100, 60, 4, 4, 128, 128, True, 0, 0, torch.bfloat16),
+    (2, 60, 100, 4, 4, 128, 128, True, 0, 0, torch.bfloat16),
+    (2, 100, 300, 6, 6, 64, 64, False, 0, 0, torch.float32),
+    (1, 130, 130, 8, 1, 256, 256, True, 0, 100, torch.float32),
+    (1, 96, 96, 4, 2, 64, 64, True, 8, 40, torch.float32),
+    (1, 77, 77, 18, 2, 128, 128, True, 16, 0, torch.float32),
+    (1, 70, 70, 4, 4, 192, 128, True, 0, 0, torch.float32),
+    (1, 70, 70, 6, 2, 48, 32, True, 0, 0, torch.bfloat16),
+    (1, 90, 90, 4, 1, 160, 160, False, 0, 0, torch.bfloat16),
+]
+# f32 sums in other orders over up to 1,500 keys: each f32 gradient within
+# BWD_TOL of its largest magnitude (chip_smoke's)
+BWD_TOL = 5e-5
+
+
+def _bwd_case(cuda, b, sq, sk, hq, hkv, d, dv, causal, window, valid_len,
+              dtype, seed=0):
+    """q, k, v, do (unit scale) and the forward kernel's out and lse."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    gen = torch.Generator(device=cuda).manual_seed(seed + sq + sk + d)
+    q, k, v, do = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+                   for s in ((b, sq, hq, d), (b, sk, hkv, d),
+                             (b, sk, hkv, dv), (b, sq, hq, dv)))
+    out, lse = fa_kernel.flash_attention_kernel(
+        q, k, v, causal=causal, window=window, valid_len=valid_len,
+        return_lse=True)
+    return q, k, v, out, lse, do
+
+
+def _bwd_reading(got, args, **kw):
+    """The backward's largest error: bf16 over ``bwd_bf16_tolerance``; f32
+    over BWD_TOL of each gradient's largest magnitude."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    if args[0].dtype == torch.float32:
+        want = fa_ref.attention_bwd_ref(*args, **kw)
+        return max(((g - w).abs().max() / (BWD_TOL * w.abs().max())).item()
+                   for g, w in zip(got, want))
+    want, tol = fa_ref.bwd_bf16_tolerance(*args, **kw)
+    return max(((g.float() - w).abs() / t).max().item()
+               for g, w, t in zip(got, want, tol))
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,dv,causal,window,valid_len,dtype",
+                         BWD_KERNEL_CASES)
+def test_flash_attention_backward_kernel_matches_plain(
+        cuda, b, sq, sk, hq, hkv, d, dv, causal, window, valid_len, dtype):
+    """Each route against ``ref.attention_bwd_ref``: bf16 within
+    ``ref.bwd_bf16_tolerance``, f32 within BWD_TOL; bf16 at a (D, Dv) of
+    ``BWD_MMA`` on the tensor cores, the rest on the CUDA cores; gradients
+    in the shapes and dtypes of q, k and v."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    kw = dict(causal=causal, window=window, valid_len=valid_len)
+    args = _bwd_case(cuda, b, sq, sk, hq, hkv, d, dv, causal, window,
+                     valid_len, dtype)
+    fa_kernel.reset_counts()
+    got = fa_kernel.flash_attention_bwd_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    mma = dtype == torch.bfloat16 and (d, dv) in fa_kernel.BWD_MMA
+    assert fa_kernel.flash_attention_bwd_kernel.by_kernel == {
+        "flash_bwd": int(not mma), "flash_bwd_mma": int(mma)}
+    for g, t in zip(got, args[:3]):
+        assert g.shape == t.shape and g.dtype == t.dtype
+    assert _bwd_reading(got, args, **kw) <= 1.0
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dv,dtype", [
+    (4, 2048, 16, 8, 128, 128, torch.bfloat16),
+    (4, 2048, 36, 4, 128, 128, torch.bfloat16),
+    (1, 2048, 8, 1, 256, 256, torch.bfloat16),
+    (2, 300, 16, 16, 192, 128, torch.bfloat16),
+    (2, 300, 4, 2, 64, 64, torch.float32)])
+def test_flash_attention_backward_is_bitwise_deterministic(cuda, b, s, hq,
+                                                           hkv, d, dv,
+                                                           dtype):
+    """Three calls give the same bits: the group's sum is formed inside a
+    CTA and dq in a pass of its own, in fixed orders (no atomics)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    args = _bwd_case(cuda, b, s, s, hq, hkv, d, dv, True, 0, 0, dtype)
+    first = fa_kernel.flash_attention_bwd_kernel(*args)
+    for _ in range(2):
+        assert all(torch.equal(a, w) for a, w in
+                   zip(fa_kernel.flash_attention_bwd_kernel(*args), first))
+
+
+def test_flash_attention_backward_reads_strided_views(cuda):
+    """q, k and v as views of one fused projection (aligned: the tensor
+    cores), an expanded cotangent, and rows whose head stride is not a
+    multiple of 8 elements (the CUDA cores)."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    b, s, hq, hkv, d = 2, 150, 8, 2, 64
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    fused = torch.randn((b, s, (hq + 2 * hkv) * d), generator=gen,
+                        device=cuda).bfloat16()
+    q = fused[..., :hq * d].view(b, s, hq, d)
+    k = fused[..., hq * d:(hq + hkv) * d].view(b, s, hkv, d)
+    v = fused[..., (hq + hkv) * d:].view(b, s, hkv, d)
+    base = torch.randn((b, s, hq, 68), generator=gen, device=cuda).bfloat16()
+    for qq, kk, vv, route in ((q, k, v, "flash_bwd_mma"),
+                              (base[..., :64], base[:, :, :hkv, :64],
+                               base[:, :, hkv:2 * hkv, :64], "flash_bwd")):
+        out, lse = fa_kernel.flash_attention_kernel(qq, kk, vv,
+                                                    return_lse=True)
+        do = torch.randn(d, generator=gen, device=cuda).bfloat16().expand(
+            out.shape)
+        fa_kernel.reset_counts()
+        got = fa_kernel.flash_attention_bwd_kernel(qq, kk, vv, out, lse, do)
+        assert fa_kernel.flash_attention_bwd_kernel.by_kernel[route] == 1
+        assert _bwd_reading(got, (qq, kk, vv, out, lse, do)) <= 1.0
+
+
+def test_flash_attention_backward_refuses_what_no_route_takes(cuda):
+    """A head dim past 256, v wider than q/k, float16, CPU tensors, or a
+    Hq that is no multiple of Hkv raise before anything is launched."""
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    bad = [((1, 8, 2, 288), (1, 8, 2, 288), ValueError, torch.bfloat16),
+           ((1, 8, 2, 64), (1, 8, 2, 128), ValueError, torch.bfloat16),
+           ((1, 8, 2, 64), (1, 8, 2, 64), TypeError, torch.float16),
+           ((1, 8, 3, 64), (1, 8, 2, 64), ValueError, torch.bfloat16)]
+    fa_kernel.reset_counts()
+    for qs, vs, err, dt in bad:
+        q = torch.zeros(qs, device=cuda, dtype=dt)
+        k = torch.zeros(vs[:3] + qs[3:], device=cuda, dtype=dt)
+        v = torch.zeros(vs, device=cuda, dtype=dt)
+        out = torch.zeros(qs[:3] + vs[3:], device=cuda, dtype=dt)
+        lse = torch.zeros(qs[0], qs[2], qs[1], device=cuda)
+        with pytest.raises(err):
+            fa_kernel.flash_attention_bwd_kernel(q, k, v, out, lse, out)
+    q = torch.zeros(1, 8, 2, 64)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bwd_kernel(q, q, q, q, q[..., 0], q)
+    assert fa_kernel.flash_attention_bwd_kernel.launches == 0
+
+
+# faults planted in a copy of flash_attention_bwd.cu: the causal mask's
+# `<=` written as `<` (the diagonal dropped), delta stored as 0, dk's scale
+# dropped from the tensor cores' dS, and the first live query row of a key
+# tile skipped
+FLASH_BWD_FAULTS = {
+    "diagonal_excluded": ("(!s.causal || col <= row)",
+                          "(!s.causal || col < row)"),
+    "delta_dropped": ("if (lane == 0) delta[row] = acc;",
+                      "if (lane == 0) delta[row] = 0.f;"),
+    "dk_scale_dropped": (
+        "ds[e] = p[e] * (pa[j][2 * hh + e] - Dl[c + e]) * s.scale;",
+        "ds[e] = p[e] * (pa[j][2 * hh + e] - Dl[c + e]);"),
+    "first_row_skipped": ("const int lo = s.causal ? k0 : 0;",
+                          "const int lo = s.causal ? k0 + 1 : 0;"),
+}
+# qwen3's training shape at S 2048, ragged ones at D 128, 96 and 256, MLA
+FLASH_BWD_FAULT_SHAPES = [(4, 2048, 16, 8, 128, 128), (1, 700, 8, 1, 128, 128),
+                          (1, 700, 8, 2, 96, 96), (1, 700, 8, 1, 256, 256),
+                          (1, 300, 4, 4, 192, 128)]
+
+
+def _flash_bwd_fault_readings(cases):
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    out = []
+    for args in cases:
+        fa_kernel.reset_counts()
+        got = fa_kernel.flash_attention_bwd_kernel(*args)
+        assert fa_kernel.flash_attention_bwd_kernel.by_kernel[
+            "flash_bwd_mma"] == 1
+        out.append(_bwd_reading(got, args))
+    return out
+
+
+@pytest.mark.parametrize("fault", sorted(FLASH_BWD_FAULTS))
+def test_flash_bwd_tolerance_sees_planted_faults(cuda, fault, tmp_path,
+                                                 monkeypatch):
+    """Each fault, built from a copy of ``csrc`` in a temporary directory,
+    reads above 1 of ``bwd_bf16_tolerance`` at every shape; the sound
+    kernel reads below 1 there.  The forward's out and lse come from the
+    sound forward."""
+    from repro_torch.kernels import _build
+    cases = [_bwd_case(cuda, b, s, s, hq, hkv, d, dv, True, 0, 0,
+                       torch.bfloat16)
+             for b, s, hq, hkv, d, dv in FLASH_BWD_FAULT_SHAPES]
+    csrc = _csrc_copy(tmp_path, "flash_attention_bwd",
+                      *FLASH_BWD_FAULTS[fault])
+    sound = _flash_bwd_fault_readings(cases)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_loaded", {})
+    planted = _flash_bwd_fault_readings(cases)
+    print(f"flash_attention_bwd fault {fault}: err_over_tol sound {sound}, "
+          f"planted {planted}")
+    assert all(r < 1.0 for r in sound)
+    assert all(r > 1.0 for r in planted)
+
+
 def test_bf16_train_step_on_the_card(cuda):
     """One bf16 ``train_loss`` backward and AdamW step of reduced qwen3 at
     its published head dim 128: every flash call (the forward and its
-    recompute in the backward) on flash_fwd_wgmma, a finite loss near the
-    f32 loss of the same weights, finite gradients on every parameter,
-    and a step that lowers the loss on the same batch."""
+    recompute in the backward) on flash_fwd_wgmma and every backward on
+    flash_bwd_mma, a finite loss near the f32 loss of the same weights,
+    finite gradients on every parameter, and a step that lowers the loss
+    on the same batch."""
     from repro_torch.configs import reduced_config
     from repro_torch.data.synthetic import train_batch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -1664,6 +1874,8 @@ def test_bf16_train_step_on_the_card(cuda):
     loss.backward()
     assert fa_kernel.flash_attention_kernel.by_kernel == {
         "flash_fwd": 0, "flash_fwd_wgmma": 2 * cfg.num_layers}
+    assert fa_kernel.flash_attention_bwd_kernel.by_kernel == {
+        "flash_bwd": 0, "flash_bwd_mma": cfg.num_layers}
     assert torch.isfinite(loss)
     for name, p in params.named_parameters():
         assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
@@ -1692,7 +1904,8 @@ TRAIN_F32_TOL = 1e-4
 def test_f32_train_loss_and_gradients_match_the_cpu(cuda, arch):
     """The six configurations served but, before, trained on the CPU only,
     reduced, in f32 (``impl="chunked"``: ``flash_fwd`` with its lse and
-    the plain flash backward on the card, the plain versions on the CPU)
+    the backward kernel's CUDA-core route on the card, the plain versions
+    on the CPU)
     from the same weights and batch: the loss within 1e-4 relative and
     every gradient leaf within 1e-4 of its largest magnitude; a VLM's token
     embedding, which the loss never reads, has no gradient on either
@@ -1715,6 +1928,8 @@ def test_f32_train_loss_and_gradients_match_the_cpu(cuda, arch):
         got.backward()
         assert fa_kernel.flash_attention_kernel.by_kernel == {
             "flash_fwd": 2 * cfg.num_layers, "flash_fwd_wgmma": 0}
+        assert fa_kernel.flash_attention_bwd_kernel.by_kernel == {
+            "flash_bwd": cfg.num_layers, "flash_bwd_mma": 0}
         want, _ = api.train_loss(cpu, batch)
         want.backward()
     finally:

@@ -7,7 +7,8 @@ the reference's weights through ``params_from_jax``:
   MLA, VLM, audio, the hybrid and xLSTM), both impls, and the chunked
   cross-entropy;
 - the attention backward (``FlashAttention``: the flash forward with its
-  log-sum-exp, the plain flash backward) against ``jax.vjp`` of the
+  log-sum-exp, the backward op ``repro_torch::flash_attention_bwd``, on
+  the CPU the plain flash backward) against ``jax.vjp`` of the
   reference's ``flash_attention``, and the log-sum-exp against the
   reference's ``_flash_fwd_inner``;
 - ``train()`` over 5 steps against the reference's ``train()``;
@@ -148,7 +149,10 @@ def test_train_loss_with_mask_matches_reference():
 # ragged tails padded to the 16-wide chunks, an explicit valid_len, v
 # narrower than q/k (MLA); the served models' head dims and groups: phi-3's
 # D 96, MLA's 192 with v at 128, gemma's 256 on one kv head, starcoder2's
-# group of 9 and minitron's of 3 at D 128
+# group of 9 and minitron's of 3 at D 128; whisper's kind of cross
+# attention (24 queries against a ragged 75 keys, non-causal, D 64), a
+# group of 8 on one kv head at D 256, and a window with valid_len that
+# leaves rows with no live key (dead rows)
 BWD_CASES = [(2, 64, 64, 4, 4, 32, 32, True, 0, 0),
              (2, 64, 64, 4, 4, 32, 32, False, 0, 0),
              (1, 96, 96, 4, 2, 32, 32, True, 17, 0),
@@ -163,7 +167,10 @@ BWD_CASES = [(2, 64, 64, 4, 4, 32, 32, True, 0, 0),
              (1, 64, 64, 4, 4, 192, 128, True, 0, 0),
              (1, 64, 64, 4, 1, 256, 256, True, 0, 0),
              (1, 48, 48, 18, 2, 128, 128, True, 0, 0),
-             (1, 48, 48, 6, 2, 128, 128, True, 0, 0)]
+             (1, 48, 48, 6, 2, 128, 128, True, 0, 0),
+             (2, 24, 75, 6, 6, 64, 64, False, 0, 0),
+             (1, 48, 48, 8, 1, 256, 256, True, 0, 0),
+             (1, 64, 64, 4, 2, 32, 32, True, 4, 20)]
 # f32 in other orders: within 1e-5 of each output's largest magnitude
 # (measured <= 1e-6)
 BWD_TOL = 1e-5
@@ -191,18 +198,40 @@ def test_attention_backward_matches_jax_vjp(b, sq, sk, hq, hkv, d, dv,
             return r_attn.chunked_attention(q, k, v, causal=causal,
                                             window=window, q_chunk=16,
                                             kv_chunk=16, scale=scale)
+    # a window past valid_len leaves rows >= valid_len + window - 1 with
+    # no live key: the reference reads their masked scores as live there
+    # (exp(-1e30 - lse) with lse -1e30), the port gives them output 0 and
+    # no gradient; its callers pad those rows with a cotangent of 0, and
+    # the reference is held to the port on the rows below valid_len
+    dead = bool(window and valid_len)
+    rows = slice(0, valid_len if dead else sq)
+    do_live = do.copy()
+    do_live[:, rows.stop:] = 0
     want_out, vjp = jax.vjp(ref, *map(jnp.asarray, (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    want = vjp(jnp.asarray(do_live))
     leaves = [torch.tensor(a, requires_grad=True) for a in (q, k, v)]
     out = p_attn.chunked_attention(*leaves, causal=causal, window=window,
                                    scale=scale, valid_len=valid_len)
     assert out.grad_fn is not None
-    out.backward(torch.as_tensor(do))
-    for got, w in zip([out.detach()] + [t.grad for t in leaves],
-                      [want_out, *want]):
+    out.backward(torch.as_tensor(do_live))
+    for got, w in zip([out.detach()[:, rows]] + [t.grad for t in leaves],
+                      [np.asarray(want_out)[:, rows], *want]):
         w = np.asarray(w)
         np.testing.assert_allclose(got.numpy(), w, rtol=0,
                                    atol=BWD_TOL * np.abs(w).max())
+    if dead:
+        # the port's dead rows: output 0, and their cotangent moves nothing
+        assert not out.detach()[:, valid_len + window - 1:].any()
+        grads = [t.grad.clone() for t in leaves]
+        for t in leaves:
+            t.grad = None
+        do_dead = do_live.copy()
+        do_dead[:, valid_len + window - 1:] = do[:, valid_len + window - 1:]
+        p_attn.chunked_attention(*leaves, causal=causal, window=window,
+                                 scale=scale, valid_len=valid_len
+                                 ).backward(torch.as_tensor(do_dead))
+        for t, g in zip(leaves, grads):
+            assert torch.equal(t.grad, g)
 
 
 @pytest.mark.parametrize("causal,window,valid_len",
